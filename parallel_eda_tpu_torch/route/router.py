@@ -1,0 +1,618 @@
+"""Negotiated-congestion (PathFinder) routing driver for the planes
+program: the counterpart of parallel_eda_tpu/route/router.py.
+
+The PathFinder outer loop runs on the host as a sequence of WINDOWS;
+each window is ``planes.route_window_planes`` over every populated rung
+of the bounding-box crop ladder (smallest tiles first, the full canvas
+last), and the host reads back one packed status word per net plus a
+scalar summary per window, from which it decides convergence, plateau
+widening, sweep-budget promotion and the next window's batch plan.
+
+This driver is the synchronous one (``pipeline=False`` in the JAX
+package, bit-identical to its pipelined mode by construction).  Options
+the port does not implement yet raise NotImplementedError naming their
+ROADMAP.md item when set to a non-default value.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..rr.graph import RRGraph
+from ..rr.terminals import NetTerminals
+from .device_graph import DeviceRRGraph, to_device
+from .search import wirelength_on_device
+
+
+def normalize_crop(value) -> str:
+    """Validate + normalize a crop knob ('auto' | 'off' | 'WxH')."""
+    s = str(value).strip().lower()
+    if s in ("auto", "off"):
+        return s
+    parts = s.split("x")
+    try:
+        if len(parts) == 2 and int(parts[0]) > 0 and int(parts[1]) > 0:
+            return s
+    except ValueError:
+        pass
+    raise ValueError(
+        f"crop must be 'auto', 'off', or 'WxH' (got {value!r})")
+
+
+@dataclass
+class RouterOpts:
+    """The JAX package's RouterOpts: same field names and defaults
+    (s_router_opts, vpr_types.h:708-770, with SetupVPR.c defaults),
+    except ``pipeline``, which defaults to False — the port's driver is
+    the synchronous one.  See the JAX package for each knob's meaning."""
+    max_router_iterations: int = 50
+    initial_pres_fac: float = 0.5
+    pres_fac_mult: float = 1.3
+    acc_fac: float = 1.0
+    bb_factor: int = 3
+    batch_size: int = 64          # nets routed concurrently
+    program: str = "planes"       # "ell" is not ported yet
+    sink_group: int = 0           # 0 = all sinks per wave (doubling)
+    max_pres_fac: float = 1000.0
+    incremental_after: int = 1
+    windowed: bool = True         # ELL-program knob (inert for planes)
+    window_max_frac: float = 0.7
+    window_max_bytes: int = 4 << 30
+    astar_fac: float = 1.0
+    plateau_iters: int = 8
+    stats_dir: Optional[str] = None
+    dump_routes: bool = False
+    checkpoint_every: int = 0
+    slice_iterations: int = 0
+    crop: str = "auto"            # "auto" | "off" | "WxH"
+    sweep_budget_div: int = 3
+    finish_precise: bool = True
+    pipeline: bool = False
+    compile_cache_dir: Optional[str] = None
+    congestion_topk: int = 8
+    program_library_dir: Optional[str] = None
+    resil: Optional[object] = None
+    plane_dtype: str = "f32"
+    dtype_guard: str = "window"
+    fused_dispatch: bool = False
+    mesh_shards: int = 1
+
+
+# option -> (default, ROADMAP.md item that ports it)
+_NOT_PORTED = {
+    "pipeline": (False, "A6 (pipelined window driver)"),
+    "resil": (None, "A13 (resilience wiring)"),
+    "program_library_dir": (None, "A14 (serve stack / kernel cache)"),
+    "compile_cache_dir": (None, "A14 (serve stack / kernel cache)"),
+    "plane_dtype": ("f32", "A12 (bf16 planes)"),
+    "fused_dispatch": (False, "A12 (fused ragged dispatch)"),
+    "mesh_shards": (1, "A15 / B3 (multi-GPU halo exchange)"),
+    "checkpoint_every": (0, "A6 (checkpoint / slicing)"),
+    "slice_iterations": (0, "A6 (checkpoint / slicing)"),
+    "stats_dir": (None, "A13 (stats files and observability)"),
+    "program": ("planes", "A11 (ELL program)"),
+}
+
+
+def _check_ported(opts: RouterOpts) -> None:
+    for name, (default, item) in _NOT_PORTED.items():
+        if getattr(opts, name) != default:
+            raise NotImplementedError(
+                f"RouterOpts.{name}={getattr(opts, name)!r} is not ported "
+                f"yet (ROADMAP.md {item})")
+
+
+@dataclass
+class RouteStats:
+    """Per-window stats row (iter_stats.txt schema)."""
+    iteration: int
+    overused_nodes: int
+    overuse_total: int
+    rerouted_nets: int
+    route_time_s: float
+    relax_steps: int = 0
+    batches: int = 0
+    overuse_pct: float = 0.0
+    crit_path_delay: float = float("nan")
+
+
+@dataclass
+class RouteResult:
+    success: bool
+    iterations: int
+    paths: np.ndarray            # [R, Smax, Lmax] int32, sentinel N = pad
+    sink_delay: np.ndarray       # [R, Smax] f32
+    occ: np.ndarray              # [N] int32 final occupancy
+    wirelength: int
+    stats: List[RouteStats] = field(default_factory=list)
+    total_net_routes: int = 0
+    total_relax_steps: int = 0
+    total_relax_steps_useful: int = 0
+    total_relax_steps_wasted: int = 0
+    total_relax_steps_cropped: int = 0
+    widened_nets: int = 0
+    windowed_nets: int = 0
+
+
+def _median_cut_bins(pts_x: np.ndarray, pts_y: np.ndarray,
+                     depth: int = 4) -> np.ndarray:
+    """Recursive median cuts over net centers: every leaf holds about
+    the same NUMBER of nets.  Deterministic."""
+    n = len(pts_x)
+    bins = np.zeros(n, dtype=np.int64)
+
+    def cut(sel: np.ndarray, d: int, vert: bool) -> None:
+        if d == 0 or sel.size <= 1:
+            return
+        vals = pts_x[sel] if vert else pts_y[sel]
+        left = vals <= np.median(vals)
+        if left.all() or not left.any():
+            order = np.argsort(vals, kind="stable")
+            left = np.zeros(sel.size, dtype=bool)
+            left[order[: sel.size // 2]] = True
+        bins[sel[~left]] += 1 << (d - 1)
+        cut(sel[left], d - 1, not vert)
+        cut(sel[~left], d - 1, not vert)
+
+    cut(np.arange(n), depth, True)
+    return bins
+
+
+def _spatial_order(idx: np.ndarray, cx: np.ndarray, cy: np.ndarray,
+                   depth: int = 4) -> np.ndarray:
+    """Order nets so consecutive ones come from different regions of the
+    device (median-cut leaves dealt round-robin)."""
+    if len(idx) <= 1:
+        return idx
+    bins = _median_cut_bins(cx[idx], cy[idx], depth)
+    order = np.argsort(bins, kind="stable")
+    sorted_bins = bins[order]
+    _, starts = np.unique(sorted_bins, return_index=True)
+    within = np.arange(len(order)) - starts[
+        np.searchsorted(sorted_bins[starts], sorted_bins)]
+    deal = np.lexsort((sorted_bins, within))
+    return idx[order[deal]]
+
+
+def _order_and_chunk(g, nsinks, cx, cy, B):
+    """Batch formation: fanout classes, spatial round-robin within a
+    class, chunked to B."""
+    if len(g) == 0:
+        return []
+    cls = np.ceil(np.log2(np.maximum(
+        1, nsinks[g]).astype(float))).astype(np.int64)
+    ordered = np.concatenate([
+        _spatial_order(g[cls == c], cx, cy)
+        for c in sorted(set(cls.tolist()), reverse=True)])
+    return [ordered[lo:lo + B] for lo in range(0, len(ordered), B)]
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _size_class_buckets(need_w: np.ndarray, need_h: np.ndarray,
+                        nx: int, ny: int, min_count: int = 1,
+                        base: int = 8, full_frac: float = 0.8):
+    """Bin nets into pow-2 size-class crop buckets (ladder base, 2*base,
+    ... clamped to the grid, stopping at the first rung that covers the
+    grid or reaches ``full_frac`` of its area).  Each net gets the
+    smallest rung fitting both spans; rungs with fewer than
+    ``min_count`` nets merge upward.  Returns (classes, assign) with
+    assign == len(classes) meaning the full canvas."""
+    n = len(need_w)
+    ladder = []
+    s = base
+    while True:
+        cw, ch = min(nx, s), min(ny, s)
+        if cw * ch >= full_frac * nx * ny or (cw == nx and ch == ny):
+            break
+        ladder.append((cw, ch))
+        s *= 2
+    assign = np.full(n, len(ladder), dtype=np.int64)
+    for k in range(len(ladder) - 1, -1, -1):
+        cw, ch = ladder[k]
+        assign[(need_w <= cw) & (need_h <= ch)] = k
+    for k in range(len(ladder)):
+        cnt = int((assign == k).sum())
+        if 0 < cnt < min_count:
+            assign[assign == k] = k + 1
+    used = [k for k in range(len(ladder)) if (assign == k).any()]
+    lut = np.full(len(ladder) + 1, len(used), dtype=np.int64)
+    for j, k in enumerate(used):
+        lut[k] = j
+    return [ladder[k] for k in used], lut[assign]
+
+
+def path_budget(span: int, cap: int) -> int:
+    """Path-slot budget for a bb half-perimeter ``span``: ~2x the span
+    plus winding slack, bucketed to 64, capped at the device budget."""
+    return min(cap, ((2 * span + 64 + 63) // 64) * 64)
+
+
+def _grow_paths(paths, L_new: int, N: int):
+    return torch.nn.functional.pad(paths, (0, L_new - paths.shape[2]),
+                                   value=N)
+
+
+class Router:
+    """Holds the device graph across route() calls.  ``device`` defaults
+    to ``cuda`` (raises without a card); pass ``device="cpu"`` to run
+    the plain PyTorch versions of the kernels."""
+
+    # escalating sync schedule: window sizes between host round trips
+    _WINDOWS = (2, 2, 3, 4, 5, 6, 8, 10, 10)
+
+    def __init__(self, rr: RRGraph, opts: Optional[RouterOpts] = None,
+                 device=None):
+        self.rr = rr
+        self.opts = opts or RouterOpts()
+        _check_ported(self.opts)
+        self.device = resolve_device(device)
+        from .lookahead import build_lookahead
+        from .planes import build_planes
+
+        la = build_lookahead(rr)
+        self._lmin_seg = tuple(
+            int(la.len_same[la.axis == a].min())
+            if (la.axis == a).any() else 1 for a in (0, 1))
+        self.dev: DeviceRRGraph = to_device(rr, self.device)
+        nx, ny = rr.grid.nx, rr.grid.ny
+        # path-length bound: a bb-confined path can wind, give slack
+        self.max_len = 4 * (nx + ny) + 64
+        if rr.wire_switch_of_track is None:
+            raise ValueError("program='planes' needs a graph built by "
+                             "rr.graph.build_rr_graph (track switch map)")
+        self.pg = build_planes(rr, self.device)
+        self._pt_key = None
+
+    def _planes_terminals(self, term):
+        """Terminal tables for ``term`` as device tensors, cached on
+        id(term) across route() calls."""
+        if self._pt_key != id(term):
+            from .planes import build_planes_terminals
+            pt = build_planes_terminals(
+                self.rr, term.source, term.sinks,
+                self.pg.cell_of_node.cpu().numpy(), self.pg.ncells)
+            self._pt = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device) for a in pt.tables())
+            self._pt_key = id(term)
+            self._pt_ref = term          # keep id(term) alive
+        return self._pt
+
+    def _plan_groups(self, dirty: np.ndarray, colors: Optional[np.ndarray],
+                     nsinks: np.ndarray, cx: np.ndarray, cy: np.ndarray,
+                     B: int):
+        """Static batch plan [G, B_g] for a window: dirty nets split by
+        conflict colour, then fanout class, spatially round-robined,
+        chunked to B; plan width narrowed to the largest chunk (pow-2,
+        floor 8); group count padded to a power of two."""
+        batches = []
+        if colors is None or len(dirty) <= 1:
+            groups = [dirty]
+        else:
+            cd = colors[dirty]
+            groups = [dirty[cd == c] for c in np.unique(cd)]
+        for g in groups:
+            batches.extend(_order_and_chunk(g, nsinks, cx, cy, B))
+        if not batches:
+            batches = [np.zeros(0, dtype=np.int64)]
+        B_g = min(B, max(8, _pow2_at_least(max(len(b) for b in batches))))
+        G = _pow2_at_least(len(batches))
+        sel_plan = np.zeros((G, B_g), dtype=np.int32)
+        valid_plan = np.zeros((G, B_g), dtype=bool)
+        for i, b in enumerate(batches):
+            sel_plan[i, :len(b)] = b
+            valid_plan[i, :len(b)] = True
+        return sel_plan, valid_plan
+
+    def _t(self, a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype)
+
+    def route(self, term: NetTerminals, crit: Optional[np.ndarray] = None,
+              timing_cb=None, analyzer=None,
+              resume=None) -> RouteResult:
+        """Route all nets, congestion-driven.  ``crit``, ``timing_cb``,
+        ``analyzer`` and ``resume`` are not ported yet (ROADMAP.md A8 and
+        A6) and raise when given."""
+        if crit is not None or timing_cb is not None or analyzer is not None:
+            raise NotImplementedError(
+                "timing-driven routing (crit / timing_cb / analyzer) is not "
+                "ported yet (ROADMAP.md A8)")
+        if resume is not None:
+            raise NotImplementedError(
+                "resume is not ported yet (ROADMAP.md A6)")
+        opts = self.opts
+        _check_ported(opts)
+        crop = normalize_crop(opts.crop)
+        rr = self.rr
+        R, Smax = term.sinks.shape
+        N = rr.num_nodes
+        B = min(opts.batch_size, max(1, R))
+        crit = np.zeros((R, Smax), dtype=np.float32)
+        occ = torch.zeros(N, dtype=torch.int32, device=self.device)
+        acc = torch.ones(N, dtype=torch.float32, device=self.device)
+        span0 = (int(((term.bb_xmax - term.bb_xmin)
+                      + (term.bb_ymax - term.bb_ymin)).max()) if R else 8)
+        L = path_budget(span0, self.max_len)
+        paths = torch.full((R, Smax, L), N, dtype=torch.int32,
+                           device=self.device)
+        sink_delay = torch.full((R, Smax), float("inf"),
+                                dtype=torch.float32, device=self.device)
+        all_reached = torch.zeros(R, dtype=torch.bool, device=self.device)
+        bb = self._t(np.stack([term.bb_xmin, term.bb_xmax, term.bb_ymin,
+                               term.bb_ymax], axis=1).astype(np.int32))
+        full_bb = self._t(np.array([0, rr.grid.nx + 1, 0, rr.grid.ny + 1],
+                                   dtype=np.int32))
+        result = RouteResult(False, 0, None, None, None, 0)
+        return self._route_planes_windows(
+            term, crit, occ, acc, paths, sink_delay, all_reached, bb,
+            full_bb, result, B, crop)
+
+    def _route_planes_windows(self, term, crit, occ, acc, paths,
+                              sink_delay, all_reached, bb, full_bb,
+                              result, B, crop):
+        """The synchronous window driver (the JAX package's
+        _route_planes_windows with pipeline=False and no timing, mesh,
+        checkpoint, bf16 or fused modes)."""
+        from .planes import (SCAL_MAX_SPAN, SCAL_NEXEC, SCAL_NROUTES,
+                             SCAL_S_EXEC, SCAL_S_USEFUL,
+                             route_window_planes, unpack_window_status)
+
+        opts = self.opts
+        rr, dev = self.rr, self.dev
+        R, Smax = term.sinks.shape
+        N = rr.num_nodes
+        grp = Smax if opts.sink_group == 0 else opts.sink_group
+        grp = max(1, min(grp, Smax))
+        source_d = self._t(term.source.astype(np.int32))
+        sinks_d = self._t(term.sinks.astype(np.int32))
+        crit_d = self._t(crit)
+        nsinks_np = term.num_sinks.astype(np.int64)
+        cx_np = ((term.bb_xmin + term.bb_xmax) // 2).astype(np.int64)
+        cy_np = ((term.bb_ymin + term.bb_ymax) // 2).astype(np.int64)
+        planes_tbl = self._planes_terminals(term)
+
+        pres = opts.initial_pres_fac
+        it_done = 0
+        dirty = np.arange(R)
+        colors = None
+        wide = np.zeros(R, dtype=bool)
+        bb_full = np.zeros(R, dtype=bool)
+        best_over = 1 << 30
+        stall_windows = 0
+        sweep_boost = 1
+        # two-phase mode switch: a stalled negotiation drops to the exact
+        # incremental sink schedule (…cxx:6238-6267)
+        precise = opts.sink_group != 0
+        full_reroute_done = False
+        finish_done = False
+        fin_save = None
+        force_all_next = False
+        widx = 0
+        crop_forced = None
+        if "x" in crop:
+            cwf, chf = (int(v) for v in crop.split("x"))
+            crop_forced = (min(cwf, rr.grid.nx - 1),
+                           min(chf, rr.grid.ny - 1))
+        crop_full = crop != "auto" and crop_forced is None
+
+        L = int(paths.shape[2])
+        L_cap = self.max_len
+        # static initial bbs: the crop anchor
+        bb0_d = self._t(np.stack(
+            [term.bb_xmin, term.bb_xmax, term.bb_ymin, term.bb_ymax],
+            axis=1).astype(np.int32))
+        live_w = (term.bb_xmax - term.bb_xmin + 1).astype(np.int64)
+        live_h = (term.bb_ymax - term.bb_ymin + 1).astype(np.int64)
+        budget_full = np.zeros(R, dtype=bool)
+        while it_done < opts.max_router_iterations:
+            K = self._WINDOWS[min(widx, len(self._WINDOWS) - 1)]
+            K = min(K, opts.max_router_iterations - it_done)
+            widx += 1
+
+            def spans(sub):
+                if not len(sub):
+                    return np.array([8]), np.array([8])
+                ws = np.where(wide[sub], rr.grid.nx + 2, np.maximum(
+                    term.bb_xmax[sub] - term.bb_xmin[sub] + 1,
+                    live_w[sub]))
+                hs = np.where(wide[sub], rr.grid.ny + 2, np.maximum(
+                    term.bb_ymax[sub] - term.bb_ymin[sub] + 1,
+                    live_h[sub]))
+                return ws, hs
+
+            w_all, h_all = spans(dirty)
+            # size-class crop ladder: one cropped window call per
+            # populated class, smallest first, full canvas last
+            if crop_forced is not None and len(dirty):
+                Lm = self.pg.max_span
+                narrow = ((w_all + 2 * Lm <= crop_forced[0])
+                          & (h_all + 2 * Lm <= crop_forced[1]))
+                dispatch = []
+                if narrow.any():
+                    dispatch.append((dirty[narrow], crop_forced))
+                if not narrow.all():
+                    dispatch.append((dirty[~narrow], None))
+            elif not crop_full and len(dirty):
+                Lm = self.pg.max_span
+                classes, assign = _size_class_buckets(
+                    w_all + 2 * Lm, h_all + 2 * Lm,
+                    rr.grid.nx, rr.grid.ny, min_count=max(1, B // 8))
+                dispatch = [(dirty[assign == k], tile)
+                            for k, tile in enumerate(classes)]
+                if (assign == len(classes)).any():
+                    dispatch.append((dirty[assign == len(classes)], None))
+            else:
+                dispatch = [(dirty, None)]
+
+            widen_d = (None if opts.sweep_budget_div <= 1
+                       else self._t(budget_full))
+            t0 = time.time()
+            rung_scals = []
+            for ri, (sub, tile) in enumerate(dispatch):
+                sel_p, valid_p = self._plan_groups(
+                    sub, colors, nsinks_np, cx_np, cy_np, B)
+                ws, hs = spans(sub)
+                wok = widen_d
+                if len(sub):
+                    lx, ly = self._lmin_seg
+                    if lx == 1 and ly == 1:
+                        spans_full = ws + hs
+                    else:
+                        spans_full = -(-ws // lx) + -(-hs // ly) + 2
+                    sp = spans_full
+                    if opts.sweep_budget_div > 1:
+                        red = np.maximum(8, spans_full
+                                         // opts.sweep_budget_div)
+                        sp = np.where(budget_full[sub] | wide[sub],
+                                      spans_full, red)
+                    span = int(sp.max())
+                else:
+                    span = 8
+                # pow-2 quantized sweep ceiling (the loop exits at its
+                # fixpoint; the widen gate compares against this value)
+                nsw = min(128, _pow2_at_least(max(8, span * sweep_boost)))
+                if wok is not None and len(sub):
+                    wok_np = budget_full.copy()
+                    wok_np[sub[spans_full <= nsw]] = True
+                    wok = self._t(wok_np)
+                maxfan = int(nsinks_np[sub].max()) if len(sub) else 1
+                doubling = opts.sink_group == 0 and not precise
+                grp_w = 1 if precise and opts.sink_group == 0 else grp
+                waves = (max(1, math.ceil(math.log2(maxfan + 1))) + 1
+                         if doubling
+                         else min(Smax, _pow2_at_least(
+                             math.ceil(maxfan / grp_w) + 1)))
+                occ, acc, status, scal = route_window_planes(
+                    self.pg, dev, occ, acc, paths, sink_delay,
+                    all_reached, bb, source_d, sinks_d, crit_d,
+                    *planes_tbl, self._t(sel_p), self._t(valid_p),
+                    full_bb, pres, opts.pres_fac_mult, opts.max_pres_fac,
+                    opts.acc_fac if ri == 0 else 0.0, it_done,
+                    it_done + 1 if force_all_next
+                    else opts.incremental_after,
+                    K, nsw, L, waves, grp_w, doubling,
+                    topk=min(4096, N), n_colors=5, crop_tile=tile,
+                    bb0_all=bb0_d, widen_ok=wok)
+                rung_scals.append((scal.cpu().numpy(), tile is not None))
+            force_all_next = False
+            status_np = status.cpu().numpy()
+            scal_np = rung_scals[-1][0]
+
+            (rrm, colors, dev_wide, unreached, live_w,
+             live_h) = unpack_window_status(status_np)
+            n_over, over_total = int(scal_np[0]), int(scal_np[1])
+            max_span = int(scal_np[SCAL_MAX_SPAN])
+            if opts.sweep_budget_div > 1:
+                budget_full |= unreached
+            wide |= dev_wide
+            bb_full |= dev_wide
+            it_done += K
+
+            # bookkeeping: the work ledger and one stats row per window
+            w_steps = w_useful = w_crop = nexec = 0
+            for v, cropped in rung_scals:
+                result.total_net_routes += int(v[SCAL_NROUTES])
+                nexec += int(v[SCAL_NEXEC])
+                w_steps += int(v[SCAL_S_EXEC])
+                w_useful += int(v[SCAL_S_USEFUL])
+                if cropped:
+                    w_crop += int(v[SCAL_S_EXEC])
+            result.total_relax_steps += w_steps
+            result.total_relax_steps_useful += w_useful
+            result.total_relax_steps_wasted += w_steps - w_useful
+            result.total_relax_steps_cropped += w_crop
+            result.stats.append(RouteStats(
+                it_done, n_over, over_total, len(dirty), time.time() - t0,
+                relax_steps=w_steps, batches=nexec,
+                overuse_pct=100.0 * n_over / max(1, N)))
+            pres = min(opts.max_pres_fac, pres * opts.pres_fac_mult ** K)
+
+            if n_over == 0 and not rrm.any():
+                finish_set = nsinks_np > 1
+                if (opts.finish_precise and opts.sink_group == 0
+                        and not finish_done and not full_reroute_done
+                        and finish_set.any()
+                        and it_done + 4 < opts.max_router_iterations
+                        and paths.numel() * 4 <= (1 << 30)):
+                    # wirelength finishing pass: one precise reroute of
+                    # the multi-sink nets, then back to legality; the
+                    # legal state is kept to restore if that fails
+                    finish_done = True
+                    precise = True
+                    force_all_next = True
+                    rrm = finish_set
+                    fin_save = (occ.clone(), paths.clone(),
+                                sink_delay.clone(), all_reached.clone(),
+                                bb.clone(), it_done)
+                    best_over = 1 << 30
+                    stall_windows = 0
+                    sweep_boost = 1
+                else:
+                    result.success = True
+                    result.iterations = it_done
+                    break
+
+            # path-budget regrowth after device-side bb widening
+            if max_span >= rr.grid.nx + rr.grid.ny:
+                L_need = L_cap
+            else:
+                L_need = path_budget(max_span, L_cap)
+            if L_need > L:
+                paths = _grow_paths(paths, L_need, N)
+                L = L_need
+
+            # plateau valve at window granularity (…cxx:6238-6267)
+            if n_over < best_over:
+                best_over = n_over
+                stall_windows = 0
+                sweep_boost = 1
+            else:
+                stall_windows += K
+                sweep_boost = min(4, sweep_boost * 2)
+                precise = True
+            if stall_windows >= opts.plateau_iters and n_over > 0:
+                stuck = rrm & ~bb_full
+                if stuck.any():
+                    wide |= stuck
+                    bb_full |= stuck
+                    result.widened_nets += int(stuck.sum())
+                    bb[self._t(stuck)] = full_bb
+                    if L < L_cap:
+                        paths = _grow_paths(paths, L_cap, N)
+                        L = L_cap
+                stall_windows = 0
+
+            dirty = np.where(rrm)[0]
+            if 0 < n_over <= 8:
+                precise = True
+            # phase-2 restart (once): rip up and re-route everything
+            # precisely against the accumulated history costs
+            if (precise and not full_reroute_done and n_over > 0
+                    and widx >= 4):
+                dirty = np.arange(R)
+                force_all_next = True
+                full_reroute_done = True
+        else:
+            result.iterations = opts.max_router_iterations
+
+        if not result.success and fin_save is not None:
+            # the finishing pass could not re-legalize within budget:
+            # restore the pre-finish legal state
+            occ, paths, sink_delay, all_reached, bb, fin_it = fin_save
+            result.success = True
+            result.iterations = fin_it
+        result.wirelength = int(wirelength_on_device(dev, paths))
+        result.paths = paths.cpu().numpy()
+        result.sink_delay = sink_delay.cpu().numpy()
+        result.occ = occ.cpu().numpy()
+        return result

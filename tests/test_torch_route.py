@@ -1,0 +1,300 @@
+"""The port's Router (device="cpu", plain relaxation) against the JAX
+Router (pipeline=False): paths, occupancy, iterations, wirelength, the
+relaxation ledger and the per-window stats rows must be identical, and
+check_route legal.  Also the host-side helpers and the search.py subset
+against their JAX counterparts."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from parallel_eda_tpu.flow import synth_flow as jax_synth_flow
+from parallel_eda_tpu.route import Router as JRouter
+from parallel_eda_tpu.route import RouterOpts as JOpts
+from parallel_eda_tpu.route import check_route as jax_check_route
+from parallel_eda_tpu.route import planes as JP
+from parallel_eda_tpu.route import router as JR
+from parallel_eda_tpu.route import search as JS
+from parallel_eda_tpu.route.device_graph import to_device as jax_to_device
+from parallel_eda_tpu_torch.flow import synth_flow
+from parallel_eda_tpu_torch.route import planes as TP
+from parallel_eda_tpu_torch.route import router as TR
+from parallel_eda_tpu_torch.route import search as TS
+from parallel_eda_tpu_torch.route.check import check_route
+from parallel_eda_tpu_torch.route.device_graph import (
+    device_graph_from_numpy)
+
+FIXTURE = dict(num_luts=15, num_inputs=6, num_outputs=6, chan_width=10,
+               seed=3)
+# smallest fixture found where a forced crop engages the cropped
+# relaxation (the 15-LUT grid is 3x3: no crop can hold a net there)
+CROP_FIXTURE = dict(num_luts=40, num_inputs=6, num_outputs=6,
+                    chan_width=10, seed=3, bb_factor=0)
+
+
+def _route_both(cfg, opts):
+    jf = jax_synth_flow(**cfg)
+    jres = JRouter(jf.rr, JOpts(pipeline=False, **opts)).route(jf.term)
+    tf = synth_flow(**cfg)
+    tres = TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu").route(
+        tf.term)
+    return jf, jres, tf, tres
+
+
+def _assert_same_route(jres, tres):
+    assert tres.success and jres.success
+    assert tres.iterations == jres.iterations
+    assert tres.wirelength == jres.wirelength
+    assert np.array_equal(tres.paths, jres.paths)
+    assert np.array_equal(tres.occ, jres.occ)
+    assert tres.total_net_routes == jres.total_net_routes
+    assert tres.total_relax_steps == jres.total_relax_steps
+    assert tres.total_relax_steps_useful == jres.total_relax_steps_useful
+    assert tres.total_relax_steps_cropped == jres.total_relax_steps_cropped
+    assert tres.widened_nets == jres.widened_nets
+    rows = [(s.iteration, s.overused_nodes, s.overuse_total,
+             s.rerouted_nets, s.relax_steps, s.batches)
+            for s in jres.stats]
+    assert rows == [(s.iteration, s.overused_nodes, s.overuse_total,
+                     s.rerouted_nets, s.relax_steps, s.batches)
+                    for s in tres.stats]
+    assert np.array_equal(tres.sink_delay, jres.sink_delay)
+
+
+def test_router_matches_jax_parity_fixture():
+    jf, jres, tf, tres = _route_both(FIXTURE, dict(batch_size=32))
+    _assert_same_route(jres, tres)
+    check_route(tf.rr, tf.term, tres.paths, occ=tres.occ)
+    jax_check_route(jf.rr, jf.term, tres.paths, occ=tres.occ)
+
+
+def test_router_matches_jax_forced_crop():
+    jf, jres, tf, tres = _route_both(CROP_FIXTURE,
+                                     dict(batch_size=32, crop="4x4"))
+    assert jres.total_relax_steps_cropped > 0
+    _assert_same_route(jres, tres)
+    check_route(tf.rr, tf.term, tres.paths, occ=tres.occ)
+
+
+@pytest.mark.slow
+def test_router_matches_jax_bench_config():
+    cfg = dict(num_luts=60, num_inputs=12, num_outputs=12, chan_width=12,
+               seed=11)
+    jf, jres, tf, tres = _route_both(cfg, dict(batch_size=64))
+    assert (tres.wirelength, tres.iterations) == (537, 22)
+    _assert_same_route(jres, tres)
+    check_route(tf.rr, tf.term, tres.paths, occ=tres.occ)
+
+
+def test_router_opts_defaults_match_jax():
+    jd = {f.name: f.default for f in dataclasses.fields(JR.RouterOpts)}
+    td = {f.name: f.default for f in dataclasses.fields(TR.RouterOpts)}
+    assert set(jd) == set(td)
+    jd["pipeline"] = False      # the port's driver is the synchronous one
+    assert jd == td
+
+
+@pytest.mark.parametrize("name,value", [
+    ("pipeline", True), ("plane_dtype", "bf16"), ("fused_dispatch", True),
+    ("mesh_shards", 2), ("checkpoint_every", 2), ("slice_iterations", 1),
+    ("stats_dir", "x"), ("program", "ell"), ("resil", object()),
+    ("program_library_dir", "x"), ("compile_cache_dir", "x")])
+def test_unported_options_raise(name, value):
+    tf = synth_flow(**FIXTURE)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TR.Router(tf.rr, TR.RouterOpts(**{name: value}), device="cpu")
+
+
+def test_timing_inputs_raise():
+    tf = synth_flow(**FIXTURE)
+    r = TR.Router(tf.rr, TR.RouterOpts(), device="cpu")
+    R, S = tf.term.sinks.shape
+    with pytest.raises(NotImplementedError, match="A8"):
+        r.route(tf.term, crit=np.zeros((R, S), np.float32))
+
+
+@pytest.mark.parametrize("nx,ny,min_count", [(25, 25, 8), (9, 12, 1),
+                                             (40, 17, 4), (6, 6, 1)])
+def test_size_class_buckets_match_jax(nx, ny, min_count):
+    rng = np.random.default_rng(nx * ny)
+    w = rng.integers(3, nx + 3, 200)
+    h = rng.integers(3, ny + 3, 200)
+    jc, ja = JR._size_class_buckets(w, h, nx, ny, min_count=min_count)
+    tc, ta = TR._size_class_buckets(w, h, nx, ny, min_count=min_count)
+    assert jc == tc
+    assert np.array_equal(ja, ta)
+
+
+def test_order_and_chunk_match_jax():
+    rng = np.random.default_rng(5)
+    R = 300
+    nsinks = rng.integers(1, 20, R)
+    cx = rng.integers(0, 30, R)
+    cy = rng.integers(0, 30, R)
+    g = np.sort(rng.choice(R, 200, replace=False))
+    ja = JR._order_and_chunk(g, nsinks, cx, cy, 64)
+    ta = TR._order_and_chunk(g, nsinks, cx, cy, 64)
+    assert len(ja) == len(ta)
+    assert all(np.array_equal(a, b) for a, b in zip(ja, ta))
+    for span in (0, 7, 40, 500):
+        assert TR.path_budget(span, 264) == JR.path_budget(span, 264)
+
+
+def _dev_pair():
+    jf = jax_synth_flow(**FIXTURE)
+    jdev = jax_to_device(jf.rr)
+    fields = {f.name: np.asarray(getattr(jdev, f.name))
+              for f in dataclasses.fields(jdev)
+              if getattr(jdev, f.name) is not None}
+    return jf, jdev, device_graph_from_numpy(fields, "cpu")
+
+
+def _random_route_state(jf, seed):
+    rng = np.random.default_rng(seed)
+    N = jf.rr.num_nodes
+    R, S = jf.term.sinks.shape
+    L = 24
+    paths = rng.integers(0, N + 1, (R, S, L)).astype(np.int32)
+    paths[rng.random((R, S, L)) < 0.5] = N
+    occ = rng.integers(0, 3, N).astype(np.int32)
+    acc = rng.uniform(1, 3, N).astype(np.float32)
+    reached = rng.random(R) < 0.8
+    return paths, occ, acc, reached
+
+
+def test_search_subset_matches_jax():
+    jf, jdev, tdev = _dev_pair()
+    paths, occ, acc, reached = _random_route_state(jf, 0)
+    N = jf.rr.num_nodes
+    occ_b = np.stack([occ, occ - 1, occ + 1]).astype(np.int32)
+    for pres in (0.5, 0.5 * 1.3 ** 7, 37.1):
+        want = np.asarray(JS.congestion_cost(
+            jdev, jnp.asarray(occ_b), jnp.asarray(acc),
+            jnp.float32(pres)))
+        got = TS.congestion_cost(tdev, torch.from_numpy(occ_b),
+                                 torch.from_numpy(acc),
+                                 torch.tensor(pres, dtype=torch.float32))
+        assert np.array_equal(want, got.numpy())
+    want = np.asarray(JS.usage_from_paths(jnp.asarray(paths),
+                                          jnp.zeros(N + 1)))
+    got = TS.usage_from_paths(torch.from_numpy(paths), N).numpy()
+    assert np.array_equal(want, got)
+    assert int(JS.wirelength_on_device(jdev, jnp.asarray(paths))) == int(
+        TS.wirelength_on_device(tdev, torch.from_numpy(paths)))
+    jw = JS.iteration_summary(jdev, jnp.asarray(occ), jnp.asarray(paths),
+                              jnp.asarray(reached), jnp.int32(5))
+    tw = TS.iteration_summary(tdev, torch.from_numpy(occ),
+                              torch.from_numpy(paths),
+                              torch.from_numpy(reached),
+                              torch.tensor(5, dtype=torch.int32))
+    for a, b in zip(jw, tw):
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("seed,topk", [(0, 8), (1, 64), (2, 1024)])
+def test_mis_colors_match_jax(seed, topk):
+    jf, jdev, tdev = _dev_pair()
+    paths, occ, acc, reached = _random_route_state(jf, seed)
+    topk = min(topk, jf.rr.num_nodes)
+    jr, jc = JP._mis_colors(jdev, jnp.asarray(occ), jnp.asarray(paths),
+                            jnp.asarray(reached), topk, 5)
+    tr, tc = TP._mis_colors(tdev, torch.from_numpy(occ),
+                            torch.from_numpy(paths),
+                            torch.from_numpy(reached), topk, 5)
+    assert np.array_equal(np.asarray(jr), tr.numpy())
+    assert np.array_equal(np.asarray(jc), tc.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 33, 60, 124, 257, 300])
+def test_cumsum_matches_xla_order(n):
+    """The walk's delay suffix sums group the f32 adds as XLA:CPU does."""
+    w = np.random.default_rng(n).uniform(0, 1e-10, (3, 4, n)
+                                         ).astype(np.float32)
+    want = np.asarray(jnp.cumsum(jnp.asarray(w), axis=2))
+    assert np.array_equal(want, TP._cumsum_xla(torch.from_numpy(w)).numpy())
+
+
+def test_unpack_window_status_matches_jax():
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 1 << 24, 100).astype(np.int32)
+    for a, b in zip(JP.unpack_window_status(s),
+                    TP.unpack_window_status(s)):
+        assert np.array_equal(a, b)
+
+
+def _port_pg(pg):
+    f = {k: np.asarray(getattr(pg, k)) for k in TP._PG_FIELDS}
+    f.update(directional=pg.directional, max_span=pg.max_span,
+             inc_track=(None if pg.inc_track is None
+                        else np.asarray(pg.inc_track)))
+    return TP.planes_graph_from_numpy(f, "cpu")
+
+
+@pytest.mark.parametrize("cfg,tile,widen", [(FIXTURE, None, False),
+                                            (CROP_FIXTURE, (4, 4), True)])
+def test_window_matches_jax(cfg, tile, widen):
+    """One K_iters=2 window from a fresh state: every state array and the
+    packed status/scal summary equal the JAX program's, on the very same
+    graph (the JAX graph state handed over through numpy)."""
+    jf = jax_synth_flow(**cfg)
+    rr, term = jf.rr, jf.term
+    jr = JRouter(rr, JOpts(batch_size=32, pipeline=False))
+    R, S = term.sinks.shape
+    N = rr.num_nodes
+    L = 64
+    pt = JP.build_planes_terminals(rr, term.source, term.sinks,
+                                   np.asarray(jr.pg.cell_of_node),
+                                   jr.pg.ncells)
+    tables = (pt.opin_node, pt.entry_cell, pt.entry_oidx, pt.entry_delay,
+              pt.sink_uid, pt.uid_cell, pt.uid_ipin, pt.uid_delay,
+              pt.direct_oidx, pt.direct_ipin, pt.direct_delay)
+    nsinks = term.num_sinks.astype(np.int64)
+    cx = ((term.bb_xmin + term.bb_xmax) // 2).astype(np.int64)
+    cy = ((term.bb_ymin + term.bb_ymax) // 2).astype(np.int64)
+    sel, valid = jr._plan_groups(np.arange(R), None, nsinks, cx, cy, 32, R)
+    bb = np.stack([term.bb_xmin, term.bb_xmax, term.bb_ymin,
+                   term.bb_ymax], axis=1).astype(np.int32)
+    full_bb = np.array([0, rr.grid.nx + 1, 0, rr.grid.ny + 1], np.int32)
+    widen_ok = (np.arange(R) % 2 == 0) if widen else None
+    state = dict(occ=np.zeros(N, np.int32), acc=np.ones(N, np.float32),
+                 paths=np.full((R, S, L), N, np.int32),
+                 sd=np.full((R, S), np.inf, np.float32),
+                 ar=np.zeros(R, bool), bb=bb.copy())
+    common = dict(K_iters=2, nsweeps=16, max_len=L, num_waves=4, group=S,
+                  doubling=True, topk=min(4096, N), n_colors=5,
+                  crop_tile=tile)
+    jo = JP.route_window_planes(
+        jr.pg, jr.dev, *(jnp.asarray(state[k].copy()) for k in
+                         ("occ", "acc", "paths", "sd", "ar", "bb")),
+        jnp.asarray(term.source.astype(np.int32)),
+        jnp.asarray(term.sinks.astype(np.int32)),
+        jnp.zeros((R, S), jnp.float32), *(jnp.asarray(a) for a in tables),
+        jnp.asarray(sel), jnp.asarray(valid), jnp.asarray(full_bb),
+        jnp.float32(0.5), jnp.float32(1.3), jnp.float32(1000.0),
+        jnp.float32(1.0), jnp.int32(0), jnp.int32(1),
+        bb0_all=jnp.asarray(bb),
+        widen_ok=None if widen_ok is None else jnp.asarray(widen_ok),
+        **common)
+    fields = {f.name: np.asarray(getattr(jr.dev, f.name))
+              for f in dataclasses.fields(jr.dev)
+              if getattr(jr.dev, f.name) is not None}
+
+    def t(a):
+        return torch.from_numpy(np.array(a))
+    tp = {k: t(state[k]) for k in state}
+    occ, acc, status, scal = TP.route_window_planes(
+        _port_pg(jr.pg), device_graph_from_numpy(fields, "cpu"),
+        tp["occ"], tp["acc"], tp["paths"], tp["sd"], tp["ar"], tp["bb"],
+        t(term.source.astype(np.int32)), t(term.sinks.astype(np.int32)),
+        torch.zeros((R, S)), *(t(a) for a in tables), t(sel), t(valid),
+        t(full_bb), 0.5, 1.3, 1000.0, 1.0, 0, 1, bb0_all=t(bb),
+        widen_ok=None if widen_ok is None else t(widen_ok), **common)
+    for j, p in ((jo[0], occ), (jo[1], acc), (jo[2], tp["paths"]),
+                 (jo[3], tp["sd"]), (jo[4], tp["ar"]), (jo[5], tp["bb"]),
+                 (jo[21], status), (jo[22], scal)):
+        assert np.array_equal(np.asarray(j), p.numpy())
+    if tile is not None:
+        assert int(scal[TP.SCAL_S_EXEC]) > 0
