@@ -6,6 +6,13 @@
 //                                  (planes_pallas.py:308 / :218, call :389)
 //   planes_relax_cropped_kernel <- planes_relax_cropped_pallas /
 //                                  _crop_sweep_kernel (:477 / :417, call :571)
+// and, through planes_sweep_block_launch, the cropped kernel serves as the
+// one-sweep step of each shard's column block in the row-sharded relaxation
+// (parallel_eda_tpu/route/planes_shard.py planes_relax_sharded, its sweep
+// at :369): nsweeps = 1, pred carried in (p0x/p0y), block geometry shared
+// across nets (geometry stride 0), and the change flag restricted to the
+// owned local x columns [own_lo, own_hi), so that with one sweep
+// stats[b, 1] is net b's owned-changed flag.
 //
 // What they compute: the bounded planes relaxation of one net per thread
 // block, to the exact fixpoint or `nsweeps` sweeps.  One sweep is
@@ -68,11 +75,13 @@ struct Args {
   const uint8_t* inc_track;          // [W] (directional only)
   const int32_t* idxx; const int32_t* idxy;   // cropped only
   const int32_t* base_par;                    // cropped only [X+1, Y+1]
+  const int32_t* p0x; const int32_t* p0y;     // pred in (null: own ids)
   int W, X, Y;                       // x plane [W, X, Y+1]; y plane [W, X+1, Y]
   int stride_x;                      // global NY+1
   int directional;
   int nsweeps;
   long long in_sx, in_sy, st_sx, st_sy, g_sx, g_sy, g_sp;
+  int own_lo, own_hi;                // local x columns the change flag covers
 };
 
 __device__ __forceinline__ float fadd(float a, float b) {
@@ -149,6 +158,7 @@ struct Net {
     return CROP ? a.base_par[gp0 + (long long)x * (a.Y + 1) + y] : ((x + y) & 1);
   }
   __device__ bool inc(int t) const { return a.inc_track[t] != 0; }
+  __device__ bool own(int x) const { return x >= a.own_lo && x < a.own_hi; }
   __device__ float cost_x(int l) const {
     return fadd(__fmul_rn(crit, a.delay_x[gx0 + l]), a.ccx[ix0 + l]);
   }
@@ -173,12 +183,12 @@ __device__ void relax_net(const Args& a) {
   for (int l = tid; l < nxc; l += nth) {
     dx[l] = a.d0x[n.ix0 + l];
     wx[l] = a.w0x[n.ix0 + l];
-    px[l] = n.gidx(l);
+    px[l] = a.p0x ? a.p0x[n.ix0 + l] : n.gidx(l);
   }
   for (int l = tid; l < nyc; l += nth) {
     dy[l] = a.d0y[n.iy0 + l];
     wy[l] = a.w0y[n.iy0 + l];
-    py[l] = n.gidy(l);
+    py[l] = a.p0y ? a.p0y[n.iy0 + l] : n.gidy(l);
   }
 
   float cbuf[2 * MAXL], mbuf[2 * MAXL];
@@ -216,7 +226,7 @@ __device__ void relax_net(const Args& a) {
             dx[l] = mbuf[k];
             px[l] = n.gidx(l) + (rev ? a.stride_x : -a.stride_x);
             wx[l] = brk ? a.delay_x[n.gx0 + l] : 0.0f;
-            mine = true;
+            mine |= n.own(x);
           }
         }
       }
@@ -276,7 +286,9 @@ __device__ void relax_net(const Args& a) {
           }
         }
       }
-      if (best < dy[l]) { dy[l] = best; py[l] = bsrc; wy[l] = bw; mine = true; }
+      if (best < dy[l]) {
+        dy[l] = best; py[l] = bsrc; wy[l] = bw; mine |= n.own(x);
+      }
     }
     __syncthreads();
 
@@ -307,7 +319,7 @@ __device__ void relax_net(const Args& a) {
             dy[l] = mbuf[k];
             py[l] = n.gidy(l) + (rev ? 1 : -1);
             wy[l] = brk ? a.delay_y[n.gy0 + l] : 0.0f;
-            mine = true;
+            mine |= n.own(x);
           }
         }
       }
@@ -361,7 +373,9 @@ __device__ void relax_net(const Args& a) {
           }
         }
       }
-      if (best < dx[l]) { dx[l] = best; px[l] = bsrc; wx[l] = bw; mine = true; }
+      if (best < dx[l]) {
+        dx[l] = best; px[l] = bsrc; wx[l] = bw; mine |= n.own(u);
+      }
     }
     if (mine) changed_s = 1;
     __syncthreads();
@@ -397,18 +411,27 @@ Args unpack(const void* const* p, const long long* v) {
   a.inc_track = (const uint8_t*)p[26];
   a.idxx = (const int32_t*)p[27]; a.idxy = (const int32_t*)p[28];
   a.base_par = (const int32_t*)p[29];
+  a.p0x = nullptr; a.p0y = nullptr;
   a.W = (int)v[1]; a.X = (int)v[2]; a.Y = (int)v[3];
   a.stride_x = (int)v[4]; a.directional = (int)v[5]; a.nsweeps = (int)v[6];
   a.in_sx = v[7]; a.in_sy = v[8]; a.st_sx = v[9]; a.st_sy = v[10];
   a.g_sx = v[11]; a.g_sy = v[12]; a.g_sp = v[13];
+  a.own_lo = 0; a.own_hi = 0x7fffffff;
   return a;
 }
 
-int launch(bool crop, const void* const* p, const long long* v, void* stream) {
+// step: the table carries two more pointers (p[30] p0x, p[31] p0y) and two
+// more ints (v[15] own_lo, v[16] own_hi)
+int launch(bool crop, bool step, const void* const* p, const long long* v,
+           void* stream) {
   const int B = (int)v[0], threads = (int)v[14];
   if (B <= 0) return 0;
   if (v[2] > MAXL || v[3] + 1 > MAXL) return (int)cudaErrorInvalidValue;
   Args a = unpack(p, v);
+  if (step) {
+    a.p0x = (const int32_t*)p[30]; a.p0y = (const int32_t*)p[31];
+    a.own_lo = (int)v[15]; a.own_hi = (int)v[16];
+  }
   cudaStream_t s = (cudaStream_t)stream;
   if (crop)
     planes_relax_cropped_kernel<<<B, threads, 0, s>>>(a);
@@ -421,12 +444,17 @@ int launch(bool crop, const void* const* p, const long long* v, void* stream) {
 
 extern "C" int planes_relax_full_launch(const void* const* p,
                                         const long long* v, void* stream) {
-  return launch(false, p, v, stream);
+  return launch(false, false, p, v, stream);
 }
 
 extern "C" int planes_relax_cropped_launch(const void* const* p,
                                            const long long* v, void* stream) {
-  return launch(true, p, v, stream);
+  return launch(true, false, p, v, stream);
+}
+
+extern "C" int planes_sweep_block_launch(const void* const* p,
+                                         const long long* v, void* stream) {
+  return launch(true, true, p, v, stream);
 }
 
 extern "C" int planes_relax_max_line() { return MAXL; }

@@ -924,6 +924,19 @@ def planes_relax_cropped(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                                       wenter0, nsweeps, ox, oy, cnx, cny)
 
 
+def _as_row_mesh(mesh):
+    """The window programs' ``mesh`` argument: None (one device) or a
+    planes_shard.RowMesh (the row-sharded relaxation).  The JAX
+    package's legacy (net, node) GSPMD mesh is not ported and raises."""
+    if mesh is None:
+        return None
+    from .planes_shard import RowMesh
+    if not isinstance(mesh, RowMesh):
+        raise TypeError(f"mesh must be a planes_shard.RowMesh or None, got "
+                        f"{type(mesh).__name__}")
+    return mesh
+
+
 # ---------------------------------------------------------------------------
 # The batch step: rip up, re-route against everyone-but-itself, commit
 # ---------------------------------------------------------------------------
@@ -975,12 +988,13 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
                sel, valid, force, full_bb,
                nsweeps: int, max_len: int, num_waves: int, group: int,
                doubling: bool, crop_tile=None, bb0_all=None,
-               widen_ok=None):
+               widen_ok=None, mesh=None):
     """One fused batch step: rip up the selected nets, re-route each
     against the occupancy of everyone-but-itself with the planes
     relaxation, commit and scatter back.  A selected net is a no-op
     unless it needs rerouting (an overused node on its tree or an
-    unreached sink) or ``force`` is true.
+    unreached sink) or ``force`` is true.  With a RowMesh ``mesh`` (and
+    no crop tile) the relaxation is the row-sharded one.
 
     ``paths``, ``sink_delay``, ``all_reached`` and ``bb`` are updated IN
     PLACE at the rerouted rows (the JAX program donates them; here the
@@ -1094,6 +1108,10 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
             dist, pred, wenter, rst = planes_relax_cropped(
                 pg, d0, cc_flat, crit_c, wenter0, nsweeps,
                 crop_ox, crop_oy, cnx_t, cny_t)
+        elif _as_row_mesh(mesh) is not None:
+            from .planes_shard import planes_relax_sharded
+            dist, pred, wenter, rst = planes_relax_sharded(
+                pg, d0, cc_flat, crit_c, wenter0, nsweeps, mesh)
         else:
             dist, pred, wenter, rst = planes_relax(
                 pg, d0, cc_flat, crit_c, wenter0, nsweeps)
@@ -1332,7 +1350,8 @@ def route_window_planes(
         it0: int, force_until: int,
         K_iters: int, nsweeps: int, max_len: int, num_waves: int,
         group: int, doubling: bool = True, topk: int = 1024,
-        n_colors: int = 5, crop_tile=None, bb0_all=None, widen_ok=None):
+        n_colors: int = 5, crop_tile=None, bb0_all=None, widen_ok=None,
+        mesh=None):
     """A WINDOW of K_iters PathFinder iterations: per iteration, every
     batch group of ``sel_plan`` [G, B] runs the fused rip-up/route/commit
     step (groups with no dirty net are skipped outright), then the
@@ -1342,7 +1361,8 @@ def route_window_planes(
     place.  Returns (occ, acc, status [R] int32, scal [SCAL_LEN] int32):
     status packs bit0 rrm, bit1 dev_wide, bit2 unreached, bits3-7
     colour, bits8-15 live-h bucket, bits16-23 live-w bucket (8-tile
-    buckets); scal holds the window's scalar counters (SCAL_*)."""
+    buckets); scal holds the window's scalar counters (SCAL_*).  ``mesh``
+    (a planes_shard.RowMesh) shards the full-canvas relaxation."""
     device = occ.device
     G = sel_plan.shape[0]
     f32 = lambda v: torch.tensor(v, dtype=_F32, device=device)  # noqa: E731
@@ -1370,7 +1390,7 @@ def route_window_planes(
                 uid_delay, direct_oidx_all, direct_ipin_all,
                 direct_delay_all, sel_g, valid_g, force, full_bb,
                 nsweeps, max_len, num_waves, group, doubling,
-                crop_tile, bb0_all, widen_ok)
+                crop_tile, bb0_all, widen_ok, mesh)
             nroutes += n_act
             nexec += 1
             s_exec += se

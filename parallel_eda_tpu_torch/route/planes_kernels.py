@@ -7,8 +7,11 @@ parallel_eda_tpu/route/planes_pallas.py.
     planes_relax_cropped_cuda -> planes_relax_cropped_kernel
         replaces planes_relax_cropped_pallas / _crop_sweep_kernel
         (parallel_eda_tpu/route/planes_pallas.py:477 / :417)
+    planes_sweep_block_cuda   -> planes_relax_cropped_kernel, one sweep
+        the per-shard step of the row-sharded relaxation
+        (route/planes_shard.py; JAX planes_shard.py:369)
 
-Both are compiled from csrc/planes_relax.cu with nvcc for sm_90a into
+All are compiled from csrc/planes_relax.cu with nvcc for sm_90a into
 ``parallel_eda_tpu_torch/build/`` at first use and loaded through a
 plain C interface with ctypes.  One thread block relaxes one net for
 the whole bounded sweep loop, so a relaxation is one launch (design,
@@ -21,92 +24,23 @@ its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "planes_relax.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-LIB = os.path.join(BUILD_DIR, "libplanes_relax.so")
+from .cuda_lib import CudaLib, check_tensor as _check, launch
+
 THREADS = 256
 
-# filled by build(): seconds, and nvcc's -Xptxas -v register / shared
-# memory / spill report
-BUILD_INFO: dict = {}
-_lib = None
+
+def _setup(lib) -> None:
+    for fn in (lib.planes_relax_full_launch, lib.planes_relax_cropped_launch,
+               lib.planes_sweep_block_launch):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.planes_relax_max_line.restype = ctypes.c_int
 
 
-def nvcc_path() -> str:
-    p = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(p):
-        raise RuntimeError("nvcc not found (needs the CUDA toolkit)")
-    return p
-
-
-def nvcc_command() -> list:
-    """The build command: sm_90a, no FMA contraction (the kernels must
-    round as the plain version does), register/spill report on."""
-    return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-            "-shared", "-Xcompiler", "-fPIC", "-o", LIB, SRC]
-
-
-def start_build() -> subprocess.Popen:
-    """Start nvcc in the background (chip_smoke.py builds every source
-    at once); finish with finish_build()."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    BUILD_INFO["t0"] = time.time()
-    return subprocess.Popen(nvcc_command(), stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
-def finish_build(proc: subprocess.Popen) -> dict:
-    out, _ = proc.communicate()
-    BUILD_INFO["seconds"] = time.time() - BUILD_INFO.pop("t0")
-    BUILD_INFO["ptxas"] = [ln.strip() for ln in out.splitlines()
-                           if "ptxas" in ln or "spill" in ln
-                           or "Used" in ln]
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
-    return BUILD_INFO
-
-
-def build() -> dict:
-    """Compile csrc/planes_relax.cu into build/ (always from source)."""
-    return finish_build(start_build())
-
-
-def _get_lib():
-    global _lib
-    if _lib is None:
-        if (not os.path.exists(LIB)
-                or os.path.getmtime(LIB) < os.path.getmtime(SRC)):
-            build()
-        lib = ctypes.CDLL(LIB)
-        for fn in (lib.planes_relax_full_launch,
-                   lib.planes_relax_cropped_launch):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.planes_relax_max_line.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
-def _check(t, dtype, shape, name):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+LIB = CudaLib("planes_relax", _setup)
 
 
 def _geom_ptrs(g, directional: bool, inc_track, cropped: bool):
@@ -128,16 +62,6 @@ def _geom_ptrs(g, directional: bool, inc_track, cropped: bool):
     return ptrs
 
 
-def _launch(fn, ptrs, ints):
-    p = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    v = (ctypes.c_longlong * len(ints))(*ints)
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(p, v, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"planes relaxation kernel launch failed "
-                           f"(cudaError {rc})")
-
-
 def planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
                            nsweeps: int):
     """planes_relax on the card: one launch of planes_relax_full_kernel.
@@ -155,7 +79,7 @@ def planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
         _check(t, torch.float32, (B, nc), n)
     crit = crit_c.reshape(B).contiguous()
     _check(crit, torch.float32, (B,), "crit_c")
-    lib = _get_lib()
+    lib = LIB.get()
     if max(NX, NYp1) > lib.planes_relax_max_line():
         raise ValueError("grid side exceeds the kernel's scan line limit")
     dist = torch.empty_like(d0_flat)
@@ -174,7 +98,8 @@ def planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
                                            pg.inc_track, False)
     ints = [B, W, NX, NY, NYp1, int(pg.directional), int(nsweeps),
             nc, nc, nc, nc, 0, 0, 0, THREADS]
-    _launch(lib.planes_relax_full_launch, ptrs, ints)
+    launch(lib.planes_relax_full_launch, ptrs, ints, d0_flat.device,
+           "planes relaxation")
     planes_relax_full_cuda.launches += 1
     planes_relax_full_cuda.last_net_stats = stats
     return dist, pred, wenter, stats.amax(dim=0)
@@ -201,7 +126,7 @@ def planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
         _check(t, torch.float32, (B, nc), n)
     crit = crit_c.reshape(B).contiguous()
     _check(crit, torch.float32, (B,), "crit_c")
-    lib = _get_lib()
+    lib = LIB.get()
     if max(cnx, cny + 1) > lib.planes_relax_max_line():
         raise ValueError("crop tile exceeds the kernel's scan line limit")
     W = pg.shape_x[0]
@@ -224,7 +149,8 @@ def planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
     ints = [B, W, cnx, cny, pg.shape_x[2], int(pg.directional),
             int(nsweeps), sx, sy, sx, sy, sx, sy, (cnx + 1) * (cny + 1),
             THREADS]
-    _launch(lib.planes_relax_cropped_launch, ptrs, ints)
+    launch(lib.planes_relax_cropped_launch, ptrs, ints, d0_flat.device,
+           "planes relaxation")
     planes_relax_cropped_cuda.launches += 1
     planes_relax_cropped_cuda.last_net_stats = stats
     return scatter_state(gm_full, fulls, (dx, dy, px, py, wx, wy),
@@ -234,7 +160,59 @@ def planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
 planes_relax_cropped_cuda.launches = 0
 planes_relax_cropped_cuda.last_net_stats = None
 
-WRAPPERS = (planes_relax_full_cuda, planes_relax_cropped_cuda)
+def planes_sweep_block_cuda(gm, state, crit_c, cc_x, cc_y, own):
+    """One relaxation sweep of one shard's column block on the card: one
+    launch of planes_relax_cropped_kernel with nsweeps = 1, pred carried
+    in from ``state``, and the block geometry ``gm`` (G = 1, shared by
+    every net) read with stride 0.  ``state`` = (dx, dy, px, py, wx, wy)
+    [B, W, X, Y+1] / [B, W, X+1, Y]; ``own`` = (lo, hi), the local x
+    columns whose improvement counts as a change.  Returns (the new
+    state, stats [B, 2] int32 with stats[:, 1] each net's owned-changed
+    flag).  Same arithmetic as one planes._sweep_once."""
+    dx = state[0]
+    B, W, X, Yp1 = dx.shape
+    Y = Yp1 - 1
+    shx, shy = (B, W, X, Yp1), (B, W, X + 1, Y)
+    f32, i32 = torch.float32, torch.int32
+    for t, dt, sh, n in zip(state + (cc_x, cc_y),
+                            (f32, f32, i32, i32, f32, f32, f32, f32),
+                            (shx, shy, shx, shy, shx, shy, shx, shy),
+                            ("dx", "dy", "px", "py", "wx", "wy", "cc_x",
+                             "cc_y")):
+        _check(t, dt, sh, n)
+    crit = crit_c.reshape(B).contiguous()
+    _check(crit, f32, (B,), "crit_c")
+    for t, sh, n in ((gm.idxx, (1, W, X, Yp1), "idxx"),
+                     (gm.idxy, (1, W, X + 1, Y), "idxy"),
+                     (gm.base_par, (1, X + 1, Yp1), "base_par"),
+                     (gm.delay_x, (1, W, X, Yp1), "delay_x")):
+        if tuple(t.shape) != sh or t.device != dx.device:
+            raise ValueError(f"block geometry {n} must be {sh} on "
+                             f"{dx.device}")
+    lib = LIB.get()
+    if max(X, Yp1) > lib.planes_relax_max_line():
+        raise ValueError("block exceeds the kernel's scan line limit")
+    out = tuple(torch.empty_like(t) for t in state)
+    stats = torch.empty((B, 2), dtype=i32, device=dx.device)
+    sx, sy = W * X * Yp1, W * (X + 1) * Y
+    ptrs = ([state[0].data_ptr(), state[1].data_ptr(), cc_x.data_ptr(),
+             cc_y.data_ptr(), state[4].data_ptr(), state[5].data_ptr(),
+             crit.data_ptr()] + [t.data_ptr() for t in out]
+            + [stats.data_ptr()]
+            + _geom_ptrs(gm, gm.directional, gm.inc_track, True)
+            + [state[2].data_ptr(), state[3].data_ptr()])
+    ints = [B, W, X, Y, gm.stride_x, int(gm.directional), 1,
+            sx, sy, sx, sy, 0, 0, 0, THREADS, int(own[0]), int(own[1])]
+    launch(lib.planes_sweep_block_launch, ptrs, ints, dx.device,
+           "planes sweep step")
+    planes_sweep_block_cuda.launches += 1
+    return out, stats
+
+
+planes_sweep_block_cuda.launches = 0
+
+WRAPPERS = (planes_relax_full_cuda, planes_relax_cropped_cuda,
+            planes_sweep_block_cuda)
 
 
 def reset_launch_counts() -> None:

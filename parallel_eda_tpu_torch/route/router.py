@@ -93,7 +93,6 @@ _NOT_PORTED = {
     "compile_cache_dir": (None, "A14 (serve stack / kernel cache)"),
     "plane_dtype": ("f32", "A12 (bf16 planes)"),
     "fused_dispatch": (False, "A12 (fused ragged dispatch)"),
-    "mesh_shards": (1, "A15 / B3 (multi-GPU halo exchange)"),
     "checkpoint_every": (0, "A6 (checkpoint / slicing)"),
     "slice_iterations": (0, "A6 (checkpoint / slicing)"),
     "stats_dir": (None, "A13 (stats files and observability)"),
@@ -245,7 +244,15 @@ def _grow_paths(paths, L_new: int, N: int):
 class Router:
     """Holds the device graph across route() calls.  ``device`` defaults
     to ``cuda`` (raises without a card); pass ``device="cpu"`` to run
-    the plain PyTorch versions of the kernels."""
+    the plain PyTorch versions of the kernels.
+
+    ``opts.mesh_shards > 1`` shards the relaxation by canvas columns
+    (route/planes_shard.py) over that many shards placed round-robin on
+    the visible devices of ``device``'s type: ``row_mesh``.  ``metrics``
+    holds the halo ledger under the JAX package's metric names: the
+    counters ``route.mesh.halo_bytes`` and ``route.mesh.halo_exchanges``
+    add up over the Router's routes, the gauges ``route.mesh.n_shards``
+    and ``route.mesh.overlap_frac`` hold the last window's values."""
 
     # escalating sync schedule: window sizes between host round trips
     _WINDOWS = (2, 2, 3, 4, 5, 6, 8, 10, 10)
@@ -272,6 +279,38 @@ class Router:
                              "rr.graph.build_rr_graph (track switch map)")
         self.pg = build_planes(rr, self.device)
         self._pt_key = None
+        # lag 1 ("ppermute") on every device.  Lag 2 ("pallas_halo")
+        # pays extra sweeps for a transfer that can land behind the next
+        # sweep, and here each shard's transfer shares its sweep's
+        # stream, so nothing overlaps and lag 2 is only slower on the
+        # card (chip_smoke.py's mesh lines time both).  The JAX mesh
+        # ladder (pallas_halo -> ppermute -> single chip) is not
+        # ported: a failure raises.
+        self.row_mesh = None
+        self.metrics: dict = {}
+        if self.opts.mesh_shards > 1:
+            from .planes_shard import make_row_mesh
+            self.row_mesh = make_row_mesh(self.opts.mesh_shards, "ppermute",
+                                          self.device)
+
+    def _book_halo(self, scal, batch: int) -> None:
+        """The halo ledger of one window (JAX router.py:1191-1233): each
+        executed sweep exchanged one halo round per internal boundary,
+        at the byte volume of the window's plan width ``batch``."""
+        from .planes import SCAL_S_EXEC
+        from .planes_shard import halo_bytes_per_sweep, modeled_overlap_frac
+
+        rm, m = self.row_mesh, self.metrics
+        sweeps = int(scal[SCAL_S_EXEC])
+        m["route.mesh.halo_bytes"] = (
+            m.get("route.mesh.halo_bytes", 0)
+            + halo_bytes_per_sweep(self.pg, batch, rm.n_shards) * sweeps)
+        m["route.mesh.halo_exchanges"] = (
+            m.get("route.mesh.halo_exchanges", 0)
+            + (rm.n_shards - 1) * sweeps)
+        m["route.mesh.n_shards"] = rm.n_shards
+        m["route.mesh.overlap_frac"] = modeled_overlap_frac(
+            self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1)
 
     def _planes_terminals(self, term):
         """Terminal tables for ``term`` as device tensors, cached on
@@ -361,7 +400,7 @@ class Router:
                               sink_delay, all_reached, bb, full_bb,
                               result, B, crop):
         """The synchronous window driver (the JAX package's
-        _route_planes_windows with pipeline=False and no timing, mesh,
+        _route_planes_windows with pipeline=False and no timing,
         checkpoint, bf16 or fused modes)."""
         from .planes import (SCAL_MAX_SPAN, SCAL_NEXEC, SCAL_NROUTES,
                              SCAL_S_EXEC, SCAL_S_USEFUL,
@@ -414,6 +453,7 @@ class Router:
         live_w = (term.bb_xmax - term.bb_xmin + 1).astype(np.int64)
         live_h = (term.bb_ymax - term.bb_ymin + 1).astype(np.int64)
         budget_full = np.zeros(R, dtype=bool)
+        rm = self.row_mesh
         while it_done < opts.max_router_iterations:
             K = self._WINDOWS[min(widx, len(self._WINDOWS) - 1)]
             K = min(K, opts.max_router_iterations - it_done)
@@ -452,6 +492,10 @@ class Router:
                 if (assign == len(classes)).any():
                     dispatch.append((dirty[assign == len(classes)], None))
             else:
+                dispatch = [(dirty, None)]
+            if rm is not None:
+                # the sharded relaxation runs the full canvas: the row
+                # mesh splits the canvas instead of the crop ladder
                 dispatch = [(dirty, None)]
 
             widen_d = (None if opts.sweep_budget_div <= 1
@@ -502,7 +546,7 @@ class Router:
                     else opts.incremental_after,
                     K, nsw, L, waves, grp_w, doubling,
                     topk=min(4096, N), n_colors=5, crop_tile=tile,
-                    bb0_all=bb0_d, widen_ok=wok)
+                    bb0_all=bb0_d, widen_ok=wok, mesh=rm)
                 rung_scals.append((scal.cpu().numpy(), tile is not None))
             force_all_next = False
             status_np = status.cpu().numpy()
@@ -535,6 +579,9 @@ class Router:
                 it_done, n_over, over_total, len(dirty), time.time() - t0,
                 relax_steps=w_steps, batches=nexec,
                 overuse_pct=100.0 * n_over / max(1, N)))
+            if rm is not None:
+                # one rung under a mesh: the last plan is the window's
+                self._book_halo(scal_np, sel_p.shape[1] if len(dirty) else 1)
             pres = min(opts.max_pres_fac, pres * opts.pres_fac_mult ** K)
 
             if n_over == 0 and not rrm.any():

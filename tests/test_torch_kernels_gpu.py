@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels on the card: each against its
 plain PyTorch version on the same inputs (bit-identical), launch
-counting, and the Router on CUDA against the Router on the CPU.
+counting, the row-sharded relaxation on the card against its CPU run,
+and the Router on CUDA against the Router on the CPU.
 
 Run on a machine with a CUDA device:
     pytest -m gpu tests/test_torch_kernels_gpu.py
@@ -15,6 +16,8 @@ from parallel_eda_tpu_torch.arch.builtin import minimal_arch, unidir_arch
 from parallel_eda_tpu_torch.flow import synth_flow
 from parallel_eda_tpu_torch.route import planes as P
 from parallel_eda_tpu_torch.route import planes_kernels as pk
+from parallel_eda_tpu_torch.route import planes_shard as TS
+from parallel_eda_tpu_torch.route import shard_kernels as sk
 from parallel_eda_tpu_torch.route.check import check_route
 from parallel_eda_tpu_torch.route.router import Router, RouterOpts
 from parallel_eda_tpu_torch.rr.graph import CHANX, CHANY, build_rr_graph
@@ -135,3 +138,146 @@ def test_scale_route_cuda_matches_cpu(cuda):
     assert np.array_equal(rg.occ, rc.occ)
     assert np.array_equal(rg.sink_delay, rc.sink_delay)
     check_route(f.rr, f.term, rg.paths, occ=rg.occ)
+
+
+@pytest.mark.parametrize("cols", [1, 2])
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_slab_permute_kernel_matches_plain(cuda, s, fwd, cols):
+    rng = np.random.default_rng(s * 10 + cols + fwd)
+    canv = rng.uniform(0, 1, (s, 64, 12, 6, 7)).astype(np.float32)
+    canv[rng.random(canv.shape) < 0.2] = np.inf
+    slabs = [torch.from_numpy(canv[i]).to(cuda)[:, :, 2:2 + cols]
+             for i in range(s)]
+    n0 = sk.remote_slab_permute_cuda.launches
+    got = sk.remote_slab_permute(slabs, fwd)
+    torch.cuda.synchronize()
+    assert sk.remote_slab_permute_cuda.launches == n0 + 1
+    _same(got, sk.slab_permute_plain(slabs, fwd))
+
+
+def _blocks(pg, d0, cc, w0, s, device):
+    kx = TS.row_block_cols(pg, s)
+    devs = [device] * s
+    sp = [P._split_flat(pg, a) for a in (d0, cc, w0)]
+    bl = [(TS.shard_blocks(x, f, 2, kx, devs), TS.shard_blocks(y, f, 3, kx,
+                                                              devs))
+          for (x, y), f in zip(sp, (float("inf"), float("inf"), 0.0))]
+    return kx, bl
+
+
+@pytest.mark.parametrize("costs", ["exact", "jitter"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+def test_sweep_block_kernel_matches_plain(cuda, arch_i, costs):
+    """One step-kernel sweep of every shard's block, pred carried in from
+    a plain sweep, against one more plain sweep."""
+    mk, nx, ny = ARCHS[arch_i]
+    pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, 16, 5, costs, cuda)
+    s = 2
+    kx, ((dx, dy), (ccx, ccy), (wx, wy)) = _blocks(pg, d0, cc, w0, s, cuda)
+    gms = TS._shard_geoms(pg, TS.make_row_mesh(s, devices=[cuda] * s), kx)
+    own = slice(1, kx + 1)
+    for k in range(s):
+        g = gms[k]
+        st = (dx[k], dy[k], g.idxx.expand(dx[k].shape).contiguous(),
+              g.idxy.expand(dy[k].shape).contiguous(), wx[k], wy[k])
+        costs_k = P._sweep_costs(g, crit, ccx[k], ccy[k])
+        st1 = P._sweep_once(g, st, crit, ccx[k], ccy[k], costs_k)
+        n0 = pk.planes_sweep_block_cuda.launches
+        got, stats = pk.planes_sweep_block_cuda(g, st1, crit, ccx[k],
+                                                ccy[k], (1, kx + 1))
+        torch.cuda.synchronize()
+        assert pk.planes_sweep_block_cuda.launches == n0 + 1
+        ref = P._sweep_once(g, st1, crit, ccx[k], ccy[k], costs_k)
+        _same(got, ref)
+        flag = ((ref[0][:, :, own] < st1[0][:, :, own]).flatten(1).any(1)
+                | (ref[1][:, :, own] < st1[1][:, :, own]).flatten(1).any(1))
+        assert torch.equal(stats[:, 1].bool().cpu(), flag.cpu())
+        assert (stats[:, 0] == 1).all()
+
+
+def _pg_to(pg, device):
+    f = {k: getattr(pg, k).cpu().numpy() for k in P._PG_FIELDS}
+    f.update(directional=pg.directional, max_span=pg.max_span,
+             inc_track=(None if pg.inc_track is None
+                        else pg.inc_track.cpu().numpy()))
+    return P.planes_graph_from_numpy(f, device)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
+def test_sharded_relax_cuda_matches_cpu(cuda, impl, s):
+    pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=8), 6, 5, 16,
+                                     6, "exact", cuda)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24,
+                                  TS.make_row_mesh(s, impl, cuda))
+    torch.cuda.synchronize()
+    assert pk.planes_sweep_block_cuda.launches > 0
+    assert sk.remote_slab_permute_cuda.launches > 0
+    cpu = [t.cpu() for t in (d0, cc, crit, w0)]
+    ref = TS.planes_relax_sharded(_pg_to(pg, "cpu"), *cpu, 24,
+                                  TS.make_row_mesh(s, impl, "cpu"))
+    _same(got, ref)
+    single = P.planes_relax_plain(pg, d0, cc, crit, w0, 24)
+    for k in (0, 2):
+        assert torch.equal(got[k].cpu(), single[k].cpu())
+
+
+def test_router_mesh_cuda_matches_cpu(cuda):
+    cfg = dict(num_luts=15, num_inputs=6, num_outputs=6, chan_width=10,
+               seed=3)
+    f = synth_flow(**cfg)
+    rc = Router(f.rr, RouterOpts(batch_size=32), device="cpu").route(f.term)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    rg = Router(f.rr, RouterOpts(batch_size=32, mesh_shards=2),
+                device=cuda).route(f.term)
+    assert pk.planes_sweep_block_cuda.launches > 0
+    assert sk.remote_slab_permute_cuda.launches > 0
+    assert pk.planes_relax_full_cuda.launches == 0
+    assert (rg.wirelength, rg.iterations) == (rc.wirelength, rc.iterations)
+    assert np.array_equal(rg.paths, rc.paths)
+    assert np.array_equal(rg.occ, rc.occ)
+    check_route(f.rr, f.term, rg.paths, occ=rg.occ)
+
+
+def _cards(n):
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs two or more CUDA devices")
+    return [torch.device("cuda", i % k) for i in range(n)]
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_slab_permute_kernel_across_cards(cuda, s, fwd):
+    """Shards on several cards: each sender's card writes the receiver's
+    buffer through a peer pointer; the result lands on the receiver's
+    card, equal to the plain version."""
+    devs = _cards(s)
+    rng = np.random.default_rng(s + 10 * fwd)
+    canv = rng.uniform(0, 1, (s, 64, 12, 6, 7)).astype(np.float32)
+    canv[rng.random(canv.shape) < 0.2] = np.inf
+    slabs = [torch.from_numpy(canv[i]).to(d)[:, :, 2:4]
+             for i, d in enumerate(devs)]
+    n0 = sk.remote_slab_permute_cuda.launches
+    got = sk.remote_slab_permute(slabs, fwd)
+    assert [g.device for g in got] == devs
+    assert sk.remote_slab_permute_cuda.launches == n0 + s
+    _same(got, sk.slab_permute_plain(slabs, fwd))
+
+
+def test_router_mesh_across_cards(cuda):
+    devs = _cards(4)
+    f = synth_flow(num_luts=15, num_inputs=6, num_outputs=6, chan_width=10,
+                   seed=3)
+    r1 = Router(f.rr, RouterOpts(batch_size=32), device=cuda).route(f.term)
+    router = Router(f.rr, RouterOpts(batch_size=32, mesh_shards=4),
+                    device=cuda)
+    assert router.row_mesh.devices == tuple(devs)
+    r4 = router.route(f.term)
+    assert (r4.wirelength, r4.iterations) == (r1.wirelength, r1.iterations)
+    assert np.array_equal(r4.paths, r1.paths)
+    assert np.array_equal(r4.occ, r1.occ)

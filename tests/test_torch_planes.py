@@ -252,7 +252,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                      torch.zeros(2, dtype=torch.int32),
                                      2, 2)
     assert pk.launch_counts() == {"planes_relax_full_cuda": 0,
-                                  "planes_relax_cropped_cuda": 0}
+                                  "planes_relax_cropped_cuda": 0,
+                                  "planes_sweep_block_cuda": 0}
 
 
 @pytest.mark.slow

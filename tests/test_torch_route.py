@@ -104,8 +104,12 @@ def test_router_opts_defaults_match_jax():
     ("program_library_dir", "x"), ("compile_cache_dir", "x")])
 def test_unported_options_raise(name, value):
     tf = synth_flow(**FIXTURE)
+    opts = {name: value}
+    if name == "mesh_shards":
+        # the mesh is ported; an unported mode under it still raises
+        opts["fused_dispatch"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Router(tf.rr, TR.RouterOpts(**{name: value}), device="cpu")
+        TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu")
 
 
 def test_timing_inputs_raise():
