@@ -9,14 +9,21 @@ Phases, one line each (any failure exits non-zero with no result line):
                  and g++ builds native/serial_sa.cc, all started together,
                  into parallel_eda_tpu_torch/build/
   3. kernels   — each relaxation kernel against its plain PyTorch version
-                 on the card at bench and scale shapes (B=64), exact and
-                 jittered costs: dist/wenter/pred bit-identical; kernel,
-                 plain-version and bound times
-  4. halo      — the halo-shift kernel (K3) against its plain version at
-                 the bench slab shapes, 2-4 shards, both directions:
-                 bit-identical; kernel, plain, copy_ and bound times
+                 on the card at bench and scale shapes (B=64), exact,
+                 jittered and crit > 0 costs: dist/wenter/pred
+                 bit-identical; kernel, plain-version and bound times
+  4. halo      — the halo kernel (K3): its one-hop shift
+                 (remote_slab_permute_cuda) and the route's in-place
+                 exchange (halo_exchange_cuda, lag 1 and lag 2) against
+                 their plain versions at the bench blocks (2-4 shards)
+                 and the scale block (4 shards): bit-identical; times per
+                 exchange beside the library copy_/fill_ loop, the
+                 buffered exchange (shifts into fresh buffers, then
+                 install copies) and the bound
   5. step      — the one-sweep step entry against one plain sweep on the
-                 shards' bench blocks, pred carried in: bit-identical
+                 shards' bench blocks (2, 4 shards) and the scale block
+                 (4 shards), pred carried in, in every shared-memory
+                 mode that fits: bit-identical; every mode timed
   6. sharded   — the row-sharded relaxation on the card (both schedules,
                  2 and 4 shards) against single-device K1 (dist/wenter)
                  and against its own CPU run (every output and stats)
@@ -29,10 +36,18 @@ Phases, one line each (any failure exits non-zero with no result line):
                  annealer and route it on the card, single-device and
                  at mesh_shards=4: legal
  10. launches  — every kernel's launch count over the route phases
-(and, after 7 and after 8, a torch.profiler breakdown of a warm bench
-route and of a warm mesh_shards=2 bench route)
+ 11. device    — the kernels' device time per launch (torch.profiler)
+                 for the cases phases 3-5 timed
+ 12. profile   — a torch.profiler breakdown of a warm bench route, a
+                 warm mesh_shards=2 bench route and a warm scale route
+                 (their untraced seconds taken in phases 7-9)
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
+
+Every host-clock timing (ms per call, route seconds) is taken before
+the first profiler session: a session can leave the process's later
+launches slower on the host (the "launch" line gives the host's cost
+per launch before and after).
 
 The shards of phases 4, 6 and 8 are placed round-robin over the visible
 cards, so on a machine with several cards their halos cross NVLink.
@@ -40,6 +55,8 @@ cards, so on a machine with several cards their halos cross NVLink.
 
 from __future__ import annotations
 
+import functools
+import gc
 import json
 import os
 import subprocess
@@ -49,11 +66,12 @@ import traceback
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, f32
-# (non-tensor-core) rate — the min-plus relaxation is f32 add/min work —
-# and NVLink 4 to another card, one way
+# H100 SXM peaks: the HBM3 rate and NVLink 4 to another card, one way
+# (NVIDIA data sheet); the f32 rate of separate add / multiply / min
+# instructions — the kernels are built with -fmad=false, so no FMA
+# counts two operations — 132 SMs x 128 f32 lanes x 1.98 GHz boost
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
+PEAK_F32_OPS_S = 132 * 128 * 1.98e9
 PEAK_NVLINK_BYTES_S = 450e9
 REPLACES = {
     "planes_relax_full_cuda":
@@ -64,7 +82,9 @@ REPLACES = {
     # parallel_eda_tpu/route/planes_shard.py:369
     "planes_sweep_block_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:477",
-    "remote_slab_permute_cuda":
+    # K3 with the install that followed it (planes_shard.py:317-355); the
+    # same kernel serves remote_slab_permute_cuda, held in the halo phase
+    "halo_exchange_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:597",
 }
 SOURCES = {
@@ -72,8 +92,7 @@ SOURCES = {
     "planes_relax_cropped_cuda":
         "parallel_eda_tpu_torch/csrc/planes_relax.cu",
     "planes_sweep_block_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
-    "remote_slab_permute_cuda":
-        "parallel_eda_tpu_torch/csrc/slab_permute.cu",
+    "halo_exchange_cuda": "parallel_eda_tpu_torch/csrc/slab_permute.cu",
 }
 
 
@@ -84,29 +103,101 @@ def say(phase: str, msg: str) -> None:
 def cuda_ms(fn, reps: int) -> float:
     """Mean ms per call of ``fn`` over ``reps`` warmed calls: CUDA events
     on one card; with several cards visible, the host clock between
-    synchronisations of every card (the work spans their streams)."""
+    synchronisations of every card (the work spans their streams).  The
+    garbage collector is paused while the calls run, as timeit pauses
+    it: one collection of this process's heap costs more than a
+    bench-size kernel call."""
     import torch
 
     fn()
     n = torch.cuda.device_count()
-    if n > 1:
-        for d in range(n):
-            torch.cuda.synchronize(d)
-        t0 = time.perf_counter()
+    gc.collect()
+    gc.disable()
+    try:
+        if n > 1:
+            for d in range(n):
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            for d in range(n):
+                torch.cuda.synchronize(d)
+            return (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
         for _ in range(reps):
             fn()
-        for d in range(n):
-            torch.cuda.synchronize(d)
-        return (time.perf_counter() - t0) * 1e3 / reps
+        e.record()
+        torch.cuda.synchronize()
+        return s.elapsed_time(e) / reps
+    finally:
+        gc.enable()
+
+
+# device-time measurements queued by the timing phases and taken in
+# phase_device, after every host-clock timing: (tag, dict, field, fn, key)
+_DEVICE = []
+
+
+def device_later(tag, d, field, fn, key: str) -> None:
+    """Queue ``d[field] = device_us(fn, key)`` for phase_device.  ``fn``
+    must hold its own arguments (functools.partial), not a loop's
+    variables."""
+    _DEVICE.append((tag, d, field, fn, key))
+
+
+def phase_device() -> None:
+    for tag, d, field, fn, key in _DEVICE:
+        d[field] = device_us(fn, key)
+        say("device", f"{tag} {field}: {d[field]:.2f} us per launch")
+    _DEVICE.clear()
+
+
+def launch_us(n: int = 20000) -> float:
+    """Host µs per launch of a one-element PyTorch add: the process's
+    cost of a launch (the host's speed; a profiler session can raise
+    it)."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    x.add_(1)
     torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1)
     torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def device_us(fn, key: str, reps: int = 20) -> float:
+    """Mean device time (µs) per launch of the kernels whose name holds
+    ``key`` over ``reps`` calls of ``fn``, from torch.profiler: the
+    kernel alone, without the wrapper's host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # a trace now and then comes back without the device's activity
+    # records; such a trace is taken again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = n = 0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA \
+                    and key in e.key:
+                us += (getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "device_time_total", 0))
+                n += e.count
+        if n:
+            return us / n
+    raise AssertionError(f"the profiler saw no {key} launch")
 
 
 def scan_combines(n: int) -> int:
@@ -116,14 +207,32 @@ def scan_combines(n: int) -> int:
     return n // 2 + (n + 1) // 2 - 1 + scan_combines(n // 2)
 
 
-def sweep_ops(W: int, X: int, Y: int) -> int:
-    """f32 operations of one sweep of one net on an (X, Y) canvas: four
-    line scans (3 ops per combine, 3 per cell for cost/compare) and two
-    turn stencils (12 candidates x 5 ops + 1 compare per target)."""
+def sweep_ops(W: int, X: int, Y: int, directional: bool) -> int:
+    """f32 operations that one sweep of one net on an (X, Y) canvas needs,
+    counting only what can change its result.  Four line scans: per
+    combine of lax.associative_scan's tree two adds and a min, per cell
+    the compare with dist (the scan cost is launch_ops').  Two turn
+    stencils: each candidate that can win — the straight turn and the
+    rotated turn of the corner's parity, from the source pairs (a, b)
+    inside the canvas, on one gate side only on directional tracks — at
+    the min of its two gates (not on directional tracks), two adds and
+    the compare; per target the compare with dist and crit * delay (into
+    y on bidirectional tracks also the two rotated delays)."""
     ncx, ncy = W * X * (Y + 1), W * (X + 1) * Y
-    scans = (2 * W * (Y + 1) * (3 * scan_combines(X) + 3 * X)
-             + 2 * W * (X + 1) * (3 * scan_combines(Y) + 3 * Y))
-    return scans + 61 * (ncx + ncy)
+    scans = (2 * W * (Y + 1) * (3 * scan_combines(X) + X)
+             + 2 * W * (X + 1) * (3 * scan_combines(Y) + Y))
+    # straight + rotated (at W = 2 only one parity has a rotated turn)
+    turns = 1 + (W > 2)
+    sides = 1 if directional else 2
+    cands = turns * sides * (W * Y * 2 * X + W * X * 2 * Y)
+    per_target = 2 * ncx + (2 if directional else 4) * ncy
+    return scans + cands * (3 if directional else 4) + per_target
+
+
+def launch_ops(W: int, X: int, Y: int) -> int:
+    """f32 operations a relaxation launch needs once per net: the scan
+    cost crit * delay + cc of every cell."""
+    return 2 * (W * X * (Y + 1) + W * (X + 1) * Y)
 
 
 def bounds(nbytes: float, ops: float) -> dict:
@@ -138,13 +247,16 @@ def bounds(nbytes: float, ops: float) -> dict:
 def bound_ms(pg, B: int, net_sweeps, tile=None):
     """Least time for one relaxation call: the larger of (flats read and
     written once + the geometry once) / HBM rate and (the sweeps this
-    run's data needed x ops per sweep) / f32 rate."""
+    run's data needed x ops per sweep + the scan costs once per net) /
+    f32 rate."""
     W, NX, NYp1 = pg.shape_x
     nc = pg.ncells
     geo = 4 * nc + 4 * (W * NX * NYp1 + 3 * (nc - W * NX * NYp1))
     nbytes = 3 * 4 * B * nc + 4 * B + 12 * B * nc + 8 * B + geo
     X, Y = (NX, NYp1 - 1) if tile is None else tile
-    return bounds(nbytes, int(net_sweeps.sum()) * sweep_ops(W, X, Y))
+    return bounds(nbytes, int(net_sweeps.sum())
+                  * sweep_ops(W, X, Y, pg.directional)
+                  + B * launch_ops(W, X, Y))
 
 
 def phase_card():
@@ -255,14 +367,36 @@ def phase_kernels(flows):
                              crit_on=kind == "crit")
             # --- K1: full canvas ---
             got = P.planes_relax(pg, *inst[:3], inst[3], nsw)
-            net_st = pk.planes_relax_full_cuda.last_net_stats.cpu().numpy()
+            net_st = pk.planes_relax_full_cuda.last_stats[:-1].cpu().numpy()
+            auto = pk.planes_relax_full_cuda.last_mode
             ref = P.planes_relax_plain(pg, *inst[:3], inst[3], nsw)
             err = _compare(f"K1 {cfg} {kind}", got, ref)
+            # every smaller shared-memory mode gives the same bits
+            for m in range(auto):
+                err = max(err, _compare(
+                    f"K1 {cfg} {kind} mode {m}", pk.planes_relax_full_cuda(
+                        pg, *inst[:3], inst[3], nsw, mode=m), ref))
             case = dict(cfg=cfg, costs=kind, shape=[W, NX, NY], B=B,
-                        sweeps=int(got[3][0]), max_abs_err=err)
+                        sweeps=int(got[3][0]), max_abs_err=err, mode=auto)
             if kind == "jitter":
                 case["ms"] = cuda_ms(lambda: P.planes_relax(
-                    pg, *inst[:3], inst[3], nsw), 20)
+                    pg, *inst[:3], inst[3], nsw), 100 if NX < 16 else 20)
+                # the kernel alone, and its fixed part (one sweep)
+                tag = f"K1 {cfg}"
+                device_later(tag, case, "device_us", functools.partial(
+                    P.planes_relax, pg, *inst[:3], inst[3], nsw),
+                    "planes_relax_full")
+                device_later(tag, case, "one_sweep_device_us",
+                             functools.partial(P.planes_relax, pg,
+                                               *inst[:3], inst[3], 1),
+                             "planes_relax_full")
+                by_mode = case["device_us_by_mode"] = {}
+                for m in range(auto + 1):
+                    device_later(f"{tag} mode {m}", by_mode, m,
+                                 functools.partial(
+                                     pk.planes_relax_full_cuda, pg,
+                                     *inst[:3], inst[3], nsw, mode=m),
+                                 "planes_relax_full")
                 case["plain_ms"] = cuda_ms(lambda: P.planes_relax_plain(
                     pg, *inst[:3], inst[3], nsw), 2)
                 case.update(bound_ms(pg, B, net_st[:, 0]))
@@ -277,15 +411,20 @@ def phase_kernels(flows):
                     0, NY - cny + 1, B).astype(np.int32)).cuda()
                 args = (pg, *inst[:3], inst[3], nsw, ox, oy, cnx, cny)
                 got = P.planes_relax_cropped(*args)
-                net_st = (pk.planes_relax_cropped_cuda.last_net_stats
+                net_st = (pk.planes_relax_cropped_cuda.last_stats[:-1]
                           .cpu().numpy())
                 ref = P.planes_relax_cropped_plain(*args)
                 err = _compare(f"K2 {cfg} {kind} {cnx}x{cny}", got, ref)
                 case = dict(cfg=cfg, costs=kind, tile=[cnx, cny], B=B,
-                            sweeps=int(got[3][0]), max_abs_err=err)
+                            sweeps=int(got[3][0]), max_abs_err=err,
+                            mode=pk.planes_relax_cropped_cuda.last_mode)
                 if kind == "jitter":
                     case["ms"] = cuda_ms(
                         lambda: P.planes_relax_cropped(*args), 20)
+                    device_later(f"K2 {cfg} {cnx}x{cny}", case,
+                                 "device_us", functools.partial(
+                                     P.planes_relax_cropped, *args),
+                                 "planes_relax_cropped")
                     case["plain_ms"] = cuda_ms(
                         lambda: P.planes_relax_cropped_plain(*args), 2)
                     case.update(bound_ms(pg, B, net_st[:, 0],
@@ -313,75 +452,134 @@ def _same(tag, got, ref):
     return err
 
 
-def phase_halo(pg):
-    """K3 against its plain version at the bench route's slab shapes:
-    per s, the four shifts of one exchange round (dx right/left 1
-    column, dy right 1 / left 2 columns) from strided views of random
-    block canvases, shard i on card i mod (visible cards).  Times are
-    per call, averaged over the four; the library call is dst.copy_(src)
-    per receiver plus zero_() at the edge (several PyTorch calls: no
-    single one shifts a list of tensors).  The bound is the bytes read
-    and written over HBM or, across cards, one slab over one NVLink."""
+def _sync_all():
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def exchange_bound_ms(moves):
+    """Least time of one exchange: each moved slab read once and each
+    halo written once over HBM, or — across cards — the bytes one NVLink
+    direction carries (the largest of the card pairs) over its rate."""
+    hbm, link = 0, {}
+    for src, dst, _ in moves:
+        nb = dst.numel() * 4
+        hbm += nb * (2 if src is not None else 1)
+        if src is not None and src.device != dst.device:
+            key = (src.device, dst.device)
+            link[key] = link.get(key, 0) + nb
+    return max(hbm / PEAK_BYTES_S,
+               max(link.values(), default=0) / PEAK_NVLINK_BYTES_S) * 1e3
+
+
+def phase_halo(shapes):
+    """K3 on the card.  (a) The TPU kernel's contract: the four one-hop
+    shifts of an exchange round (dx right/left 1 column, dy right 1 /
+    left 2 columns) from strided views of random block canvases, through
+    remote_slab_permute_cuda, against its plain version.  (b) The
+    route's exchange: halo_exchange_cuda in place on the shards' block
+    states, from the same set (lag 1) and from another (lag 2), against
+    halo_exchange_plain: bit-identical.  Shard i sits on card i mod
+    (visible cards).  Times per exchange (one sweep's halos): the
+    prebuilt exchange (HaloExchange), its plain version, the library
+    loop (one dst.copy_(src) per halo view plus fill_(INF) at the edges:
+    4 * s PyTorch calls on prebuilt views) and the buffered exchange (four
+    remote_slab_permute_cuda calls into fresh buffers, then the install
+    copies); the bound is exchange_bound_ms."""
     import torch
 
     from parallel_eda_tpu_torch.route import shard_kernels as sk
     from parallel_eda_tpu_torch.route.planes_shard import row_block_cols
 
-    W, NX, NYp1 = pg.shape_x
-    NY = NYp1 - 1
-    B = 64
     rng = np.random.default_rng(1)
     rows = []
     ncard = torch.cuda.device_count()
+    B = 64
 
     def canvas(shape, i):
         a = rng.uniform(0, 1e-9, shape).astype(np.float32)
         a[rng.random(shape) < 0.3] = np.inf
         return torch.from_numpy(a).to(f"cuda:{i % ncard}")
 
-    for s in (2, 3, 4):
+    for cfg, pg, s in shapes:
+        W, NX, NYp1 = pg.shape_x
+        NY = NYp1 - 1
         kx = row_block_cols(pg, s)
-        cx = [canvas((B, W, kx + 2, NYp1), i) for i in range(s)]
-        cy = [canvas((B, W, kx + 3, NY), i) for i in range(s)]
-        calls = [([c[:, :, kx:kx + 1] for c in cx], True),
-                 ([c[:, :, 1:2] for c in cx], False),
-                 ([c[:, :, kx:kx + 1] for c in cy], True),
-                 ([c[:, :, 1:3] for c in cy], False)]
+
+        def states():
+            return [(canvas((B, W, kx + 2, NYp1), i),
+                     canvas((B, W, kx + 3, NY), i)) for i in range(s)]
+
+        sts, other = states(), states()
+        calls = [([st[0][:, :, kx:kx + 1] for st in sts], True),
+                 ([st[0][:, :, 1:2] for st in sts], False),
+                 ([st[1][:, :, kx:kx + 1] for st in sts], True),
+                 ([st[1][:, :, 1:3] for st in sts], False)]
         err = 0.0
         for slabs, fwd in calls:
             got = sk.remote_slab_permute_cuda(slabs, fwd)
-            torch.cuda.synchronize()
+            _sync_all()
             ref = sk.slab_permute_plain(slabs, fwd)
-            err = max(err, _same(f"K3 s={s} fwd={fwd}", got, ref))
-        dsts = [[torch.empty((B, W) + tuple(sl[0].shape[2:]),
-                             device=sl[r].device) for r in range(s)]
-                for sl, _ in calls]
+            err = max(err, _same(f"K3 shift {cfg} s={s} fwd={fwd}", got,
+                                 ref))
+        for src in (None, other):
+            ref = [tuple(t.clone() for t in st) for st in sts]
+            sk.halo_exchange_plain(ref, kx, src)
+            n0 = sk.halo_exchange_cuda.launches
+            sk.halo_exchange_cuda(sts, kx, src)
+            _sync_all()
+            per_sweep = sk.halo_exchange_cuda.launches - n0
+            for k in range(s):
+                err = max(err, _same(f"K3 exchange {cfg} s={s} lag "
+                                     f"{1 if src is None else 2} shard {k}",
+                                     sts[k], ref[k]))
+        moves = sk.halo_moves(sts, kx)
+        lib_moves = [(a, b) for a, b, _ in moves]
+        inf = float("inf")
 
         def library():
-            for (slabs, fwd), dst in zip(calls, dsts):
-                for r in range(s):
-                    snd = r - 1 if fwd else r + 1
-                    if 0 <= snd < s:
-                        dst[r].copy_(slabs[snd])
-                    else:
-                        dst[r].zero_()
+            for a, b in lib_moves:
+                if a is None:
+                    b.fill_(inf)
+                else:
+                    b.copy_(a)
 
-        cards = min(s, ncard)
-        moved = sum((2 * s - 1) * sl[0].numel() * 4 for sl, _ in calls) / 4
-        slab = sum(sl[0].numel() * 4 for sl, _ in calls) / 4
-        bound = max(moved / PEAK_BYTES_S,
-                    slab / PEAK_NVLINK_BYTES_S if cards > 1 else 0.0)
+        def buffered():
+            got = [sk.remote_slab_permute_cuda(sl, f) for sl, f in calls]
+            for r, st in enumerate(sts):
+                lx, rx, ly, ry = (g[r] for g in got)
+                for dst, h, edge in ((st[0][:, :, 0:1], lx, r == 0),
+                                     (st[0][:, :, kx + 1:kx + 2], rx,
+                                      r == s - 1),
+                                     (st[1][:, :, 0:1], ly, r == 0),
+                                     (st[1][:, :, kx + 1:kx + 3], ry,
+                                      r == s - 1)):
+                    if edge:
+                        dst.fill_(inf)
+                    else:
+                        dst.copy_(h)
+
+        run = sk.HaloExchange(sts, kx)
         case = dict(
-            shards=s, B=B, slabs=[list(sl[0].shape) for sl, _ in calls],
+            cfg=cfg, shards=s, B=B, block=[W, kx, NY],
+            cards=min(s, ncard), launches_per_sweep=per_sweep,
             max_abs_err=err,
-            ms=cuda_ms(lambda: [sk.remote_slab_permute_cuda(sl, f)
-                                for sl, f in calls], 200) / 4,
-            plain_ms=cuda_ms(lambda: [sk.slab_permute_plain(sl, f)
-                                      for sl, f in calls], 50) / 4,
-            library_ms=cuda_ms(library, 200) / 4,
-            bound_ms=bound * 1e3, bound_by="bytes", cards=cards)
+            ms=cuda_ms(run, 500),
+            plain_ms=cuda_ms(lambda: sk.halo_exchange_plain(sts, kx), 100),
+            library_ms=cuda_ms(library, 200),
+            buffered_ms=cuda_ms(buffered, 100),
+            shift_ms=cuda_ms(lambda: sk.remote_slab_permute_cuda(*calls[0]),
+                             200),
+            bound_ms=exchange_bound_ms(moves), bound_by="bytes")
+        # the exchange writes into sts: the queued call holds them
+        device_later(f"K3 {cfg} s={s}", case, "device_us",
+                     functools.partial(lambda r, keep: r(), run, sts),
+                     "slab_permute")
         rows.append(case)
-        say("halo", "K3 bit-identical, " + json.dumps(case))
+        say("halo", "K3 shift and exchange bit-identical, "
+                    + json.dumps(case))
     return rows
 
 
@@ -415,7 +613,8 @@ def step_bound_ms(B, W, X, Y, gm):
     """Least time of one step launch: per cell the state (dist, pred,
     wenter) and congestion read once and the new state written once,
     crit read and stats written once per net, the block geometry read
-    once (bytes); or one sweep of every net (f32 operations)."""
+    once (bytes); or one sweep of every net and its scan costs (f32
+    operations)."""
     cells = W * X * (Y + 1) + W * (X + 1) * Y
     geo = sum(getattr(gm, k).numel() * getattr(gm, k).element_size()
               for k in ("brk_before_x", "brk_after_x", "brk_before_y",
@@ -423,48 +622,75 @@ def step_bound_ms(B, W, X, Y, gm):
                         "last_y", "delay_x", "delay_y", "delay_y_rot0",
                         "delay_y_rot1", "idxx", "idxy", "base_par"))
     nbytes = B * cells * 4 * (4 + 3) + 4 * B + 8 * B + geo
-    return bounds(nbytes, B * sweep_ops(W, X, Y))
+    return bounds(nbytes, B * (sweep_ops(W, X, Y, gm.directional)
+                               + launch_ops(W, X, Y)))
 
 
-def phase_step(rr, pg):
-    """The step entry against one plain sweep on each shard's bench
-    block (B=64), pred carried in, exact and jittered costs; the
-    kernel's owned-changed flags against the plain sweep's."""
+def phase_step(shapes):
+    """The step entry against one plain sweep on each shard's block
+    (B=64), pred carried in, exact, jittered and crit > 0 costs, in every
+    shared-memory mode that fits (the route takes the most that fits);
+    the kernel's owned-changed flags against the plain
+    sweep's.  Times: the prebuilt launch (sweep_block_launcher, as the
+    route calls it) in every mode, the one-shot wrapper, and one plain
+    sweep."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes as P
     from parallel_eda_tpu_torch.route import planes_kernels as pk
 
     rng = np.random.default_rng(2)
-    W, NX, NYp1 = pg.shape_x
     B = 64
     rows = []
-    for s in (2, 4):
-        for kind in ("exact", "jitter"):
-            inst = _instance(rr, pg, B, rng, kind == "exact")
+    for cfg, rr, pg, s in shapes:
+        W, NX, NYp1 = pg.shape_x
+        for kind in ("exact", "jitter", "crit"):
+            inst = _instance(rr, pg, B, rng, kind == "exact",
+                             crit_on=kind == "crit")
             blocks, kx = _blocks(pg, inst, s, ["cuda"] * s)
             own = slice(1, kx + 1)
             err = 0.0
             for k, (g, st, crit, ccx, ccy, costs) in enumerate(blocks):
-                got, stats = pk.planes_sweep_block_cuda(g, st, crit, ccx,
-                                                        ccy, (1, kx + 1))
-                torch.cuda.synchronize()
                 ref = P._sweep_once(g, st, crit, ccx, ccy, costs)
-                err = max(err, _same(f"step s={s} {kind} shard {k}", got,
-                                     ref))
                 flag = ((ref[0][:, :, own] < st[0][:, :, own]
                          ).flatten(1).any(1)
                         | (ref[1][:, :, own] < st[1][:, :, own]
                            ).flatten(1).any(1))
-                if not torch.equal(stats[:, 1].bool(), flag):
-                    raise AssertionError(f"step s={s} {kind}: owned-"
-                                         "changed flags differ")
-            case = dict(shards=s, costs=kind, B=B,
+                auto = pk.sweep_block_launcher(
+                    g, st, crit, ccx, ccy, (1, kx + 1),
+                    tuple(torch.empty_like(t) for t in st),
+                    torch.empty((B, 2), dtype=torch.int32,
+                                device=st[0].device)).mode
+                for mode in [None] + list(range(auto + 1)):
+                    got, stats = pk.planes_sweep_block_cuda(
+                        g, st, crit, ccx, ccy, (1, kx + 1), mode=mode)
+                    torch.cuda.synchronize()
+                    tag = f"step {cfg} s={s} {kind} shard {k} mode {mode}"
+                    err = max(err, _same(tag, got, ref))
+                    if not torch.equal(stats[:, 1].bool(), flag):
+                        raise AssertionError(f"{tag}: owned-changed flags "
+                                             "differ")
+            case = dict(cfg=cfg, shards=s, costs=kind, B=B,
                         block=[W, kx + 2, NYp1 - 1], max_abs_err=err)
             if kind == "jitter":
                 g, st, crit, ccx, ccy, costs = blocks[0]
-                case["ms"] = cuda_ms(lambda: pk.planes_sweep_block_cuda(
-                    g, st, crit, ccx, ccy, (1, kx + 1)), 50)
+                out = tuple(torch.empty_like(t) for t in st)
+                stats = torch.empty((B, 2), dtype=torch.int32,
+                                    device=st[0].device)
+                for j, mode in enumerate(list(range(auto + 1)) + [None]):
+                    run = pk.sweep_block_launcher(g, st, crit, ccx, ccy,
+                                                  (1, kx + 1), out, stats,
+                                                  mode)
+                    # the route's mode last, under the plain keys
+                    tag = "" if j > auto else f"_mode{mode}"
+                    case["ms" + tag] = cuda_ms(run, 200)
+                    device_later(f"step {cfg} s={s}{tag}", case,
+                                 "device_us" + tag, run,
+                                 "planes_relax_cropped")
+                case["mode"] = run.mode
+                case["wrapper_ms"] = cuda_ms(
+                    lambda: pk.planes_sweep_block_cuda(
+                        g, st, crit, ccx, ccy, (1, kx + 1)), 50)
                 case["plain_ms"] = cuda_ms(lambda: P._sweep_once(
                     g, st, crit, ccx, ccy, costs), 10)
                 case.update(step_bound_ms(B, W, kx + 2, NYp1 - 1, g))
@@ -547,9 +773,18 @@ def _route(tag, flow, opts, impl=None):
                  f"{res.total_relax_steps_useful}; halo ledger "
                  f"{json.dumps(router.metrics)}")
         if counts["planes_sweep_block_cuda"] <= 0 \
-                or counts["remote_slab_permute_cuda"] <= 0:
+                or counts["halo_exchange_cuda"] <= 0:
             raise AssertionError(f"{tag}: the sharded route did not run "
                                  "the step and halo kernels")
+        if counts["remote_slab_permute_cuda"]:
+            raise AssertionError(f"{tag}: the route shifted slabs into "
+                                 "buffers instead of exchanging in place")
+        if rm.n_cards == 1 and \
+                counts["halo_exchange_cuda"] != res.total_relax_steps:
+            raise AssertionError(
+                f"{tag}: {counts['halo_exchange_cuda']} exchange launches "
+                f"for {res.total_relax_steps} sweeps on one card (want one "
+                "per sweep)")
         if counts["planes_relax_full_cuda"] or \
                 counts["planes_relax_cropped_cuda"]:
             raise AssertionError(f"{tag}: a single-device relaxation ran "
@@ -557,17 +792,12 @@ def _route(tag, flow, opts, impl=None):
     return res, counts, dt
 
 
-def phase_profile(flow, opts, tag):
-    """Where a warm route's time goes on the card: a second route on the
-    same Router is timed untraced, a third is traced with torch.profiler
-    (device activity only) for device time by kernel, the hand-written
-    kernels' device time per launch and their share; the busy share is
-    device time over the untraced wall time."""
+def warm_route(flow, opts):
+    """A Router that has routed ``flow`` once, and the seconds of a
+    second (warm, untraced) route on it."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+    from parallel_eda_tpu_torch.route.router import Router
 
     router = Router(flow.rr, opts, device="cuda")
     router.route(flow.term)
@@ -575,7 +805,20 @@ def phase_profile(flow, opts, tag):
     t0 = time.time()
     router.route(flow.term)
     torch.cuda.synchronize()
-    route_s = time.time() - t0
+    return router, time.time() - t0
+
+
+def phase_profile(flow, warm, tag):
+    """Where a warm route's time goes on the card: one more route on the
+    Router of ``warm`` (warm_route's result) is traced with
+    torch.profiler (device activity only) for device time by kernel, the
+    hand-written kernels' device time per launch and their share; the
+    busy share is device time over warm_route's untraced seconds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    router, route_s = warm
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         router.route(flow.term)
@@ -602,13 +845,19 @@ def phase_profile(flow, opts, tag):
     top = "; ".join(f"{k[2][:60]} {k[0] / 1e3:.1f}ms x{k[1]}"
                     for k in kern[:6])
     hand_us = sum(k[0] for k in hand)
+    # PyTorch's elementwise, fill and copy kernels (where the halo
+    # installs ran before the exchange wrote in place)
+    elem = [k for k in kern if k not in hand and any(
+        w in k[2].lower() for w in ("elementwise", "fill", "copy"))]
     say("profile", f"{tag} route traced {wall_us / 1e6:.2f}s wall "
                    f"(untraced {route_s:.2f}s), device busy "
                    f"{busy / 1e3:.1f}ms ({busy / 1e6 / route_s:.3f} of the "
                    f"untraced wall), hand-written kernels "
                    f"{hand_us / 1e3:.1f}ms ({hand_us / busy:.3f} of device "
                    f"time: {own}), {sum(k[1] for k in kern)} kernel "
-                   f"launches; top: {top}")
+                   f"launches, of which elementwise/fill/copy "
+                   f"{sum(k[1] for k in elem)} "
+                   f"({sum(k[0] for k in elem) / 1e3:.1f}ms); top: {top}")
 
 
 def main(argv) -> int:
@@ -624,6 +873,7 @@ def main(argv) -> int:
 
     say("card", f"{torch.cuda.device_count()} visible card(s)")
     phase_build()
+    launch0 = launch_us()
     t0 = time.time()
     bench = synth_flow(num_luts=60, num_inputs=12, num_outputs=12,
                        chan_width=12, seed=11)
@@ -632,8 +882,13 @@ def main(argv) -> int:
     say("flows", f"front ends built in {time.time() - t0:.1f}s")
     rows = phase_kernels({"bench": bench, "scale": scale})
     pg_bench = P.build_planes(bench.rr, "cuda")
-    rows["remote_slab_permute_cuda"] = phase_halo(pg_bench)
-    rows["planes_sweep_block_cuda"] = phase_step(bench.rr, pg_bench)
+    pg_scale = P.build_planes(scale.rr, "cuda")
+    rows["halo_exchange_cuda"] = phase_halo(
+        [("bench", pg_bench, s) for s in (2, 3, 4)]
+        + [("scale", pg_scale, 4)])
+    rows["planes_sweep_block_cuda"] = phase_step(
+        [("bench", bench.rr, pg_bench, s) for s in (2, 4)]
+        + [("scale", scale.rr, pg_scale, 4)])
     phase_sharded(bench.rr, pg_bench)
 
     res, c_bench, _ = _route("bench", bench, RouterOpts(batch_size=64))
@@ -641,7 +896,7 @@ def main(argv) -> int:
         raise AssertionError(f"bench: expected wirelength 537 in 22 "
                              f"iterations, got {res.wirelength} in "
                              f"{res.iterations}")
-    phase_profile(bench, RouterOpts(batch_size=64), "bench")
+    warm = {"bench": (bench, warm_route(bench, RouterOpts(batch_size=64)))}
     c_mesh = []
     for s in (2, 4):
         # the Router's lag-1 schedule, then lag 2 for comparison, timed
@@ -673,12 +928,14 @@ def main(argv) -> int:
                         f"{secs['pallas_halo']}; sweeps executed (useful) "
                         f"lag 1 {sweeps['ppermute']}, lag 2 "
                         f"{sweeps['pallas_halo']}")
-    phase_profile(bench, RouterOpts(batch_size=64, mesh_shards=2), "mesh2")
+    warm["mesh2"] = (bench, warm_route(
+        bench, RouterOpts(batch_size=64, mesh_shards=2)))
     t0 = time.time()
     scale = run_place_native(scale)
     say("scale", f"placed {scale.pnl.num_blocks} blocks in "
                  f"{time.time() - t0:.1f}s (native SA)")
     _, c_scale, _ = _route("scale", scale, RouterOpts(batch_size=64))
+    warm["scale"] = (scale, warm_route(scale, RouterOpts(batch_size=64)))
     _, c, _ = _route("scale_mesh4", scale,
                      RouterOpts(batch_size=64, mesh_shards=4))
     c_mesh.append(c)
@@ -691,13 +948,24 @@ def main(argv) -> int:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:
         raise AssertionError("K2 never launched on the scale route")
+    idle = [k for k in rows if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"never launched on the route phases: {idle}")
+    launch1 = launch_us()
+    phase_device()
+    for tag, (flow, w) in warm.items():
+        phase_profile(flow, w, tag)
+    del warm
+    say("launch", f"host us per PyTorch launch: {launch0:.2f} before any "
+                  f"profiler session, {launch1:.2f} after the timings and "
+                  f"routes, {launch_us():.2f} after the profiler phases")
 
     def main_case(name, c):
         if name == "planes_relax_full_cuda":
             return c["cfg"] == "bench" and c.get("tile") is None
         if name == "planes_relax_cropped_cuda":
             return c["cfg"] == "scale" and c.get("tile") == [16, 16]
-        return c["shards"] == 2
+        return c["cfg"] == "bench" and c["shards"] == 2
     kernels = []
     for name, cases in rows.items():
         m = next(c for c in cases if "ms" in c and main_case(name, c))

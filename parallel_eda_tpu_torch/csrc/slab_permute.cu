@@ -1,80 +1,114 @@
-// Halo-slab neighbour shift for Hopper (sm_90a), bound to PyTorch through a
-// plain C interface loaded with ctypes (route/shard_kernels.py).
+// Halo moves for Hopper (sm_90a), bound to PyTorch through a plain C
+// interface loaded with ctypes (route/shard_kernels.py).
 //
 // Replaces the TPU kernel remote_slab_permute
-// (parallel_eda_tpu/route/planes_pallas.py:597, pallas_call :652): the
-// non-wrapping one-hop shift of a dist halo slab between the column-block
-// shards of the row-sharded relaxation.  fwd: shard i -> i+1; bwd: shard
-// i -> i-1; the edge shard with no sender receives zeros.
+// (parallel_eda_tpu/route/planes_pallas.py:597, pallas_call :652) together
+// with the install that followed it (parallel_eda_tpu/route/
+// planes_shard.py:317-355): the non-wrapping one-hop shift of the dist
+// halo columns between the column-block shards of the row-sharded
+// relaxation, written straight into the receivers' halo columns.
 //
-// A sender's slab is a strided view of its block's dist canvas: nseg rows
-// (B * W) of seg_len contiguous floats (1 or 2 canvas columns of Y cells)
-// with src_stride floats between rows.  Receivers get contiguous buffers
-// [B, W, cols, Y].  One thread block row (blockIdx.y) serves one receiver
-// r = r0 + blockIdx.y; its threads copy its sender's slab grid-stride, or
-// write zeros where it has no sender.
+// One launch executes a table of moves.  A move copies nseg rows of
+// seg_len contiguous floats from a source (row stride src_stride) to a
+// destination (row stride dst_stride), or writes `fill` where it has no
+// source (the edge shard with no sender).  Both sides are strided views of
+// the shards' block canvases, so a sender's owned boundary columns go
+// straight into its neighbour's halo columns: no receive buffer, no
+// install copy.  blockIdx.y selects the move; the threads of a block row
+// walk its elements grid-stride.
 //
-//   * all shards on one card: one launch, grid.y = n_shards, covers every
-//     receiver (the TPU kernel's per-device instances side by side);
-//   * shards on several cards: the sending card launches (grid.y = 1) and
-//     writes the receiver's buffer through a peer pointer over NVLink
-//     (peer access enabled once, slab_permute_enable_peer); the wrapper
-//     records an event on the sender's stream that the receiver's stream
-//     waits on — the TPU kernel's receive semaphore.
+//   * all shards on one card: one launch per exchange covers every move
+//     (four slabs per receiver, 4 * n_shards moves);
+//   * shards on several cards: each card launches once for the moves it
+//     sends (and the fills of its own edge halos), writing the receivers'
+//     halo columns through peer pointers over NVLink (peer access enabled
+//     once, slab_permute_enable_peer); the wrapper orders the launch after
+//     the receivers' streams and the receivers after it with events (the
+//     TPU kernel's semaphores).
 //
-// What bounds it on the H100: bytes, and at the route's slab sizes
-// (~20 KB) launch latency far more.  A slab is one read and one write
-// of each element; the copy is coalesced along each row (neighbouring
-// threads on neighbouring addresses).
+// What bounds it on the H100: bytes, and at the route's slab sizes (a few
+// to a few hundred KB per exchange) launch latency far more.  Each element
+// is one read and one write; the copy is coalesced along each row.  The
+// design's answer to latency is one launch per exchange, from argument
+// tables the caller builds once per relaxation.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
 
-#define MAX_SHARDS 16
+#define MAX_MOVES 64          // 4 slabs x 16 shards
+#define THREADS 256
+#define MAX_BLOCKS 1024
 
 namespace {
 
-struct SlabArgs {
-  const float* src[MAX_SHARDS];      // sender slab of shard i (strided)
-  float* dst[MAX_SHARDS];            // receive buffer of shard i
-  long long nseg, seg_len, src_stride;
-  int n_shards, fwd, r0;
+struct Move {
+  const float* src;          // null: write `fill`
+  float* dst;
+  int src_stride, dst_stride, nseg, seg_len;
+  float fill;
+  int pad;
 };
 
-__global__ void slab_permute_kernel(SlabArgs a) {
-  const int r = a.r0 + blockIdx.y;
-  const int snd = a.fwd ? r - 1 : r + 1;
-  const bool has = snd >= 0 && snd < a.n_shards;
-  const float* s = has ? a.src[snd] : nullptr;
-  float* d = a.dst[r];
-  const long long n = a.nseg * a.seg_len;
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n;
-       k += (long long)gridDim.x * blockDim.x) {
-    const long long row = k / a.seg_len, col = k - row * a.seg_len;
-    d[k] = has ? s[row * a.src_stride + col] : 0.0f;
+struct MoveTable {
+  Move m[MAX_MOVES];
+};
+
+__global__ void __launch_bounds__(THREADS) slab_permute_kernel(MoveTable t) {
+  const Move& mv = t.m[blockIdx.y];
+  const int n = mv.nseg * mv.seg_len;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n;
+       k += gridDim.x * blockDim.x) {
+    const int row = k / mv.seg_len, col = k - row * mv.seg_len;
+    mv.dst[(long long)row * mv.dst_stride + col] =
+        mv.src ? mv.src[(long long)row * mv.src_stride + col] : mv.fill;
   }
 }
 
 }  // namespace
 
-// p: src[0..n), dst[0..n) (n = n_shards pointers each; unused entries 0);
-// v: nseg, seg_len, src_stride, n_shards, fwd, r0, n_recv, threads, blocks
-extern "C" int slab_permute_launch(const void* const* p, const long long* v,
-                                   void* stream) {
-  const int n = (int)v[3], n_recv = (int)v[6];
-  if (n < 2 || n > MAX_SHARDS || v[5] < 0 || v[5] + n_recv > n)
-    return (int)cudaErrorInvalidValue;
-  SlabArgs a;
-  for (int i = 0; i < MAX_SHARDS; ++i) {
-    a.src[i] = i < n ? (const float*)p[i] : nullptr;
-    a.dst[i] = i < n ? (float*)p[n + i] : nullptr;
+// tab: n_moves rows of 7 long longs
+//   src ptr (0: fill), src row stride, dst ptr, dst row stride (floats),
+//   nseg, seg_len, fill (float bits in the low 32 bits)
+// Launches on `stream` with card `device` current (restored after).
+extern "C" int slab_permute_launch(const long long* tab, int n_moves,
+                                   int device, void* stream) {
+  if (n_moves < 1 || n_moves > MAX_MOVES) return (int)cudaErrorInvalidValue;
+  MoveTable t;
+  memset(&t, 0, sizeof(t));
+  long long most = 0;
+  for (int i = 0; i < n_moves; ++i) {
+    const long long* r = tab + 7 * i;
+    const long long n = r[4] * r[5];
+    if (r[1] < 0 || r[3] < 0 || r[1] > 0x7fffffffLL || r[3] > 0x7fffffffLL
+        || r[4] < 0 || r[5] < 1 || n > 0x7fffffffLL || r[2] == 0)
+      return (int)cudaErrorInvalidValue;
+    Move& m = t.m[i];
+    m.src = (const float*)(uintptr_t)r[0];
+    m.dst = (float*)(uintptr_t)r[2];
+    m.src_stride = (int)r[1];
+    m.dst_stride = (int)r[3];
+    m.nseg = (int)r[4];
+    m.seg_len = (int)r[5];
+    const uint32_t bits = (uint32_t)r[6];
+    memcpy(&m.fill, &bits, sizeof(float));
+    if (n > most) most = n;
   }
-  a.nseg = v[0]; a.seg_len = v[1]; a.src_stride = v[2];
-  a.n_shards = n; a.fwd = (int)v[4]; a.r0 = (int)v[5];
-  if (a.nseg * a.seg_len == 0) return 0;
-  dim3 grid((unsigned)v[8], (unsigned)n_recv);
-  slab_permute_kernel<<<grid, (unsigned)v[7], 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (most == 0) return 0;
+  int cur = 0;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  long long blocks = (most + THREADS - 1) / THREADS;
+  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
+  dim3 grid((unsigned)blocks, (unsigned)n_moves);
+  slab_permute_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(t);
+  e = cudaGetLastError();
+  if (cur != device) cudaSetDevice(cur);
+  return (int)e;
 }
+
+extern "C" int slab_permute_max_moves() { return MAX_MOVES; }
 
 // Enable peer access between every pair of the given cards (once per
 // process).  An already enabled pair is not an error.  Returns a CUDA error

@@ -80,17 +80,37 @@ class CudaLib:
         return self._lib
 
 
-def launch(fn, ptrs, ints, device: torch.device, what: str) -> None:
-    """Call a ``(void** p, long long* v, void* stream)`` launch entry on
-    ``device``'s current stream, with that card current; raise on a
-    non-zero CUDA error code."""
-    p = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    v = (ctypes.c_longlong * len(ints))(*ints)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(p, v, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed (cudaError {rc})")
+class Launch:
+    """A ``(void** p, long long* v, void* stream)`` launch entry with its
+    argument tables built once, as ctypes arrays ``p`` and ``v``: a
+    caller whose tensors change between calls sets their slots (slice
+    assignment) before calling.  Calling the object launches on
+    ``device``'s current stream (the entry makes the card current
+    itself) and raises on a non-zero CUDA error code.  ``keep`` holds the
+    tensors whose pointers the tables carry."""
+
+    __slots__ = ("fn", "p", "v", "index", "what", "keep")
+
+    def __init__(self, fn, ptrs, ints, device: torch.device, what: str,
+                 keep=()):
+        if device.type != "cuda" or device.index is None:
+            raise ValueError(f"{what}: needs a CUDA device with an index, "
+                             f"got {device}")
+        self.fn = fn
+        self.p = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        self.v = (ctypes.c_longlong * len(ints))(*ints)
+        self.index = device.index
+        self.what = what
+        self.keep = keep
+
+    def __call__(self) -> None:
+        # the current stream's raw handle, read as Triton's launcher reads
+        # it, without building a torch.cuda.Stream object per call
+        rc = self.fn(self.p, self.v,
+                     torch._C._cuda_getCurrentRawStream(self.index))
+        if rc != 0:
+            raise RuntimeError(f"{self.what} kernel launch failed "
+                               f"(cudaError {rc})")
 
 
 def check_tensor(t, dtype, shape, name: str) -> None:

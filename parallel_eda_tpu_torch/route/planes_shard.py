@@ -21,18 +21,22 @@ delay canvases.
 
 A shard lives on a ``torch.device`` of the mesh (``RowMesh.devices``;
 entries may repeat: shards sharing one card, or ``cpu`` in the tests).
-Per sweep every shard runs one sweep of its block — on a CUDA device
-the hand-written step kernel (planes_kernels.planes_sweep_block_cuda),
-on the CPU the plain planes._sweep_once — and the halos move through
-the transport of shard_kernels.remote_slab_permute (the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors).  The mesh's ``impl``
-names the schedule, as in the JAX package:
+Per sweep the halos move first, in place: one shard_kernels.halo_exchange
+writes every shard's halo columns from its neighbours' owned columns
+(on the card one launch of the halo kernel for all shards of a card,
+on the CPU its plain version), then every shard runs one sweep of its
+block — on a CUDA device the hand-written step kernel
+(planes_kernels.sweep_block_launcher, two state sets per shard
+ping-ponged so the launch tables are built once per relaxation), on
+the CPU the plain planes._sweep_once.  The mesh's ``impl`` names the
+schedule, as in the JAX package:
 
-* ``"ppermute"`` — lag 1: install the halos of the previous sweep, sweep,
-  then the global owned-changed flag decides whether to go on;
-* ``"pallas_halo"`` — lag 2: sweep t installs halos extracted before
-  sweep t-1, so each transfer has a whole sweep to land behind; the
-  loop exits after two consecutive globally stable sweeps.
+* ``"ppermute"`` — lag 1: exchange the halos of the previous sweep,
+  sweep, then the global owned-changed flag decides whether to go on;
+* ``"pallas_halo"`` — lag 2: sweep t takes halos extracted before
+  sweep t-1 (the owned columns of the other state set), so each
+  transfer could have a whole sweep to land behind; the loop exits
+  after two consecutive globally stable sweeps.
 
 The global flag is a sum of the shards' flags with one host read per
 sweep.  Both schedules relax to the single-device fixpoint; dist and
@@ -51,7 +55,7 @@ import torch
 
 from .planes import (INF, PlanesGeom, PlanesGraph, _flat, _split_flat,
                      _sweep_costs, _sweep_once)
-from .shard_kernels import MAX_SHARDS, remote_slab_permute
+from .shard_kernels import MAX_SHARDS, HaloExchange, halo_exchange
 
 # ceiling on the inflated sweep budget: information crosses one shard
 # boundary per sweep, so a path spanning m blocks needs up to m extra
@@ -264,21 +268,96 @@ def _shard_geoms(pg: PlanesGraph, rmesh: RowMesh, kx: int):
     return geoms
 
 
+class _PlainSweeps:
+    """The sharded sweep loop on the CPU: each sweep makes new state
+    tensors (planes._sweep_once) and the exchange writes the current
+    state's halo columns in place (halo_exchange's plain version)."""
+
+    def __init__(self, gms, states, crits, ccx, ccy, kx, home):
+        self.args = list(zip(gms, crits, ccx, ccy))
+        self.costs = [_sweep_costs(*a) for a in self.args]
+        self.cur = self.prev = states
+        self.kx = kx
+
+    def exchange(self, lagged: bool) -> None:
+        halo_exchange(self.cur, self.kx, self.prev if lagged else None)
+
+    def sweep(self) -> bool:
+        """One sweep of every shard; whether an owned cell improved."""
+        own = slice(1, self.kx + 1)
+        new, flags = [], []
+        for st, a, costs in zip(self.cur, self.args, self.costs):
+            st2 = _sweep_once(a[0], st, *a[1:], costs)
+            flags.append((st2[0][:, :, own] < st[0][:, :, own]).any()
+                         | (st2[1][:, :, own] < st[1][:, :, own]).any())
+            new.append(st2)
+        self.prev, self.cur = self.cur, new
+        return bool(torch.stack(flags).any())
+
+
+class _CardSweeps:
+    """The sharded sweep loop on the card: two state sets per shard,
+    ping-ponged (a sweep reads one and writes the other), so every launch
+    table is built once per relaxation: each shard's step, and each
+    exchange into the current set (from itself, or lagged from the
+    other).  One host read per sweep: the owned-changed flags of each
+    card's shards."""
+
+    def __init__(self, gms, states, crits, ccx, ccy, kx, home):
+        from .planes_kernels import sweep_block_launcher
+
+        B = states[0][0].shape[0]
+        self.sets = (states, [tuple(torch.empty_like(t) for t in st)
+                              for st in states])
+        by_card = {}
+        for k, st in enumerate(states):
+            by_card.setdefault(st[0].device, []).append(k)
+        self.stats = {d: torch.empty((len(ks), B, 2), dtype=torch.int32,
+                                     device=d) for d, ks in by_card.items()}
+        slot = {k: self.stats[d][j] for d, ks in by_card.items()
+                for j, k in enumerate(ks)}
+        self.steps = [[sweep_block_launcher(
+            gms[k], self.sets[p][k], crits[k], ccx[k], ccy[k], (1, kx + 1),
+            self.sets[1 - p][k], slot[k]) for k in range(len(states))]
+            for p in (0, 1)]
+        self.exchanges = {}
+        self.kx, self.home, self.p = kx, home, 0
+
+    @property
+    def cur(self):
+        return self.sets[self.p]
+
+    def exchange(self, lagged: bool) -> None:
+        key = (self.p, 1 - self.p if lagged else self.p)
+        run = self.exchanges.get(key)
+        if run is None:
+            run = self.exchanges[key] = HaloExchange(
+                self.sets[key[0]], self.kx, self.sets[key[1]])
+        run()
+
+    def sweep(self) -> bool:
+        """One sweep of every shard; whether an owned cell improved."""
+        for run in self.steps[self.p]:
+            run()
+        self.p = 1 - self.p
+        flags = [st[:, :, 1].any() for st in self.stats.values()]
+        if len(flags) == 1:
+            return bool(flags[0])
+        return bool(torch.stack([f.to(self.home) for f in flags]).any())
+
+
 def planes_relax_sharded(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                          wenter0, nsweeps: int, rmesh: RowMesh):
     """planes_relax, spatially sharded over ``rmesh``: the same contract
     — (dist_flat, pred_flat, wenter_flat, stats) on d0_flat's device —
     with every shard relaxing its own column block and the halo columns
     exchanged every sweep (module docstring)."""
-    from .planes_kernels import planes_sweep_block_cuda
-
     NX, NXp1 = pg.shape_x[1], pg.shape_y[1]
     s = rmesh.n_shards
     devs = rmesh.devices
     kx = row_block_cols(pg, s)
     nsw_cap = int(min(MAX_SHARD_SWEEPS, max(nsweeps, nsweeps * s)))
     lag2 = rmesh.impl == "pallas_halo"
-    on_card = devs[0].type == "cuda"
     home = d0_flat.device
     if devs[0].type != home.type:
         raise ValueError(f"the mesh's shards are on {devs[0].type} but the "
@@ -296,81 +375,35 @@ def planes_relax_sharded(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                g.idxy.expand(dy.shape).contiguous(), wx, wy)
               for dx, dy, wx, wy, g in zip(*blocks(d0_flat, INF),
                                            *blocks(wenter0, 0.0), gms)]
-    own = slice(1, kx + 1)
+    run = (_CardSweeps if devs[0].type == "cuda" else _PlainSweeps)(
+        gms, states, crits, ccx, ccy, kx, home)
 
-    if on_card:
-        def sweep(k, st):
-            out, stats = planes_sweep_block_cuda(
-                gms[k], st, crits[k], ccx[k], ccy[k], (1, kx + 1))
-            return out, stats[:, 1].amax()
-    else:
-        costs = [_sweep_costs(gms[k], crits[k], ccx[k], ccy[k])
-                 for k in range(s)]
-
-        def sweep(k, st):
-            st2 = _sweep_once(gms[k], st, crits[k], ccx[k], ccy[k],
-                              costs[k])
-            ch = ((st2[0][:, :, own] < st[0][:, :, own]).any()
-                  | (st2[1][:, :, own] < st[1][:, :, own]).any())
-            return st2, ch
-
-    def extract(sts):
-        """Each shard's received (left dx, right dx, left dy, right dy)
-        halos, from the shards' owned boundary columns."""
-        got = (remote_slab_permute([st[0][:, :, kx:kx + 1] for st in sts],
-                                   True),
-               remote_slab_permute([st[0][:, :, 1:2] for st in sts], False),
-               remote_slab_permute([st[1][:, :, kx:kx + 1] for st in sts],
-                                   True),
-               remote_slab_permute([st[1][:, :, 1:3] for st in sts], False))
-        return list(zip(*got))
-
-    def install(k, st, h):
-        # in place on the shard's own state (halo columns only); edge
-        # shards put INF where the transport delivered zeros (a zero
-        # would be a spurious source seed)
-        lx, rx, ly, ry = h
-        dx, dy = st[0], st[1]
-        for dst, src, edge in ((dx[:, :, 0:1], lx, k == 0),
-                               (dx[:, :, kx + 1:kx + 2], rx, k == s - 1),
-                               (dy[:, :, 0:1], ly, k == 0),
-                               (dy[:, :, kx + 1:kx + 3], ry, k == s - 1)):
-            if edge:
-                dst.fill_(INF)
-            else:
-                dst.copy_(src)
-
-    def step(sts):
-        res = [sweep(k, st) for k, st in enumerate(sts)]
-        anych = bool(torch.stack([r[1].to(home) for r in res]).sum() > 0)
-        return [r[0] for r in res], anych
-
+    # A sweep's halos come from its own input state (lag 1) or, under
+    # lag 2 after the first sweep, from the input of the sweep before
+    # (halos extracted before sweep t-1): extraction reads only owned
+    # columns and the exchange writes only halo columns, so both read
+    # the owned columns of an unchanged generation, in place.
     i = 0
     if not lag2:
         go = True
         while go and i < nsw_cap:
-            for k, h in enumerate(extract(states)):
-                install(k, states[k], h)
-            states, go = step(states)
+            run.exchange(lagged=False)
+            go = run.sweep()
             i += 1
         useful = max(0, i - (0 if go else 1))
     else:
-        # sweep t installs halos extracted before sweep t-1; extraction
-        # reads only owned columns, which install leaves alone, so the
-        # next halos are taken from the installed pre-sweep state
         streak = 0
-        h = extract(states)
         while streak < 2 and i < nsw_cap:
-            for k in range(s):
-                install(k, states[k], h[k])
-            h = extract(states)
-            states, anych = step(states)
+            run.exchange(lagged=i > 0)
+            anych = run.sweep()
             streak = 0 if anych else streak + 1
             i += 1
         useful = max(0, i - streak)
 
+    own = slice(1, kx + 1)
+
     def reassemble(idx, real_x):
-        return torch.cat([st[idx][:, :, own].to(home) for st in states],
+        return torch.cat([st[idx][:, :, own].to(home) for st in run.cur],
                          dim=2)[:, :, :real_x]
 
     dx, dy = reassemble(0, NX), reassemble(1, NXp1)

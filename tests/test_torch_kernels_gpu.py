@@ -79,6 +79,19 @@ def test_full_kernel_matches_plain(cuda, arch_i, costs):
     _same(got, P.planes_relax_plain(pg, d0, cc, crit, w0, 32))
 
 
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("costs", ["jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+def test_full_kernel_modes_match_plain(cuda, arch_i, costs, mode):
+    """Every shared-memory mode of K1 gives the plain version's bits."""
+    mk, nx, ny = ARCHS[arch_i]
+    pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, 16, 9, costs, cuda)
+    got = pk.planes_relax_full_cuda(pg, d0, cc, crit, w0, 32, mode=mode)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_full_cuda.last_mode == mode
+    _same(got, P.planes_relax_plain(pg, d0, cc, crit, w0, 32))
+
+
 @pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
 @pytest.mark.parametrize("arch_i", [0, 1])
 def test_cropped_kernel_matches_plain(cuda, arch_i, costs):
@@ -95,6 +108,40 @@ def test_cropped_kernel_matches_plain(cuda, arch_i, costs):
     torch.cuda.synchronize()
     assert pk.planes_relax_cropped_cuda.launches == n0 + 1
     _same(got, P.planes_relax_cropped_plain(*args))
+
+
+@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
+def test_kernels_long_lines_match_plain(cuda, costs):
+    """A 40x40 grid: scan lines of 40 cells (longer than a warp), several
+    cells per lane, dist in shared memory; K1 on the full canvas and K2
+    on 34x34 crop tiles."""
+    pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=8), 40, 40, 8,
+                                     7, costs, cuda)
+    assert pg.shape_x[1:] == (40, 41)
+    got = P.planes_relax(pg, d0, cc, crit, w0, 48)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_full_cuda.last_mode >= 1
+    _same(got, P.planes_relax_plain(pg, d0, cc, crit, w0, 48))
+    rng = np.random.default_rng(2)
+    ox = torch.from_numpy(rng.integers(0, 7, 8).astype(np.int32)).to(cuda)
+    oy = torch.from_numpy(rng.integers(0, 7, 8).astype(np.int32)).to(cuda)
+    args = (pg, d0, cc, crit, w0, 48, ox, oy, 34, 34)
+    got = P.planes_relax_cropped(*args)
+    torch.cuda.synchronize()
+    _same(got, P.planes_relax_cropped_plain(*args))
+
+
+@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
+def test_full_kernel_global_state_matches_plain(cuda, costs):
+    """W=8 at 63x63: 258 KB of dist per net, more than a block's shared
+    memory, so the kernel keeps the state in global memory (mode 0)."""
+    pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=8), 63, 63, 4,
+                                     8, costs, cuda)
+    assert pg.ncells * 4 > 232448
+    got = P.planes_relax(pg, d0, cc, crit, w0, 24)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_full_cuda.last_mode == 0
+    _same(got, P.planes_relax_plain(pg, d0, cc, crit, w0, 24))
 
 
 def test_router_cuda_matches_cpu(cuda):
@@ -166,11 +213,14 @@ def _blocks(pg, d0, cc, w0, s, device):
     return kx, bl
 
 
-@pytest.mark.parametrize("costs", ["exact", "jitter"])
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
 @pytest.mark.parametrize("arch_i", [0, 1])
-def test_sweep_block_kernel_matches_plain(cuda, arch_i, costs):
+def test_sweep_block_kernel_matches_plain(cuda, arch_i, costs, mode):
     """One step-kernel sweep of every shard's block, pred carried in from
-    a plain sweep, against one more plain sweep."""
+    a plain sweep, against one more plain sweep, in every shared-memory
+    mode (None: the most that fits; 0 global state, 1 dist in shared
+    memory, 2 dist and scan costs)."""
     mk, nx, ny = ARCHS[arch_i]
     pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, 16, 5, costs, cuda)
     s = 2
@@ -185,7 +235,8 @@ def test_sweep_block_kernel_matches_plain(cuda, arch_i, costs):
         st1 = P._sweep_once(g, st, crit, ccx[k], ccy[k], costs_k)
         n0 = pk.planes_sweep_block_cuda.launches
         got, stats = pk.planes_sweep_block_cuda(g, st1, crit, ccx[k],
-                                                ccy[k], (1, kx + 1))
+                                                ccy[k], (1, kx + 1),
+                                                mode=mode)
         torch.cuda.synchronize()
         assert pk.planes_sweep_block_cuda.launches == n0 + 1
         ref = P._sweep_once(g, st1, crit, ccx[k], ccy[k], costs_k)
@@ -214,8 +265,10 @@ def test_sharded_relax_cuda_matches_cpu(cuda, impl, s):
     got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24,
                                   TS.make_row_mesh(s, impl, cuda))
     torch.cuda.synchronize()
-    assert pk.planes_sweep_block_cuda.launches > 0
-    assert sk.remote_slab_permute_cuda.launches > 0
+    sweeps = int(got[3][0])
+    # one step launch per shard and one exchange launch per sweep
+    assert pk.planes_sweep_block_cuda.launches == s * sweeps
+    assert sk.halo_exchange_cuda.launches == sweeps
     cpu = [t.cpu() for t in (d0, cc, crit, w0)]
     ref = TS.planes_relax_sharded(_pg_to(pg, "cpu"), *cpu, 24,
                                   TS.make_row_mesh(s, impl, "cpu"))
@@ -235,7 +288,8 @@ def test_router_mesh_cuda_matches_cpu(cuda):
     rg = Router(f.rr, RouterOpts(batch_size=32, mesh_shards=2),
                 device=cuda).route(f.term)
     assert pk.planes_sweep_block_cuda.launches > 0
-    assert sk.remote_slab_permute_cuda.launches > 0
+    assert sk.halo_exchange_cuda.launches > 0
+    assert sk.remote_slab_permute_cuda.launches == 0
     assert pk.planes_relax_full_cuda.launches == 0
     assert (rg.wirelength, rg.iterations) == (rc.wirelength, rc.iterations)
     assert np.array_equal(rg.paths, rc.paths)
@@ -265,8 +319,61 @@ def test_slab_permute_kernel_across_cards(cuda, s, fwd):
     n0 = sk.remote_slab_permute_cuda.launches
     got = sk.remote_slab_permute(slabs, fwd)
     assert [g.device for g in got] == devs
-    assert sk.remote_slab_permute_cuda.launches == n0 + s
+    # one launch per card that sends (or fills its own edge buffer)
+    launchers = {devs[r - 1 if fwd else r + 1] if 0 <= (r - 1 if fwd else
+                                                       r + 1) < s
+                 else devs[r] for r in range(s)}
+    assert sk.remote_slab_permute_cuda.launches == n0 + len(launchers)
     _same(got, sk.slab_permute_plain(slabs, fwd))
+
+
+def _block_states(s, kx, devs, seed, B=64, W=12, NY=6):
+    """Random (dx, dy) block canvases per shard ([B, W, kx+2, NY+1] /
+    [B, W, kx+3, NY], 20% INF) on the shards' devices."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for d in devs:
+        pair = []
+        for ext, ny in ((2, NY + 1), (3, NY)):
+            a = rng.uniform(0, 1, (B, W, kx + ext, ny)).astype(np.float32)
+            a[rng.random(a.shape) < 0.2] = np.inf
+            pair.append(torch.from_numpy(a).to(d))
+        out.append(tuple(pair))
+    return out
+
+
+def _exchange_matches_plain(s, devs, lagged):
+    kx = 3
+    states = _block_states(s, kx, devs, s + 7 * lagged)
+    src = _block_states(s, kx, devs, 99 + s) if lagged else None
+    ref = [tuple(t.cpu() for t in st) for st in states]
+    ref_src = None if src is None else [tuple(t.cpu() for t in st)
+                                        for st in src]
+    sk.halo_exchange_plain(ref, kx, ref_src)
+    n0 = sk.halo_exchange_cuda.launches
+    sk.halo_exchange(states, kx, src)
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    for got, want in zip(states, ref):
+        _same(got, want)
+    return sk.halo_exchange_cuda.launches - n0
+
+
+@pytest.mark.parametrize("lagged", [False, True])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_halo_exchange_kernel_matches_plain(cuda, s, lagged):
+    """The fused in-place exchange on one card: one launch, every halo
+    column bit-identical to the plain version's."""
+    assert _exchange_matches_plain(s, [cuda] * s, lagged) == 1
+
+
+@pytest.mark.parametrize("lagged", [False, True])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_halo_exchange_kernel_across_cards(cuda, s, lagged):
+    """The exchange with the shards on several cards: each card launches
+    once for what it sends, through peer pointers."""
+    devs = _cards(s)
+    assert _exchange_matches_plain(s, devs, lagged) == len(set(devs))
 
 
 def test_router_mesh_across_cards(cuda):

@@ -176,6 +176,75 @@ def test_slab_permute_plain_matches_ppermute(s, fwd, cols):
         0).all()
 
 
+def _jax_exchange(dxb, dyb, sxb, syb, s, kx):
+    """The JAX package's extract + install (planes_shard.py:336-356) on
+    the conftest's virtual CPU devices: the halo columns of the (dxb,
+    dyb) blocks from the owned boundary columns of the (sxb, syb)
+    blocks, INF at the edge shards."""
+    mesh = Mesh(np.array(jax.devices()[:s]), (JS.ROW_AXIS,))
+    fwd = [(i, i + 1) for i in range(s - 1)]
+    bwd = [(i, i - 1) for i in range(1, s)]
+
+    def body(dx, dy, sx, sy):
+        dx, dy, sx, sy = dx[0], dy[0], sx[0], sy[0]
+        ridx = lax.axis_index(JS.ROW_AXIS)
+
+        def send(slab, to_right):
+            return lax.ppermute(slab, JS.ROW_AXIS, fwd if to_right else bwd)
+
+        lx, rx = send(sx[:, :, kx:kx + 1], True), send(sx[:, :, 1:2], False)
+        ly, ry = send(sy[:, :, kx:kx + 1], True), send(sy[:, :, 1:3], False)
+        dx = dx.at[:, :, 0:1].set(jnp.where(ridx == 0, JP.INF, lx))
+        dx = dx.at[:, :, kx + 1:kx + 2].set(
+            jnp.where(ridx == s - 1, JP.INF, rx))
+        dy = dy.at[:, :, 0:1].set(jnp.where(ridx == 0, JP.INF, ly))
+        dy = dy.at[:, :, kx + 1:kx + 3].set(
+            jnp.where(ridx == s - 1, JP.INF, ry))
+        return dx[None], dy[None]
+
+    f = shard_map(body, mesh=mesh, in_specs=(P(JS.ROW_AXIS),) * 4,
+                  out_specs=(P(JS.ROW_AXIS),) * 2, check_rep=False)
+    return tuple(np.asarray(a) for a in f(*(jnp.asarray(x) for x in
+                                            (dxb, dyb, sxb, syb))))
+
+
+@pytest.mark.parametrize("lagged", [False, True])
+@pytest.mark.parametrize("arch", ["minimal", "unidir"])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_halo_exchange_plain_matches_jax(s, arch, lagged):
+    """The port's in-place exchange against the JAX package's extract +
+    install: both halo directions (left dx/dy from the left neighbour,
+    right dx/dy from the right one), edge INF, owned columns untouched;
+    ``lagged`` reads the halos from another state set (lag 2)."""
+    _, tpg, _, _ = _instance(arch)
+    W, NX, NYp1 = tpg.shape_x
+    kx = TS.row_block_cols(tpg, s)
+    B = 3
+    rng = np.random.default_rng(100 * s + 10 * lagged + len(arch))
+
+    def canv(ext, ny):
+        a = rng.uniform(0, 1, (s, B, W, kx + ext, ny)).astype(np.float32)
+        a[rng.random(a.shape) < 0.2] = np.inf
+        return a
+
+    dxb, dyb = canv(2, NYp1), canv(3, NYp1 - 1)
+    sxb, syb = (canv(2, NYp1), canv(3, NYp1 - 1)) if lagged else (dxb, dyb)
+    want = _jax_exchange(dxb, dyb, sxb, syb, s, kx)
+    states = [(torch.from_numpy(dxb[k].copy()), torch.from_numpy(dyb[k].copy()))
+              for k in range(s)]
+    src = ([(torch.from_numpy(sxb[k]), torch.from_numpy(syb[k]))
+            for k in range(s)] if lagged else None)
+    sk.halo_exchange(states, kx, src)
+    for k in range(s):
+        assert np.array_equal(states[k][0].numpy(), want[0][k])
+        assert np.array_equal(states[k][1].numpy(), want[1][k])
+    # the halo columns changed, the owned ones did not
+    got_x = np.stack([st[0].numpy() for st in states])
+    assert np.array_equal(got_x[:, :, :, 1:kx + 1], dxb[:, :, :, 1:kx + 1])
+    assert np.isinf(got_x[0, :, :, 0]).all()
+    assert np.array_equal(got_x[1, :, :, 0], sxb[0, :, :, kx])
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The shard kernels' wrappers raise on CPU tensors (they never fall
     back to the plain version) and count nothing."""
@@ -202,7 +271,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pk.planes_sweep_block_cuda(g, st, torch.zeros(B), st[0], st[1],
                                    (1, kx + 1))
     assert pk.planes_sweep_block_cuda.launches == n0
-    assert sk.launch_counts() == {"remote_slab_permute_cuda": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.halo_exchange_cuda([st, st], kx)
+    with pytest.raises(ValueError, match="mixed"):
+        sk.halo_exchange([st, tuple(t.to("meta") for t in st)], kx)
+    assert sk.launch_counts() == {"halo_exchange_cuda": 0,
+                                  "remote_slab_permute_cuda": 0}
 
 
 # ---- the sharded relaxation ------------------------------------------
