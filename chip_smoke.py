@@ -10,8 +10,10 @@ Phases, one line each (any failure exits non-zero with no result line):
                  into parallel_eda_tpu_torch/build/
   3. kernels   — each relaxation kernel against its plain PyTorch version
                  on the card at bench and scale shapes (B=64), exact,
-                 jittered and crit > 0 costs: dist/wenter/pred
-                 bit-identical; kernel, plain-version and bound times
+                 jittered and crit > 0 costs, K2 with tile origins that
+                 clamp, in every shared-memory mode that fits:
+                 dist/wenter/pred/stats bit-identical; kernel,
+                 plain-version and bound times
   4. halo      — the halo kernel (K3): its one-hop shift
                  (remote_slab_permute_cuda) and the route's in-place
                  exchange (halo_exchange_cuda, lag 1 and lag 2) against
@@ -26,18 +28,29 @@ Phases, one line each (any failure exits non-zero with no result line):
                  mode that fits: bit-identical; every mode timed
   6. sharded   — the row-sharded relaxation on the card (both schedules,
                  2 and 4 shards) against single-device K1 (dist/wenter)
-                 and against its own CPU run (every output and stats)
+                 and against its own CPU run (every output and stats);
+                 its one-card lag-1 form, the cluster kernel (one launch
+                 per relaxation), beside the per-sweep form (step and
+                 halo kernels) and the plain per-sweep loop on the card,
+                 at the bench (2, 3, 4 shards) and scale (4) shapes, every
+                 mode: bit-identical, all three timed
   7. bench     — route the 60-LUT/W=12 bench config end to end on the
                  card: legal, wirelength 537 in 22 iterations
   8. mesh      — the bench route at mesh_shards=2 and 4: legal, 537 / 22,
                  paths and occupancy equal to phase 7's, under the
-                 Router's lag-1 schedule and, timed beside it, lag 2
+                 Router's lag-1 schedule (on one card the cluster kernel,
+                 across cards the step and halo kernels) and, timed
+                 beside it, lag 2 (the step and halo kernels)
   9. scale     — place the 1,200-LUT/W=20 config with the native
                  annealer and route it on the card, single-device and
                  at mesh_shards=4: legal
  10. launches  — every kernel's launch count over the route phases
+                 (the lag-2 mesh routes included; with several cards
+                 also a mesh-2 route with both shards on card 0, the
+                 one-card path)
  11. device    — the kernels' device time per launch (torch.profiler)
-                 for the cases phases 3-5 timed
+                 for the cases phases 3-6 timed, and that K2's and the
+                 cluster kernel's wrappers launch one kernel per call
  12. profile   — a torch.profiler breakdown of a warm bench route, a
                  warm mesh_shards=2 bench route and a warm scale route
                  (their untraced seconds taken in phases 7-9)
@@ -86,6 +99,10 @@ REPLACES = {
     # same kernel serves remote_slab_permute_cuda, held in the halo phase
     "halo_exchange_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:597",
+    # the whole sharded relaxation on one card (K2's kernel per shard per
+    # sweep, planes_shard.py:369, with remote_slab_permute between)
+    "planes_relax_cluster_cuda":
+        "parallel_eda_tpu/route/planes_pallas.py:477",
 }
 SOURCES = {
     "planes_relax_full_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
@@ -93,6 +110,8 @@ SOURCES = {
         "parallel_eda_tpu_torch/csrc/planes_relax.cu",
     "planes_sweep_block_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
     "halo_exchange_cuda": "parallel_eda_tpu_torch/csrc/slab_permute.cu",
+    "planes_relax_cluster_cuda":
+        "parallel_eda_tpu_torch/csrc/planes_relax.cu",
 }
 
 
@@ -148,11 +167,49 @@ def device_later(tag, d, field, fn, key: str) -> None:
     _DEVICE.append((tag, d, field, fn, key))
 
 
+# wrappers that must launch exactly one kernel per call, checked in
+# phase_device: (tag, fn, key)
+_ONE_KERNEL = []
+
+
 def phase_device() -> None:
     for tag, d, field, fn, key in _DEVICE:
         d[field] = device_us(fn, key)
         say("device", f"{tag} {field}: {d[field]:.2f} us per launch")
     _DEVICE.clear()
+    for tag, fn, key in _ONE_KERNEL:
+        names = kernels_per_call(fn)
+        if len(names) != 1 or key not in next(iter(names)) or \
+                next(iter(names.values())) != 1:
+            raise AssertionError(f"{tag}: one call launched {names}, want "
+                                 f"one {key}")
+        say("device", f"{tag}: one kernel per call ({names})")
+    _ONE_KERNEL.clear()
+
+
+def kernels_per_call(fn, reps: int = 5) -> dict:
+    """The kernels one call of ``fn`` launches on the card, by name,
+    per call (memsets and copies aside), from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA or \
+                    e.key.startswith(("Memset", "Memcpy")):
+                continue
+            names[e.key] = names.get(e.key, 0) + e.count
+        if names:
+            return {k: v / reps for k, v in names.items()}
+    raise AssertionError("the profiler saw no kernel")
 
 
 def launch_us(n: int = 20000) -> float:
@@ -403,21 +460,28 @@ def phase_kernels(flows):
             rows.setdefault("planes_relax_full_cuda", []).append(case)
             say("kernels", f"K1 full {cfg} {kind}: bit-identical, "
                            + json.dumps(case))
-            # --- K2: cropped tiles ---
+            # --- K2: cropped tiles, origins from below 0 to past the
+            # grid (the kernel clamps them) ---
             for (cnx, cny) in tiles:
                 ox = torch.from_numpy(rng.integers(
-                    0, NX - cnx + 1, B).astype(np.int32)).cuda()
+                    -3, NX - cnx + 4, B).astype(np.int32)).cuda()
                 oy = torch.from_numpy(rng.integers(
-                    0, NY - cny + 1, B).astype(np.int32)).cuda()
+                    -3, NY - cny + 4, B).astype(np.int32)).cuda()
                 args = (pg, *inst[:3], inst[3], nsw, ox, oy, cnx, cny)
                 got = P.planes_relax_cropped(*args)
                 net_st = (pk.planes_relax_cropped_cuda.last_stats[:-1]
                           .cpu().numpy())
+                auto = pk.planes_relax_cropped_cuda.last_mode
+                tag = f"K2 {cfg} {kind} {cnx}x{cny}"
                 ref = P.planes_relax_cropped_plain(*args)
-                err = _compare(f"K2 {cfg} {kind} {cnx}x{cny}", got, ref)
+                err = _compare(tag, got, ref)
+                for m in range(auto):
+                    err = max(err, _compare(
+                        f"{tag} mode {m}", pk.planes_relax_cropped_cuda(
+                            *args, mode=m), ref))
                 case = dict(cfg=cfg, costs=kind, tile=[cnx, cny], B=B,
                             sweeps=int(got[3][0]), max_abs_err=err,
-                            mode=pk.planes_relax_cropped_cuda.last_mode)
+                            mode=auto)
                 if kind == "jitter":
                     case["ms"] = cuda_ms(
                         lambda: P.planes_relax_cropped(*args), 20)
@@ -425,6 +489,10 @@ def phase_kernels(flows):
                                  "device_us", functools.partial(
                                      P.planes_relax_cropped, *args),
                                  "planes_relax_cropped")
+                    _ONE_KERNEL.append((
+                        f"K2 {cfg} {cnx}x{cny}", functools.partial(
+                            P.planes_relax_cropped, *args),
+                        "planes_relax_cropped_kernel"))
                     case["plain_ms"] = cuda_ms(
                         lambda: P.planes_relax_cropped_plain(*args), 2)
                     case.update(bound_ms(pg, B, net_st[:, 0],
@@ -686,7 +754,7 @@ def phase_step(shapes):
                     case["ms" + tag] = cuda_ms(run, 200)
                     device_later(f"step {cfg} s={s}{tag}", case,
                                  "device_us" + tag, run,
-                                 "planes_relax_cropped")
+                                 "planes_relax_block")
                 case["mode"] = run.mode
                 case["wrapper_ms"] = cuda_ms(
                     lambda: pk.planes_sweep_block_cuda(
@@ -699,55 +767,152 @@ def phase_step(shapes):
     return rows
 
 
-def phase_sharded(rr, pg):
-    """planes_relax_sharded on the card against single-device K1 (dist
-    and wenter bit-identical on power-of-two costs, finite masks equal)
-    and against the same call on CPU tensors (everything equal)."""
+def phase_sharded(shapes):
+    """planes_relax_sharded on the card.  (a) Its one-card lag-1 form, one
+    cluster launch per relaxation, against the per-sweep form on the same
+    one-card mesh (the step and halo kernels) and the plain per-sweep
+    loop on the card: every output and the stats bit-identical, in every
+    shared-memory mode; dist and wenter equal single-device K1's
+    (power-of-two costs); all three timed.  (b) At the bench shape, the
+    route's meshes (shards round-robin over the visible cards), both
+    schedules, 2 and 4 shards, against K1 and against the same call on
+    CPU tensors (everything equal)."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
     from parallel_eda_tpu_torch.route import planes_shard as TS
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
 
     rng = np.random.default_rng(3)
-    pg_cpu = P.build_planes(rr, "cpu")
-    inst = _instance(rr, pg, 64, rng, True)
-    k1 = P.planes_relax(pg, *inst, 32)
-    for impl in TS.MESH_IMPLS:
-        for s in (2, 4):
-            rm = TS.make_row_mesh(s, impl, "cuda")
+    rows = []
+    B, nsw = 64, 32
+    for cfg, rr, pg, shard_counts in shapes:
+        W, NX, NYp1 = pg.shape_x
+        inst = _instance(rr, pg, B, rng, True)
+        k1 = P.planes_relax(pg, *inst, nsw)
+        card = inst[0].device
+        for s in shard_counts:
+            one = TS.make_row_mesh(s, "ppermute", [card] * s)
+            cap = TS.sweep_cap(nsw, s)
+            tag = f"cluster {cfg} s={s}"
+            c0 = {**pk.launch_counts(), **sk.launch_counts()}
+            got = TS.planes_relax_sharded(pg, *inst, nsw, one)
             torch.cuda.synchronize()
-            t0 = time.time()
-            got = TS.planes_relax_sharded(pg, *inst, 32, rm)
-            torch.cuda.synchronize()
-            dt = time.time() - t0
+            c1 = {**pk.launch_counts(), **sk.launch_counts()}
+            dc = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+            if dc != {"planes_relax_cluster_cuda": 1}:
+                raise AssertionError(f"{tag}: launches {dc}, want one "
+                                     "cluster launch")
+            net_st = pk.planes_relax_cluster_cuda.last_stats[:-1]
+            auto = pk.planes_relax_cluster_cuda.last_mode
+            if not torch.equal(net_st.max(0).values, got[3]):
+                raise AssertionError(f"{tag}: stats are not the max over "
+                                     "nets")
+            sweeps = TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one)
+            plain = TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one,
+                                                   plain=True)
+            err = max(_same(f"{tag} vs per-sweep", got, sweeps),
+                      _same(f"{tag} vs plain", got, plain))
+            for m in range(auto):
+                err = max(err, _same(f"{tag} mode {m} vs plain",
+                                     pk.planes_relax_cluster_cuda(
+                                         pg, *inst, cap, s, mode=m), plain))
             for k, n in ((0, "dist"), (2, "wenter")):
                 if not torch.equal(got[k], k1[k]):
-                    raise AssertionError(f"sharded {impl} s={s}: {n} "
-                                         "differs from K1")
-            ref = TS.planes_relax_sharded(
-                pg_cpu, *(t.cpu() for t in inst), 32,
-                TS.make_row_mesh(s, impl, "cpu"))
-            _same(f"sharded {impl} s={s} vs CPU", got, ref)
-            say("sharded", f"{impl} s={s} on {rm.n_cards} card(s): "
-                           "dist/wenter = K1, all = CPU; "
-                           f"sweeps {got[3].tolist()} (K1 "
-                           f"{k1[3].tolist()}), {dt * 1e3:.1f} ms")
+                    raise AssertionError(f"{tag}: {n} differs from K1")
+            per_net = net_st.cpu().numpy()
+            case = dict(cfg=cfg, shards=s, B=B,
+                        block=[W, TS.row_block_cols(pg, s) + 2, NYp1 - 1],
+                        mode=auto, sweeps=got[3].tolist(),
+                        net_sweeps_min=int(per_net[:, 0].min()),
+                        max_abs_err=err)
+            case["ms"] = cuda_ms(lambda: TS.planes_relax_sharded(
+                pg, *inst, nsw, one), 20)
+            case["per_sweep_ms"] = cuda_ms(
+                lambda: TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one),
+                3)
+            case["plain_ms"] = cuda_ms(
+                lambda: TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one,
+                                                       plain=True), 1)
+            run = functools.partial(pk.planes_relax_cluster_cuda, pg,
+                                    *inst, cap, s)
+            device_later(tag, case, "device_us", run,
+                         "planes_relax_cluster")
+            by_mode = case["device_us_by_mode"] = {}
+            for m in range(auto + 1):
+                device_later(f"{tag} mode {m}", by_mode, m,
+                             functools.partial(run, mode=m),
+                             "planes_relax_cluster")
+            _ONE_KERNEL.append((tag, run, "planes_relax_cluster_kernel"))
+            # the same function as K1's on the whole canvas: its bound
+            # counts each net's executed sweeps over the canvas, not the
+            # blocks' halo and pad columns
+            case.update(bound_ms(pg, B, per_net[:, 0]))
+            rows.append(case)
+            say("sharded", f"{tag}: one launch, bit-identical to the "
+                           "per-sweep and plain forms, dist/wenter = K1, "
+                           + json.dumps(case))
+        if cfg != "bench":
+            continue
+        # more than 8 shards: a non-portable cluster, or the card's
+        # stated refusal
+        try:
+            wide = pk.planes_relax_cluster_cuda(pg, *inst,
+                                                TS.sweep_cap(nsw, 9), 9)
+            _same("cluster bench s=9 vs plain", wide,
+                  TS.planes_relax_sharded_sweeps(
+                      pg, *inst, nsw, TS.make_row_mesh(
+                          9, "ppermute", [card] * 9), plain=True))
+            say("sharded", "cluster bench s=9 (non-portable size): "
+                           "bit-identical to the plain loop, mode "
+                           f"{pk.planes_relax_cluster_cuda.last_mode}")
+        except RuntimeError as e:
+            if "cannot schedule" not in str(e):
+                raise
+            say("sharded", f"cluster bench s=9: refused ({e})")
+        pg_cpu = P.build_planes(rr, "cpu")
+        for impl in TS.MESH_IMPLS:
+            for s in (2, 4):
+                rm = TS.make_row_mesh(s, impl, "cuda")
+                torch.cuda.synchronize()
+                t0 = time.time()
+                got = TS.planes_relax_sharded(pg, *inst, nsw, rm)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+                for k, n in ((0, "dist"), (2, "wenter")):
+                    if not torch.equal(got[k], k1[k]):
+                        raise AssertionError(f"sharded {impl} s={s}: {n} "
+                                             "differs from K1")
+                ref = TS.planes_relax_sharded(
+                    pg_cpu, *(t.cpu() for t in inst), nsw,
+                    TS.make_row_mesh(s, impl, "cpu"))
+                _same(f"sharded {impl} s={s} vs CPU", got, ref)
+                say("sharded", f"{impl} s={s} on {rm.n_cards} card(s) "
+                               f"(cluster: {TS.uses_cluster(rm, card)}): "
+                               "dist/wenter = K1, all = CPU; "
+                               f"sweeps {got[3].tolist()} (K1 "
+                               f"{k1[3].tolist()}), {dt * 1e3:.1f} ms")
+    return rows
 
 
-def _route(tag, flow, opts, impl=None):
+def _route(tag, flow, opts, impl=None, devices=None):
     """Route ``flow`` on the card, legal or raise; with ``impl``, under
-    that exchange schedule instead of the Router's own."""
+    that exchange schedule instead of the Router's own; with
+    ``devices``, the shards on those cards instead of round-robin."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes_kernels as pk
     from parallel_eda_tpu_torch.route import shard_kernels as sk
     from parallel_eda_tpu_torch.route.check import check_route
-    from parallel_eda_tpu_torch.route.planes_shard import make_row_mesh
+    from parallel_eda_tpu_torch.route.planes_shard import (make_row_mesh,
+                                                           uses_cluster)
     from parallel_eda_tpu_torch.route.router import Router
 
     router = Router(flow.rr, opts, device="cuda")
-    if impl is not None:
-        router.row_mesh = make_row_mesh(opts.mesh_shards, impl, "cuda")
+    if impl is not None or devices is not None:
+        router.row_mesh = make_row_mesh(opts.mesh_shards, impl or "ppermute",
+                                        devices or "cuda")
     pk.reset_launch_counts()
     sk.reset_launch_counts()
     torch.cuda.synchronize()
@@ -772,19 +937,30 @@ def _route(tag, flow, opts, impl=None):
                  f"card(s): sweeps executed {res.total_relax_steps}, useful "
                  f"{res.total_relax_steps_useful}; halo ledger "
                  f"{json.dumps(router.metrics)}")
-        if counts["planes_sweep_block_cuda"] <= 0 \
-                or counts["halo_exchange_cuda"] <= 0:
-            raise AssertionError(f"{tag}: the sharded route did not run "
-                                 "the step and halo kernels")
+        if uses_cluster(rm, torch.device("cuda", torch.cuda.current_device())):
+            # one launch per relaxation: neither the step nor the halo
+            # kernel runs, and no host read happens inside a relaxation
+            if counts["planes_relax_cluster_cuda"] <= 0 or \
+                    counts["planes_sweep_block_cuda"] or \
+                    counts["halo_exchange_cuda"]:
+                raise AssertionError(f"{tag}: the one-card lag-1 route did "
+                                     "not run as one cluster launch per "
+                                     f"relaxation: {counts}")
+        else:
+            if counts["planes_sweep_block_cuda"] <= 0 \
+                    or counts["halo_exchange_cuda"] <= 0 \
+                    or counts["planes_relax_cluster_cuda"]:
+                raise AssertionError(f"{tag}: the sharded route did not run "
+                                     "the step and halo kernels")
+            if rm.n_cards == 1 and \
+                    counts["halo_exchange_cuda"] != res.total_relax_steps:
+                raise AssertionError(
+                    f"{tag}: {counts['halo_exchange_cuda']} exchange "
+                    f"launches for {res.total_relax_steps} sweeps on one "
+                    "card (want one per sweep)")
         if counts["remote_slab_permute_cuda"]:
             raise AssertionError(f"{tag}: the route shifted slabs into "
                                  "buffers instead of exchanging in place")
-        if rm.n_cards == 1 and \
-                counts["halo_exchange_cuda"] != res.total_relax_steps:
-            raise AssertionError(
-                f"{tag}: {counts['halo_exchange_cuda']} exchange launches "
-                f"for {res.total_relax_steps} sweeps on one card (want one "
-                "per sweep)")
         if counts["planes_relax_full_cuda"] or \
                 counts["planes_relax_cropped_cuda"]:
             raise AssertionError(f"{tag}: a single-device relaxation ran "
@@ -889,7 +1065,9 @@ def main(argv) -> int:
     rows["planes_sweep_block_cuda"] = phase_step(
         [("bench", bench.rr, pg_bench, s) for s in (2, 4)]
         + [("scale", scale.rr, pg_scale, 4)])
-    phase_sharded(bench.rr, pg_bench)
+    rows["planes_relax_cluster_cuda"] = phase_sharded(
+        [("bench", bench.rr, pg_bench, (2, 3, 4)),
+         ("scale", scale.rr, pg_scale, (4,))])
 
     res, c_bench, _ = _route("bench", bench, RouterOpts(batch_size=64))
     if (res.wirelength, res.iterations) != (537, 22):
@@ -897,7 +1075,7 @@ def main(argv) -> int:
                              f"iterations, got {res.wirelength} in "
                              f"{res.iterations}")
     warm = {"bench": (bench, warm_route(bench, RouterOpts(batch_size=64)))}
-    c_mesh = []
+    c_mesh, c_lag2 = [], []
     for s in (2, 4):
         # the Router's lag-1 schedule, then lag 2 for comparison, timed
         # in the order lag 1, lag 2, lag 2, lag 1
@@ -922,12 +1100,26 @@ def main(argv) -> int:
                             mres.total_relax_steps_useful)
             if k == 0:
                 c_mesh.append(c)
+            elif k == 1:
+                c_lag2.append(c)
         say(f"mesh{s}", "paths and occupancy equal to the single-device "
                         "bench route under both schedules; route s "
                         f"lag 1 {secs['ppermute']}, lag 2 "
                         f"{secs['pallas_halo']}; sweeps executed (useful) "
                         f"lag 1 {sweeps['ppermute']}, lag 2 "
                         f"{sweeps['pallas_halo']}")
+    if torch.cuda.device_count() > 1:
+        # the route's shards spread over the cards; the one-card path
+        # (the cluster kernel) is driven with every shard on card 0
+        opts = RouterOpts(batch_size=64, mesh_shards=2)
+        mres, c, _ = _route("mesh2_one_card", bench, opts,
+                            devices=["cuda:0"] * 2)
+        if (mres.wirelength, mres.iterations) != (537, 22) or not (
+                np.array_equal(mres.paths, res.paths)
+                and np.array_equal(mres.occ, res.occ)):
+            raise AssertionError("mesh2_one_card: route differs from the "
+                                 "single-device bench route")
+        c_mesh.append(c)
     warm["mesh2"] = (bench, warm_route(
         bench, RouterOpts(batch_size=64, mesh_shards=2)))
     t0 = time.time()
@@ -940,10 +1132,11 @@ def main(argv) -> int:
                      RouterOpts(batch_size=64, mesh_shards=4))
     c_mesh.append(c)
 
-    runs = [c_bench, c_scale] + c_mesh
+    runs = [c_bench, c_scale] + c_mesh + c_lag2
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
-                    f"bench 4, scale 4) {c_mesh}")
+                    f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
+                    f"mesh lag 2 (bench 2, bench 4) {c_lag2}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:

@@ -489,6 +489,17 @@ def _crop_index(o, size: int, extent: int):
     return o[:, None] + torch.arange(size, device=o.device)[None, :]
 
 
+def crop_origin_hi(pg: PlanesGraph, cnx: int, cny: int):
+    """The largest origin (x, y) of a (cnx, cny) tile.  One clamp range
+    serves every array of the cropped relaxation: chanx [NX, NY+1] cut at
+    (cnx, cny+1), chany [NX+1, NY] at (cnx+1, cny) and the corner parity
+    [NX+1, NY+1] at (cnx+1, cny+1) all clamp x into [0, NX-cnx] and y
+    into [0, NY-cny], so K2 clamps each net's origin once, in the
+    kernel."""
+    _, NX, NYp1 = pg.shape_x
+    return NX - cnx, NYp1 - 1 - cny
+
+
 def _crop3(a, xi, yi):
     """a [W, X, Y] (shared) -> [B, W, xs, ys] at per-net rows xi/yi."""
     t = a[:, xi[:, :, None], yi[:, None, :]]        # [W, B, xs, ys]
@@ -913,8 +924,9 @@ def planes_relax_cropped(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
     """planes_relax on per-net (cnx, cny) CROPPED canvases.  Exact under
     the caller contract: every finite-cc cell and every seed of net b
     lies inside its tile.  Cells outside the tile return d0 / self-pred
-    / wenter0.  CUDA tensors launch the hand-written kernel or raise;
-    CPU tensors run the plain version."""
+    / wenter0.  CUDA tensors launch the hand-written kernel, which crops
+    and scatters inside its one launch, or raise; CPU tensors run the
+    plain version."""
     if d0_flat.is_cuda:
         from .planes_kernels import planes_relax_cropped_cuda
         return planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c,

@@ -21,15 +21,7 @@ delay canvases.
 
 A shard lives on a ``torch.device`` of the mesh (``RowMesh.devices``;
 entries may repeat: shards sharing one card, or ``cpu`` in the tests).
-Per sweep the halos move first, in place: one shard_kernels.halo_exchange
-writes every shard's halo columns from its neighbours' owned columns
-(on the card one launch of the halo kernel for all shards of a card,
-on the CPU its plain version), then every shard runs one sweep of its
-block — on a CUDA device the hand-written step kernel
-(planes_kernels.sweep_block_launcher, two state sets per shard
-ping-ponged so the launch tables are built once per relaxation), on
-the CPU the plain planes._sweep_once.  The mesh's ``impl`` names the
-schedule, as in the JAX package:
+The mesh's ``impl`` names the schedule, as in the JAX package:
 
 * ``"ppermute"`` — lag 1: exchange the halos of the previous sweep,
   sweep, then the global owned-changed flag decides whether to go on;
@@ -38,12 +30,33 @@ schedule, as in the JAX package:
   transfer could have a whole sweep to land behind; the loop exits
   after two consecutive globally stable sweeps.
 
-The global flag is a sum of the shards' flags with one host read per
-sweep.  Both schedules relax to the single-device fixpoint; dist and
-wenter are bit-identical to it on f32-exact costs (the truncated scans
-regroup only exact sums), and the route at the bench configuration is
-bit-identical (the JAX package's tiered parity argument, its module
-docstring).
+Which path runs is decided by the mesh and the schedule
+(``uses_cluster``), never by a failure:
+
+* lag 1 with every shard on the tensors' card: one launch of the
+  cluster kernel (planes_kernels.planes_relax_cluster_cuda) runs the
+  whole relaxation — a thread-block cluster per net, a CTA per shard,
+  the halos moving through distributed shared memory, each net stopping
+  at its first sweep with no owned change;
+* otherwise (shards across cards, lag 2, or the CPU) the per-sweep loop
+  (``planes_relax_sharded_sweeps``): the halos move first, in place (one
+  shard_kernels.halo_exchange writes every shard's halo columns from its
+  neighbours' owned columns; on the card one launch of the halo kernel
+  per sending card), then every shard runs one sweep of its block — on a
+  CUDA device the hand-written step kernel (planes_kernels.
+  sweep_block_launcher, two state sets per shard ping-ponged so the
+  launch tables are built once per relaxation), on the CPU the plain
+  planes._sweep_once — and one host read of the shards' flags decides
+  whether to go on.
+
+Both relax to the single-device fixpoint; dist and wenter are
+bit-identical to it on f32-exact costs (the truncated scans regroup only
+exact sums), and the route at the bench configuration is bit-identical
+(the JAX package's tiered parity argument, its module docstring).  The
+cluster kernel's outputs and stats are bit-identical to the per-sweep
+loop's: a net's sweeps after its first stable one are identities on
+everything returned, and the batch's [executed, useful] is the max over
+nets of each net's pair.
 """
 
 from __future__ import annotations
@@ -55,7 +68,7 @@ import torch
 
 from .planes import (INF, PlanesGeom, PlanesGraph, _flat, _split_flat,
                      _sweep_costs, _sweep_once)
-from .shard_kernels import MAX_SHARDS, HaloExchange, halo_exchange
+from .shard_kernels import MAX_SHARDS, HaloExchange, halo_exchange_plain
 
 # ceiling on the inflated sweep budget: information crosses one shard
 # boundary per sweep, so a path spanning m blocks needs up to m extra
@@ -269,9 +282,10 @@ def _shard_geoms(pg: PlanesGraph, rmesh: RowMesh, kx: int):
 
 
 class _PlainSweeps:
-    """The sharded sweep loop on the CPU: each sweep makes new state
-    tensors (planes._sweep_once) and the exchange writes the current
-    state's halo columns in place (halo_exchange's plain version)."""
+    """The plain sharded sweep loop (the CPU's, and the plain version of
+    the card's kernels on any device): each sweep makes new state tensors
+    (planes._sweep_once) and the exchange writes the current state's halo
+    columns in place (halo_exchange_plain)."""
 
     def __init__(self, gms, states, crits, ccx, ccy, kx, home):
         self.args = list(zip(gms, crits, ccx, ccy))
@@ -280,7 +294,7 @@ class _PlainSweeps:
         self.kx = kx
 
     def exchange(self, lagged: bool) -> None:
-        halo_exchange(self.cur, self.kx, self.prev if lagged else None)
+        halo_exchange_plain(self.cur, self.kx, self.prev if lagged else None)
 
     def sweep(self) -> bool:
         """One sweep of every shard; whether an owned cell improved."""
@@ -346,17 +360,47 @@ class _CardSweeps:
         return bool(torch.stack([f.to(self.home) for f in flags]).any())
 
 
+def uses_cluster(rmesh: RowMesh, device: torch.device) -> bool:
+    """Whether planes_relax_sharded runs as one cluster launch: the lag-1
+    schedule with every shard on ``device``, a card."""
+    return (rmesh.impl == "ppermute" and device.type == "cuda"
+            and set(rmesh.devices) == {device})
+
+
+def sweep_cap(nsweeps: int, n_shards: int) -> int:
+    """The sharded relaxation's sweep budget: information crosses one
+    shard boundary per sweep, so nsweeps * n_shards, capped."""
+    return int(min(MAX_SHARD_SWEEPS, max(nsweeps, nsweeps * n_shards)))
+
+
 def planes_relax_sharded(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                          wenter0, nsweeps: int, rmesh: RowMesh):
     """planes_relax, spatially sharded over ``rmesh``: the same contract
     — (dist_flat, pred_flat, wenter_flat, stats) on d0_flat's device —
     with every shard relaxing its own column block and the halo columns
-    exchanged every sweep (module docstring)."""
+    exchanged every sweep: one cluster launch under lag 1 on one card,
+    the per-sweep loop otherwise (module docstring)."""
+    home = d0_flat.device
+    if uses_cluster(rmesh, home):
+        from .planes_kernels import planes_relax_cluster_cuda
+        return planes_relax_cluster_cuda(
+            pg, d0_flat, cc_flat, crit_c, wenter0,
+            sweep_cap(nsweeps, rmesh.n_shards), rmesh.n_shards)
+    return planes_relax_sharded_sweeps(pg, d0_flat, cc_flat, crit_c,
+                                       wenter0, nsweeps, rmesh)
+
+
+def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
+                                wenter0, nsweeps: int, rmesh: RowMesh,
+                                plain: bool = False):
+    """The per-sweep form of planes_relax_sharded, on any mesh: the card's
+    step and halo kernels on CUDA shards, the plain loop (_PlainSweeps)
+    on CPU shards or with ``plain``."""
     NX, NXp1 = pg.shape_x[1], pg.shape_y[1]
     s = rmesh.n_shards
     devs = rmesh.devices
     kx = row_block_cols(pg, s)
-    nsw_cap = int(min(MAX_SHARD_SWEEPS, max(nsweeps, nsweeps * s)))
+    nsw_cap = sweep_cap(nsweeps, s)
     lag2 = rmesh.impl == "pallas_halo"
     home = d0_flat.device
     if devs[0].type != home.type:
@@ -375,7 +419,8 @@ def planes_relax_sharded(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                g.idxy.expand(dy.shape).contiguous(), wx, wy)
               for dx, dy, wx, wy, g in zip(*blocks(d0_flat, INF),
                                            *blocks(wenter0, 0.0), gms)]
-    run = (_CardSweeps if devs[0].type == "cuda" else _PlainSweeps)(
+    card = devs[0].type == "cuda" and not plain
+    run = (_CardSweeps if card else _PlainSweeps)(
         gms, states, crits, ccx, ccy, kx, home)
 
     # A sweep's halos come from its own input state (lag 1) or, under

@@ -4,7 +4,7 @@ counting, the row-sharded relaxation on the card against its CPU run,
 and the Router on CUDA against the Router on the CPU.
 
 Run on a machine with a CUDA device:
-    pytest -m gpu tests/test_torch_kernels_gpu.py
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 Without one, every test here skips (the decision is taken inside the
 ``cuda`` fixture, never at import)."""
 
@@ -92,21 +92,65 @@ def test_full_kernel_modes_match_plain(cuda, arch_i, costs, mode):
     _same(got, P.planes_relax_plain(pg, d0, cc, crit, w0, 32))
 
 
+def _origins(rng, n, B, cuda):
+    """Tile origins from below 0 to past the grid: the kernel clamps
+    them as the plain version does."""
+    return torch.from_numpy(rng.integers(-3, n + 3, B).astype(np.int32)
+                            ).to(cuda)
+
+
 @pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
 @pytest.mark.parametrize("arch_i", [0, 1])
 def test_cropped_kernel_matches_plain(cuda, arch_i, costs):
     mk, nx, ny = ARCHS[arch_i]
     pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, 16, 4, costs, cuda)
     rng = np.random.default_rng(1)
-    ox = torch.from_numpy(rng.integers(0, nx - 2, 16).astype(np.int32)
-                          ).to(cuda)
-    oy = torch.from_numpy(rng.integers(0, ny - 2, 16).astype(np.int32)
-                          ).to(cuda)
+    ox, oy = _origins(rng, nx, 16, cuda), _origins(rng, ny, 16, cuda)
     n0 = pk.planes_relax_cropped_cuda.launches
     args = (pg, d0, cc, crit, w0, 32, ox, oy, 3, 3)
     got = P.planes_relax_cropped(*args)
     torch.cuda.synchronize()
     assert pk.planes_relax_cropped_cuda.launches == n0 + 1
+    _same(got, P.planes_relax_cropped_plain(*args))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+def test_cropped_kernel_modes_match_plain(cuda, arch_i, costs, mode):
+    """Every shared-memory mode of K2, origins that clamp, against the
+    plain version: dist, pred, wenter and stats bit-identical."""
+    mk, nx, ny = ARCHS[arch_i]
+    pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, 16, 11, costs, cuda)
+    rng = np.random.default_rng(12)
+    ox, oy = _origins(rng, nx, 16, cuda), _origins(rng, ny, 16, cuda)
+    args = (pg, d0, cc, crit, w0, 32, ox, oy, 4, 3)
+    got = pk.planes_relax_cropped_cuda(*args, mode=mode)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_cropped_cuda.last_mode == mode
+    _same(got, P.planes_relax_cropped_plain(*args))
+
+
+def test_cropped_kernel_allocates_only_outputs(cuda):
+    """K2's wrapper on the card: one launch, and no memory beyond its
+    outputs (one [3, B, ncells] block and the [B + 1, 2] stats)."""
+    pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=8), 6, 5, 16,
+                                     13, "jitter", cuda)
+    ox = torch.zeros(16, dtype=torch.int32, device=cuda)
+    args = (pg, d0, cc, crit, w0, 32, ox, ox, 3, 3)
+    P.planes_relax_cropped(*args)           # the plan is built once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    m0 = torch.cuda.memory_allocated(cuda)
+    n0 = pk.planes_relax_cropped_cuda.launches
+    got = P.planes_relax_cropped(*args)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_cropped_cuda.launches == n0 + 1
+
+    def blocks(nbytes):                     # the caching allocator's unit
+        return -(-nbytes // 512) * 512
+    want = blocks(3 * 16 * pg.ncells * 4) + blocks(17 * 2 * 4)
+    assert torch.cuda.max_memory_allocated(cuda) - m0 == want
     _same(got, P.planes_relax_cropped_plain(*args))
 
 
@@ -262,13 +306,20 @@ def test_sharded_relax_cuda_matches_cpu(cuda, impl, s):
                                      6, "exact", cuda)
     pk.reset_launch_counts()
     sk.reset_launch_counts()
-    got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24,
-                                  TS.make_row_mesh(s, impl, cuda))
+    mesh = TS.make_row_mesh(s, impl, [d0.device] * s)
+    got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24, mesh)
     torch.cuda.synchronize()
     sweeps = int(got[3][0])
-    # one step launch per shard and one exchange launch per sweep
-    assert pk.planes_sweep_block_cuda.launches == s * sweeps
-    assert sk.halo_exchange_cuda.launches == sweeps
+    if impl == "ppermute":
+        # lag 1 on one card: one cluster launch for the whole relaxation
+        assert pk.planes_relax_cluster_cuda.launches == 1
+        assert pk.planes_sweep_block_cuda.launches == 0
+        assert sk.halo_exchange_cuda.launches == 0
+    else:
+        # one step launch per shard and one exchange launch per sweep
+        assert pk.planes_sweep_block_cuda.launches == s * sweeps
+        assert sk.halo_exchange_cuda.launches == sweeps
+        assert pk.planes_relax_cluster_cuda.launches == 0
     cpu = [t.cpu() for t in (d0, cc, crit, w0)]
     ref = TS.planes_relax_sharded(_pg_to(pg, "cpu"), *cpu, 24,
                                   TS.make_row_mesh(s, impl, "cpu"))
@@ -278,6 +329,58 @@ def test_sharded_relax_cuda_matches_cpu(cuda, impl, s):
         assert torch.equal(got[k].cpu(), single[k].cpu())
 
 
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_cluster_relax_matches_plain_sweeps(cuda, s, arch_i, costs, mode):
+    """The one-launch cluster relaxation against the plain per-sweep loop
+    (_PlainSweeps) on the card and the step-and-halo-kernel loop: every
+    output and the stats bit-identical, in every shared-memory mode; on
+    f32-exact costs dist and wenter equal single-device K1's."""
+    mk, nx, ny = ARCHS[arch_i]
+    pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, 16, 20 + s, costs, cuda)
+    d0[3] = float("inf")                    # a net that stops at once
+    n0 = pk.planes_relax_cluster_cuda.launches
+    got = pk.planes_relax_cluster_cuda(pg, d0, cc, crit, w0,
+                                       TS.sweep_cap(24, s), s, mode=mode)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_cluster_cuda.launches == n0 + 1
+    if mode is not None:
+        assert pk.planes_relax_cluster_cuda.last_mode == mode
+    per_net = pk.planes_relax_cluster_cuda.last_stats[:-1].cpu()
+    assert per_net[3].tolist() == [1, 0]
+    assert torch.equal(per_net.max(0).values, got[3].cpu())
+    mesh = TS.make_row_mesh(s, "ppermute", [d0.device] * s)
+    plain = TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24, mesh,
+                                           plain=True)
+    _same(got, plain)
+    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24,
+                                              mesh))
+    if costs == "exact":
+        single = pk.planes_relax_full_cuda(pg, d0, cc, crit, w0, 24)
+        for k in (0, 2):
+            assert torch.equal(got[k], single[k])
+
+
+@pytest.mark.parametrize("s", [9, 16])
+def test_cluster_relax_beyond_portable_size(cuda, s):
+    """More than 8 shards: a non-portable cluster, bit-identical to the
+    plain loop where the card schedules it, else a stated refusal."""
+    pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=8), 6, 5, 8,
+                                     30 + s, "jitter", cuda)
+    try:
+        got = pk.planes_relax_cluster_cuda(pg, d0, cc, crit, w0,
+                                           TS.sweep_cap(24, s), s)
+    except RuntimeError as e:
+        assert "cannot schedule a cluster" in str(e)
+        return
+    torch.cuda.synchronize()
+    mesh = TS.make_row_mesh(s, "ppermute", [d0.device] * s)
+    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24,
+                                              mesh, plain=True))
+
+
 def test_router_mesh_cuda_matches_cpu(cuda):
     cfg = dict(num_luts=15, num_inputs=6, num_outputs=6, chan_width=10,
                seed=3)
@@ -285,10 +388,19 @@ def test_router_mesh_cuda_matches_cpu(cuda):
     rc = Router(f.rr, RouterOpts(batch_size=32), device="cpu").route(f.term)
     pk.reset_launch_counts()
     sk.reset_launch_counts()
-    rg = Router(f.rr, RouterOpts(batch_size=32, mesh_shards=2),
-                device=cuda).route(f.term)
-    assert pk.planes_sweep_block_cuda.launches > 0
-    assert sk.halo_exchange_cuda.launches > 0
+    router = Router(f.rr, RouterOpts(batch_size=32, mesh_shards=2),
+                    device=cuda)
+    rg = router.route(f.term)
+    if router.row_mesh.n_cards == 1:
+        # lag 1 with both shards on the card: one cluster launch per
+        # relaxation, no step, no halo kernel
+        assert pk.planes_relax_cluster_cuda.launches > 0
+        assert pk.planes_sweep_block_cuda.launches == 0
+        assert sk.halo_exchange_cuda.launches == 0
+    else:
+        assert pk.planes_relax_cluster_cuda.launches == 0
+        assert pk.planes_sweep_block_cuda.launches > 0
+        assert sk.halo_exchange_cuda.launches > 0
     assert sk.remote_slab_permute_cuda.launches == 0
     assert pk.planes_relax_full_cuda.launches == 0
     assert (rg.wirelength, rg.iterations) == (rc.wirelength, rc.iterations)
@@ -302,6 +414,33 @@ def _cards(n):
     if k < 2:
         pytest.skip("needs two or more CUDA devices")
     return [torch.device("cuda", i % k) for i in range(n)]
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
+def test_sharded_relax_across_cards_matches_cpu(cuda, impl, s):
+    """The shards round-robin over the cards: both schedules take the
+    per-sweep loop (one step launch per shard and one exchange launch per
+    sending card each sweep, no cluster launch); every output and the
+    stats equal the CPU run."""
+    devs = _cards(s)
+    pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=8), 6, 5, 16,
+                                     6, "exact", cuda)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    mesh = TS.make_row_mesh(s, impl, devs)
+    assert mesh.n_cards > 1
+    got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24, mesh)
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    sweeps = int(got[3][0])
+    assert pk.planes_sweep_block_cuda.launches == s * sweeps
+    assert sk.halo_exchange_cuda.launches == len(set(devs)) * sweeps
+    assert pk.planes_relax_cluster_cuda.launches == 0
+    cpu = [t.cpu() for t in (d0, cc, crit, w0)]
+    ref = TS.planes_relax_sharded(_pg_to(pg, "cpu"), *cpu, 24,
+                                  TS.make_row_mesh(s, impl, "cpu"))
+    _same(got, ref)
 
 
 @pytest.mark.parametrize("fwd", [True, False])

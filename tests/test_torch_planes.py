@@ -225,6 +225,93 @@ def test_planes_relax_cropped_matches_jax(arch, seed, costs):
     _compare(jres, tres, costs)
 
 
+def _tile_ids(pg, x0, y0, cnx, cny):
+    """K2's rule for the global flat ids and corner parity of each net's
+    tile cells, from its clamped origin (x0, y0) [B], as the kernel
+    computes them: (t*NX + x0+x)*(NY+1) + y0+y on chanx, ncx +
+    (t*(NX+1) + x0+x)*NY + y0+y on chany, (x0+x + y0+y) & 1 at the
+    corners.  Returns idxx [B, W, cnx, cny+1], idxy [B, W, cnx+1, cny],
+    par [B, cnx+1, cny+1] (int32)."""
+    W, NX, NYp1 = pg.shape_x
+    NY = NYp1 - 1
+    x0, y0 = x0[:, None, None, None], y0[:, None, None, None]
+    ar = torch.arange
+    t = ar(W)[None, :, None, None]
+    idxx = (t * NX + x0 + ar(cnx)[:, None]) * NYp1 + y0 + ar(cny + 1)
+    idxy = (W * NX * NYp1 + (t * (NX + 1) + x0 + ar(cnx + 1)[:, None]) * NY
+            + y0 + ar(cny))
+    par = (x0[:, 0] + ar(cnx + 1)[:, None] + y0[:, 0] + ar(cny + 1)) & 1
+    return (idxx.to(torch.int32), idxy.to(torch.int32),
+            par.to(torch.int32))
+
+
+@pytest.mark.parametrize("tile", [(3, 3), (5, 2), (2, 6), None])
+@pytest.mark.parametrize("arch", ["mixed", "unidir_mixed"])
+def test_crop_origin_rule_matches_crop_index(arch, tile):
+    """K2's addressing rule: one origin per net, clamped into [0,
+    crop_origin_hi], cuts every state plane and geometry array where
+    _crop_index and the JAX package's lax.dynamic_slice cut it, for
+    origins below 0 and past the grid (tile None: the whole grid); the
+    ids and parity computed from that origin (_tile_ids) equal
+    geom_cropped's idxx / idxy / base_par, the port's and JAX's.  The JAX
+    package's lax.dynamic_slice first wraps a negative start by the
+    array's extent (ROADMAP C: never reached, the window program clamps
+    the origins to >= 0 first), so JAX is held to the rule on the
+    origins >= 0 and the port's _crop_index on all of them."""
+    rr, pg = _graph(arch, 14, 12)
+    tpg = to_port(pg)
+    W, NX, NYp1 = tpg.shape_x
+    NY = NYp1 - 1
+    cnx, cny = tile if tile is not None else (NX, NY)
+    ox = np.array([-5, -1, 0, 1, NX - cnx, NX - cnx + 1, NX, NX + 7],
+                  np.int32)
+    oy = np.array([NY + 3, 0, -2, NY - cny, 1, NY, -9, NY - cny + 1],
+                  np.int32)
+    B = len(ox)
+    tox, toy = torch.from_numpy(ox), torch.from_numpy(oy)
+    hx, hy = TP.crop_origin_hi(tpg, cnx, cny)
+    x0, y0 = tox.long().clamp(0, hx), toy.long().clamp(0, hy)
+    # each array's (x, y) extent; its tile is (cnx, cny) plus what its
+    # extent has beyond (NX, NY)
+    extents = {k: tuple(getattr(tpg, k).shape[1:]) for k in TP._GEOM_ARRAYS}
+    extents.update(state_x=(NX, NYp1), state_y=(NX + 1, NY),
+                   base_par=(NX + 1, NYp1))
+    nonneg = (ox >= 0) & (oy >= 0)
+    jgm = JP.geom_cropped(pg, jnp.asarray(ox[nonneg]),
+                          jnp.asarray(oy[nonneg]), cnx, cny)
+    for name, (ex, ey) in extents.items():
+        sx, sy = cnx + ex - NX, cny + ey - NY
+        xi = x0[:, None] + torch.arange(sx)
+        yi = y0[:, None] + torch.arange(sy)
+        assert torch.equal(TP._crop_index(tox, sx, ex), xi), name
+        assert torch.equal(TP._crop_index(toy, sy, ey), yi), name
+        if name in TP._GEOM_ARRAYS:
+            full = np.asarray(getattr(pg, name))
+            want = np.stack([full[:, xi[b].numpy()][:, :, yi[b].numpy()]
+                             for b in np.where(nonneg)[0]])
+            assert np.array_equal(np.asarray(getattr(jgm, name)), want), name
+    # the state planes as the JAX package crops them
+    flat = np.arange(B * tpg.ncells, dtype=np.float32).reshape(B, -1)
+    _, tiles = JP.crop_state(pg, *(jnp.asarray(flat[nonneg]),) * 3,
+                             jnp.asarray(ox[nonneg]),
+                             jnp.asarray(oy[nonneg]), cnx, cny)
+    fx, fy = TP._split_flat(tpg, torch.from_numpy(flat))
+    for tile_j, full, (sx, sy) in ((tiles[0], fx, (cnx, cny + 1)),
+                                   (tiles[1], fy, (cnx + 1, cny))):
+        want = torch.stack([
+            full[b][:, x0[b] + torch.arange(sx)][:, :, y0[b]
+                                                 + torch.arange(sy)]
+            for b in np.where(nonneg)[0]])
+        assert np.array_equal(np.asarray(tile_j), want.numpy())
+    idxx, idxy, par = _tile_ids(tpg, x0, y0, cnx, cny)
+    tgm = TP.geom_cropped(tpg, tox, toy, cnx, cny)
+    assert torch.equal(idxx, tgm.idxx) and torch.equal(idxy, tgm.idxy)
+    assert torch.equal(par, tgm.base_par)
+    assert np.array_equal(idxx[nonneg].numpy(), np.asarray(jgm.idxx))
+    assert np.array_equal(idxy[nonneg].numpy(), np.asarray(jgm.idxy))
+    assert np.array_equal(par[nonneg].numpy(), np.asarray(jgm.base_par))
+
+
 @pytest.mark.parametrize("pad_y", [0, 3])
 def test_fold_unfold_match_jax(pad_y):
     a = np.arange(2 * 3 * 4 * 5, dtype=np.float32).reshape(2, 3, 4, 5)
@@ -251,9 +338,35 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                      torch.zeros(2, dtype=torch.int32),
                                      torch.zeros(2, dtype=torch.int32),
                                      2, 2)
+    with pytest.raises(ValueError):
+        pk.planes_relax_cluster_cuda(tpg, d0, cc, crit, w0, 8, 2)
     assert pk.launch_counts() == {"planes_relax_full_cuda": 0,
                                   "planes_relax_cropped_cuda": 0,
-                                  "planes_sweep_block_cuda": 0}
+                                  "planes_sweep_block_cuda": 0,
+                                  "planes_relax_cluster_cuda": 0}
+
+
+@pytest.mark.parametrize("wide,tall", [(1, 0), (0, 1), (1, 1), (-1, 0),
+                                       (0, -1)])
+def test_cropped_cuda_refuses_tiles_past_the_grid(wide, tall):
+    """K2's wrapper refuses a tile wider or taller than the grid (its
+    clamp range would go below 0) or empty, before it looks at the
+    tensors."""
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+
+    rr, pg = _graph("minimal", 4, 4)
+    d0, cc, crit, w0 = (torch.from_numpy(a) for a in
+                        _instance(rr, pg, 2, 0, "exact"))
+    tpg = to_port(pg)
+    _, NX, NYp1 = tpg.shape_x
+    pick = {1: lambda n: n + 1, 0: lambda n: n, -1: lambda n: 0}
+    cnx, cny = pick[wide](NX), pick[tall](NYp1 - 1)
+    z = torch.zeros(2, dtype=torch.int32)
+    n0 = pk.planes_relax_cropped_cuda.launches
+    with pytest.raises(ValueError, match="must lie inside"):
+        pk.planes_relax_cropped_cuda(tpg, d0, cc, crit, w0, 8, z, z,
+                                     cnx, cny)
+    assert pk.planes_relax_cropped_cuda.launches == n0
 
 
 @pytest.mark.slow

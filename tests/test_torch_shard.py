@@ -303,6 +303,84 @@ def test_sharded_relax_matches_jax_sharded(impl):
         assert np.array_equal(np.asarray(a), b)
 
 
+def _costs_instance(arch, costs, B=4):
+    """The shard instance with power-of-two (exact) or uniform (jittered)
+    congestion; numpy arrays."""
+    key = (arch, costs, B)
+    if key not in _CACHE:
+        mk, nx, ny, _, seed = ARCHS[arch]
+        a = mk()
+        rr = build_rr_graph(a, DeviceGrid(nx, ny, a.io_capacity))
+        pg = JP.build_planes(rr)
+        N = rr.num_nodes
+        rng = np.random.default_rng(seed + 17)
+        wires = np.where((rr.node_type == CHANX)
+                         | (rr.node_type == CHANY))[0]
+        noc = np.asarray(pg.node_of_cell)
+        seed_m = np.zeros((B, N), bool)
+        for b in range(B):
+            seed_m[b, rng.choice(wires, 1 + b % 3, replace=False)] = True
+        if costs == "exact":
+            cong = (2.0 ** rng.integers(-6, 3, (B, N))).astype(np.float32)
+        else:
+            cong = (rng.uniform(0.5, 2.0, (B, N)) * 1e-10).astype(
+                np.float32)
+        d0 = np.where(seed_m[:, noc], 0.0, np.inf).astype(np.float32)
+        # the last net is an empty slot (all-INF seeds, as the route
+        # gives a clean net): it stops after its first sweep
+        d0[-1] = np.inf
+        args = (d0, np.ascontiguousarray(cong[:, noc]),
+                np.zeros((B, 1, 1, 1), np.float32),
+                np.zeros((B, pg.ncells), np.float32))
+        _CACHE[key] = (pg, to_port(pg), args)
+    return _CACHE[key]
+
+
+@pytest.mark.parametrize("costs", ["exact", "jitter"])
+@pytest.mark.parametrize("arch", ["minimal", "unidir"])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_sharded_relax_per_net_termination(s, arch, costs):
+    """The cluster kernel's termination rule: each net stops at its own
+    first sweep with no owned change.  The plain lag-1 sharded loop run
+    one net at a time, its per-net [executed, useful] max-reduced,
+    equals the batch run (every output bit-identical, stats equal) and
+    the JAX package's planes_relax_sharded."""
+    pg, tpg, args = _costs_instance(arch, costs)
+    B = args[0].shape[0]
+    mesh = TS.make_row_mesh(s, "ppermute", "cpu")
+    batch = TS.planes_relax_sharded(tpg, *(torch.from_numpy(x)
+                                           for x in args), 24, mesh)
+    nets = [TS.planes_relax_sharded(
+        tpg, *(torch.from_numpy(x[b:b + 1]) for x in args), 24, mesh)
+        for b in range(B)]
+    per_net = torch.stack([n[3] for n in nets])
+    # the nets do not all stop at the same sweep
+    assert per_net[-1].tolist() == [1, 0] < per_net[0].tolist()
+    for k in range(3):
+        assert torch.equal(torch.cat([n[k] for n in nets]), batch[k])
+    assert torch.equal(per_net.max(0).values, batch[3])
+    jout = JS.planes_relax_sharded(pg, *(jnp.asarray(x) for x in args), 24,
+                                   JS.make_row_mesh(s, "ppermute"))
+    for a, b in zip(jout, batch):
+        assert np.array_equal(np.asarray(a), b.numpy())
+
+
+def test_cluster_dispatch_rule():
+    """planes_relax_sharded takes the cluster launch exactly for the
+    lag-1 schedule with every shard on the tensors' card; across cards,
+    under lag 2 and on the CPU it runs the per-sweep loop."""
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    one = TS.RowMesh((c0,) * 3)
+    assert TS.uses_cluster(one, c0)
+    assert not TS.uses_cluster(one, c1)
+    assert not TS.uses_cluster(TS.RowMesh((c0,) * 3, "pallas_halo"), c0)
+    assert not TS.uses_cluster(TS.RowMesh((c0, c1)), c0)
+    cpu = TS.make_row_mesh(2, "ppermute", "cpu")
+    assert not TS.uses_cluster(cpu, torch.device("cpu"))
+    assert TS.sweep_cap(24, 4) == 96
+    assert TS.sweep_cap(300, 4) == TS.MAX_SHARD_SWEEPS
+
+
 def test_sharded_relax_sweep_ceiling():
     """A ceiling below the fixpoint caps the sweeps at nsweeps * s."""
     pg, tpg, args, _ = _instance("unidir")
