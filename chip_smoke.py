@@ -44,16 +44,29 @@ Phases, one line each (any failure exits non-zero with no result line):
   9. scale     — place the 1,200-LUT/W=20 config with the native
                  annealer and route it on the card, single-device and
                  at mesh_shards=4: legal
- 10. launches  — every kernel's launch count over the route phases
+ 10. timing    — the timing-driven route (the STA between iterations
+                 inside each window): flow.run_route on the bench
+                 (wirelength 522 in 22 iterations, crit path
+                 4.552000110180643e-09 s) and on the placed scale config
+                 (legal), Router.route(analyzer=...) on the bench at
+                 mesh_shards=2 on one card (the cluster kernel; paths
+                 equal), route(timing_cb=...) and route(crit=0.99) on the
+                 15-LUT fixture; K1, K2 and the cluster kernel against
+                 their plain versions on relaxation inputs captured from
+                 these routes at crit > 0
+ 11. launches  — every kernel's launch count over the route phases
                  (the lag-2 mesh routes included; with several cards
                  also a mesh-2 route with both shards on card 0, the
                  one-card path)
- 11. device    — the kernels' device time per launch (torch.profiler)
+ 12. device    — the kernels' device time per launch (torch.profiler)
                  for the cases phases 3-6 timed, and that K2's and the
                  cluster kernel's wrappers launch one kernel per call
- 12. profile   — a torch.profiler breakdown of a warm bench route, a
-                 warm mesh_shards=2 bench route and a warm scale route
-                 (their untraced seconds taken in phases 7-9)
+ 13. profile   — a torch.profiler breakdown of a warm bench route, a
+                 warm mesh_shards=2 bench route, a warm scale route and
+                 warm timing-driven bench and scale routes (their
+                 untraced seconds taken in phases 7-10)
+ 14. sta       — the STA's kernel launches and device time per call
+                 (torch.profiler) and per timing route
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -896,10 +909,12 @@ def phase_sharded(shapes):
     return rows
 
 
-def _route(tag, flow, opts, impl=None, devices=None):
+def _route(tag, flow, opts, impl=None, devices=None, analyzer=None):
     """Route ``flow`` on the card, legal or raise; with ``impl``, under
     that exchange schedule instead of the Router's own; with
-    ``devices``, the shards on those cards instead of round-robin."""
+    ``devices``, the shards on those cards instead of round-robin; with
+    ``analyzer``, timing-driven (the STA between iterations inside each
+    window)."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes_kernels as pk
@@ -917,7 +932,7 @@ def _route(tag, flow, opts, impl=None, devices=None):
     sk.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    res = router.route(flow.term)
+    res = router.route(flow.term, analyzer=analyzer)
     torch.cuda.synchronize()
     dt = time.time() - t0
     counts = {**pk.launch_counts(), **sk.launch_counts()}
@@ -968,36 +983,38 @@ def _route(tag, flow, opts, impl=None, devices=None):
     return res, counts, dt
 
 
-def warm_route(flow, opts):
-    """A Router that has routed ``flow`` once, and the seconds of a
-    second (warm, untraced) route on it."""
+def warm_route(flow, opts, analyzer=None):
+    """A zero-argument call that routes ``flow`` once more on a Router
+    that has routed it once (timing-driven with ``analyzer``), and the
+    seconds of one such warm, untraced route."""
     import torch
 
     from parallel_eda_tpu_torch.route.router import Router
 
-    router = Router(flow.rr, opts, device="cuda")
-    router.route(flow.term)
+    run = functools.partial(Router(flow.rr, opts, device="cuda").route,
+                            flow.term, analyzer=analyzer)
+    run()
     torch.cuda.synchronize()
     t0 = time.time()
-    router.route(flow.term)
+    run()
     torch.cuda.synchronize()
-    return router, time.time() - t0
+    return run, time.time() - t0
 
 
-def phase_profile(flow, warm, tag):
-    """Where a warm route's time goes on the card: one more route on the
-    Router of ``warm`` (warm_route's result) is traced with
-    torch.profiler (device activity only) for device time by kernel, the
-    hand-written kernels' device time per launch and their share; the
-    busy share is device time over warm_route's untraced seconds."""
+def phase_profile(warm, tag):
+    """Where a warm route's time goes on the card: one more route through
+    ``warm`` (warm_route's result) is traced with torch.profiler (device
+    activity only) for device time by kernel, the hand-written kernels'
+    device time per launch and their share; the busy share is device
+    time over warm_route's untraced seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    router, route_s = warm
+    run, route_s = warm
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        router.route(flow.term)
+        run()
         torch.cuda.synchronize()
     wall_us = (time.time() - t0) * 1e6
     kern = []
@@ -1034,6 +1051,267 @@ def phase_profile(flow, warm, tag):
                    f"launches, of which elementwise/fill/copy "
                    f"{sum(k[1] for k in elem)} "
                    f"({sum(k[0] for k in elem) / 1e3:.1f}ms); top: {top}")
+
+
+class _Spy:
+    """While in use, wraps ``module.name``: counts its calls and keeps the
+    arguments (tensors cloned) of the first call whose argument ``arg``
+    holds a value > 0 — one host read per call until then, and none
+    after.  The route code looks the function up at each call."""
+
+    def __init__(self, module, name, arg=None):
+        self.module, self.name, self.arg = module, name, arg
+        self.calls = 0
+        self.args = None
+
+    def __enter__(self):
+        import torch
+
+        orig = self.orig = getattr(self.module, self.name)
+
+        def spy(*args, **kw):
+            self.calls += 1
+            if self.arg is not None and self.args is None and \
+                    bool((args[self.arg] > 0).any()):
+                self.args = tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args)
+            return orig(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _timing_run_route(tag, flow, opts):
+    """``flow.run_route`` timing-driven on the card, legal (its own
+    check) or raise; (result, launches, route seconds)."""
+    import torch
+
+    from parallel_eda_tpu_torch.flow import run_route
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    run_route(flow, opts, timing_driven=True, device="cuda")
+    torch.cuda.synchronize()
+    counts = {**pk.launch_counts(), **sk.launch_counts()}
+    res, dt = flow.route, flow.times["route"]
+    if not res.success:
+        raise AssertionError(f"{tag}: route did not converge")
+    say(tag, f"legal: wirelength {res.wirelength}, {res.iterations} "
+             f"iterations, crit path {flow.crit_path_delay!r} s, "
+             f"{dt:.2f} s route, {res.total_net_routes} net routes, relax "
+             f"sweeps {res.total_relax_steps} (cropped "
+             f"{res.total_relax_steps_cropped}), timing graph "
+             f"{flow.tg.num_tnodes} tnodes, depth {flow.tg.depth}, "
+             f"launches {counts}")
+    return res, counts, dt
+
+
+def _check_captured(rows, name, tag, spy, cfg):
+    """Hold the kernel of ``name`` against its plain version on the
+    relaxation inputs ``spy`` captured from a timing-driven route (crit
+    > 0), in every shared-memory mode; add the case to the kernel's
+    row."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import planes_shard as TS
+
+    if spy.args is None:
+        raise AssertionError(f"{tag}: the route made no relaxation call at "
+                             "crit > 0")
+    args = spy.args
+    pg, crit = args[0], args[3]
+    if name == "planes_relax_full_cuda":
+        got, ref = P.planes_relax(*args), P.planes_relax_plain(*args)
+        wrapper = pk.planes_relax_full_cuda
+        modes = [functools.partial(wrapper, *args, mode=m)
+                 for m in range(wrapper.last_mode)]
+        check = _compare
+    elif name == "planes_relax_cropped_cuda":
+        got = P.planes_relax_cropped(*args)
+        ref = P.planes_relax_cropped_plain(*args)
+        wrapper = pk.planes_relax_cropped_cuda
+        modes = [functools.partial(wrapper, *args, mode=m)
+                 for m in range(wrapper.last_mode)]
+        check = _compare
+    else:
+        mesh = args[6]
+        n0 = pk.planes_relax_cluster_cuda.launches
+        got = TS.planes_relax_sharded(*args)
+        torch.cuda.synchronize()
+        if pk.planes_relax_cluster_cuda.launches != n0 + 1:
+            raise AssertionError(f"{tag}: not one cluster launch")
+        ref = TS.planes_relax_sharded_sweeps(*args, plain=True)
+        wrapper = pk.planes_relax_cluster_cuda
+        cap = TS.sweep_cap(args[5], mesh.n_shards)
+        modes = [functools.partial(wrapper, *args[:5], cap, mesh.n_shards,
+                                   mode=m) for m in range(wrapper.last_mode)]
+        check = _same
+    auto = wrapper.last_mode
+    err = check(tag, got, ref)
+    for m, run in enumerate(modes):
+        err = max(err, check(f"{tag} mode {m}", run(), ref))
+    case = dict(cfg=cfg, costs="timing route, crit > 0", B=int(crit.shape[0]),
+                crit_max=float(crit.max()), sweeps=got[3].tolist(),
+                max_abs_err=err, mode=auto)
+    if name == "planes_relax_cropped_cuda":
+        case["tile"] = [args[8], args[9]]
+    rows[name].append(case)
+    say("timing", f"{tag}: bit-identical to the plain version in every "
+                  "mode, " + json.dumps(case))
+
+
+def phase_timing(bench, scale, rows, warm):
+    """The timing-driven route on the card through the user's entry
+    points: ``run_route`` on the bench (wirelength 522 in 22 iterations,
+    crit path 4.552000110180643e-09 s: the JAX package with XLA:CPU's
+    multiply-add contraction off) and the placed scale config (legal),
+    ``Router.route(analyzer=...)`` at mesh_shards=2 with both shards on
+    one card (the cluster kernel; paths equal the bench route's), and
+    ``route(timing_cb=...)`` and ``route(crit=0.99)`` on the 15-LUT
+    fixture (65 / 7 and 64 / 4, as the JAX package).  K1, K2 and the
+    cluster kernel against their plain versions on relaxation inputs
+    captured from these routes at crit > 0.  Adds warm timing routes to
+    ``warm`` for the profile phase.  Returns the routes' launch counts
+    and the STA cases for phase_sta."""
+    import torch
+
+    from parallel_eda_tpu_torch.flow import synth_flow
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_shard as TS
+    from parallel_eda_tpu_torch.route.check import check_route
+    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+    from parallel_eda_tpu_torch.timing import sta
+    from parallel_eda_tpu_torch.timing.graph import build_timing_graph
+
+    counts, sta_cases = [], []
+    with _Spy(P, "planes_relax", 3) as k1, _Spy(sta, "sta_crit") as n_sta:
+        res, c, dt = _timing_run_route("bench_timing", bench,
+                                       RouterOpts(batch_size=64))
+    counts.append(c)
+    got = (res.wirelength, res.iterations, bench.crit_path_delay)
+    if got != (522, 22, 4.552000110180643e-09):
+        raise AssertionError(f"bench_timing: expected wirelength 522 in 22 "
+                             "iterations, crit path 4.552000110180643e-09 "
+                             f"s; got {got}")
+    if c["planes_relax_full_cuda"] <= 0:
+        raise AssertionError("bench_timing: K1 never launched")
+    sta_cases.append(("bench", bench, n_sta.calls, res.iterations))
+    _check_captured(rows, "planes_relax_full_cuda", "K1 bench timing", k1,
+                    "bench")
+
+    with _Spy(TS, "planes_relax_sharded", 3) as cl:
+        mres, c, mdt = _route("mesh2_timing", bench,
+                              RouterOpts(batch_size=64, mesh_shards=2),
+                              devices=["cuda:0"] * 2,
+                              analyzer=bench.analyzer)
+    counts.append(c)
+    if (mres.wirelength, mres.iterations) != (522, 22) or not (
+            np.array_equal(mres.paths, res.paths)
+            and np.array_equal(mres.occ, res.occ)
+            and np.array_equal(mres.sink_delay, res.sink_delay)):
+        raise AssertionError("mesh2_timing: route differs from the "
+                             "single-device bench timing route")
+    if c["planes_relax_cluster_cuda"] <= 0:
+        raise AssertionError("mesh2_timing: the cluster kernel never "
+                             "launched")
+    say("mesh2_timing", "paths, occupancy and sink delays equal to the "
+                        f"single-device timing route; {mdt:.2f} s route")
+    _check_captured(rows, "planes_relax_cluster_cuda",
+                    "cluster bench mesh 2 timing", cl, "bench")
+    warm["bench_timing"] = warm_route(bench, RouterOpts(batch_size=64),
+                                      bench.analyzer)
+
+    with _Spy(P, "planes_relax", 3) as k1, \
+            _Spy(P, "planes_relax_cropped", 3) as k2, \
+            _Spy(sta, "sta_crit") as n_sta:
+        res, c, dt = _timing_run_route("scale_timing", scale,
+                                       RouterOpts(batch_size=64))
+    counts.append(c)
+    if c["planes_relax_cropped_cuda"] <= 0:
+        raise AssertionError("scale_timing: K2 never launched")
+    sta_cases.append(("scale", scale, n_sta.calls, res.iterations))
+    _check_captured(rows, "planes_relax_cropped_cuda", "K2 scale timing", k2,
+                    "scale")
+    _check_captured(rows, "planes_relax_full_cuda", "K1 scale timing", k1,
+                    "scale")
+    warm["scale_timing"] = warm_route(scale, RouterOpts(batch_size=64),
+                                      scale.analyzer)
+
+    # the other two entry points, on the 15-LUT fixture
+    small = synth_flow(num_luts=15, num_inputs=6, num_outputs=6,
+                       chan_width=10, seed=3)
+    ta = sta.TimingAnalyzer(build_timing_graph(small.nl, small.pnl,
+                                               small.term), device="cuda")
+    crit = np.full(small.term.sinks.shape, 0.99, np.float32)
+    for tag, opts, kw, want in (
+            ("timing_cb", RouterOpts(batch_size=32),
+             dict(timing_cb=ta.timing_cb), (65, 7)),
+            ("crit_0.99", RouterOpts(batch_size=32, sink_group=1),
+             dict(crit=crit), (64, 4))):
+        r = Router(small.rr, opts, device="cuda").route(small.term, **kw)
+        torch.cuda.synchronize()
+        if not r.success or (r.wirelength, r.iterations) != want:
+            raise AssertionError(f"{tag}: expected wirelength {want[0]} in "
+                                 f"{want[1]} iterations, got "
+                                 f"{r.wirelength} in {r.iterations}")
+        check_route(small.rr, small.term, r.paths, occ=r.occ)
+        say("timing", f"15-LUT route({next(iter(kw))}=...) on the card: "
+                      f"legal, {r.wirelength} in {r.iterations} iterations")
+    return counts, sta_cases
+
+
+def phase_sta(cases):
+    """The STA's launches per call (one call per iteration and rung) and
+    its device time per call, from torch.profiler at each timing route's
+    shapes on its final delays; times the calls the route made, for its
+    device time per route."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from parallel_eda_tpu_torch.timing.sta import sta_crit
+
+    for cfg, flow, calls, iters in cases:
+        a = flow.analyzer
+        flat = torch.cat([torch.from_numpy(flow.route.sink_delay).cuda()
+                          .reshape(-1), torch.zeros(1, device="cuda")])
+        run = functools.partial(sta_crit, a.dev, flat, a.tg.depth,
+                                a.crit_exp, a.max_crit,
+                                req_seed=a._req_seed,
+                                use_sdc=a._req_seed is not None)
+        reps = 20
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        us = n = 0
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                us += (getattr(e, "self_device_time_total", 0)
+                       or getattr(e, "device_time_total", 0))
+                n += e.count
+        if not n:
+            say("sta", f"{cfg}: not measured (the profiler saw no kernel)")
+            continue
+        say("sta", f"{cfg}: {a.tg.num_tnodes} tnodes, depth {a.tg.depth}; "
+                   f"{n / reps:.0f} kernel launches and {us / reps:.1f} us "
+                   f"of device time per STA call; {calls} calls in the "
+                   f"{iters}-iteration run_route, its final analysis "
+                   f"included ({calls / iters:.2f} per iteration) -> "
+                   f"{calls * n / reps / iters:.0f} launches per iteration, "
+                   f"{calls * n / reps:.0f} launches and "
+                   f"{calls * us / reps / 1e3:.2f} ms of device time per "
+                   "route")
 
 
 def main(argv) -> int:
@@ -1074,7 +1352,7 @@ def main(argv) -> int:
         raise AssertionError(f"bench: expected wirelength 537 in 22 "
                              f"iterations, got {res.wirelength} in "
                              f"{res.iterations}")
-    warm = {"bench": (bench, warm_route(bench, RouterOpts(batch_size=64)))}
+    warm = {"bench": warm_route(bench, RouterOpts(batch_size=64))}
     c_mesh, c_lag2 = [], []
     for s in (2, 4):
         # the Router's lag-1 schedule, then lag 2 for comparison, timed
@@ -1120,23 +1398,25 @@ def main(argv) -> int:
             raise AssertionError("mesh2_one_card: route differs from the "
                                  "single-device bench route")
         c_mesh.append(c)
-    warm["mesh2"] = (bench, warm_route(
-        bench, RouterOpts(batch_size=64, mesh_shards=2)))
+    warm["mesh2"] = warm_route(bench,
+                               RouterOpts(batch_size=64, mesh_shards=2))
     t0 = time.time()
     scale = run_place_native(scale)
     say("scale", f"placed {scale.pnl.num_blocks} blocks in "
                  f"{time.time() - t0:.1f}s (native SA)")
     _, c_scale, _ = _route("scale", scale, RouterOpts(batch_size=64))
-    warm["scale"] = (scale, warm_route(scale, RouterOpts(batch_size=64)))
+    warm["scale"] = warm_route(scale, RouterOpts(batch_size=64))
     _, c, _ = _route("scale_mesh4", scale,
                      RouterOpts(batch_size=64, mesh_shards=4))
     c_mesh.append(c)
+    c_timing, sta_cases = phase_timing(bench, scale, rows, warm)
 
-    runs = [c_bench, c_scale] + c_mesh + c_lag2
+    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
-                    f"mesh lag 2 (bench 2, bench 4) {c_lag2}")
+                    f"mesh lag 2 (bench 2, bench 4) {c_lag2} timing "
+                    f"(bench, bench mesh 2, scale) {c_timing}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:
@@ -1146,9 +1426,10 @@ def main(argv) -> int:
         raise AssertionError(f"never launched on the route phases: {idle}")
     launch1 = launch_us()
     phase_device()
-    for tag, (flow, w) in warm.items():
-        phase_profile(flow, w, tag)
+    for tag, w in warm.items():
+        phase_profile(w, tag)
     del warm
+    phase_sta(sta_cases)
     say("launch", f"host us per PyTorch launch: {launch0:.2f} before any "
                   f"profiler session, {launch1:.2f} after the timings and "
                   f"routes, {launch_us():.2f} after the profiler phases")

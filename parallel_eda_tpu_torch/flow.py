@@ -1,8 +1,11 @@
-"""Flow front end: the host-side stages of the JAX package's flow.py
-(``prepare``, ``synth_flow`` and ``run_place_native``) — arch ->
-netlist -> pack -> grid -> rr graph -> initial placement -> net
-terminals, all numpy, plus the native C++ annealer for placed configs.
-Routing is ``route.router.Router(flow.rr, opts, device=...)``."""
+"""Flow orchestration: the JAX package's flow.py in part.
+
+``prepare``, ``synth_flow`` and ``run_place_native`` are the host front
+end — arch -> netlist -> pack -> grid -> rr graph -> initial placement
+-> net terminals, all numpy, plus the native C++ annealer for placed
+configs.  ``run_route`` routes the flow on the card (or the CPU when
+asked), timing-driven by default, and checks the result with the
+legality oracle; ``routes_from_result`` gives the route trees."""
 
 from __future__ import annotations
 
@@ -19,14 +22,19 @@ from .netlist.netlist import LogicalNetlist
 from .netlist.packed import PackedNetlist
 from .pack.packer import pack_netlist
 from .place.initial import initial_placement
+from .route.check import check_route
+from .route.router import RouteResult, Router, RouterOpts
 from .rr.graph import RRGraph, build_rr_graph
 from .rr.grid import DeviceGrid, size_grid
 from .rr.terminals import NetTerminals, net_terminals
+from .timing.graph import TimingGraph, build_timing_graph
+from .timing.sdc import SdcConstraints
+from .timing.sta import TimingAnalyzer
 
 
 @dataclass
 class FlowResult:
-    """Everything the front end produced."""
+    """Everything the flow produced."""
     arch: Arch
     nl: LogicalNetlist
     pnl: PackedNetlist
@@ -34,8 +42,17 @@ class FlowResult:
     pos: np.ndarray
     rr: RRGraph
     term: NetTerminals
+    tg: Optional[TimingGraph] = None
+    analyzer: Optional[TimingAnalyzer] = None
+    route: Optional[RouteResult] = None
     bb_factor: int = 3
     times: dict = field(default_factory=dict)   # stage -> seconds
+    sdc: Optional[SdcConstraints] = None
+
+    @property
+    def crit_path_delay(self) -> float:
+        return self.analyzer.crit_path_delay if self.analyzer else float(
+            "nan")
 
 
 def prepare(nl: LogicalNetlist, arch: Arch, chan_width: int,
@@ -98,4 +115,77 @@ def run_place_native(flow: FlowResult, seed: int = 7,
     flow.times["place"] = time.perf_counter() - t0
     flow.term = net_terminals(flow.pnl, flow.rr, flow.pos,
                               bb_factor=flow.bb_factor)
+    return flow
+
+
+def routes_from_result(term: NetTerminals, route: RouteResult,
+                       num_nodes: int) -> dict:
+    """Per-net route trees {packed net index: [(node, parent), ...]} in
+    tree order (SOURCE first, parent -1), from the router's per-sink path
+    segments (each stored sink -> join node; the join node is already in
+    the tree): the .route file payload (route_common.c print_route)."""
+    out = {}
+    for r, ni in enumerate(term.net_ids):
+        src = int(term.source[r])
+        rows = [(src, -1)]
+        in_tree = {src}
+        segs = []
+        for s in range(int(term.num_sinks[r])):
+            seg = route.paths[r, s]
+            seg = seg[seg < num_nodes]
+            if seg.size:
+                segs.append(seg)
+        # segments were grown in criticality-wave order, not sink-slot
+        # order: insert each once its join node (seg[-1]) is in the tree
+        while segs:
+            progressed = False
+            rest = []
+            for seg in segs:
+                if int(seg[-1]) in in_tree:
+                    # seg = [sink ... join]; parent of seg[j] is seg[j+1]
+                    for j in range(len(seg) - 2, -1, -1):
+                        node = int(seg[j])
+                        if node in in_tree:
+                            continue
+                        rows.append((node, int(seg[j + 1])))
+                        in_tree.add(node)
+                    progressed = True
+                else:
+                    rest.append(seg)
+            if not progressed:
+                raise ValueError(
+                    f"net {ni}: disconnected route-tree segments")
+            segs = rest
+        out[int(ni)] = rows
+    return out
+
+
+def run_route(flow: FlowResult, opts: Optional[RouterOpts] = None,
+              timing_driven: bool = True, verify: bool = True,
+              device="cuda") -> FlowResult:
+    """Route the flow on ``device`` (the card unless the caller asks for
+    the CPU), then analyse and check it (try_route_new semantics,
+    route_common.c:298; check_route, place_and_route.c:169).
+
+    Timing-driven (the default) builds the timing graph and the analyzer
+    once per flow and routes with the STA between iterations inside each
+    window; the final routed delays are analysed once more, so
+    ``flow.crit_path_delay`` is the routed critical path.  ``verify``
+    runs the legality oracle on a successful route."""
+    if timing_driven:
+        if flow.tg is None:
+            flow.tg = build_timing_graph(flow.nl, flow.pnl, flow.term)
+        if flow.analyzer is None:
+            flow.analyzer = TimingAnalyzer(flow.tg, sdc=flow.sdc,
+                                           device=device)
+    router = Router(flow.rr, opts, device=device)
+    t0 = time.perf_counter()
+    flow.route = router.route(
+        flow.term, analyzer=flow.analyzer if timing_driven else None)
+    flow.times["route"] = time.perf_counter() - t0
+    if timing_driven:
+        flow.analyzer.analyze(flow.route.sink_delay)
+    if verify and flow.route.success:
+        check_route(flow.rr, flow.term, flow.route.paths,
+                    occ=flow.route.occ)
     return flow

@@ -1363,18 +1363,29 @@ def route_window_planes(
         K_iters: int, nsweeps: int, max_len: int, num_waves: int,
         group: int, doubling: bool = True, topk: int = 1024,
         n_colors: int = 5, crop_tile=None, bb0_all=None, widen_ok=None,
-        mesh=None):
+        mesh=None, tdev=None, req_seed=None, sta_depth: int = 0,
+        crit_exp: float = 1.0, max_crit: float = 0.99,
+        use_sdc: bool = False):
     """A WINDOW of K_iters PathFinder iterations: per iteration, every
     batch group of ``sel_plan`` [G, B] runs the fused rip-up/route/commit
     step (groups with no dirty net are skipped outright), then the
     present/history cost update (congestion.h:177-193).
 
-    ``paths``, ``sink_delay``, ``all_reached`` and ``bb`` are updated in
-    place.  Returns (occ, acc, status [R] int32, scal [SCAL_LEN] int32):
-    status packs bit0 rrm, bit1 dev_wide, bit2 unreached, bits3-7
-    colour, bits8-15 live-h bucket, bits16-23 live-w bucket (8-tile
-    buckets); scal holds the window's scalar counters (SCAL_*).  ``mesh``
-    (a planes_shard.RowMesh) shards the full-canvas relaxation."""
+    With ``tdev`` (a timing.sta.DeviceTimingGraph) each iteration ends
+    with the full STA on the device (timing.sta.sta_crit with
+    ``req_seed``, ``sta_depth``, ``crit_exp``, ``max_crit``, ``use_sdc``):
+    its criticalities are written into ``crit_all`` and its critical-path
+    delay into ``dmax_hist``, with no host read — the reference's
+    analyze_timing between router iterations (router.cxx:28,42).
+
+    ``paths``, ``sink_delay``, ``all_reached``, ``bb`` and ``crit_all``
+    are updated in place.  Returns (occ, acc, status [R] int32,
+    scal [SCAL_LEN] int32, dmax_hist [K_iters] f32): status packs bit0
+    rrm, bit1 dev_wide, bit2 unreached, bits3-7 colour, bits8-15 live-h
+    bucket, bits16-23 live-w bucket (8-tile buckets); scal holds the
+    window's scalar counters (SCAL_*); dmax_hist is NaN without
+    ``tdev``.  ``mesh`` (a planes_shard.RowMesh) shards the full-canvas
+    relaxation."""
     device = occ.device
     G = sel_plan.shape[0]
     f32 = lambda v: torch.tensor(v, dtype=_F32, device=device)  # noqa: E731
@@ -1382,6 +1393,8 @@ def route_window_planes(
     pres_mult_t, max_pres_t, acc_fac_t = f32(pres_mult), f32(max_pres), \
         f32(acc_fac)
     nroutes = nexec = s_exec = s_useful = 0
+    dmax_hist = torch.full((K_iters,), float("nan"), dtype=_F32,
+                           device=device)
     for it in range(K_iters):
         force = (it0 + it) < force_until
         for g in range(G):
@@ -1411,6 +1424,15 @@ def route_window_planes(
         acc = acc + acc_fac_t * torch.clamp(
             occ - dev.capacity, min=0).to(_F32)
         pres = torch.minimum(max_pres_t, pres * pres_mult_t)
+        if tdev is not None:
+            from ..timing.sta import sta_crit
+            flat = torch.cat([sink_delay.reshape(-1),
+                              sink_delay.new_zeros(1)])
+            crit_flat, dmax, _, _ = sta_crit(
+                tdev, flat, sta_depth, crit_exp, max_crit,
+                req_seed=req_seed, use_sdc=use_sdc)
+            crit_all.copy_(crit_flat.reshape(crit_all.shape))
+            dmax_hist[it] = dmax
 
     rrm, colors = _mis_colors(dev, occ, paths, all_reached, topk, n_colors)
     over = torch.clamp(occ - dev.capacity, min=0)
@@ -1431,7 +1453,7 @@ def route_window_planes(
         torch.tensor(nexec, device=device), max_span.to(torch.int64),
         torch.tensor(s_exec, device=device),
         torch.tensor(s_useful, device=device)]).to(_I32)
-    return occ, acc, status, scal
+    return occ, acc, status, scal, dmax_hist
 
 
 def unpack_window_status(status):

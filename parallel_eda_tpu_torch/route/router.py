@@ -359,13 +359,18 @@ class Router:
     def route(self, term: NetTerminals, crit: Optional[np.ndarray] = None,
               timing_cb=None, analyzer=None,
               resume=None) -> RouteResult:
-        """Route all nets, congestion-driven.  ``crit``, ``timing_cb``,
-        ``analyzer`` and ``resume`` are not ported yet (ROADMAP.md A8 and
-        A6) and raise when given."""
-        if crit is not None or timing_cb is not None or analyzer is not None:
-            raise NotImplementedError(
-                "timing-driven routing (crit / timing_cb / analyzer) is not "
-                "ported yet (ROADMAP.md A8)")
+        """Route all nets.  ``crit`` [R, Smax] per-sink criticalities
+        (None or 0 => congestion-driven), clamped at 0.99.
+
+        ``analyzer`` (timing.sta.TimingAnalyzer on this Router's device)
+        runs the full STA between iterations inside each window program
+        (multi-iteration windows; criticalities never visit the host)
+        and leaves each window's critical-path delay in its stats row and
+        in ``analyzer.crit_path_delay``.  ``timing_cb``, without an
+        analyzer, is called on the host after every iteration (windows of
+        one iteration) with the current result and returns the next
+        criticalities (router.cxx:28,42).  ``resume`` is not ported yet
+        (ROADMAP.md A6) and raises when given."""
         if resume is not None:
             raise NotImplementedError(
                 "resume is not ported yet (ROADMAP.md A6)")
@@ -376,7 +381,17 @@ class Router:
         R, Smax = term.sinks.shape
         N = rr.num_nodes
         B = min(opts.batch_size, max(1, R))
-        crit = np.zeros((R, Smax), dtype=np.float32)
+        if analyzer is not None and \
+                analyzer.dev.device != self.dev.capacity.device:
+            raise ValueError(
+                f"the analyzer's timing graph is on {analyzer.dev.device}, "
+                f"the Router on {self.dev.capacity.device}")
+        if crit is None:
+            crit = np.zeros((R, Smax), dtype=np.float32)
+        else:
+            # max_criticality clamp (VPR --max_criticality 0.99): a crit
+            # of 1 would zero the congestion term and stall negotiation
+            crit = np.minimum(np.asarray(crit, dtype=np.float32), 0.99)
         occ = torch.zeros(N, dtype=torch.int32, device=self.device)
         acc = torch.ones(N, dtype=torch.float32, device=self.device)
         span0 = (int(((term.bb_xmax - term.bb_xmin)
@@ -393,15 +408,15 @@ class Router:
                                    dtype=np.int32))
         result = RouteResult(False, 0, None, None, None, 0)
         return self._route_planes_windows(
-            term, crit, occ, acc, paths, sink_delay, all_reached, bb,
-            full_bb, result, B, crop)
+            term, crit, timing_cb, analyzer, occ, acc, paths, sink_delay,
+            all_reached, bb, full_bb, result, B, crop)
 
-    def _route_planes_windows(self, term, crit, occ, acc, paths,
-                              sink_delay, all_reached, bb, full_bb,
-                              result, B, crop):
+    def _route_planes_windows(self, term, crit, timing_cb, analyzer, occ,
+                              acc, paths, sink_delay, all_reached, bb,
+                              full_bb, result, B, crop):
         """The synchronous window driver (the JAX package's
-        _route_planes_windows with pipeline=False and no timing,
-        checkpoint, bf16 or fused modes)."""
+        _route_planes_windows with pipeline=False and no checkpoint,
+        bf16 or fused modes)."""
         from .planes import (SCAL_MAX_SPAN, SCAL_NEXEC, SCAL_NROUTES,
                              SCAL_S_EXEC, SCAL_S_USEFUL,
                              route_window_planes, unpack_window_status)
@@ -414,7 +429,11 @@ class Router:
         grp = max(1, min(grp, Smax))
         source_d = self._t(term.source.astype(np.int32))
         sinks_d = self._t(term.sinks.astype(np.int32))
-        crit_d = self._t(crit)
+        # a copy: with an analyzer the window programs write it in place
+        crit_d = torch.tensor(crit, device=self.device)
+        # the STA between iterations inside each window (analyzer mode)
+        sta_kw = analyzer.sta_kwargs() if analyzer is not None else {}
+        host_cb = timing_cb is not None and analyzer is None
         nsinks_np = term.num_sinks.astype(np.int64)
         cx_np = ((term.bb_xmin + term.bb_xmax) // 2).astype(np.int64)
         cy_np = ((term.bb_ymin + term.bb_ymax) // 2).astype(np.int64)
@@ -456,6 +475,9 @@ class Router:
         rm = self.row_mesh
         while it_done < opts.max_router_iterations:
             K = self._WINDOWS[min(widx, len(self._WINDOWS) - 1)]
+            if host_cb:
+                # the host callback needs every iteration's delays
+                K = 1
             K = min(K, opts.max_router_iterations - it_done)
             widx += 1
 
@@ -536,7 +558,7 @@ class Router:
                          if doubling
                          else min(Smax, _pow2_at_least(
                              math.ceil(maxfan / grp_w) + 1)))
-                occ, acc, status, scal = route_window_planes(
+                occ, acc, status, scal, dmax_hist = route_window_planes(
                     self.pg, dev, occ, acc, paths, sink_delay,
                     all_reached, bb, source_d, sinks_d, crit_d,
                     *planes_tbl, self._t(sel_p), self._t(valid_p),
@@ -546,7 +568,7 @@ class Router:
                     else opts.incremental_after,
                     K, nsw, L, waves, grp_w, doubling,
                     topk=min(4096, N), n_colors=5, crop_tile=tile,
-                    bb0_all=bb0_d, widen_ok=wok, mesh=rm)
+                    bb0_all=bb0_d, widen_ok=wok, mesh=rm, **sta_kw)
                 rung_scals.append((scal.cpu().numpy(), tile is not None))
             force_all_next = False
             status_np = status.cpu().numpy()
@@ -561,6 +583,10 @@ class Router:
             wide |= dev_wide
             bb_full |= dev_wide
             it_done += K
+            # the last rung's crit-path delay after the window's last
+            # iteration
+            cpd = (float(dmax_hist[K - 1]) if analyzer is not None
+                   else float("nan"))
 
             # bookkeeping: the work ledger and one stats row per window
             w_steps = w_useful = w_crop = nexec = 0
@@ -578,7 +604,9 @@ class Router:
             result.stats.append(RouteStats(
                 it_done, n_over, over_total, len(dirty), time.time() - t0,
                 relax_steps=w_steps, batches=nexec,
-                overuse_pct=100.0 * n_over / max(1, N)))
+                overuse_pct=100.0 * n_over / max(1, N), crit_path_delay=cpd))
+            if analyzer is not None and cpd == cpd:
+                analyzer.crit_path_delay = cpd
             if rm is not None:
                 # one rung under a mesh: the last plan is the window's
                 self._book_halo(scal_np, sel_p.shape[1] if len(dirty) else 1)
@@ -649,6 +677,14 @@ class Router:
                 dirty = np.arange(R)
                 force_all_next = True
                 full_reroute_done = True
+            if host_cb:
+                result.sink_delay = sink_delay.cpu().numpy()
+                new_crit = np.minimum(np.asarray(
+                    timing_cb(result), dtype=np.float32), 0.99)
+                # unchanged criticalities keep the tensor on the device
+                if not np.array_equal(new_crit, crit):
+                    crit = new_crit
+                    crit_d = torch.tensor(crit, device=self.device)
         else:
             result.iterations = opts.max_router_iterations
 

@@ -210,6 +210,34 @@ def test_bench_config_on_card(cuda):
     check_route(f.rr, f.term, r.paths, occ=r.occ)
 
 
+@pytest.mark.parametrize("cfg,opts,kernel", [
+    (dict(num_luts=15, num_inputs=6, num_outputs=6, chan_width=10, seed=3),
+     dict(batch_size=32), "planes_relax_full_cuda"),
+    (dict(num_luts=40, num_inputs=6, num_outputs=6, chan_width=10, seed=3,
+          bb_factor=0), dict(batch_size=32, crop="4x4"),
+     "planes_relax_cropped_cuda")])
+def test_timing_route_cuda_matches_cpu(cuda, cfg, opts, kernel):
+    """The timing-driven route (the STA between iterations inside each
+    window, the relaxation kernels at crit > 0) on the card equals the
+    same route on the CPU: paths, occupancy, sink delays, the critical
+    path and every window's crit-path column."""
+    from parallel_eda_tpu_torch.flow import run_route
+
+    fc = run_route(synth_flow(**cfg), RouterOpts(**opts), device="cpu")
+    pk.reset_launch_counts()
+    fg = run_route(synth_flow(**cfg), RouterOpts(**opts), device=cuda)
+    assert pk.launch_counts()[kernel] > 0
+    rc, rg = fc.route, fg.route
+    assert (rg.wirelength, rg.iterations, rg.total_relax_steps) == (
+        rc.wirelength, rc.iterations, rc.total_relax_steps)
+    assert np.array_equal(rg.paths, rc.paths)
+    assert np.array_equal(rg.occ, rc.occ)
+    assert np.array_equal(rg.sink_delay, rc.sink_delay)
+    assert fg.crit_path_delay == fc.crit_path_delay
+    assert [s.crit_path_delay for s in rg.stats] == [
+        s.crit_path_delay for s in rc.stats]
+
+
 @pytest.mark.slow
 def test_scale_route_cuda_matches_cpu(cuda):
     """The placed 1,200-LUT config: the route through the CUDA kernels

@@ -112,12 +112,12 @@ def test_unported_options_raise(name, value):
         TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu")
 
 
-def test_timing_inputs_raise():
+def test_resume_raises():
+    """Checkpoint resume is not ported yet (ROADMAP.md A6)."""
     tf = synth_flow(**FIXTURE)
     r = TR.Router(tf.rr, TR.RouterOpts(), device="cpu")
-    R, S = tf.term.sinks.shape
-    with pytest.raises(NotImplementedError, match="A8"):
-        r.route(tf.term, crit=np.zeros((R, S), np.float32))
+    with pytest.raises(NotImplementedError, match="A6"):
+        r.route(tf.term, resume=object())
 
 
 @pytest.mark.parametrize("nx,ny,min_count", [(25, 25, 8), (9, 12, 1),
@@ -289,7 +289,7 @@ def test_window_matches_jax(cfg, tile, widen):
     def t(a):
         return torch.from_numpy(np.array(a))
     tp = {k: t(state[k]) for k in state}
-    occ, acc, status, scal = TP.route_window_planes(
+    occ, acc, status, scal, dmax_hist = TP.route_window_planes(
         _port_pg(jr.pg), device_graph_from_numpy(fields, "cpu"),
         tp["occ"], tp["acc"], tp["paths"], tp["sd"], tp["ar"], tp["bb"],
         t(term.source.astype(np.int32)), t(term.sinks.astype(np.int32)),
@@ -300,5 +300,8 @@ def test_window_matches_jax(cfg, tile, widen):
                  (jo[3], tp["sd"]), (jo[4], tp["ar"]), (jo[5], tp["bb"]),
                  (jo[21], status), (jo[22], scal)):
         assert np.array_equal(np.asarray(j), p.numpy())
+    # no timing graph: the crit-path history stays NaN
+    assert np.array_equal(np.asarray(jo[14]), dmax_hist.numpy(),
+                          equal_nan=True)
     if tile is not None:
         assert int(scal[TP.SCAL_S_EXEC]) > 0
