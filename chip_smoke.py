@@ -11,9 +11,13 @@ Phases, one line each (any failure exits non-zero with no result line):
   3. kernels   — each relaxation kernel against its plain PyTorch version
                  on the card at bench and scale shapes (B=64), exact,
                  jittered and crit > 0 costs, K2 with tile origins that
-                 clamp, in every shared-memory mode that fits:
+                 wrap and clamp, in every shared-memory mode that fits:
                  dist/wenter/pred/stats bit-identical; kernel,
-                 plain-version and bound times
+                 plain-version and bound times.  Phases 3-6 also hold
+                 each kernel's bf16 plane mode (plane_dtype="bf16":
+                 dist and wenter carried in bfloat16 between f32 sweeps)
+                 against its plain version, at crit 0 and crit > 0,
+                 timed beside the f32 mode on the same input
   4. halo      — the halo kernel (K3): its one-hop shift
                  (remote_slab_permute_cuda) and the route's in-place
                  exchange (halo_exchange_cuda, lag 1 and lag 2) against
@@ -44,6 +48,17 @@ Phases, one line each (any failure exits non-zero with no result line):
   9. scale     — place the 1,200-LUT/W=20 config with the native
                  annealer and route it on the card, single-device and
                  at mesh_shards=4: legal
+ 9b. bf16      — the bf16 plane mode through the Router: the bench at
+                 dtype_guard="off" (wirelength 520 in 16 iterations) and
+                 at the default guard "window" (537 / 22, the f32 route,
+                 with its bf16 shadow windows counted), the bench at
+                 mesh_shards=2 on one card (the cluster kernel) and
+                 under lag 2 (the step and halo kernels on bfloat16
+                 blocks) at "off", the scale route at "off" (legal) and
+                 the bench timing-driven route at "off" (each bench route
+                 as the port's CPU route gives it);
+                 bench and scale route seconds at f32, "off" and
+                 "window", taken in turns
  10. timing    — the timing-driven route (the STA between iterations
                  inside each window): flow.run_route on the bench
                  (wirelength 522 in 22 iterations, crit path
@@ -81,6 +96,7 @@ cards, so on a machine with several cards their halos cross NVLink.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import json
@@ -99,6 +115,7 @@ import numpy as np
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 132 * 128 * 1.98e9
 PEAK_NVLINK_BYTES_S = 450e9
+BF16 = "[bf16]"         # suffix of a kernel's bf16 plane mode (launch keys)
 REPLACES = {
     "planes_relax_full_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:308",
@@ -126,6 +143,11 @@ SOURCES = {
     "planes_relax_cluster_cuda":
         "parallel_eda_tpu_torch/csrc/planes_relax.cu",
 }
+# the bf16 plane mode of each kernel: the same source and TPU kernel
+# (planes_pallas.py takes plane_dtype="bf16" at each of them)
+for _k in list(SOURCES):
+    REPLACES[_k + BF16] = REPLACES[_k]
+    SOURCES[_k + BF16] = SOURCES[_k]
 
 
 def say(phase: str, msg: str) -> None:
@@ -314,19 +336,34 @@ def bounds(nbytes: float, ops: float) -> dict:
                 bytes_bound_ms=tb, ops_bound_ms=to)
 
 
-def bound_ms(pg, B: int, net_sweeps, tile=None):
+def bound_ms(pg, B: int, net_sweeps, tile=None, plane_bytes: int = 4):
     """Least time for one relaxation call: the larger of (flats read and
     written once + the geometry once) / HBM rate and (the sweeps this
     run's data needed x ops per sweep + the scan costs once per net) /
-    f32 rate."""
+    f32 rate.  ``plane_bytes`` 2 (the bf16 plane mode): d0, cc and
+    wenter0 read and dist and wenter written at 2 bytes a cell, pred at
+    4, and the rounding's operations added (round_ops)."""
     W, NX, NYp1 = pg.shape_x
     nc = pg.ncells
     geo = 4 * nc + 4 * (W * NX * NYp1 + 3 * (nc - W * NX * NYp1))
-    nbytes = 3 * 4 * B * nc + 4 * B + 12 * B * nc + 8 * B + geo
+    pb = plane_bytes
+    nbytes = (3 * pb * B * nc + 4 * B + (2 * pb + 4) * B * nc + 8 * B
+              + geo)
     X, Y = (NX, NYp1 - 1) if tile is None else tile
-    return bounds(nbytes, int(net_sweeps.sum())
-                  * sweep_ops(W, X, Y, pg.directional)
-                  + B * launch_ops(W, X, Y))
+    sweeps = int(net_sweeps.sum())
+    ops = sweeps * sweep_ops(W, X, Y, pg.directional) \
+        + B * launch_ops(W, X, Y)
+    if pb == 2:
+        ops += round_ops(W, X, Y, B, sweeps)
+    return bounds(nbytes, ops)
+
+
+def round_ops(W: int, X: int, Y: int, nets: int, sweeps: int) -> int:
+    """Operations of the bf16 plane mode's rounding: per cell of a net's
+    canvas, its congestion, entry dist and wenter once per launch, and
+    its dist once per sweep (a round trip through bfloat16 each)."""
+    cells = W * X * (Y + 1) + W * (X + 1) * Y
+    return cells * (3 * nets + sweeps)
 
 
 def phase_card():
@@ -390,11 +427,22 @@ def _instance(rr, pg, B, rng, exact, crit_on=False):
             else np.zeros((B, 1, 1, 1))).astype(np.float32)
     d0 = np.ascontiguousarray(
         np.where(seed[:, noc], 0.0, np.inf).astype(np.float32))
+    # an entry-delay payload at the seeds (rounded in the bf16 mode)
+    w0 = np.where(d0 == 0, rng.uniform(0, 1e-10, d0.shape), 0.0).astype(
+        np.float32)
     cuda = torch.device("cuda")
     return (torch.from_numpy(d0).to(cuda),
             torch.from_numpy(np.ascontiguousarray(cong[:, noc])).to(cuda),
-            torch.from_numpy(crit).to(cuda),
-            torch.zeros((B, pg.ncells), dtype=torch.float32, device=cuda))
+            torch.from_numpy(crit).to(cuda), torch.from_numpy(w0).to(cuda))
+
+
+def _np(t):
+    """A tensor as a numpy array; bfloat16 as its (exact) float32 values,
+    numpy having no bfloat16."""
+    import torch
+
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _compare(tag, got, ref):
@@ -402,7 +450,7 @@ def _compare(tag, got, ref):
     names = ("dist", "pred", "wenter", "stats")
     err = 0.0
     for n, a, b in zip(names, got, ref):
-        a, b = a.cpu().numpy(), b.cpu().numpy()
+        a, b = _np(a), _np(b)
         if n in ("dist", "wenter"):
             fin = np.isfinite(b)
             if not np.array_equal(np.isfinite(a), fin):
@@ -416,7 +464,8 @@ def _compare(tag, got, ref):
 
 
 def phase_kernels(flows):
-    """K1 and K2 against their plain versions on the card."""
+    """K1 and K2 against their plain versions on the card, in the f32
+    and (jittered and crit > 0 costs) the bf16 plane mode."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes as P
@@ -435,86 +484,104 @@ def phase_kernels(flows):
         for kind in ("exact", "jitter", "crit"):
             inst = _instance(rr, pg, B, rng, kind == "exact",
                              crit_on=kind == "crit")
-            # --- K1: full canvas ---
-            got = P.planes_relax(pg, *inst[:3], inst[3], nsw)
-            net_st = pk.planes_relax_full_cuda.last_stats[:-1].cpu().numpy()
-            auto = pk.planes_relax_full_cuda.last_mode
-            ref = P.planes_relax_plain(pg, *inst[:3], inst[3], nsw)
-            err = _compare(f"K1 {cfg} {kind}", got, ref)
-            # every smaller shared-memory mode gives the same bits
-            for m in range(auto):
-                err = max(err, _compare(
-                    f"K1 {cfg} {kind} mode {m}", pk.planes_relax_full_cuda(
-                        pg, *inst[:3], inst[3], nsw, mode=m), ref))
-            case = dict(cfg=cfg, costs=kind, shape=[W, NX, NY], B=B,
-                        sweeps=int(got[3][0]), max_abs_err=err, mode=auto)
-            if kind == "jitter":
-                case["ms"] = cuda_ms(lambda: P.planes_relax(
-                    pg, *inst[:3], inst[3], nsw), 100 if NX < 16 else 20)
-                # the kernel alone, and its fixed part (one sweep)
-                tag = f"K1 {cfg}"
-                device_later(tag, case, "device_us", functools.partial(
-                    P.planes_relax, pg, *inst[:3], inst[3], nsw),
-                    "planes_relax_full")
-                device_later(tag, case, "one_sweep_device_us",
-                             functools.partial(P.planes_relax, pg,
-                                               *inst[:3], inst[3], 1),
-                             "planes_relax_full")
-                by_mode = case["device_us_by_mode"] = {}
-                for m in range(auto + 1):
-                    device_later(f"{tag} mode {m}", by_mode, m,
-                                 functools.partial(
-                                     pk.planes_relax_full_cuda, pg,
-                                     *inst[:3], inst[3], nsw, mode=m),
-                                 "planes_relax_full")
-                case["plain_ms"] = cuda_ms(lambda: P.planes_relax_plain(
-                    pg, *inst[:3], inst[3], nsw), 2)
-                case.update(bound_ms(pg, B, net_st[:, 0]))
-            rows.setdefault("planes_relax_full_cuda", []).append(case)
-            say("kernels", f"K1 full {cfg} {kind}: bit-identical, "
-                           + json.dumps(case))
-            # --- K2: cropped tiles, origins from below 0 to past the
-            # grid (the kernel clamps them) ---
-            for (cnx, cny) in tiles:
-                ox = torch.from_numpy(rng.integers(
-                    -3, NX - cnx + 4, B).astype(np.int32)).cuda()
-                oy = torch.from_numpy(rng.integers(
-                    -3, NY - cny + 4, B).astype(np.int32)).cuda()
-                args = (pg, *inst[:3], inst[3], nsw, ox, oy, cnx, cny)
-                got = P.planes_relax_cropped(*args)
-                net_st = (pk.planes_relax_cropped_cuda.last_stats[:-1]
-                          .cpu().numpy())
-                auto = pk.planes_relax_cropped_cuda.last_mode
-                tag = f"K2 {cfg} {kind} {cnx}x{cny}"
-                ref = P.planes_relax_cropped_plain(*args)
-                err = _compare(tag, got, ref)
-                for m in range(auto):
-                    err = max(err, _compare(
-                        f"{tag} mode {m}", pk.planes_relax_cropped_cuda(
-                            *args, mode=m), ref))
-                case = dict(cfg=cfg, costs=kind, tile=[cnx, cny], B=B,
-                            sweeps=int(got[3][0]), max_abs_err=err,
-                            mode=auto)
-                if kind == "jitter":
-                    case["ms"] = cuda_ms(
-                        lambda: P.planes_relax_cropped(*args), 20)
-                    device_later(f"K2 {cfg} {cnx}x{cny}", case,
-                                 "device_us", functools.partial(
-                                     P.planes_relax_cropped, *args),
-                                 "planes_relax_cropped")
-                    _ONE_KERNEL.append((
-                        f"K2 {cfg} {cnx}x{cny}", functools.partial(
-                            P.planes_relax_cropped, *args),
-                        "planes_relax_cropped_kernel"))
-                    case["plain_ms"] = cuda_ms(
-                        lambda: P.planes_relax_cropped_plain(*args), 2)
-                    case.update(bound_ms(pg, B, net_st[:, 0],
-                                         tile=(cnx, cny)))
-                rows.setdefault("planes_relax_cropped_cuda",
-                                []).append(case)
-                say("kernels", f"K2 cropped {cfg} {kind} {cnx}x{cny}: "
-                               "bit-identical, " + json.dumps(case))
+            # K2's tile origins, from below minus the tile (the two plane
+            # families one apart) to past the grid: the kernel wraps and
+            # clamps them
+            origins = {t: tuple(torch.from_numpy(rng.integers(
+                -t[i] - 3, n - t[i] + 4, B).astype(np.int32)).cuda()
+                for i, n in ((0, NX), (1, NY))) for t in tiles}
+            for pd in ("f32", "bf16") if kind != "exact" else ("f32",):
+                _kernel_cases(rows, cfg, kind, pd, pg, inst, nsw, tiles,
+                              origins, B)
     return rows
+
+
+def _kernel_cases(rows, cfg, kind, pd, pg, inst, nsw, tiles, origins, B):
+    """phase_kernels' K1 and K2 cases on one instance in plane dtype
+    ``pd``: bit-identity in every shared-memory mode; on jittered costs
+    the times (the bf16 case beside the f32 case's ms on the same
+    input)."""
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+
+    W, NX, NYp1 = pg.shape_x
+    NY = NYp1 - 1
+    sfx = BF16 if pd == "bf16" else ""
+    pb = 2 if pd == "bf16" else 4
+    # --- K1: full canvas ---
+    k1 = functools.partial(P.planes_relax, pg, *inst, nsw, pd)
+    got = k1()
+    net_st = pk.planes_relax_full_cuda.last_stats[:-1].cpu().numpy()
+    auto = pk.planes_relax_full_cuda.last_mode
+    ref = P.planes_relax_plain(pg, *inst, nsw, pd)
+    err = _compare(f"K1 {cfg} {kind} {pd}", got, ref)
+    # every smaller shared-memory mode gives the same bits
+    for m in range(auto):
+        err = max(err, _compare(
+            f"K1 {cfg} {kind} {pd} mode {m}", pk.planes_relax_full_cuda(
+                pg, *inst, nsw, mode=m, plane_dtype=pd), ref))
+    case = dict(cfg=cfg, costs=kind, plane_dtype=pd, shape=[W, NX, NY], B=B,
+                sweeps=int(got[3][0]), max_abs_err=err, mode=auto)
+    if kind == "jitter":
+        case["ms"] = cuda_ms(k1, 100 if NX < 16 else 20)
+        if pd == "bf16":
+            case["f32_ms"] = _f32_case(rows, "planes_relax_full_cuda",
+                                       cfg)["ms"]
+        # the kernel alone, and its fixed part (one sweep)
+        tag = f"K1 {cfg} {pd}"
+        device_later(tag, case, "device_us", k1, "planes_relax_full")
+        device_later(tag, case, "one_sweep_device_us", functools.partial(
+            P.planes_relax, pg, *inst, 1, pd), "planes_relax_full")
+        by_mode = case["device_us_by_mode"] = {}
+        for m in range(auto + 1):
+            device_later(f"{tag} mode {m}", by_mode, m, functools.partial(
+                pk.planes_relax_full_cuda, pg, *inst, nsw, mode=m,
+                plane_dtype=pd), "planes_relax_full")
+        case["plain_ms"] = cuda_ms(
+            lambda: P.planes_relax_plain(pg, *inst, nsw, pd), 2)
+        case.update(bound_ms(pg, B, net_st[:, 0], plane_bytes=pb))
+    rows.setdefault("planes_relax_full_cuda" + sfx, []).append(case)
+    say("kernels", f"K1 full {cfg} {kind} {pd}: bit-identical, "
+                   + json.dumps(case))
+    # --- K2: cropped tiles ---
+    for (cnx, cny) in tiles:
+        ox, oy = origins[(cnx, cny)]
+        args = (pg, *inst, nsw, ox, oy, cnx, cny)
+        k2 = functools.partial(P.planes_relax_cropped, *args, pd)
+        got = k2()
+        net_st = pk.planes_relax_cropped_cuda.last_stats[:-1].cpu().numpy()
+        auto = pk.planes_relax_cropped_cuda.last_mode
+        tag = f"K2 {cfg} {kind} {pd} {cnx}x{cny}"
+        ref = P.planes_relax_cropped_plain(*args, pd)
+        err = _compare(tag, got, ref)
+        for m in range(auto):
+            err = max(err, _compare(
+                f"{tag} mode {m}", pk.planes_relax_cropped_cuda(
+                    *args, mode=m, plane_dtype=pd), ref))
+        case = dict(cfg=cfg, costs=kind, plane_dtype=pd, tile=[cnx, cny],
+                    B=B, sweeps=int(got[3][0]), max_abs_err=err, mode=auto)
+        if kind == "jitter":
+            case["ms"] = cuda_ms(k2, 20)
+            if pd == "bf16":
+                case["f32_ms"] = _f32_case(
+                    rows, "planes_relax_cropped_cuda", cfg, [cnx, cny])["ms"]
+            device_later(f"K2 {cfg} {pd} {cnx}x{cny}", case, "device_us",
+                         k2, "planes_relax_cropped")
+            _ONE_KERNEL.append((f"K2 {cfg} {pd} {cnx}x{cny}", k2,
+                                "planes_relax_cropped_kernel"))
+            case["plain_ms"] = cuda_ms(
+                lambda: P.planes_relax_cropped_plain(*args, pd), 2)
+            case.update(bound_ms(pg, B, net_st[:, 0], tile=(cnx, cny),
+                                 plane_bytes=pb))
+        rows.setdefault("planes_relax_cropped_cuda" + sfx, []).append(case)
+        say("kernels", f"K2 cropped {cfg} {kind} {pd} {cnx}x{cny}: "
+                       "bit-identical, " + json.dumps(case))
+
+
+def _f32_case(rows, name, cfg, tile=None):
+    """The timed f32 case of kernel ``name`` at ``cfg`` (and tile)."""
+    return next(c for c in rows[name] if "ms" in c and c["cfg"] == cfg
+                and c.get("tile") == tile)
 
 
 def _same(tag, got, ref):
@@ -522,7 +589,7 @@ def _same(tag, got, ref):
     reference values."""
     err = 0.0
     for k, (a, b) in enumerate(zip(got, ref)):
-        a, b = a.cpu().numpy(), b.cpu().numpy()
+        a, b = _np(a), _np(b)
         if a.dtype.kind == "f":
             fin = np.isfinite(b)
             if fin.any() and np.isfinite(a[fin]).all():
@@ -546,7 +613,7 @@ def exchange_bound_ms(moves):
     direction carries (the largest of the card pairs) over its rate."""
     hbm, link = 0, {}
     for src, dst, _ in moves:
-        nb = dst.numel() * 4
+        nb = dst.numel() * dst.element_size()
         hbm += nb * (2 if src is not None else 1)
         if src is not None and src.device != dst.device:
             key = (src.device, dst.device)
@@ -568,114 +635,135 @@ def phase_halo(shapes):
     loop (one dst.copy_(src) per halo view plus fill_(INF) at the edges:
     4 * s PyTorch calls on prebuilt views) and the buffered exchange (four
     remote_slab_permute_cuda calls into fresh buffers, then the install
-    copies); the bound is exchange_bound_ms."""
+    copies); the bound is exchange_bound_ms.  Each shape also in the
+    bf16 plane mode (bfloat16 block states: 2-byte moves), timed beside
+    the f32 exchange.  Returns the f32 and the bf16 cases."""
+    rows = {"f32": [], "bf16": []}
+    for cfg, pg, s in shapes:
+        for pd in ("f32", "bf16"):
+            rows[pd].append(_halo_case(cfg, pg, s, pd, rows["f32"]))
+    return rows["f32"], rows["bf16"]
+
+
+def _launches(wrapper, pd: str) -> int:
+    return wrapper.launches_bf16 if pd == "bf16" else wrapper.launches
+
+
+def _halo_case(cfg, pg, s, pd, f32_rows):
+    """phase_halo's checks and times at one shape in plane dtype ``pd``."""
     import torch
 
     from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.planes import plane_torch_dtype
     from parallel_eda_tpu_torch.route.planes_shard import row_block_cols
 
     rng = np.random.default_rng(1)
-    rows = []
     ncard = torch.cuda.device_count()
     B = 64
+    dt = plane_torch_dtype(pd)
 
     def canvas(shape, i):
         a = rng.uniform(0, 1e-9, shape).astype(np.float32)
         a[rng.random(shape) < 0.3] = np.inf
-        return torch.from_numpy(a).to(f"cuda:{i % ncard}")
+        return torch.from_numpy(a).to(f"cuda:{i % ncard}").to(dt)
 
-    for cfg, pg, s in shapes:
-        W, NX, NYp1 = pg.shape_x
-        NY = NYp1 - 1
-        kx = row_block_cols(pg, s)
+    W, NX, NYp1 = pg.shape_x
+    NY = NYp1 - 1
+    kx = row_block_cols(pg, s)
 
-        def states():
-            return [(canvas((B, W, kx + 2, NYp1), i),
-                     canvas((B, W, kx + 3, NY), i)) for i in range(s)]
+    def states():
+        return [(canvas((B, W, kx + 2, NYp1), i),
+                 canvas((B, W, kx + 3, NY), i)) for i in range(s)]
 
-        sts, other = states(), states()
-        calls = [([st[0][:, :, kx:kx + 1] for st in sts], True),
-                 ([st[0][:, :, 1:2] for st in sts], False),
-                 ([st[1][:, :, kx:kx + 1] for st in sts], True),
-                 ([st[1][:, :, 1:3] for st in sts], False)]
-        err = 0.0
-        for slabs, fwd in calls:
-            got = sk.remote_slab_permute_cuda(slabs, fwd)
-            _sync_all()
-            ref = sk.slab_permute_plain(slabs, fwd)
-            err = max(err, _same(f"K3 shift {cfg} s={s} fwd={fwd}", got,
-                                 ref))
-        for src in (None, other):
-            ref = [tuple(t.clone() for t in st) for st in sts]
-            sk.halo_exchange_plain(ref, kx, src)
-            n0 = sk.halo_exchange_cuda.launches
-            sk.halo_exchange_cuda(sts, kx, src)
-            _sync_all()
-            per_sweep = sk.halo_exchange_cuda.launches - n0
-            for k in range(s):
-                err = max(err, _same(f"K3 exchange {cfg} s={s} lag "
-                                     f"{1 if src is None else 2} shard {k}",
-                                     sts[k], ref[k]))
-        moves = sk.halo_moves(sts, kx)
-        lib_moves = [(a, b) for a, b, _ in moves]
-        inf = float("inf")
+    sts, other = states(), states()
+    calls = [([st[0][:, :, kx:kx + 1] for st in sts], True),
+             ([st[0][:, :, 1:2] for st in sts], False),
+             ([st[1][:, :, kx:kx + 1] for st in sts], True),
+             ([st[1][:, :, 1:3] for st in sts], False)]
+    err = 0.0
+    for slabs, fwd in calls:
+        got = sk.remote_slab_permute_cuda(slabs, fwd)
+        _sync_all()
+        ref = sk.slab_permute_plain(slabs, fwd)
+        err = max(err, _same(f"K3 shift {cfg} s={s} fwd={fwd}", got,
+                             ref))
+    for src in (None, other):
+        ref = [tuple(t.clone() for t in st) for st in sts]
+        sk.halo_exchange_plain(ref, kx, src)
+        n0 = _launches(sk.halo_exchange_cuda, pd)
+        sk.halo_exchange_cuda(sts, kx, src)
+        _sync_all()
+        per_sweep = _launches(sk.halo_exchange_cuda, pd) - n0
+        for k in range(s):
+            err = max(err, _same(f"K3 exchange {cfg} s={s} lag "
+                                 f"{1 if src is None else 2} shard {k}",
+                                 sts[k], ref[k]))
+    moves = sk.halo_moves(sts, kx)
+    lib_moves = [(a, b) for a, b, _ in moves]
+    inf = float("inf")
 
-        def library():
-            for a, b in lib_moves:
-                if a is None:
-                    b.fill_(inf)
+    def library():
+        for a, b in lib_moves:
+            if a is None:
+                b.fill_(inf)
+            else:
+                b.copy_(a)
+
+    def buffered():
+        got = [sk.remote_slab_permute_cuda(sl, f) for sl, f in calls]
+        for r, st in enumerate(sts):
+            lx, rx, ly, ry = (g[r] for g in got)
+            for dst, h, edge in ((st[0][:, :, 0:1], lx, r == 0),
+                                 (st[0][:, :, kx + 1:kx + 2], rx,
+                                  r == s - 1),
+                                 (st[1][:, :, 0:1], ly, r == 0),
+                                 (st[1][:, :, kx + 1:kx + 3], ry,
+                                  r == s - 1)):
+                if edge:
+                    dst.fill_(inf)
                 else:
-                    b.copy_(a)
+                    dst.copy_(h)
 
-        def buffered():
-            got = [sk.remote_slab_permute_cuda(sl, f) for sl, f in calls]
-            for r, st in enumerate(sts):
-                lx, rx, ly, ry = (g[r] for g in got)
-                for dst, h, edge in ((st[0][:, :, 0:1], lx, r == 0),
-                                     (st[0][:, :, kx + 1:kx + 2], rx,
-                                      r == s - 1),
-                                     (st[1][:, :, 0:1], ly, r == 0),
-                                     (st[1][:, :, kx + 1:kx + 3], ry,
-                                      r == s - 1)):
-                    if edge:
-                        dst.fill_(inf)
-                    else:
-                        dst.copy_(h)
-
-        run = sk.HaloExchange(sts, kx)
-        case = dict(
-            cfg=cfg, shards=s, B=B, block=[W, kx, NY],
-            cards=min(s, ncard), launches_per_sweep=per_sweep,
-            max_abs_err=err,
-            ms=cuda_ms(run, 500),
-            plain_ms=cuda_ms(lambda: sk.halo_exchange_plain(sts, kx), 100),
-            library_ms=cuda_ms(library, 200),
+    run = sk.HaloExchange(sts, kx)
+    case = dict(
+        cfg=cfg, shards=s, B=B, block=[W, kx, NY], plane_dtype=pd,
+        cards=min(s, ncard), launches_per_sweep=per_sweep,
+        max_abs_err=err,
+        ms=cuda_ms(run, 500),
+        plain_ms=cuda_ms(lambda: sk.halo_exchange_plain(sts, kx), 100),
+        library_ms=cuda_ms(library, 200),
+        bound_ms=exchange_bound_ms(moves), bound_by="bytes")
+    if pd == "f32":
+        case.update(
             buffered_ms=cuda_ms(buffered, 100),
-            shift_ms=cuda_ms(lambda: sk.remote_slab_permute_cuda(*calls[0]),
-                             200),
-            bound_ms=exchange_bound_ms(moves), bound_by="bytes")
-        # the exchange writes into sts: the queued call holds them
-        device_later(f"K3 {cfg} s={s}", case, "device_us",
-                     functools.partial(lambda r, keep: r(), run, sts),
-                     "slab_permute")
-        rows.append(case)
-        say("halo", "K3 shift and exchange bit-identical, "
-                    + json.dumps(case))
-    return rows
+            shift_ms=cuda_ms(
+                lambda: sk.remote_slab_permute_cuda(*calls[0]), 200))
+    else:
+        case["f32_ms"] = next(c["ms"] for c in f32_rows
+                              if (c["cfg"], c["shards"]) == (cfg, s))
+    # the exchange writes into sts: the queued call holds them
+    device_later(f"K3 {cfg} s={s} {pd}", case, "device_us",
+                 functools.partial(lambda r, keep: r(), run, sts),
+                 "slab_permute")
+    say("halo", f"K3 shift and exchange {pd} bit-identical, "
+                + json.dumps(case))
+    return case
 
 
-def _blocks(pg, inst, s, devices):
-    """The shards' bench blocks of a random instance: (geometry, state
-    after one plain sweep — pred carried in —, crit, ccx, ccy) per
-    shard, and kx."""
+def _blocks(pg, inst, s, devices, pd="f32"):
+    """The shards' blocks of a random instance in plane dtype ``pd``
+    (bfloat16 dist, wenter and congestion in the bf16 mode): (geometry,
+    state after one plain sweep — pred carried in —, crit, ccx, ccy,
+    the plain sweep) per shard, and kx."""
     from parallel_eda_tpu_torch.route import planes as P
     from parallel_eda_tpu_torch.route import planes_shard as TS
 
     d0, cc, crit, w0 = inst
+    dt = P.plane_torch_dtype(pd)
     kx = TS.row_block_cols(pg, s)
     gms = TS._shard_geoms(pg, TS.make_row_mesh(s, devices=devices), kx)
     cut = []
-    for (x, y), f in zip((P._split_flat(pg, a) for a in (d0, cc, w0)),
+    for (x, y), f in zip((P._split_flat(pg, a.to(dt)) for a in (d0, cc, w0)),
                          (np.inf, np.inf, 0.0)):
         cut.append((TS.shard_blocks(x, f, 2, kx, devices),
                     TS.shard_blocks(y, f, 3, kx, devices)))
@@ -684,27 +772,35 @@ def _blocks(pg, inst, s, devices):
     for k, g in enumerate(gms):
         st = (dx[k], dy[k], g.idxx.expand(dx[k].shape).contiguous(),
               g.idxy.expand(dy[k].shape).contiguous(), wx[k], wy[k])
-        costs = P._sweep_costs(g, crit, ccx[k], ccy[k])
-        st = P._sweep_once(g, st, crit, ccx[k], ccy[k], costs)
-        out.append((g, st, crit, ccx[k], ccy[k], costs))
+        cf = (ccx[k].float(), ccy[k].float())
+        costs = P._sweep_costs(g, crit, *cf)
+
+        def sweep(st, g=g, cf=cf, costs=costs):
+            return P.quantize_plane_state(P._sweep_once(
+                g, P._dequantize_plane_state(st), crit, *cf, costs), pd)
+        out.append((g, sweep(st), crit, ccx[k], ccy[k], sweep))
     return out, kx
 
 
-def step_bound_ms(B, W, X, Y, gm):
+def step_bound_ms(B, W, X, Y, gm, plane_bytes: int = 4):
     """Least time of one step launch: per cell the state (dist, pred,
     wenter) and congestion read once and the new state written once,
     crit read and stats written once per net, the block geometry read
     once (bytes); or one sweep of every net and its scan costs (f32
-    operations)."""
+    operations).  ``plane_bytes`` 2: dist, wenter and congestion at 2
+    bytes a cell (pred at 4), and the rounding's operations added."""
     cells = W * X * (Y + 1) + W * (X + 1) * Y
     geo = sum(getattr(gm, k).numel() * getattr(gm, k).element_size()
               for k in ("brk_before_x", "brk_after_x", "brk_before_y",
                         "brk_after_y", "first_x", "last_x", "first_y",
                         "last_y", "delay_x", "delay_y", "delay_y_rot0",
                         "delay_y_rot1", "idxx", "idxy", "base_par"))
-    nbytes = B * cells * 4 * (4 + 3) + 4 * B + 8 * B + geo
-    return bounds(nbytes, B * (sweep_ops(W, X, Y, gm.directional)
-                               + launch_ops(W, X, Y)))
+    pb = plane_bytes
+    nbytes = B * cells * (5 * pb + 2 * 4) + 4 * B + 8 * B + geo
+    ops = B * (sweep_ops(W, X, Y, gm.directional) + launch_ops(W, X, Y))
+    if pb == 2:
+        ops += round_ops(W, X, Y, B, B)
+    return bounds(nbytes, ops)
 
 
 def phase_step(shapes):
@@ -714,70 +810,76 @@ def phase_step(shapes):
     the kernel's owned-changed flags against the plain
     sweep's.  Times: the prebuilt launch (sweep_block_launcher, as the
     route calls it) in every mode, the one-shot wrapper, and one plain
-    sweep."""
-    import torch
-
-    from parallel_eda_tpu_torch.route import planes as P
-    from parallel_eda_tpu_torch.route import planes_kernels as pk
-
+    sweep.  Jittered and crit > 0 costs also in the bf16 plane mode
+    (bfloat16 blocks).  Returns the f32 and the bf16 cases."""
     rng = np.random.default_rng(2)
     B = 64
-    rows = []
+    rows = {"f32": [], "bf16": []}
     for cfg, rr, pg, s in shapes:
-        W, NX, NYp1 = pg.shape_x
         for kind in ("exact", "jitter", "crit"):
             inst = _instance(rr, pg, B, rng, kind == "exact",
                              crit_on=kind == "crit")
-            blocks, kx = _blocks(pg, inst, s, ["cuda"] * s)
-            own = slice(1, kx + 1)
-            err = 0.0
-            for k, (g, st, crit, ccx, ccy, costs) in enumerate(blocks):
-                ref = P._sweep_once(g, st, crit, ccx, ccy, costs)
-                flag = ((ref[0][:, :, own] < st[0][:, :, own]
-                         ).flatten(1).any(1)
-                        | (ref[1][:, :, own] < st[1][:, :, own]
-                           ).flatten(1).any(1))
-                auto = pk.sweep_block_launcher(
-                    g, st, crit, ccx, ccy, (1, kx + 1),
-                    tuple(torch.empty_like(t) for t in st),
-                    torch.empty((B, 2), dtype=torch.int32,
-                                device=st[0].device)).mode
-                for mode in [None] + list(range(auto + 1)):
-                    got, stats = pk.planes_sweep_block_cuda(
-                        g, st, crit, ccx, ccy, (1, kx + 1), mode=mode)
-                    torch.cuda.synchronize()
-                    tag = f"step {cfg} s={s} {kind} shard {k} mode {mode}"
-                    err = max(err, _same(tag, got, ref))
-                    if not torch.equal(stats[:, 1].bool(), flag):
-                        raise AssertionError(f"{tag}: owned-changed flags "
-                                             "differ")
-            case = dict(cfg=cfg, shards=s, costs=kind, B=B,
-                        block=[W, kx + 2, NYp1 - 1], max_abs_err=err)
-            if kind == "jitter":
-                g, st, crit, ccx, ccy, costs = blocks[0]
-                out = tuple(torch.empty_like(t) for t in st)
-                stats = torch.empty((B, 2), dtype=torch.int32,
-                                    device=st[0].device)
-                for j, mode in enumerate(list(range(auto + 1)) + [None]):
-                    run = pk.sweep_block_launcher(g, st, crit, ccx, ccy,
-                                                  (1, kx + 1), out, stats,
-                                                  mode)
-                    # the route's mode last, under the plain keys
-                    tag = "" if j > auto else f"_mode{mode}"
-                    case["ms" + tag] = cuda_ms(run, 200)
-                    device_later(f"step {cfg} s={s}{tag}", case,
-                                 "device_us" + tag, run,
-                                 "planes_relax_block")
-                case["mode"] = run.mode
-                case["wrapper_ms"] = cuda_ms(
-                    lambda: pk.planes_sweep_block_cuda(
-                        g, st, crit, ccx, ccy, (1, kx + 1)), 50)
-                case["plain_ms"] = cuda_ms(lambda: P._sweep_once(
-                    g, st, crit, ccx, ccy, costs), 10)
-                case.update(step_bound_ms(B, W, kx + 2, NYp1 - 1, g))
-            rows.append(case)
-            say("step", "bit-identical, " + json.dumps(case))
-    return rows
+            for pd in ("f32", "bf16") if kind != "exact" else ("f32",):
+                rows[pd].append(_step_case(cfg, pg, s, kind, pd, inst, B,
+                                           rows["f32"]))
+    return rows["f32"], rows["bf16"]
+
+
+def _step_case(cfg, pg, s, kind, pd, inst, B, f32_rows):
+    """phase_step's checks (and on jittered costs times) of one instance
+    in plane dtype ``pd``."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+
+    W, NX, NYp1 = pg.shape_x
+    blocks, kx = _blocks(pg, inst, s, ["cuda"] * s, pd)
+    own = slice(1, kx + 1)
+    err = 0.0
+    for k, (g, st, crit, ccx, ccy, sweep) in enumerate(blocks):
+        ref = sweep(st)
+        flag = ((ref[0][:, :, own] < st[0][:, :, own]).flatten(1).any(1)
+                | (ref[1][:, :, own] < st[1][:, :, own]).flatten(1).any(1))
+        auto = pk.sweep_block_launcher(
+            g, st, crit, ccx, ccy, (1, kx + 1),
+            tuple(torch.empty_like(t) for t in st),
+            torch.empty((B, 2), dtype=torch.int32,
+                        device=st[0].device)).mode
+        for mode in [None] + list(range(auto + 1)):
+            got, stats = pk.planes_sweep_block_cuda(
+                g, st, crit, ccx, ccy, (1, kx + 1), mode=mode)
+            torch.cuda.synchronize()
+            tag = f"step {cfg} s={s} {kind} {pd} shard {k} mode {mode}"
+            err = max(err, _same(tag, got, ref))
+            if not torch.equal(stats[:, 1].bool(), flag):
+                raise AssertionError(f"{tag}: owned-changed flags differ")
+    case = dict(cfg=cfg, shards=s, costs=kind, plane_dtype=pd, B=B,
+                block=[W, kx + 2, NYp1 - 1], max_abs_err=err)
+    if kind == "jitter":
+        g, st, crit, ccx, ccy, sweep = blocks[0]
+        out = tuple(torch.empty_like(t) for t in st)
+        stats = torch.empty((B, 2), dtype=torch.int32, device=st[0].device)
+        for j, mode in enumerate(list(range(auto + 1)) + [None]):
+            run = pk.sweep_block_launcher(g, st, crit, ccx, ccy,
+                                          (1, kx + 1), out, stats, mode)
+            # the route's mode last, under the plain keys
+            tag = "" if j > auto else f"_mode{mode}"
+            case["ms" + tag] = cuda_ms(run, 200)
+            device_later(f"step {cfg} s={s} {pd}{tag}", case,
+                         "device_us" + tag, run, "planes_relax_block")
+        case["mode"] = run.mode
+        if pd == "bf16":
+            case["f32_ms"] = next(
+                c["ms"] for c in f32_rows if "ms" in c
+                and (c["cfg"], c["shards"]) == (cfg, s))
+        case["wrapper_ms"] = cuda_ms(
+            lambda: pk.planes_sweep_block_cuda(
+                g, st, crit, ccx, ccy, (1, kx + 1)), 50)
+        case["plain_ms"] = cuda_ms(lambda: sweep(st), 10)
+        case.update(step_bound_ms(B, W, kx + 2, NYp1 - 1, g,
+                                  2 if pd == "bf16" else 4))
+    say("step", f"{pd} bit-identical, " + json.dumps(case))
+    return case
 
 
 def phase_sharded(shapes):
@@ -789,7 +891,9 @@ def phase_sharded(shapes):
     (power-of-two costs); all three timed.  (b) At the bench shape, the
     route's meshes (shards round-robin over the visible cards), both
     schedules, 2 and 4 shards, against K1 and against the same call on
-    CPU tensors (everything equal)."""
+    CPU tensors (everything equal).  (c) The cluster kernel in the bf16
+    plane mode (_cluster_bf16), at crit 0 and crit > 0.  Returns the f32
+    and the bf16 cases."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes as P
@@ -798,7 +902,7 @@ def phase_sharded(shapes):
     from parallel_eda_tpu_torch.route import shard_kernels as sk
 
     rng = np.random.default_rng(3)
-    rows = []
+    rows, rows_bf16 = [], []
     B, nsw = 64, 32
     for cfg, rr, pg, shard_counts in shapes:
         W, NX, NYp1 = pg.shape_x
@@ -866,6 +970,10 @@ def phase_sharded(shapes):
             say("sharded", f"{tag}: one launch, bit-identical to the "
                            "per-sweep and plain forms, dist/wenter = K1, "
                            + json.dumps(case))
+        for kind in ("jitter", "crit"):
+            rows_bf16.extend(_cluster_bf16(
+                cfg, pg, shard_counts, kind, nsw, B, _instance(
+                    rr, pg, B, rng, False, crit_on=kind == "crit")))
         if cfg != "bench":
             continue
         # more than 8 shards: a non-portable cluster, or the card's
@@ -906,7 +1014,70 @@ def phase_sharded(shapes):
                                "dist/wenter = K1, all = CPU; "
                                f"sweeps {got[3].tolist()} (K1 "
                                f"{k1[3].tolist()}), {dt * 1e3:.1f} ms")
-    return rows
+    return rows, rows_bf16
+
+
+def _cluster_bf16(cfg, pg, shard_counts, kind, nsw, B, inst):
+    """The cluster kernel in the bf16 plane mode on one instance: one
+    cluster launch per relaxation (counted under its [bf16] key),
+    bit-identical in every shared-memory mode to the plain bf16
+    per-sweep loop and to the step-and-halo-kernel loop on bfloat16
+    blocks; on jittered costs timed beside the f32 cluster relaxation of
+    the same input."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import planes_shard as TS
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+
+    W, NX, NYp1 = pg.shape_x
+    card = inst[0].device
+    out = []
+    for s in shard_counts:
+        one = TS.make_row_mesh(s, "ppermute", [card] * s)
+        cap = TS.sweep_cap(nsw, s)
+        tag = f"cluster {cfg} s={s} bf16 {kind}"
+        c0 = {**pk.launch_counts(), **sk.launch_counts()}
+        relax = functools.partial(TS.planes_relax_sharded, pg, *inst, nsw,
+                                  one, "bf16")
+        got = relax()
+        torch.cuda.synchronize()
+        c1 = {**pk.launch_counts(), **sk.launch_counts()}
+        dc = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        if dc != {"planes_relax_cluster_cuda" + BF16: 1}:
+            raise AssertionError(f"{tag}: launches {dc}, want one bf16 "
+                                 "cluster launch")
+        net_st = pk.planes_relax_cluster_cuda.last_stats[:-1]
+        auto = pk.planes_relax_cluster_cuda.last_mode
+        if not torch.equal(net_st.max(0).values, got[3]):
+            raise AssertionError(f"{tag}: stats are not the max over nets")
+        sweeps = functools.partial(TS.planes_relax_sharded_sweeps, pg, *inst,
+                                   nsw, one, plane_dtype="bf16")
+        plain = sweeps(plain=True)
+        err = max(_same(f"{tag} vs per-sweep", got, sweeps()),
+                  _same(f"{tag} vs plain", got, plain))
+        run = functools.partial(pk.planes_relax_cluster_cuda, pg, *inst,
+                                cap, s, plane_dtype="bf16")
+        for m in range(auto):
+            err = max(err, _same(f"{tag} mode {m} vs plain", run(mode=m),
+                                 plain))
+        per_net = net_st.cpu().numpy()
+        case = dict(cfg=cfg, shards=s, B=B, costs=kind, plane_dtype="bf16",
+                    block=[W, TS.row_block_cols(pg, s) + 2, NYp1 - 1],
+                    mode=auto, sweeps=got[3].tolist(), max_abs_err=err)
+        if kind == "jitter":
+            case["ms"] = cuda_ms(relax, 20)
+            case["f32_ms"] = cuda_ms(functools.partial(
+                TS.planes_relax_sharded, pg, *inst, nsw, one), 20)
+            case["per_sweep_ms"] = cuda_ms(sweeps, 3)
+            case["plain_ms"] = cuda_ms(lambda: sweeps(plain=True), 1)
+            device_later(tag, case, "device_us", run, "planes_relax_cluster")
+            _ONE_KERNEL.append((tag, run, "planes_relax_cluster_kernel"))
+            case.update(bound_ms(pg, B, per_net[:, 0], plane_bytes=2))
+        out.append(case)
+        say("sharded", f"{tag}: one launch, bit-identical to the per-sweep "
+                       "and plain forms, " + json.dumps(case))
+    return out
 
 
 def _route(tag, flow, opts, impl=None, devices=None, analyzer=None):
@@ -914,7 +1085,7 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None):
     that exchange schedule instead of the Router's own; with
     ``devices``, the shards on those cards instead of round-robin; with
     ``analyzer``, timing-driven (the STA between iterations inside each
-    window)."""
+    window).  Returns (result, launches, seconds, router)."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes_kernels as pk
@@ -946,41 +1117,50 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None):
              f"{res.total_relax_steps} (cropped "
              f"{res.total_relax_steps_cropped}), {R} nets, grid "
              f"{flow.grid.nx}x{flow.grid.ny}, launches {counts}")
+    if opts.plane_dtype != "f32":
+        say(tag, f"plane dtype {opts.plane_dtype}, guard "
+                 f"{opts.dtype_guard}: {json.dumps(router.metrics)}")
     rm = router.row_mesh
     if rm is not None:
         say(tag, f"mesh_shards={rm.n_shards} ({rm.impl}) on {rm.n_cards} "
                  f"card(s): sweeps executed {res.total_relax_steps}, useful "
                  f"{res.total_relax_steps_useful}; halo ledger "
                  f"{json.dumps(router.metrics)}")
+        # the committed relaxation's kernels (a mesh route here is f32 or
+        # bf16 "off"); the other mode's must not run
+        on = BF16 if opts.plane_dtype == "bf16" else ""
+        off = "" if on else BF16
+        c = {k: counts[k + on] for k in counts if not k.endswith(BF16)}
+        if any(counts[k + off] for k in c):
+            raise AssertionError(f"{tag}: a kernel of the other plane mode "
+                                 f"ran: {counts}")
         if uses_cluster(rm, torch.device("cuda", torch.cuda.current_device())):
             # one launch per relaxation: neither the step nor the halo
             # kernel runs, and no host read happens inside a relaxation
-            if counts["planes_relax_cluster_cuda"] <= 0 or \
-                    counts["planes_sweep_block_cuda"] or \
-                    counts["halo_exchange_cuda"]:
+            if c["planes_relax_cluster_cuda"] <= 0 or \
+                    c["planes_sweep_block_cuda"] or c["halo_exchange_cuda"]:
                 raise AssertionError(f"{tag}: the one-card lag-1 route did "
                                      "not run as one cluster launch per "
                                      f"relaxation: {counts}")
         else:
-            if counts["planes_sweep_block_cuda"] <= 0 \
-                    or counts["halo_exchange_cuda"] <= 0 \
-                    or counts["planes_relax_cluster_cuda"]:
+            if c["planes_sweep_block_cuda"] <= 0 \
+                    or c["halo_exchange_cuda"] <= 0 \
+                    or c["planes_relax_cluster_cuda"]:
                 raise AssertionError(f"{tag}: the sharded route did not run "
                                      "the step and halo kernels")
             if rm.n_cards == 1 and \
-                    counts["halo_exchange_cuda"] != res.total_relax_steps:
+                    c["halo_exchange_cuda"] != res.total_relax_steps:
                 raise AssertionError(
-                    f"{tag}: {counts['halo_exchange_cuda']} exchange "
+                    f"{tag}: {c['halo_exchange_cuda']} exchange "
                     f"launches for {res.total_relax_steps} sweeps on one "
                     "card (want one per sweep)")
-        if counts["remote_slab_permute_cuda"]:
+        if c["remote_slab_permute_cuda"]:
             raise AssertionError(f"{tag}: the route shifted slabs into "
                                  "buffers instead of exchanging in place")
-        if counts["planes_relax_full_cuda"] or \
-                counts["planes_relax_cropped_cuda"]:
+        if c["planes_relax_full_cuda"] or c["planes_relax_cropped_cuda"]:
             raise AssertionError(f"{tag}: a single-device relaxation ran "
                                  "under the mesh")
-    return res, counts, dt
+    return res, counts, dt, router
 
 
 def warm_route(flow, opts, analyzer=None):
@@ -1208,7 +1388,7 @@ def phase_timing(bench, scale, rows, warm):
                     "bench")
 
     with _Spy(TS, "planes_relax_sharded", 3) as cl:
-        mres, c, mdt = _route("mesh2_timing", bench,
+        mres, c, mdt, _ = _route("mesh2_timing", bench,
                               RouterOpts(batch_size=64, mesh_shards=2),
                               devices=["cuda:0"] * 2,
                               analyzer=bench.analyzer)
@@ -1266,6 +1446,140 @@ def phase_timing(bench, scale, rows, warm):
         say("timing", f"15-LUT route({next(iter(kw))}=...) on the card: "
                       f"legal, {r.wirelength} in {r.iterations} iterations")
     return counts, sta_cases
+
+
+# the bf16 plane mode's bench routes at dtype_guard="off", as the port's
+# CPU route gives them (the plain versions, device="cpu"): (wirelength,
+# iterations, relaxation sweeps).  The sharded routes are not the
+# single-device one: a path crossing a shard boundary is rounded to bf16
+# at the end of each sweep it spans, so the rounded fixpoint depends on
+# the schedule (the JAX package's row-mesh route gives the same figures)
+BENCH_BF16 = {"single": (520, 16, 964), "mesh2": (530, 16, 806),
+              "mesh2_lag2": (518, 16, 1308)}
+# the bench timing-driven route (run_route) at "off": wirelength,
+# iterations, critical path (s), as the port's CPU route gives them
+BENCH_TIMING_BF16 = (516, 30, 4.550595456009887e-09)
+
+
+class _ShadowWindows:
+    """While in use, counts the window-program calls in the bf16 plane
+    mode (a guarded route's shadow rungs; its committed ones are f32)."""
+
+    def __enter__(self):
+        from parallel_eda_tpu_torch.route import planes as P
+
+        self.P, self.orig, self.calls = P, P.route_window_planes, 0
+
+        def spy(*args, **kw):
+            self.calls += kw.get("plane_dtype") == "bf16"
+            return self.orig(*args, **kw)
+
+        P.route_window_planes = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.P.route_window_planes = self.orig
+
+
+def _want(tag, res, want):
+    got = (res.wirelength, res.iterations, res.total_relax_steps)
+    if got != want:
+        raise AssertionError(f"{tag}: expected (wirelength, iterations, "
+                             f"sweeps) {want}, got {got}")
+
+
+def phase_bf16(bench, scale, bench_f32, warm):
+    """The bf16 plane mode through the user's entry points (the Router
+    and flow.run_route): the bench at dtype_guard="off" and at the
+    default "window" (the f32 route, its bf16 shadow windows counted),
+    the bench at mesh_shards=2 with both shards on card 0 under lag 1
+    (the cluster kernel) and lag 2 (the step and halo kernels) at "off",
+    the scale route at "off" (legal) and the bench timing route at
+    "off"; then bench and scale route seconds at f32, "off" and
+    "window" on warm Routers, in turns.  Returns the routes' launch
+    counts."""
+    import torch
+
+    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+
+    counts = []
+    off = dict(plane_dtype="bf16", dtype_guard="off")
+    res, c, _, _ = _route("bench_bf16", bench,
+                          RouterOpts(batch_size=64, **off))
+    _want("bench_bf16", res, BENCH_BF16["single"])
+    if c["planes_relax_full_cuda" + BF16] <= 0 or \
+            c["planes_relax_full_cuda"]:
+        raise AssertionError(f"bench_bf16: not every relaxation ran K1 in "
+                             f"the bf16 mode: {c}")
+    counts.append(c)
+
+    with _ShadowWindows() as sh:
+        wres, c, _, router = _route("bench_bf16_window", bench,
+                                    RouterOpts(batch_size=64,
+                                               plane_dtype="bf16"))
+    if not (np.array_equal(wres.paths, bench_f32.paths)
+            and np.array_equal(wres.occ, bench_f32.occ)):
+        raise AssertionError("bench_bf16_window: the guarded route is not "
+                             "the f32 route")
+    _want("bench_bf16_window", wres, (537, 22, bench_f32.total_relax_steps))
+    if sh.calls <= 0 or c["planes_relax_full_cuda" + BF16] <= 0:
+        raise AssertionError("bench_bf16_window: no bf16 shadow ran")
+    say("bench_bf16_window", f"the f32 route (537 / 22); {sh.calls} bf16 "
+                             "shadow window rung(s), "
+                             f"{c['planes_relax_full_cuda' + BF16]} bf16 K1 "
+                             "launches, dtype demotions "
+                             f"{router.metrics['route.kernel.dtype_demotions']}")
+    counts.append(c)
+
+    for tag, impl in (("mesh2", None), ("mesh2_lag2", "pallas_halo")):
+        mres, c, _, _ = _route(f"bench_bf16_{tag}", bench,
+                               RouterOpts(batch_size=64, mesh_shards=2, **off),
+                               impl, devices=["cuda:0"] * 2)
+        _want(f"bench_bf16_{tag}", mres, BENCH_BF16[tag])
+        counts.append(c)
+
+    sres, c, _, _ = _route("scale_bf16", scale,
+                           RouterOpts(batch_size=64, **off))
+    if c["planes_relax_cropped_cuda" + BF16] <= 0:
+        raise AssertionError("scale_bf16: K2 never launched in the bf16 "
+                             "mode")
+    counts.append(c)
+
+    # on a copy of the flow with its own analyzer: the bench flow keeps
+    # its f32 timing route and analyzer for the sta phase
+    tflow = dataclasses.replace(bench, analyzer=None, route=None, times={})
+    tres, c, _ = _timing_run_route("bench_timing_bf16", tflow,
+                                   RouterOpts(batch_size=64, **off))
+    got = (tres.wirelength, tres.iterations, tflow.crit_path_delay)
+    if got != BENCH_TIMING_BF16:
+        raise AssertionError(f"bench_timing_bf16: expected (wirelength, "
+                             f"iterations, crit path) {BENCH_TIMING_BF16}, "
+                             f"got {got}")
+    counts.append(c)
+
+    # route seconds on warm Routers, f32 / off / window, in turns
+    for cfg, flow in (("bench", bench), ("scale", scale)):
+        runs = {}
+        for name, kw in (("f32", {}), ("off", off),
+                         ("window", dict(plane_dtype="bf16"))):
+            runs[name] = functools.partial(
+                Router(flow.rr, RouterOpts(batch_size=64, **kw),
+                       device="cuda").route, flow.term)
+            runs[name]()
+        secs = {name: [] for name in runs}
+        for name in ("f32", "off", "window", "window", "off", "f32"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = runs[name]()
+            torch.cuda.synchronize()
+            secs[name].append(time.time() - t0)
+            if name == "off":
+                wl_it = (r.wirelength, r.iterations)
+        say("bf16", f"{cfg} route seconds (warm, in turns f32 off window "
+                    f"window off f32): {json.dumps(secs)}; bf16 off "
+                    f"wirelength / iterations {wl_it}")
+    warm["bench_bf16"] = warm_route(bench, RouterOpts(batch_size=64, **off))
+    return counts
 
 
 def phase_sta(cases):
@@ -1337,17 +1651,19 @@ def main(argv) -> int:
     rows = phase_kernels({"bench": bench, "scale": scale})
     pg_bench = P.build_planes(bench.rr, "cuda")
     pg_scale = P.build_planes(scale.rr, "cuda")
-    rows["halo_exchange_cuda"] = phase_halo(
-        [("bench", pg_bench, s) for s in (2, 3, 4)]
-        + [("scale", pg_scale, 4)])
-    rows["planes_sweep_block_cuda"] = phase_step(
-        [("bench", bench.rr, pg_bench, s) for s in (2, 4)]
-        + [("scale", scale.rr, pg_scale, 4)])
-    rows["planes_relax_cluster_cuda"] = phase_sharded(
-        [("bench", bench.rr, pg_bench, (2, 3, 4)),
-         ("scale", scale.rr, pg_scale, (4,))])
+    for name, phase, shapes in (
+            ("halo_exchange_cuda", phase_halo,
+             [("bench", pg_bench, s) for s in (2, 3, 4)]
+             + [("scale", pg_scale, 4)]),
+            ("planes_sweep_block_cuda", phase_step,
+             [("bench", bench.rr, pg_bench, s) for s in (2, 4)]
+             + [("scale", scale.rr, pg_scale, 4)]),
+            ("planes_relax_cluster_cuda", phase_sharded,
+             [("bench", bench.rr, pg_bench, (2, 3, 4)),
+              ("scale", scale.rr, pg_scale, (4,))])):
+        rows[name], rows[name + BF16] = phase(shapes)
 
-    res, c_bench, _ = _route("bench", bench, RouterOpts(batch_size=64))
+    res, c_bench, _, _ = _route("bench", bench, RouterOpts(batch_size=64))
     if (res.wirelength, res.iterations) != (537, 22):
         raise AssertionError(f"bench: expected wirelength 537 in 22 "
                              f"iterations, got {res.wirelength} in "
@@ -1363,7 +1679,7 @@ def main(argv) -> int:
         for k, impl in enumerate(("ppermute", "pallas_halo",
                                   "pallas_halo", "ppermute")):
             tag = f"mesh{s}" if impl == "ppermute" else f"mesh{s}_lag2"
-            mres, c, dt = _route(tag, bench, opts,
+            mres, c, dt, _ = _route(tag, bench, opts,
                                  None if impl == "ppermute" else impl)
             if (mres.wirelength, mres.iterations) != (537, 22):
                 raise AssertionError(f"{tag}: expected wirelength 537 in "
@@ -1390,7 +1706,7 @@ def main(argv) -> int:
         # the route's shards spread over the cards; the one-card path
         # (the cluster kernel) is driven with every shard on card 0
         opts = RouterOpts(batch_size=64, mesh_shards=2)
-        mres, c, _ = _route("mesh2_one_card", bench, opts,
+        mres, c, _, _ = _route("mesh2_one_card", bench, opts,
                             devices=["cuda:0"] * 2)
         if (mres.wirelength, mres.iterations) != (537, 22) or not (
                 np.array_equal(mres.paths, res.paths)
@@ -1404,19 +1720,22 @@ def main(argv) -> int:
     scale = run_place_native(scale)
     say("scale", f"placed {scale.pnl.num_blocks} blocks in "
                  f"{time.time() - t0:.1f}s (native SA)")
-    _, c_scale, _ = _route("scale", scale, RouterOpts(batch_size=64))
+    _, c_scale, _, _ = _route("scale", scale, RouterOpts(batch_size=64))
     warm["scale"] = warm_route(scale, RouterOpts(batch_size=64))
-    _, c, _ = _route("scale_mesh4", scale,
+    _, c, _, _ = _route("scale_mesh4", scale,
                      RouterOpts(batch_size=64, mesh_shards=4))
     c_mesh.append(c)
     c_timing, sta_cases = phase_timing(bench, scale, rows, warm)
+    c_bf16 = phase_bf16(bench, scale, res, warm)
 
-    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing
+    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
                     f"mesh lag 2 (bench 2, bench 4) {c_lag2} timing "
-                    f"(bench, bench mesh 2, scale) {c_timing}")
+                    f"(bench, bench mesh 2, scale) {c_timing} bf16 (bench "
+                    f"off, bench window, bench mesh 2, bench mesh 2 lag 2, "
+                    f"scale off, bench timing off) {c_bf16}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:
@@ -1435,6 +1754,7 @@ def main(argv) -> int:
                   f"routes, {launch_us():.2f} after the profiler phases")
 
     def main_case(name, c):
+        name = name.replace(BF16, "")
         if name == "planes_relax_full_cuda":
             return c["cfg"] == "bench" and c.get("tile") is None
         if name == "planes_relax_cropped_cuda":

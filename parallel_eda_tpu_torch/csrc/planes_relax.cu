@@ -111,8 +111,40 @@
 //     version computes it: no FMA contraction;
 //   * the turn candidates are folded in the plain version's order with a
 //     strict `<`, so ties keep the same predecessor.
+//
+// The bf16 plane mode (template flag Q; planes_relax_pallas's
+// plane_dtype="bf16", the plain version's _run_relax): dist and wenter are
+// carried in bfloat16 BETWEEN sweeps while every sweep runs in f32, as the
+// TPU kernel does.  The congestion input is rounded once through bfloat16
+// where it is read, the entry dist and wenter once at load; a sweep runs
+// on f32 working state and ends with one rounding pass (round to nearest
+// even, __float2bfloat16_rn): dx inside the turn into x, its last writer,
+// dy after the barrier that follows it; every wenter is rounded where it
+// is written.  Rounding between the phases of a sweep would change bits.
+// The fixpoint test compares the rounded end-of-sweep dist with the
+// rounded sweep-entry dist E.  A cell's values within a sweep form a
+// strictly decreasing chain E = v0 > v1 > ... > vk, and rounding is
+// monotone, so round(vk) < E exactly when some write has round(v_j) <
+// round(v_j-1): each improving write compares the two roundings, and no
+// copy of E is kept (no extra memory; the shared-memory modes are the
+// f32 ones).  Per-net termination stays exact: a sweep whose rounded dist
+// equals its entry dist makes the same f32 improvements as the next sweep
+// would (they depend on dist alone), so later sweeps are identities on
+// dist, pred and wenter.  Global I/O: K1, K2 and the cluster kernel read
+// and write the f32 [B, ncells] flats (the bf16 values as f32: 4 bytes a
+// cell, the route's tensors, no conversion launch); the step kernel
+// (BLOCK) reads and writes bfloat16 dist, wenter and congestion blocks, 2
+// bytes a cell, so that the halo exchange between its sweeps moves 2-byte
+// elements; in its mode 0 the f32 working dist is the workspace `ws`.
+//
+// K2's origins: each array is cut where lax.dynamic_slice cuts it, a
+// negative origin wrapping once by THAT array's extent before the clamp,
+// so the chanx family (x extent NX, y extent NY+1) and the chany family
+// (NX+1, NY) can land one apart; the corner parity [NX+1, NY+1] takes the
+// chany family's x origin and the chanx family's y origin.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,15 +161,17 @@ namespace {
 enum Kind { FULL = 0, BLOCK = 1, TILE = 2, CLUSTER = 3 };
 
 struct Args {
-  // inputs (per-net strides in_sx / in_sy, in elements)
-  const float* d0x; const float* d0y;
-  const float* ccx; const float* ccy;
-  const float* w0x; const float* w0y;
+  // inputs (per-net strides in_sx / in_sy, in elements); the plane arrays
+  // (dist, congestion, wenter) are float, or bfloat16 for BLOCK in the
+  // bf16 plane mode (Net::T)
+  const void* d0x; const void* d0y;
+  const void* ccx; const void* ccy;
+  const void* w0x; const void* w0y;
   const float* crit;                 // [B]
   // state / outputs (per-net strides st_sx / st_sy)
-  float* dx; float* dy;
+  void* dx; void* dy;
   int32_t* px; int32_t* py;
-  float* wx; float* wy;
+  void* wx; void* wy;
   int32_t* stats;                    // [B, 2]
   int32_t* total;                    // [2]: max over nets (null: none)
   // geometry (per-net, or per-rank for CLUSTER, strides g_sx / g_sy /
@@ -153,7 +187,7 @@ struct Args {
   const int32_t* base_par;                    // BLOCK [X+1, Y+1]
   const int32_t* p0x; const int32_t* p0y;     // pred in (null: own ids)
   const int32_t* ox; const int32_t* oy;       // TILE: origins [B]
-  float* ws;                                  // CLUSTER mode 0: dist blocks
+  float* ws;            // mode 0, CLUSTER and bf16 BLOCK: f32 dist blocks
   int W, X, Y;                       // x plane [W, X, Y+1]; y plane [W, X+1, Y]
   int stride_x;                      // global NY+1
   int NX;                            // global NX (TILE, CLUSTER)
@@ -170,6 +204,33 @@ struct Args {
 
 __device__ __forceinline__ float fadd(float a, float b) {
   return __fadd_rn(a, b);
+}
+
+// the bf16 plane mode's rounding: f32 -> bfloat16 (nearest even) -> f32
+__device__ __forceinline__ float rnd16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// plane storage: float, or bfloat16 (BLOCK in the bf16 plane mode)
+template <bool H> struct Plane { using T = float; };
+template <> struct Plane<true> { using T = __nv_bfloat16; };
+
+// read-only loads and stores of a plane element, as f32
+__device__ __forceinline__ float ldp(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldp(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void stp(float* p, float v) { *p = v; }
+__device__ __forceinline__ void stp(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// K2: an origin placed as lax.dynamic_slice places a start into an axis of
+// `extent` cells: a negative one wraps once, then it is clamped
+__device__ __forceinline__ int place_origin(int o, int extent, int hi) {
+  if (o < 0) o += extent;
+  return min(max(o, 0), hi);
 }
 
 // one combine of the min-plus pair scan:
@@ -236,7 +297,6 @@ struct Geo {
   const uint8_t *bbx, *bax, *fsx, *lsx;      // x plane: brk before / after,
   const uint8_t *bby, *bay, *fsy, *lsy;      //   first, last; y plane
   const float *dlx, *dly, *rot0, *rot1;      // delays
-  const float *ccx, *ccy;                    // congestion
   const int32_t* par;                        // BLOCK: [X+1, Y+1]
   const uint8_t* inc;                        // [W] (directional only)
 };
@@ -244,16 +304,23 @@ struct Geo {
 // One net's addressing.  A cell is named by its local coordinates (t, x,
 // y) on the net's own planes (the canvas, the tile or the shard's block);
 // lx / ly index the state in shared memory (or the block), ix / iy the
-// net's input and output rows, gx / gy the geometry.
-template <int K, bool SMEM>
+// net's input and output rows, gx / gy the geometry.  Q: the bf16 plane
+// mode; T: the plane arrays' element type.
+template <int K, bool SMEM, bool Q>
 struct Net {
+  using T = typename Plane<K == BLOCK && Q>::T;
   // the inputs and outputs are the full [B, ncells] flats
   static constexpr bool FLATS = K == TILE || K == CLUSTER;
   const Args& a;
   int b, r;
   float crit;
   long long ix0, iy0, sx0, sy0, gx0, gy0;
-  int ox, oy;                // TILE: clamped origin; CLUSTER: ox = r*kx - 1
+  // origins of the chanx planes (ox, oy) and of the chany planes (ox2,
+  // oy2): TILE the placed origins; CLUSTER ox = ox2 = r*kx - 1, oy = 0
+  int ox, oy, ox2, oy2;
+  // the net's rows of the plane arrays: inputs, congestion, outputs
+  const T *d0x, *d0y, *w0x, *w0y, *ccxp, *ccyp;
+  T *odx, *ody, *owx, *owy;
   Geo g;
 
   __device__ Net(const Args& a_, int b_, int r_) : a(a_), b(b_), r(r_) {
@@ -267,24 +334,37 @@ struct Net {
     gy0 = gi * a.g_sy;
     ox = oy = 0;
     if (K == TILE) {
-      ox = min(max(__ldg(a.ox + b), 0), a.ox_hi);
-      oy = min(max(__ldg(a.oy + b), 0), a.oy_hi);
+      const int o = __ldg(a.ox + b), p = __ldg(a.oy + b);
+      ox = place_origin(o, a.NX, a.ox_hi);
+      ox2 = place_origin(o, a.NX + 1, a.ox_hi);
+      oy = place_origin(p, a.stride_x, a.oy_hi);
+      oy2 = place_origin(p, a.stride_x - 1, a.oy_hi);
     } else if (K == CLUSTER) {
       ox = r * a.kx - 1;           // local column 0 is padded column r*kx
     }
+    if (K != TILE) {
+      ox2 = ox;
+      oy2 = oy;
+    }
+    d0x = (const T*)a.d0x + ix0; d0y = (const T*)a.d0y + iy0;
+    w0x = (const T*)a.w0x + ix0; w0y = (const T*)a.w0y + iy0;
+    ccxp = (const T*)a.ccx + ix0; ccyp = (const T*)a.ccy + iy0;
+    odx = (T*)a.dx + sx0; ody = (T*)a.dy + sy0;
+    owx = (T*)a.wx + sx0; owy = (T*)a.wy + sy0;
     g.bbx = a.brk_before_x + gx0; g.bax = a.brk_after_x + gx0;
     g.fsx = a.first_x + gx0; g.lsx = a.last_x + gx0;
     g.bby = a.brk_before_y + gy0; g.bay = a.brk_after_y + gy0;
     g.fsy = a.first_y + gy0; g.lsy = a.last_y + gy0;
     g.dlx = a.delay_x + gx0; g.dly = a.delay_y + gy0;
     g.rot0 = a.delay_y_rot0 + gy0; g.rot1 = a.delay_y_rot1 + gy0;
-    g.ccx = a.ccx + ix0; g.ccy = a.ccy + iy0;
     g.par = K == BLOCK ? a.base_par + gi * a.g_sp : nullptr;
     g.inc = a.inc_track;
   }
   // a read of g, through the read-only path
-  template <class T>
-  __device__ T rd(const T* p) const { return __ldg(p); }
+  template <class U>
+  __device__ U rd(const U* p) const { return __ldg(p); }
+  // the bf16 plane mode's rounding (identity in the f32 mode)
+  __device__ float q(float v) const { return Q ? rnd16(v) : v; }
   // local linear cell indices (state, scan costs)
   __device__ int lx(int t, int x, int y) const {
     return (t * a.X + x) * (a.Y + 1) + y;
@@ -297,7 +377,7 @@ struct Net {
     return FLATS ? (t * a.NX + ox + x) * a.stride_x + oy + y : lx(t, x, y);
   }
   __device__ int iy(int t, int x, int y) const {
-    return FLATS ? (t * (a.NX + 1) + ox + x) * (a.stride_x - 1) + oy + y
+    return FLATS ? (t * (a.NX + 1) + ox2 + x) * (a.stride_x - 1) + oy2 + y
                  : ly(t, x, y);
   }
   // index in the geometry arrays
@@ -332,7 +412,7 @@ struct Net {
   }
   __device__ int par(int x, int y) const {
     if (K == FULL) return (x + y) & 1;
-    if (K == TILE || K == CLUSTER) return (ox + x + oy + y) & 1;
+    if (K == TILE || K == CLUSTER) return (ox2 + x + oy + y) & 1;
     return rd(g.par + x * (a.Y + 1) + y);
   }
   // where a cell's dist lives (local index l): TILE without shared state
@@ -344,10 +424,10 @@ struct Net {
     return K == TILE && !SMEM ? iy(t, x, y) : l;
   }
   __device__ float ccx(int t, int x, int y) const {
-    return realx(x) ? rd(g.ccx + ix(t, x, y)) : __int_as_float(0x7f800000);
+    return realx(x) ? q(ldp(ccxp + ix(t, x, y))) : __int_as_float(0x7f800000);
   }
   __device__ float ccy(int t, int x, int y) const {
-    return realy(x) ? rd(g.ccy + iy(t, x, y)) : __int_as_float(0x7f800000);
+    return realy(x) ? q(ldp(ccyp + iy(t, x, y))) : __int_as_float(0x7f800000);
   }
   __device__ bool inc(int t) const { return rd(g.inc + t) != 0; }
   __device__ bool own(int x) const { return x >= a.own_lo && x < a.own_hi; }
@@ -367,17 +447,23 @@ struct Net {
   }
   __device__ void put_x(int t, int x, int y, int p, float w) const {
     if (keeps_x(x)) {
-      const long long i = sx0 + ix(t, x, y);
-      a.px[i] = p;
-      a.wx[i] = w;
+      const int i = ix(t, x, y);
+      a.px[sx0 + i] = p;
+      stp(owx + i, q(w));
     }
   }
   __device__ void put_y(int t, int x, int y, int p, float w) const {
     if (keeps_y(x)) {
-      const long long i = sy0 + iy(t, x, y);
-      a.py[i] = p;
-      a.wy[i] = w;
+      const int i = iy(t, x, y);
+      a.py[sy0 + i] = p;
+      stp(owy + i, q(w));
     }
+  }
+  // whether an improving write old -> v changes the sweep's result at a
+  // cell the change flag covers: any improvement in the f32 mode, one
+  // that changes the rounded value in the bf16 plane mode
+  __device__ bool changes(int x, float v, float old) const {
+    return own(x) && (!Q || rnd16(v) < rnd16(old));
   }
 };
 
@@ -385,8 +471,8 @@ struct Net {
 // the y plane, lines (t, x) along y) over dist `d`, with scan costs from
 // `cs` (null: computed) and this warp's scratch.  Returns "an owned cell
 // improved" for this thread.
-template <int K, bool SMEM, bool XAX>
-__device__ bool scan_phase(const Net<K, SMEM>& n, const Args& a, float* d,
+template <int K, bool SMEM, bool Q, bool XAX>
+__device__ bool scan_phase(const Net<K, SMEM, Q>& n, const Args& a, float* d,
                            const float* cs, float* scr) {
   const float INF = __int_as_float(0x7f800000);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -435,7 +521,8 @@ __device__ bool scan_phase(const Net<K, SMEM>& n, const Args& a, float* d,
           const int x = XAX ? p : o, y = XAX ? o : p;
           const int l = XAX ? n.lx(t, x, y) : n.ly(t, x, y);
           const int di = XAX ? n.dxi(l, t, x, y) : n.dyi(l, t, x, y);
-          if (m[k] < d[di]) {
+          const float old = d[di];
+          if (m[k] < old) {
             d[di] = m[k];
             const int gl = XAX ? n.gx(t, x, y) : n.gy(t, x, y);
             const int id = (XAX ? n.idx(t, x, y) : n.idy(t, x, y)) +
@@ -445,7 +532,7 @@ __device__ bool scan_phase(const Net<K, SMEM>& n, const Args& a, float* d,
               n.put_x(t, x, y, id, w);
             else
               n.put_y(t, x, y, id, w);
-            mine |= n.own(x);
+            mine |= n.changes(x, m[k], old);
           }
         }
       __syncwarp();
@@ -488,8 +575,8 @@ struct Walk {
 // division runs per cell or per sweep.
 
 // turn into y: target chany (t', x, v); sources chanx (x+a-1, v+1-b)
-template <int K, bool SMEM>
-__device__ bool turn_into_y(const Net<K, SMEM>& n, const Args& a,
+template <int K, bool SMEM, bool Q>
+__device__ bool turn_into_y(const Net<K, SMEM, Q>& n, const Args& a,
                             const Walk& wk, const float* dx, float* dy) {
   const float INF = __int_as_float(0x7f800000);
   const int W = a.W, X = a.X, Y = a.Y, nth = blockDim.x;
@@ -553,19 +640,22 @@ __device__ bool turn_into_y(const Net<K, SMEM>& n, const Args& a,
       }
     }
     const int di = n.dyi(l, tp, x, v);
-    if (best < dy[di]) {
+    const float old = dy[di];
+    if (best < old) {
       dy[di] = best;
       n.put_y(tp, x, v, bsrc, bw);
-      mine |= n.own(x);
+      mine |= n.changes(x, best, old);
     }
     wk.next(X + 1, Y, tp, x, v);
   }
   return mine;
 }
 
-// turn into x: target chanx (t, u, y); sources chany (u+1-a, y+b-1)
-template <int K, bool SMEM>
-__device__ bool turn_into_x(const Net<K, SMEM>& n, const Args& a,
+// turn into x: target chanx (t, u, y); sources chany (u+1-a, y+b-1).  The
+// last writer of dx in a sweep: in the bf16 plane mode it also rounds
+// every dx cell it visits (the sweep's rounding pass of dx).
+template <int K, bool SMEM, bool Q>
+__device__ bool turn_into_x(const Net<K, SMEM, Q>& n, const Args& a,
                             const Walk& wk, const float* dy, float* dx) {
   const float INF = __int_as_float(0x7f800000);
   const int W = a.W, X = a.X, Y = a.Y, nth = blockDim.x;
@@ -618,11 +708,16 @@ __device__ bool turn_into_x(const Net<K, SMEM>& n, const Args& a,
       }
     }
     const int di = n.dxi(l, t, u, y);
-    if (best < dx[di]) {
-      dx[di] = best;
+    const float old = dx[di];
+    const bool imp = best < old;
+    if (imp) {
       n.put_x(t, u, y, bsrc, bw);
-      mine |= n.own(u);
+      mine |= n.changes(u, best, old);
     }
+    if (Q)
+      dx[di] = rnd16(imp ? best : old);
+    else if (imp)
+      dx[di] = best;
     wk.next(X, Y + 1, t, u, y);
   }
   return mine;
@@ -668,11 +763,31 @@ __device__ void halo_copy(const Args& a, float* dx, float* dy, int r,
   }
 }
 
+// The bf16 plane mode's rounding pass of dy (dx is rounded in
+// turn_into_x): each thread rounds the dy cells of its Walk, the cells it
+// also writes in turn_into_y and writes back, so no barrier is needed
+// before those; the caller holds one between the turn into x, which reads
+// dy, and this pass.
+template <int K, bool SMEM, bool Q>
+__device__ void round_dy(const Net<K, SMEM, Q>& n, const Args& a,
+                         const Walk& wk, float* dy) {
+  const int nyc = a.W * (a.X + 1) * a.Y;
+  int t = wk.t0, x = wk.r0, y = wk.c0;
+  for (int l = threadIdx.x; l < nyc; l += blockDim.x) {
+    const int di = n.dyi(l, t, x, y);
+    dy[di] = rnd16(dy[di]);
+    wk.next(a.X + 1, a.Y, t, x, y);
+  }
+}
+
 // Shared-memory modes: 0 all state in global memory (only the scan
 // scratch in shared); 1 dist in shared; 2 dist and scan costs.  SMEM =
 // mode >= 1; a.cost_smem = mode == 2.  Layout: floats [dx | dy | cost_x |
-// cost_y | scratch], then (CLUSTER) two ints of owned-change flags.
-template <int K, bool SMEM>
+// cost_y | scratch], then (CLUSTER) two ints of owned-change flags.  In
+// mode 0 the f32 working dist is the output (FULL, f32 BLOCK; TILE: the
+// output flats themselves) or the workspace ws (CLUSTER, bf16 BLOCK,
+// whose output is bfloat16).
+template <int K, bool SMEM, bool Q>
 __device__ void relax_net(const Args& a) {
   extern __shared__ float smem[];
   const float INF = __int_as_float(0x7f800000);
@@ -682,9 +797,11 @@ __device__ void relax_net(const Args& a) {
     b = blockIdx.x / a.shards;
     r = blockIdx.x - b * a.shards;
   }
-  const Net<K, SMEM> n(a, b, r);
+  const Net<K, SMEM, Q> n(a, b, r);
   const int W = a.W, X = a.X, Y = a.Y;
   const int nxc = W * X * (Y + 1), nyc = W * (X + 1) * Y;
+  // the output planes are bfloat16 (bf16 BLOCK) and the working dist f32
+  constexpr bool WS16 = K == BLOCK && Q;
   float* f = smem;
   float *dx = nullptr, *dy = nullptr, *cx = nullptr, *cy = nullptr;
   if (SMEM) {
@@ -694,38 +811,39 @@ __device__ void relax_net(const Args& a) {
       cx = f; f += nxc;
       cy = f; f += nyc;
     }
-  } else if (K == CLUSTER) {
+  } else if (K == CLUSTER || WS16) {
     dx = a.ws + (long long)blockIdx.x * (nxc + nyc);
     dy = dx + nxc;
   } else {
-    dx = a.dx + n.sx0;
-    dy = a.dy + n.sy0;
+    dx = (float*)a.dx + n.sx0;
+    dy = (float*)a.dy + n.sy0;
   }
   float* scr = f;
   int* flag = (int*)(scr + (nth >> 5) * scratch_per_warp(X, Y));
 
-  if (K == TILE) {
-    // the net's whole output row: d0, the cell's own id, wenter0; the
-    // tile is relaxed on top of it.  Four cells per thread per round,
-    // loads first, so the row costs a quarter of the load latencies.
-    const long long o = n.ix0;
+  if constexpr (K == TILE) {
+    // the net's whole output row: d0, the cell's own id, wenter0 (as
+    // given, in either plane mode: cells outside the tile are returned
+    // unchanged); the tile is relaxed on top of it.  Four cells per
+    // thread per round, loads first, so the row costs a quarter of the
+    // load latencies.  TILE's input and output rows share one stride.
     for (int l0 = tid; l0 < a.nc; l0 += 4 * nth) {
       float d[4], w[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int l = l0 + k * nth;
         if (l < a.nc) {
-          d[k] = __ldg(a.d0x + o + l);
-          w[k] = __ldg(a.w0x + o + l);
+          d[k] = ldp(n.d0x + l);
+          w[k] = ldp(n.w0x + l);
         }
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int l = l0 + k * nth;
         if (l < a.nc) {
-          a.dx[o + l] = d[k];
-          a.px[o + l] = l;
-          a.wx[o + l] = w[k];
+          n.odx[l] = d[k];
+          a.px[n.sx0 + l] = l;
+          n.owx[l] = w[k];
         }
       }
     }
@@ -735,15 +853,19 @@ __device__ void relax_net(const Args& a) {
   {
     int t = walk_x.t0, x = walk_x.r0, y = walk_x.c0;
     for (int l = tid; l < nxc; l += nth) {
+      const int i = n.ix(t, x, y);
       if (K != TILE || SMEM)
-        dx[l] = n.realx(x) ? a.d0x[n.ix0 + n.ix(t, x, y)] : INF;
+        dx[l] = n.realx(x) ? n.q(ldp(n.d0x + i)) : INF;
+      else if (Q)
+        dx[i] = n.q(ldp(n.d0x + i));   // TILE mode 0: the output row
       if (K == FULL || K == BLOCK) {
-        a.wx[n.sx0 + l] = a.w0x[n.ix0 + l];
+        stp(n.owx + l, n.q(ldp(n.w0x + l)));
         a.px[n.sx0 + l] = a.p0x ? a.p0x[n.ix0 + l] : n.idx(t, x, y);
       } else if (K == CLUSTER && n.keeps_x(x)) {
-        const int i = n.ix(t, x, y);
-        a.wx[n.sx0 + i] = a.w0x[n.ix0 + i];
+        stp(n.owx + i, n.q(ldp(n.w0x + i)));
         a.px[n.sx0 + i] = n.idx(t, x, y);
+      } else if (K == TILE && Q) {
+        stp(n.owx + i, n.q(ldp(n.w0x + i)));
       }
       if (cx) cx[l] = n.cost_x(t, x, y);
       walk_x.next(X, Y + 1, t, x, y);
@@ -752,15 +874,19 @@ __device__ void relax_net(const Args& a) {
   {
     int t = walk_y.t0, x = walk_y.r0, y = walk_y.c0;
     for (int l = tid; l < nyc; l += nth) {
+      const int i = n.iy(t, x, y);
       if (K != TILE || SMEM)
-        dy[l] = n.realy(x) ? a.d0y[n.iy0 + n.iy(t, x, y)] : INF;
+        dy[l] = n.realy(x) ? n.q(ldp(n.d0y + i)) : INF;
+      else if (Q)
+        dy[i] = n.q(ldp(n.d0y + i));
       if (K == FULL || K == BLOCK) {
-        a.wy[n.sy0 + l] = a.w0y[n.iy0 + l];
+        stp(n.owy + l, n.q(ldp(n.w0y + l)));
         a.py[n.sy0 + l] = a.p0y ? a.p0y[n.iy0 + l] : n.idy(t, x, y);
       } else if (K == CLUSTER && n.keeps_y(x)) {
-        const int i = n.iy(t, x, y);
-        a.wy[n.sy0 + i] = a.w0y[n.iy0 + i];
+        stp(n.owy + i, n.q(ldp(n.w0y + i)));
         a.py[n.sy0 + i] = n.idy(t, x, y);
+      } else if (K == TILE && Q) {
+        stp(n.owy + i, n.q(ldp(n.w0y + i)));
       }
       if (cy) cy[l] = n.cost_y(t, x, y);
       walk_y.next(X + 1, Y, t, x, y);
@@ -778,17 +904,20 @@ __device__ void relax_net(const Args& a) {
       halo_copy<SMEM>(a, dx, dy, r, (long long)nxc + nyc);
       cg::this_cluster().sync();     // halos in before any owned write
     }
-    bool mine = scan_phase<K, SMEM, true>(n, a, dx, cx, scr);
+    bool mine = scan_phase<K, SMEM, Q, true>(n, a, dx, cx, scr);
     __syncthreads();
-    mine |= turn_into_y<K, SMEM>(n, a, walk_y, dx, dy);
+    mine |= turn_into_y<K, SMEM, Q>(n, a, walk_y, dx, dy);
     __syncthreads();
-    mine |= scan_phase<K, SMEM, false>(n, a, dy, cy, scr);
+    mine |= scan_phase<K, SMEM, Q, false>(n, a, dy, cy, scr);
     __syncthreads();
-    mine |= turn_into_x<K, SMEM>(n, a, walk_x, dy, dx);
+    mine |= turn_into_x<K, SMEM, Q>(n, a, walk_x, dy, dx);
     if constexpr (K == CLUSTER) {
       // slot i & 1 is rewritten two sweeps later, after every CTA has
-      // passed the next halo barrier, so no CTA can still be reading it
+      // passed the next halo barrier, so no CTA can still be reading it;
+      // dy is rounded before the barrier after which the neighbours read
+      // its halo columns
       const int any = __syncthreads_or(mine);
+      if (Q) round_dy(n, a, walk_y, dy);
       if (tid == 0) flag[i & 1] = any;
       cg::this_cluster().sync();
       cg::cluster_group cl = cg::this_cluster();
@@ -796,21 +925,22 @@ __device__ void relax_net(const Args& a) {
                             *cl.map_shared_rank(flag + (i & 1), tid)) != 0;
     } else {
       go = __syncthreads_or(mine) != 0;
+      if (Q) round_dy(n, a, walk_y, dy);
     }
     ++i;
   }
   if constexpr (K == CLUSTER)
     cg::this_cluster().sync();       // no CTA leaves while read remotely
 
-  if (SMEM || K == CLUSTER) {
+  if (SMEM || K == CLUSTER || WS16) {
     int t = walk_x.t0, x = walk_x.r0, y = walk_x.c0;
     for (int l = tid; l < nxc; l += nth) {
-      if (n.keeps_x(x)) a.dx[n.sx0 + n.ix(t, x, y)] = dx[l];
+      if (n.keeps_x(x)) stp(n.odx + n.ix(t, x, y), dx[l]);
       walk_x.next(X, Y + 1, t, x, y);
     }
     t = walk_y.t0; x = walk_y.r0; y = walk_y.c0;
     for (int l = tid; l < nyc; l += nth) {
-      if (n.keeps_y(x)) a.dy[n.sy0 + n.iy(t, x, y)] = dy[l];
+      if (n.keeps_y(x)) stp(n.ody + n.iy(t, x, y), dy[l]);
       walk_y.next(X + 1, Y, t, x, y);
     }
   }
@@ -825,21 +955,21 @@ __device__ void relax_net(const Args& a) {
   }
 }
 
-template <bool SMEM>
+template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_full_kernel(Args a) { relax_net<FULL, SMEM>(a); }
+planes_relax_full_kernel(Args a) { relax_net<FULL, SMEM, Q>(a); }
 
-template <bool SMEM>
+template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_block_kernel(Args a) { relax_net<BLOCK, SMEM>(a); }
+planes_relax_block_kernel(Args a) { relax_net<BLOCK, SMEM, Q>(a); }
 
-template <bool SMEM>
+template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_cropped_kernel(Args a) { relax_net<TILE, SMEM>(a); }
+planes_relax_cropped_kernel(Args a) { relax_net<TILE, SMEM, Q>(a); }
 
-template <bool SMEM>
+template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_cluster_kernel(Args a) { relax_net<CLUSTER, SMEM>(a); }
+planes_relax_cluster_kernel(Args a) { relax_net<CLUSTER, SMEM, Q>(a); }
 
 // the launch tables: p[NPTR] pointers, v[NINT] integers (the wrapper's
 // layout, route/planes_kernels.py)
@@ -850,16 +980,17 @@ planes_relax_cluster_kernel(Args a) { relax_net<CLUSTER, SMEM>(a); }
 //   v: 0 B, 1 W, 2 X, 3 Y, 4 stride_x, 5 directional, 6 nsweeps,
 //      7..10 in_sx in_sy st_sx st_sy, 11..13 g_sx g_sy g_sp, 14 threads,
 //      15 own_lo, 16 own_hi, 17 mode (-1: auto), 18 device, 19 NX,
-//      20 ncx, 21 nc, 22 ox_hi, 23 oy_hi, 24 shards, 25 kx
+//      20 ncx, 21 nc, 22 ox_hi, 23 oy_hi, 24 shards, 25 kx, 26 plane
+//      mode (0 f32, 1 bf16)
 Args unpack(const void* const* p, const long long* v) {
   Args a;
-  a.d0x = (const float*)p[0]; a.d0y = (const float*)p[1];
-  a.ccx = (const float*)p[2]; a.ccy = (const float*)p[3];
-  a.w0x = (const float*)p[4]; a.w0y = (const float*)p[5];
+  a.d0x = p[0]; a.d0y = p[1];
+  a.ccx = p[2]; a.ccy = p[3];
+  a.w0x = p[4]; a.w0y = p[5];
   a.crit = (const float*)p[6];
-  a.dx = (float*)p[7]; a.dy = (float*)p[8];
+  a.dx = (void*)p[7]; a.dy = (void*)p[8];
   a.px = (int32_t*)p[9]; a.py = (int32_t*)p[10];
-  a.wx = (float*)p[11]; a.wy = (float*)p[12];
+  a.wx = (void*)p[11]; a.wy = (void*)p[12];
   a.stats = (int32_t*)p[13];
   a.brk_before_x = (const uint8_t*)p[14]; a.brk_after_x = (const uint8_t*)p[15];
   a.first_x = (const uint8_t*)p[16]; a.last_x = (const uint8_t*)p[17];
@@ -919,23 +1050,21 @@ int mode_of(int kind, const long long* v) {
   return v[17] < 0 ? auto_mode(kind, v) : (int)v[17];
 }
 
-const void* kernel_of(int kind, int mode) {
+#define PICK(k)                                                   \
+  (q ? (s ? (const void*)k<true, true> : (const void*)k<false, true>) \
+     : (s ? (const void*)k<true, false> : (const void*)k<false, false>))
+
+// the kernel of a kind, shared-memory mode and plane mode (q: bf16)
+const void* kernel_of(int kind, int mode, bool q) {
   const bool s = mode != 0;
   switch (kind) {
-    case FULL:
-      return s ? (const void*)planes_relax_full_kernel<true>
-               : (const void*)planes_relax_full_kernel<false>;
-    case BLOCK:
-      return s ? (const void*)planes_relax_block_kernel<true>
-               : (const void*)planes_relax_block_kernel<false>;
-    case TILE:
-      return s ? (const void*)planes_relax_cropped_kernel<true>
-               : (const void*)planes_relax_cropped_kernel<false>;
-    default:
-      return s ? (const void*)planes_relax_cluster_kernel<true>
-               : (const void*)planes_relax_cluster_kernel<false>;
+    case FULL: return PICK(planes_relax_full_kernel);
+    case BLOCK: return PICK(planes_relax_block_kernel);
+    case TILE: return PICK(planes_relax_cropped_kernel);
+    default: return PICK(planes_relax_cluster_kernel);
   }
 }
+#undef PICK
 
 // Checks a table, makes its card current (the previous one in *cur) and
 // sets the kernel's attributes: its dynamic shared memory above the
@@ -951,29 +1080,31 @@ cudaError_t prepare(int kind, const long long* v, int* cur, int* mode,
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (kind == CLUSTER && (v[24] < 2 || v[24] > MAX_CLUSTER))
     return cudaErrorInvalidValue;
+  if (v[26] != 0 && v[26] != 1) return cudaErrorInvalidValue;
+  const bool q = v[26] == 1;
   cudaError_t e = cudaGetDevice(cur);
   if (e == cudaSuccess && *cur != dev) e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
   *mode = mode_of(kind, v);
   *bytes = smem_bytes(kind, *mode, v);
-  *k = kernel_of(kind, *mode);
+  *k = kernel_of(kind, *mode, q);
   if (*mode < 0 || *mode > 2 || *bytes > smem_optin(dev))
     return cudaErrorInvalidValue;
-  static long long set[8][MAX_DEVICES] = {{0}};
-  long long& done = set[2 * kind + (*mode == 0 ? 0 : 1)][dev];
+  static long long set[16][MAX_DEVICES] = {{0}};
+  long long& done = set[4 * kind + 2 * q + (*mode == 0 ? 0 : 1)][dev];
   if (*bytes > 48 * 1024 && *bytes > done) {
     e = cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)*bytes);
     if (e != cudaSuccess) return e;
     done = *bytes;
   }
-  static bool wide[2][MAX_DEVICES] = {{false}};
-  if (kind == CLUSTER && v[24] > PORTABLE_CLUSTER &&
-      !wide[*mode == 0 ? 0 : 1][dev]) {
+  static bool wide[4][MAX_DEVICES] = {{false}};
+  bool& wd = wide[2 * q + (*mode == 0 ? 0 : 1)][dev];
+  if (kind == CLUSTER && v[24] > PORTABLE_CLUSTER && !wd) {
     e = cudaFuncSetAttribute(
         *k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
-    wide[*mode == 0 ? 0 : 1][dev] = true;
+    wd = true;
   }
   return cudaSuccess;
 }
@@ -1004,7 +1135,8 @@ int launch(int kind, const void* const* p, const long long* v,
   cudaError_t e = prepare(kind, v, &cur, &mode, &bytes, &k);
   Args a = unpack(p, v);
   a.cost_smem = mode == 2;
-  if (e == cudaSuccess && kind == CLUSTER && mode == 0 && !a.ws)
+  const bool ws_needed = kind == CLUSTER || (kind == BLOCK && v[26] == 1);
+  if (e == cudaSuccess && ws_needed && mode == 0 && !a.ws)
     e = cudaErrorInvalidValue;
   if (e == cudaSuccess && kind == TILE && (!a.ox || !a.oy))
     e = cudaErrorInvalidValue;

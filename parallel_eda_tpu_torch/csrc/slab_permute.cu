@@ -9,9 +9,11 @@
 // relaxation, written straight into the receivers' halo columns.
 //
 // One launch executes a table of moves.  A move copies nseg rows of
-// seg_len contiguous floats from a source (row stride src_stride) to a
+// seg_len contiguous elements from a source (row stride src_stride) to a
 // destination (row stride dst_stride), or writes `fill` where it has no
-// source (the edge shard with no sender).  Both sides are strided views of
+// source (the edge shard with no sender).  The elements of one launch are
+// 4-byte (f32 dist) or 2-byte (the bf16 plane mode's dist): the kernel
+// copies their bits, so the bf16 mode moves half the bytes.  Both sides are strided views of
 // the shards' block canvases, so a sender's owned boundary columns go
 // straight into its neighbour's halo columns: no receive buffer, no
 // install copy.  blockIdx.y selects the move; the threads of a block row
@@ -43,10 +45,10 @@
 namespace {
 
 struct Move {
-  const float* src;          // null: write `fill`
-  float* dst;
-  int src_stride, dst_stride, nseg, seg_len;
-  float fill;
+  const void* src;           // null: write `fill`
+  void* dst;
+  int src_stride, dst_stride, nseg, seg_len;   // in elements
+  uint32_t fill;             // the fill element's bits (low 16: 2-byte)
   int pad;
 };
 
@@ -54,26 +56,34 @@ struct MoveTable {
   Move m[MAX_MOVES];
 };
 
+// E: the element, as an unsigned integer of its width
+template <class E>
 __global__ void __launch_bounds__(THREADS) slab_permute_kernel(MoveTable t) {
   const Move& mv = t.m[blockIdx.y];
+  const E* src = (const E*)mv.src;
+  E* dst = (E*)mv.dst;
+  const E fill = (E)mv.fill;
   const int n = mv.nseg * mv.seg_len;
   for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n;
        k += gridDim.x * blockDim.x) {
     const int row = k / mv.seg_len, col = k - row * mv.seg_len;
-    mv.dst[(long long)row * mv.dst_stride + col] =
-        mv.src ? mv.src[(long long)row * mv.src_stride + col] : mv.fill;
+    dst[(long long)row * mv.dst_stride + col] =
+        src ? src[(long long)row * mv.src_stride + col] : fill;
   }
 }
 
 }  // namespace
 
 // tab: n_moves rows of 7 long longs
-//   src ptr (0: fill), src row stride, dst ptr, dst row stride (floats),
-//   nseg, seg_len, fill (float bits in the low 32 bits)
+//   src ptr (0: fill), src row stride, dst ptr, dst row stride (elements),
+//   nseg, seg_len, fill (the element's bits in the low 32 bits)
+// elem_bytes: 4 or 2, for every move of the table.
 // Launches on `stream` with card `device` current (restored after).
 extern "C" int slab_permute_launch(const long long* tab, int n_moves,
-                                   int device, void* stream) {
+                                   int elem_bytes, int device,
+                                   void* stream) {
   if (n_moves < 1 || n_moves > MAX_MOVES) return (int)cudaErrorInvalidValue;
+  if (elem_bytes != 4 && elem_bytes != 2) return (int)cudaErrorInvalidValue;
   MoveTable t;
   memset(&t, 0, sizeof(t));
   long long most = 0;
@@ -84,14 +94,13 @@ extern "C" int slab_permute_launch(const long long* tab, int n_moves,
         || r[4] < 0 || r[5] < 1 || n > 0x7fffffffLL || r[2] == 0)
       return (int)cudaErrorInvalidValue;
     Move& m = t.m[i];
-    m.src = (const float*)(uintptr_t)r[0];
-    m.dst = (float*)(uintptr_t)r[2];
+    m.src = (const void*)(uintptr_t)r[0];
+    m.dst = (void*)(uintptr_t)r[2];
     m.src_stride = (int)r[1];
     m.dst_stride = (int)r[3];
     m.nseg = (int)r[4];
     m.seg_len = (int)r[5];
-    const uint32_t bits = (uint32_t)r[6];
-    memcpy(&m.fill, &bits, sizeof(float));
+    m.fill = (uint32_t)r[6];
     if (n > most) most = n;
   }
   if (most == 0) return 0;
@@ -102,7 +111,12 @@ extern "C" int slab_permute_launch(const long long* tab, int n_moves,
   long long blocks = (most + THREADS - 1) / THREADS;
   if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
   dim3 grid((unsigned)blocks, (unsigned)n_moves);
-  slab_permute_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(t);
+  if (elem_bytes == 4)
+    slab_permute_kernel<uint32_t>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(t);
+  else
+    slab_permute_kernel<uint16_t>
+        <<<grid, THREADS, 0, (cudaStream_t)stream>>>(t);
   e = cudaGetLastError();
   if (cur != device) cudaSetDevice(cur);
   return (int)e;

@@ -483,9 +483,12 @@ def geom_full(pg: PlanesGraph) -> PlanesGeom:
 
 
 def _crop_index(o, size: int, extent: int):
-    """Per-net index rows o[b] + arange(size), with the origin clamped
-    into [0, extent - size] as lax.dynamic_slice clamps its start."""
-    o = torch.clamp(o.long(), 0, extent - size)
+    """Per-net index rows o[b] + arange(size) into an axis of ``extent``
+    cells, with the origin placed as lax.dynamic_slice places its start:
+    a negative origin first wraps once by the extent, then the origin is
+    clamped into [0, extent - size]."""
+    o = o.long()
+    o = torch.clamp(torch.where(o < 0, o + extent, o), 0, extent - size)
     return o[:, None] + torch.arange(size, device=o.device)[None, :]
 
 
@@ -494,8 +497,10 @@ def crop_origin_hi(pg: PlanesGraph, cnx: int, cny: int):
     serves every array of the cropped relaxation: chanx [NX, NY+1] cut at
     (cnx, cny+1), chany [NX+1, NY] at (cnx+1, cny) and the corner parity
     [NX+1, NY+1] at (cnx+1, cny+1) all clamp x into [0, NX-cnx] and y
-    into [0, NY-cny], so K2 clamps each net's origin once, in the
-    kernel."""
+    into [0, NY-cny].  The wrap of a negative origin (_crop_index) is by
+    each array's own extent, so an origin below -cnx (x) or -cny (y)
+    lands one apart on the two extents; K2 places each net's two x and
+    two y origins in the kernel."""
     _, NX, NYp1 = pg.shape_x
     return NX - cnx, NYp1 - 1 - cny
 
@@ -765,15 +770,69 @@ def _sweep_once(gm: PlanesGeom, s, crit_c, cc_x, cc_y, costs):
     return dx, dy, predx, predy, wx, wy
 
 
-def _run_relax(sweep_fn, state0, nsweeps: int):
+# Storage dtypes of the distance/backtrack planes (the JAX package's
+# PLANE_DTYPES).  "f32" is the exact oracle.  "bf16" carries dist and
+# wenter in bfloat16 between sweeps while every sweep runs in f32 and
+# rounds once at its end (round to nearest even); pred stays int32 and
+# crit f32, and the congestion input is rounded once through bfloat16.
+PLANE_DTYPES = ("f32", "bf16")
+
+
+def plane_torch_dtype(plane_dtype: str) -> torch.dtype:
+    """The storage dtype of a plane-dtype name."""
+    if plane_dtype not in PLANE_DTYPES:
+        raise ValueError(
+            f"plane_dtype must be one of {PLANE_DTYPES}, "
+            f"got {plane_dtype!r}")
+    return torch.bfloat16 if plane_dtype == "bf16" else _F32
+
+
+def plane_itemsize(plane_dtype: str) -> int:
+    """Storage bytes per plane cell (the halo ledger's multiplier)."""
+    return 2 if plane_dtype == "bf16" else 4
+
+
+def quantize_plane_state(s, plane_dtype: str):
+    """(dx, dy, predx, predy, wx, wy) -> storage dtypes: dist and wenter
+    take the plane dtype (round to nearest even), pred stays int32."""
+    dt = plane_torch_dtype(plane_dtype)
+    dx, dy, px, py, wx, wy = s
+    return dx.to(dt), dy.to(dt), px, py, wx.to(dt), wy.to(dt)
+
+
+def _dequantize_plane_state(s):
+    dx, dy, px, py, wx, wy = s
+    return dx.float(), dy.float(), px, py, wx.float(), wy.float()
+
+
+def round_plane(a, plane_dtype: str):
+    """``a`` rounded once through the plane dtype, back in f32 (the
+    congestion input of a reduced-precision relaxation)."""
+    if plane_dtype == "f32":
+        return a
+    return a.to(plane_torch_dtype(plane_dtype)).float()
+
+
+def _run_relax(sweep_fn, state0, nsweeps: int, plane_dtype: str = "f32"):
     """Run ``sweep_fn`` to the fixpoint or ``nsweeps`` times, whichever
     comes first.  Updates are strict improvements of a monotone state,
-    so "no distance improved" is an exact fixpoint test.  Returns
-    (state, stats) with stats = int32[2] (sweeps executed, sweeps that
-    improved some distance)."""
+    so "no distance improved" is an exact fixpoint test.  With
+    ``plane_dtype="bf16"`` the state between sweeps is stored in
+    bfloat16: each sweep upcasts, runs in f32 and rounds back, and the
+    test compares the ROUNDED distances (still exact: rounding is
+    monotone, so the rounded state never increases).  Returns (state,
+    stats) with stats = int32[2] (sweeps executed, sweeps that improved
+    some distance)."""
+    step = sweep_fn
+    if plane_dtype != "f32":
+        state0 = quantize_plane_state(state0, plane_dtype)
+
+        def step(s):
+            return quantize_plane_state(
+                sweep_fn(_dequantize_plane_state(s)), plane_dtype)
     i, go, s = 0, True, state0
     while go and i < nsweeps:
-        s2 = sweep_fn(s)
+        s2 = step(s)
         go = bool(((s2[0] < s[0]).any() | (s2[1] < s[1]).any()).item())
         s = s2
         i += 1
@@ -796,21 +855,25 @@ def _flat(a, b):
 
 
 def planes_relax_plain(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
-                       nsweeps: int):
+                       nsweeps: int, plane_dtype: str = "f32"):
     """The plain PyTorch version of the full-canvas relaxation (any
     device): d0_flat/cc_flat/wenter0 [B, Ncells] f32, crit_c [B,1,1,1].
     Returns (dist, pred, wenter, stats) — dist/wenter f32 and pred int32
-    [B, Ncells] (global cell ids), stats int32[2]."""
+    [B, Ncells] (global cell ids), stats int32[2].  ``plane_dtype``
+    "bf16" relaxes in the reduced-precision plane mode (_run_relax) on
+    the congestion rounded once through bfloat16; dist and wenter come
+    back as the f32 values of their bfloat16 state."""
     dx, dy = _split_flat(pg, d0_flat)
-    cc_x, cc_y = _split_flat(pg, cc_flat)
+    cc_x, cc_y = _split_flat(pg, round_plane(cc_flat, plane_dtype))
     wx, wy = _split_flat(pg, wenter0)
     gm = geom_full(pg)
     predx = gm.idxx.expand(dx.shape)
     predy = gm.idxy.expand(dy.shape)
     costs = _sweep_costs(gm, crit_c, cc_x, cc_y)
-    (dx, dy, predx, predy, wx, wy), stats = _run_relax(
+    state, stats = _run_relax(
         lambda s: _sweep_once(gm, s, crit_c, cc_x, cc_y, costs),
-        (dx, dy, predx, predy, wx, wy), nsweeps)
+        (dx, dy, predx, predy, wx, wy), nsweeps, plane_dtype)
+    dx, dy, predx, predy, wx, wy = _dequantize_plane_state(state)
     return (_flat(dx, dy), _flat(predx, predy), _flat(wx, wy),
             stats.to(d0_flat.device))
 
@@ -880,47 +943,52 @@ def unfold_canvas(a2, shape, pad_y: int = 0):
 
 def planes_relax_cropped_plain(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                                wenter0, nsweeps: int, ox, oy,
-                               cnx: int, cny: int):
+                               cnx: int, cny: int, plane_dtype: str = "f32"):
     """The plain PyTorch version of the cropped relaxation (any
     device): net b sweeps only the tile at grid cell (ox[b], oy[b]).
-    Same returns as planes_relax_plain."""
+    Same returns as planes_relax_plain; in the bf16 plane mode only the
+    tiles are rounded (cells outside keep d0 / wenter0 as given)."""
     gm_full = geom_full(pg)
     gm = geom_cropped(pg, ox, oy, cnx, cny, full=gm_full)
     fulls, (dx, dy, cc_x, cc_y, wx, wy) = crop_state(
         pg, d0_flat, cc_flat, wenter0, ox, oy, cnx, cny)
+    cc_x, cc_y = round_plane(cc_x, plane_dtype), round_plane(cc_y,
+                                                             plane_dtype)
     predx = gm.idxx.expand(dx.shape)
     predy = gm.idxy.expand(dy.shape)
     costs = _sweep_costs(gm, crit_c, cc_x, cc_y)
     tiles, stats = _run_relax(
         lambda s: _sweep_once(gm, s, crit_c, cc_x, cc_y, costs),
-        (dx, dy, predx, predy, wx, wy), nsweeps)
-    return scatter_state(gm_full, fulls, tiles, ox, oy) + (
-        stats.to(d0_flat.device),)
+        (dx, dy, predx, predy, wx, wy), nsweeps, plane_dtype)
+    return scatter_state(gm_full, fulls, _dequantize_plane_state(tiles),
+                         ox, oy) + (stats.to(d0_flat.device),)
 
 
 def planes_relax(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
-                 nsweeps: int):
+                 nsweeps: int, plane_dtype: str = "f32"):
     """Full-canvas planes relaxation with predecessor tracking.
 
     d0_flat [B, Ncells] seeded distances (a seeded cell's pred is
     itself); cc_flat congestion cost per cell (already (1-crit)-scaled,
     jittered, INF outside the net bb); crit_c [B, 1, 1, 1]; wenter0
     [B, Ncells] true delay payload at seeds.  Runs to the exact fixpoint
-    or ``nsweeps`` sweeps.  Returns (dist, pred, wenter, stats).
+    or ``nsweeps`` sweeps, in the plane dtype ``plane_dtype``
+    (PLANE_DTYPES).  Returns (dist, pred, wenter, stats).
 
     CUDA tensors launch the hand-written kernel (planes_kernels.py) or
     raise; CPU tensors run the plain version."""
     if d0_flat.is_cuda:
         from .planes_kernels import planes_relax_full_cuda
         return planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c,
-                                      wenter0, nsweeps)
+                                      wenter0, nsweeps,
+                                      plane_dtype=plane_dtype)
     return planes_relax_plain(pg, d0_flat, cc_flat, crit_c, wenter0,
-                              nsweeps)
+                              nsweeps, plane_dtype)
 
 
 def planes_relax_cropped(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                          wenter0, nsweeps: int, ox, oy, cnx: int,
-                         cny: int):
+                         cny: int, plane_dtype: str = "f32"):
     """planes_relax on per-net (cnx, cny) CROPPED canvases.  Exact under
     the caller contract: every finite-cc cell and every seed of net b
     lies inside its tile.  Cells outside the tile return d0 / self-pred
@@ -931,9 +999,10 @@ def planes_relax_cropped(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
         from .planes_kernels import planes_relax_cropped_cuda
         return planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c,
                                          wenter0, nsweeps, ox, oy, cnx,
-                                         cny)
+                                         cny, plane_dtype=plane_dtype)
     return planes_relax_cropped_plain(pg, d0_flat, cc_flat, crit_c,
-                                      wenter0, nsweeps, ox, oy, cnx, cny)
+                                      wenter0, nsweeps, ox, oy, cnx, cny,
+                                      plane_dtype)
 
 
 def _as_row_mesh(mesh):
@@ -1000,13 +1069,14 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
                sel, valid, force, full_bb,
                nsweeps: int, max_len: int, num_waves: int, group: int,
                doubling: bool, crop_tile=None, bb0_all=None,
-               widen_ok=None, mesh=None):
+               widen_ok=None, mesh=None, plane_dtype: str = "f32"):
     """One fused batch step: rip up the selected nets, re-route each
     against the occupancy of everyone-but-itself with the planes
     relaxation, commit and scatter back.  A selected net is a no-op
     unless it needs rerouting (an overused node on its tree or an
     unreached sink) or ``force`` is true.  With a RowMesh ``mesh`` (and
-    no crop tile) the relaxation is the row-sharded one.
+    no crop tile) the relaxation is the row-sharded one; every
+    relaxation runs in the plane dtype ``plane_dtype``.
 
     ``paths``, ``sink_delay``, ``all_reached`` and ``bb`` are updated IN
     PLACE at the rerouted rows (the JAX program donates them; here the
@@ -1119,14 +1189,16 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
         if crop_tile is not None:
             dist, pred, wenter, rst = planes_relax_cropped(
                 pg, d0, cc_flat, crit_c, wenter0, nsweeps,
-                crop_ox, crop_oy, cnx_t, cny_t)
+                crop_ox, crop_oy, cnx_t, cny_t, plane_dtype=plane_dtype)
         elif _as_row_mesh(mesh) is not None:
             from .planes_shard import planes_relax_sharded
             dist, pred, wenter, rst = planes_relax_sharded(
-                pg, d0, cc_flat, crit_c, wenter0, nsweeps, mesh)
+                pg, d0, cc_flat, crit_c, wenter0, nsweeps, mesh,
+                plane_dtype=plane_dtype)
         else:
             dist, pred, wenter, rst = planes_relax(
-                pg, d0, cc_flat, crit_c, wenter0, nsweeps)
+                pg, d0, cc_flat, crit_c, wenter0, nsweeps,
+                plane_dtype=plane_dtype)
         st = st + rst.to(st.device)
 
         # --- sink extraction from the per-net candidate tables ---
@@ -1365,7 +1437,7 @@ def route_window_planes(
         n_colors: int = 5, crop_tile=None, bb0_all=None, widen_ok=None,
         mesh=None, tdev=None, req_seed=None, sta_depth: int = 0,
         crit_exp: float = 1.0, max_crit: float = 0.99,
-        use_sdc: bool = False):
+        use_sdc: bool = False, plane_dtype: str = "f32"):
     """A WINDOW of K_iters PathFinder iterations: per iteration, every
     batch group of ``sel_plan`` [G, B] runs the fused rip-up/route/commit
     step (groups with no dirty net are skipped outright), then the
@@ -1385,7 +1457,8 @@ def route_window_planes(
     bucket, bits16-23 live-w bucket (8-tile buckets); scal holds the
     window's scalar counters (SCAL_*); dmax_hist is NaN without
     ``tdev``.  ``mesh`` (a planes_shard.RowMesh) shards the full-canvas
-    relaxation."""
+    relaxation; ``plane_dtype`` (PLANE_DTYPES) is every relaxation's
+    plane dtype."""
     device = occ.device
     G = sel_plan.shape[0]
     f32 = lambda v: torch.tensor(v, dtype=_F32, device=device)  # noqa: E731
@@ -1415,7 +1488,7 @@ def route_window_planes(
                 uid_delay, direct_oidx_all, direct_ipin_all,
                 direct_delay_all, sel_g, valid_g, force, full_bb,
                 nsweeps, max_len, num_waves, group, doubling,
-                crop_tile, bb0_all, widen_ok, mesh)
+                crop_tile, bb0_all, widen_ok, mesh, plane_dtype)
             nroutes += n_act
             nexec += 1
             s_exec += se

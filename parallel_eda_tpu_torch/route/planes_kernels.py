@@ -29,9 +29,13 @@ plan per (planes graph, batch, tile or shards, card, mode): a call
 allocates its outputs, sets their pointers and makes one launch.  The
 wrappers take CUDA tensors only and raise on anything else; the CPU path
 is the plain version in planes.py / planes_shard.py.  Each wrapper
-counts its launches in ``<wrapper>.launches`` and keeps the
+counts its launches in ``<wrapper>.launches`` (f32 plane mode) and
+``<wrapper>.launches_bf16`` (bf16 plane mode: ``plane_dtype="bf16"``,
+dist and wenter carried in bfloat16 between f32 sweeps) and keeps the
 shared-memory mode of its last launch in ``<wrapper>.last_mode`` (0
-global state, 1 dist in shared memory, 2 dist and scan costs).
+global state, 1 dist in shared memory, 2 dist and scan costs).  K1, K2
+and the cluster relaxation take and return the f32 flats in both plane
+modes; the step kernel takes bfloat16 blocks in the bf16 plane mode.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import ctypes
 import torch
 
 from .cuda_lib import CudaLib, Launch, check_tensor as _check
-from .planes import crop_origin_hi
+from .planes import crop_origin_hi, plane_torch_dtype
 
 OWN_ALL = (0, 2 ** 31 - 1)
 # how a launch addresses its nets (csrc/planes_relax.cu Kind)
@@ -93,14 +97,23 @@ def _geom_ptrs(g, directional: bool, inc_track, ids: bool):
 
 
 def _ints(B, W, X, Y, stride_x, directional, nsweeps, strides, own, mode,
-          device, NX=0, ncx=0, nc=0, origin_hi=(0, 0), shards=0, kx=0):
+          device, NX=0, ncx=0, nc=0, origin_hi=(0, 0), shards=0, kx=0,
+          plane_dtype="f32"):
     """The launch table's integers (csrc/planes_relax.cu unpack)."""
     ncells = W * X * (Y + 1) + W * (X + 1) * Y
     return ([B, W, X, Y, stride_x, int(directional), int(nsweeps)]
             + list(strides) + [threads_for(ncells), int(own[0]), int(own[1]),
                                -1 if mode is None else int(mode),
                                device.index, NX, ncx, nc, int(origin_hi[0]),
-                               int(origin_hi[1]), shards, kx])
+                               int(origin_hi[1]), shards, kx,
+                               int(plane_dtype == "bf16")])
+
+
+def _count(wrapper, plane_dtype: str) -> None:
+    if plane_dtype == "bf16":
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _check_line(lib, X: int, Yp1: int, what: str) -> None:
@@ -122,12 +135,12 @@ def cluster_geometry(pg, shards: int):
 class _FlatsPlan:
     """The Launch of a relaxation that reads and writes the [B, ncells]
     flats (K1, K2, the cluster relaxation) for one (kind, planes graph,
-    batch, tile or shards, card, mode), built once: the geometry, the
-    shapes and the shared-memory mode are fixed; a call sets its
-    tensors' pointers and nsweeps in the Launch's tables."""
+    batch, tile or shards, card, mode, plane dtype), built once: the
+    geometry, the shapes and the shared-memory mode are fixed; a call
+    sets its tensors' pointers and nsweeps in the Launch's tables."""
 
     def __init__(self, kind: int, pg, B: int, device: torch.device, mode,
-                 tile=None, shards: int = 0):
+                 tile=None, shards: int = 0, plane_dtype: str = "f32"):
         W, NX, NYp1 = pg.shape_x
         lib = LIB.get()
         nc = pg.ncells
@@ -156,7 +169,7 @@ class _FlatsPlan:
                                       False) + [0] * (NPTR - 30))
         self.run = Launch(fn, ptrs, _ints(
             B, W, X, Y, NYp1, pg.directional, 0, (nc, nc, nc, nc) + gstr,
-            own, mode, device, NX, ncx, nc, hi, shards, kx),
+            own, mode, device, NX, ncx, nc, hi, shards, kx, plane_dtype),
             device, what, keep=(pg, geom))
         self.mode = lib.planes_relax_mode(kind, self.run.v)
         if kind == CLUSTER:
@@ -178,14 +191,15 @@ _PLANS: dict = {}
 
 
 def _plan(kind: int, pg, B: int, device: torch.device, mode, tile=None,
-          shards: int = 0) -> _FlatsPlan:
-    key = (kind, id(pg), B, tile, shards, device.index, mode)
+          shards: int = 0, plane_dtype: str = "f32") -> _FlatsPlan:
+    plane_torch_dtype(plane_dtype)
+    key = (kind, id(pg), B, tile, shards, device.index, mode, plane_dtype)
     plan = _PLANS.get(key)
     if plan is None or plan.pg is not pg:
         if len(_PLANS) > 64:
             _PLANS.clear()
         plan = _PLANS[key] = _FlatsPlan(kind, pg, B, device, mode, tile,
-                                        shards)
+                                        shards, plane_dtype)
     return plan
 
 
@@ -233,40 +247,46 @@ def _launch_flats(plan: _FlatsPlan, d0_flat, cc_flat, crit, wenter0,
 
 
 def planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
-                           nsweeps: int, mode=None):
+                           nsweeps: int, mode=None,
+                           plane_dtype: str = "f32"):
     """planes_relax on the card: one launch of planes_relax_full_kernel,
     which also writes the max over nets of the sweep counts.  Same
-    contract as planes.planes_relax_plain.  ``mode`` forces a
-    shared-memory mode (None: the most that fits).  The last call's
-    stats [B + 1, 2] stay in ``planes_relax_full_cuda.last_stats``: each
-    net's [executed, useful] sweeps, then their max over nets."""
+    contract as planes.planes_relax_plain, ``plane_dtype`` included.
+    ``mode`` forces a shared-memory mode (None: the most that fits).  The
+    last call's stats [B + 1, 2] stay in
+    ``planes_relax_full_cuda.last_stats``: each net's [executed, useful]
+    sweeps, then their max over nets."""
     crit = _check_flats(pg, d0_flat, cc_flat, crit_c, wenter0)
     B = d0_flat.shape[0]
-    plan = _plan(FULL, pg, B, d0_flat.device, mode)
+    plan = _plan(FULL, pg, B, d0_flat.device, mode,
+                 plane_dtype=plane_dtype)
     dist, pred, wenter, stats = _launch_flats(plan, d0_flat, cc_flat, crit,
                                               wenter0, nsweeps)
-    planes_relax_full_cuda.launches += 1
+    _count(planes_relax_full_cuda, plane_dtype)
     planes_relax_full_cuda.last_mode = plan.mode
     planes_relax_full_cuda.last_stats = stats
     return dist, pred, wenter, stats[B]
 
 
 planes_relax_full_cuda.launches = 0
+planes_relax_full_cuda.launches_bf16 = 0
 planes_relax_full_cuda.last_stats = None
 planes_relax_full_cuda.last_mode = None
 
 
 def planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
                               nsweeps: int, ox, oy, cnx: int, cny: int,
-                              mode=None):
+                              mode=None, plane_dtype: str = "f32"):
     """planes_relax_cropped on the card: one launch of
     planes_relax_cropped_kernel, which reads the full flats and the
     shared geometry at each net's origin (``ox``/``oy`` int32 [B] on the
-    card, clamped in the kernel into [0, crop_origin_hi]) and writes the
-    full output flats: the relaxed tile, and d0 / own id / wenter0
-    everywhere else.  Same contract as planes.planes_relax_cropped_plain;
-    ``mode`` and ``last_stats`` as for planes_relax_full_cuda.  Raises
-    ValueError for a tile wider or taller than the grid."""
+    card, placed in the kernel as planes._crop_index places them: a
+    negative origin wraps by each array's extent, then clamps into
+    [0, crop_origin_hi]) and writes the full output flats: the relaxed
+    tile, and d0 / own id / wenter0 everywhere else.  Same contract as
+    planes.planes_relax_cropped_plain; ``mode``, ``plane_dtype`` and
+    ``last_stats`` as for planes_relax_full_cuda.  Raises ValueError for
+    a tile wider or taller than the grid."""
     _, NX, NYp1 = pg.shape_x
     if not (1 <= cnx <= NX and 1 <= cny <= NYp1 - 1):
         # a tile past the grid would clamp its origins below 0
@@ -276,23 +296,26 @@ def planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
     B = d0_flat.shape[0]
     _check(ox, torch.int32, (B,), "ox")
     _check(oy, torch.int32, (B,), "oy")
-    plan = _plan(TILE, pg, B, d0_flat.device, mode, (int(cnx), int(cny)))
+    plan = _plan(TILE, pg, B, d0_flat.device, mode, (int(cnx), int(cny)),
+                 plane_dtype=plane_dtype)
     dist, pred, wenter, stats = _launch_flats(
         plan, d0_flat, cc_flat, crit, wenter0, nsweeps,
         ((33, ox.data_ptr()), (34, oy.data_ptr())))
-    planes_relax_cropped_cuda.launches += 1
+    _count(planes_relax_cropped_cuda, plane_dtype)
     planes_relax_cropped_cuda.last_mode = plan.mode
     planes_relax_cropped_cuda.last_stats = stats
     return dist, pred, wenter, stats[B]
 
 
 planes_relax_cropped_cuda.launches = 0
+planes_relax_cropped_cuda.launches_bf16 = 0
 planes_relax_cropped_cuda.last_stats = None
 planes_relax_cropped_cuda.last_mode = None
 
 
 def planes_relax_cluster_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
-                              nsweeps: int, shards: int, mode=None):
+                              nsweeps: int, shards: int, mode=None,
+                              plane_dtype: str = "f32"):
     """The lag-1 row-sharded relaxation (planes_shard.planes_relax_sharded)
     with every shard on d0_flat's card: one launch of
     planes_relax_cluster_kernel, net b a cluster of ``shards`` CTAs, each
@@ -301,26 +324,29 @@ def planes_relax_cluster_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
     each net stopping at its first sweep with no owned change or at
     ``nsweeps`` (the sharded sweep cap).  Writes the full output flats;
     returns (dist, pred, wenter, stats [2]), bit-identical to the
-    per-sweep loop.  ``mode`` and ``last_stats`` as for
-    planes_relax_full_cuda.  Raises if the card cannot schedule such a
-    cluster."""
+    per-sweep loop.  ``mode``, ``plane_dtype`` (the halos carry the
+    rounded dist, and the flag compares the rounded owned cells) and
+    ``last_stats`` as for planes_relax_full_cuda.  Raises if the card
+    cannot schedule such a cluster."""
     crit = _check_flats(pg, d0_flat, cc_flat, crit_c, wenter0)
     B = d0_flat.shape[0]
     dev = d0_flat.device
-    plan = _plan(CLUSTER, pg, B, dev, mode, shards=int(shards))
+    plan = _plan(CLUSTER, pg, B, dev, mode, shards=int(shards),
+                 plane_dtype=plane_dtype)
     extra = ()
     if plan.ws_numel:
         ws = torch.empty(plan.ws_numel, dtype=torch.float32, device=dev)
         extra = ((35, ws.data_ptr()),)
     dist, pred, wenter, stats = _launch_flats(plan, d0_flat, cc_flat, crit,
                                               wenter0, nsweeps, extra)
-    planes_relax_cluster_cuda.launches += 1
+    _count(planes_relax_cluster_cuda, plane_dtype)
     planes_relax_cluster_cuda.last_mode = plan.mode
     planes_relax_cluster_cuda.last_stats = stats
     return dist, pred, wenter, stats[B]
 
 
 planes_relax_cluster_cuda.launches = 0
+planes_relax_cluster_cuda.launches_bf16 = 0
 planes_relax_cluster_cuda.last_stats = None
 planes_relax_cluster_cuda.last_mode = None
 
@@ -330,15 +356,19 @@ def sweep_block_launcher(gm, state, crit_c, cc_x, cc_y, own, out, stats,
     """planes_sweep_block_cuda with its checks done and its launch table
     built once: returns a callable that runs one sweep of ``state`` into
     ``out`` and ``stats`` (contract of planes_sweep_block_cuda) and
-    counts into ``planes_sweep_block_cuda.launches``.  Its ``mode`` is
-    the shared-memory mode the launch takes."""
+    counts into ``planes_sweep_block_cuda.launches`` (or
+    ``launches_bf16``).  Its ``mode`` is the shared-memory mode the
+    launch takes."""
     dx = state[0]
     B, W, X, Yp1 = dx.shape
     Y = Yp1 - 1
     shx, shy = (B, W, X, Yp1), (B, W, X + 1, Y)
-    f32, i32 = torch.float32, torch.int32
+    pt, i32 = dx.dtype, torch.int32
+    if pt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dx must be float32 or bfloat16, got {pt}")
+    plane_dtype = "bf16" if pt == torch.bfloat16 else "f32"
     for t, dt, sh, n in zip(state + out + (cc_x, cc_y),
-                            (f32, f32, i32, i32, f32, f32) * 2 + (f32, f32),
+                            (pt, pt, i32, i32, pt, pt) * 2 + (pt, pt),
                             (shx, shy) * 7,
                             ("dx", "dy", "px", "py", "wx", "wy",
                              "out dx", "out dy", "out px", "out py",
@@ -346,7 +376,7 @@ def sweep_block_launcher(gm, state, crit_c, cc_x, cc_y, own, out, stats,
         _check(t, dt, sh, n)
     _check(stats, i32, (B, 2), "stats")
     crit = crit_c.reshape(B).contiguous()
-    _check(crit, f32, (B,), "crit_c")
+    _check(crit, torch.float32, (B,), "crit_c")
     for t, sh, n in ((gm.idxx, (1, W, X, Yp1), "idxx"),
                      (gm.idxy, (1, W, X + 1, Y), "idxy"),
                      (gm.base_par, (1, X + 1, Yp1), "base_par"),
@@ -357,24 +387,30 @@ def sweep_block_launcher(gm, state, crit_c, cc_x, cc_y, own, out, stats,
     lib = LIB.get()
     _check_line(lib, X, Yp1, "block")
     sx, sy = W * X * Yp1, W * (X + 1) * Y
+    ints = _ints(B, W, X, Y, gm.stride_x, gm.directional, 1,
+                 (sx, sy, sx, sy, 0, 0, 0), own, mode, dx.device,
+                 plane_dtype=plane_dtype)
+    run_mode = lib.planes_relax_mode(BLOCK, (ctypes.c_longlong * len(ints))(
+        *ints))
+    # the bf16 step's f32 working dist, in mode 0
+    ws = (torch.empty(B * (sx + sy), dtype=torch.float32, device=dx.device)
+          if plane_dtype == "bf16" and run_mode == 0 else None)
     ptrs = ([state[0].data_ptr(), state[1].data_ptr(), cc_x.data_ptr(),
              cc_y.data_ptr(), state[4].data_ptr(), state[5].data_ptr(),
              crit.data_ptr()] + [t.data_ptr() for t in out]
             + [stats.data_ptr()]
             + _geom_ptrs(gm, gm.directional, gm.inc_track, True)
             + [state[2].data_ptr(), state[3].data_ptr()]
-            + [0] * (NPTR - 32))
-    ints = _ints(B, W, X, Y, gm.stride_x, gm.directional, 1,
-                 (sx, sy, sx, sy, 0, 0, 0), own, mode, dx.device)
+            + [0] * (NPTR - 33) + [0 if ws is None else ws.data_ptr()])
     launch = Launch(lib.planes_sweep_block_launch, ptrs, ints, dx.device,
                     "planes sweep step",
-                    keep=(gm, state, out, stats, crit, cc_x, cc_y))
+                    keep=(gm, state, out, stats, crit, cc_x, cc_y, ws))
 
     def run() -> None:
         launch()
-        planes_sweep_block_cuda.launches += 1
+        _count(planes_sweep_block_cuda, plane_dtype)
 
-    run.mode = lib.planes_relax_mode(BLOCK, launch.v)
+    run.mode = run_mode
     return run
 
 
@@ -385,9 +421,13 @@ def planes_sweep_block_cuda(gm, state, crit_c, cc_x, cc_y, own,
     in from ``state``, and the block geometry ``gm`` (G = 1, shared by
     every net) read with stride 0.  ``state`` = (dx, dy, px, py, wx, wy)
     [B, W, X, Y+1] / [B, W, X+1, Y]; ``own`` = (lo, hi), the local x
-    columns whose improvement counts as a change.  Returns the new state
-    and stats [B, 2] int32 (stats[:, 1] each net's owned-changed flag).
-    Same arithmetic as one planes._sweep_once."""
+    columns whose improvement counts as a change.  Float32 dist, wenter
+    and congestion run the f32 sweep; bfloat16 ones the bf16 plane
+    mode's (f32 inside, rounded at its end; the flag compares the
+    rounded owned cells).  Returns the new state and stats [B, 2] int32
+    (stats[:, 1] each net's owned-changed flag).  Same arithmetic as one
+    planes._sweep_once (with its rounding, as the plain sharded loop
+    does)."""
     out = tuple(torch.empty_like(t) for t in state)
     stats = torch.empty((state[0].shape[0], 2), dtype=torch.int32,
                         device=state[0].device)
@@ -397,6 +437,7 @@ def planes_sweep_block_cuda(gm, state, crit_c, cc_x, cc_y, own,
 
 
 planes_sweep_block_cuda.launches = 0
+planes_sweep_block_cuda.launches_bf16 = 0
 
 WRAPPERS = (planes_relax_full_cuda, planes_relax_cropped_cuda,
             planes_sweep_block_cuda, planes_relax_cluster_cuda)
@@ -404,8 +445,14 @@ WRAPPERS = (planes_relax_full_cuda, planes_relax_cropped_cuda,
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
-        w.launches = 0
+        w.launches = w.launches_bf16 = 0
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in WRAPPERS}
+    """Launches per wrapper and plane mode: ``name`` (f32) and
+    ``name[bf16]``."""
+    out = {}
+    for w in WRAPPERS:
+        out[w.__name__] = w.launches
+        out[w.__name__ + "[bf16]"] = w.launches_bf16
+    return out

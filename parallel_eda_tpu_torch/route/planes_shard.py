@@ -66,8 +66,10 @@ from typing import Tuple
 
 import torch
 
-from .planes import (INF, PlanesGeom, PlanesGraph, _flat, _split_flat,
-                     _sweep_costs, _sweep_once)
+from .planes import (INF, PlanesGeom, PlanesGraph, _dequantize_plane_state,
+                     _flat, _split_flat, _sweep_costs, _sweep_once,
+                     plane_itemsize, plane_torch_dtype,
+                     quantize_plane_state)
 from .shard_kernels import MAX_SHARDS, HaloExchange, halo_exchange_plain
 
 # ceiling on the inflated sweep budget: information crosses one shard
@@ -154,17 +156,22 @@ def row_block_cols(pg: PlanesGraph, n_shards: int) -> int:
     return max(2, -(-(NX + 2) // n_shards))
 
 
-def halo_bytes_per_sweep(pg: PlanesGraph, batch: int, n_shards: int) -> int:
+def halo_bytes_per_sweep(pg: PlanesGraph, batch: int, n_shards: int,
+                         plane_dtype: str = "f32") -> int:
     """Modeled bytes ONE sweep's halo exchange moves: per internal
     boundary, 2 dx columns ([B, W, NY+1]) + 3 dy columns ([B, W, NY]) of
-    f32 dist (pred/wenter halos are never read)."""
+    dist in the plane storage dtype (pred/wenter halos are never read;
+    bf16 planes halve the bytes, and the exchange moves 2-byte
+    elements)."""
     W, NX, NYp1 = pg.shape_x
     _, NXp1, NY = pg.shape_y
-    return (n_shards - 1) * batch * W * (2 * NYp1 + 3 * NY) * 4
+    return ((n_shards - 1) * batch * W * (2 * NYp1 + 3 * NY)
+            * plane_itemsize(plane_dtype))
 
 
 def modeled_overlap_frac(pg: PlanesGraph, batch: int, n_shards: int,
-                         impl: str, cross_card: bool) -> float:
+                         impl: str, cross_card: bool,
+                         plane_dtype: str = "f32") -> float:
     """Modeled fraction of the halo-exchange time hidden behind sweep
     compute: 0.0 for the lag-1 schedule (the exchange is on the
     critical path); for lag 2, one shard's sweep bytes over one
@@ -175,8 +182,9 @@ def modeled_overlap_frac(pg: PlanesGraph, batch: int, n_shards: int,
         return 0.0
     W, NX, NYp1 = pg.shape_x
     _, NXp1, NY = pg.shape_y
-    sweep_bytes = batch * W * (NX * NYp1 + NXp1 * NY) * 4 / n_shards
-    halo_bytes = halo_bytes_per_sweep(pg, batch, n_shards) \
+    sweep_bytes = (batch * W * (NX * NYp1 + NXp1 * NY)
+                   * plane_itemsize(plane_dtype) / n_shards)
+    halo_bytes = halo_bytes_per_sweep(pg, batch, n_shards, plane_dtype) \
         / max(1, n_shards - 1)
     ratio = H100_HBM_BYTES_S / H100_NVLINK_BYTES_S if cross_card else 1.0
     return round(min(1.0, sweep_bytes / max(1.0, halo_bytes * ratio)), 6)
@@ -284,24 +292,31 @@ def _shard_geoms(pg: PlanesGraph, rmesh: RowMesh, kx: int):
 class _PlainSweeps:
     """The plain sharded sweep loop (the CPU's, and the plain version of
     the card's kernels on any device): each sweep makes new state tensors
-    (planes._sweep_once) and the exchange writes the current state's halo
-    columns in place (halo_exchange_plain)."""
+    (planes._sweep_once, in f32 and rounded back to the plane dtype) and
+    the exchange writes the current state's halo columns in place
+    (halo_exchange_plain)."""
 
-    def __init__(self, gms, states, crits, ccx, ccy, kx, home):
+    def __init__(self, gms, states, crits, ccx, ccy, kx, home,
+                 plane_dtype="f32"):
+        ccx, ccy = [c.float() for c in ccx], [c.float() for c in ccy]
         self.args = list(zip(gms, crits, ccx, ccy))
         self.costs = [_sweep_costs(*a) for a in self.args]
         self.cur = self.prev = states
         self.kx = kx
+        self.plane_dtype = plane_dtype
 
     def exchange(self, lagged: bool) -> None:
         halo_exchange_plain(self.cur, self.kx, self.prev if lagged else None)
 
     def sweep(self) -> bool:
-        """One sweep of every shard; whether an owned cell improved."""
+        """One sweep of every shard; whether an owned cell improved (of
+        the rounded state, in the bf16 plane mode)."""
         own = slice(1, self.kx + 1)
         new, flags = [], []
         for st, a, costs in zip(self.cur, self.args, self.costs):
-            st2 = _sweep_once(a[0], st, *a[1:], costs)
+            st2 = quantize_plane_state(
+                _sweep_once(a[0], _dequantize_plane_state(st), *a[1:],
+                            costs), self.plane_dtype)
             flags.append((st2[0][:, :, own] < st[0][:, :, own]).any()
                          | (st2[1][:, :, own] < st[1][:, :, own]).any())
             new.append(st2)
@@ -317,7 +332,8 @@ class _CardSweeps:
     other).  One host read per sweep: the owned-changed flags of each
     card's shards."""
 
-    def __init__(self, gms, states, crits, ccx, ccy, kx, home):
+    def __init__(self, gms, states, crits, ccx, ccy, kx, home,
+                 plane_dtype="f32"):
         from .planes_kernels import sweep_block_launcher
 
         B = states[0][0].shape[0]
@@ -374,28 +390,37 @@ def sweep_cap(nsweeps: int, n_shards: int) -> int:
 
 
 def planes_relax_sharded(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
-                         wenter0, nsweeps: int, rmesh: RowMesh):
+                         wenter0, nsweeps: int, rmesh: RowMesh,
+                         plane_dtype: str = "f32"):
     """planes_relax, spatially sharded over ``rmesh``: the same contract
     — (dist_flat, pred_flat, wenter_flat, stats) on d0_flat's device —
     with every shard relaxing its own column block and the halo columns
     exchanged every sweep: one cluster launch under lag 1 on one card,
-    the per-sweep loop otherwise (module docstring)."""
+    the per-sweep loop otherwise (module docstring).  ``plane_dtype``
+    as for planes.planes_relax: in the bf16 plane mode the block states
+    are carried in bfloat16, the halo columns carry the rounded values
+    and the owned-changed flag compares the rounded state."""
     home = d0_flat.device
     if uses_cluster(rmesh, home):
         from .planes_kernels import planes_relax_cluster_cuda
         return planes_relax_cluster_cuda(
             pg, d0_flat, cc_flat, crit_c, wenter0,
-            sweep_cap(nsweeps, rmesh.n_shards), rmesh.n_shards)
+            sweep_cap(nsweeps, rmesh.n_shards), rmesh.n_shards,
+            plane_dtype=plane_dtype)
     return planes_relax_sharded_sweeps(pg, d0_flat, cc_flat, crit_c,
-                                       wenter0, nsweeps, rmesh)
+                                       wenter0, nsweeps, rmesh,
+                                       plane_dtype=plane_dtype)
 
 
 def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                                 wenter0, nsweeps: int, rmesh: RowMesh,
-                                plain: bool = False):
+                                plain: bool = False,
+                                plane_dtype: str = "f32"):
     """The per-sweep form of planes_relax_sharded, on any mesh: the card's
     step and halo kernels on CUDA shards, the plain loop (_PlainSweeps)
-    on CPU shards or with ``plain``."""
+    on CPU shards or with ``plain``.  In the bf16 plane mode the blocks'
+    dist, wenter and congestion are bfloat16 tensors (the congestion
+    rounded once), which the step and halo kernels take as such."""
     NX, NXp1 = pg.shape_x[1], pg.shape_y[1]
     s = rmesh.n_shards
     devs = rmesh.devices
@@ -407,8 +432,10 @@ def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
         raise ValueError(f"the mesh's shards are on {devs[0].type} but the "
                          f"relaxation's tensors on {home.type}")
 
+    dt = plane_torch_dtype(plane_dtype)
+
     def blocks(flat, fill):
-        x, y = _split_flat(pg, flat)
+        x, y = _split_flat(pg, flat.to(dt))
         return (shard_blocks(x, fill, 2, kx, devs),
                 shard_blocks(y, fill, 3, kx, devs))
 
@@ -421,7 +448,7 @@ def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                                            *blocks(wenter0, 0.0), gms)]
     card = devs[0].type == "cuda" and not plain
     run = (_CardSweeps if card else _PlainSweeps)(
-        gms, states, crits, ccx, ccy, kx, home)
+        gms, states, crits, ccx, ccy, kx, home, plane_dtype)
 
     # A sweep's halos come from its own input state (lag 1) or, under
     # lag 2 after the first sweep, from the input of the sweep before
@@ -449,7 +476,8 @@ def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
 
     def reassemble(idx, real_x):
         return torch.cat([st[idx][:, :, own].to(home) for st in run.cur],
-                         dim=2)[:, :, :real_x]
+                         dim=2)[:, :, :real_x].to(
+                             torch.int32 if idx in (2, 3) else torch.float32)
 
     dx, dy = reassemble(0, NX), reassemble(1, NXp1)
     px, py = reassemble(2, NX), reassemble(3, NXp1)

@@ -12,6 +12,14 @@ This driver is the synchronous one (``pipeline=False`` in the JAX
 package, bit-identical to its pipelined mode by construction).  Options
 the port does not implement yet raise NotImplementedError naming their
 ROADMAP.md item when set to a non-default value.
+
+Reduced-precision planes (``plane_dtype="bf16"``) follow the JAX
+package's ``dtype_guard``: "off" commits the bf16 relaxation; "window"
+commits the f32 route and replays every window in bf16 on copies of the
+window-entry state (the shadow), whose packed summary must stay within
+the band of ``_dtype_band_ok`` or the route stops shadowing (a
+demotion); "route" shadows only until the first window within the band.
+The resilience ladder's "dtype" step is not ported (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -91,7 +99,6 @@ _NOT_PORTED = {
     "resil": (None, "A13 (resilience wiring)"),
     "program_library_dir": (None, "A14 (serve stack / kernel cache)"),
     "compile_cache_dir": (None, "A14 (serve stack / kernel cache)"),
-    "plane_dtype": ("f32", "A12 (bf16 planes)"),
     "fused_dispatch": (False, "A12 (fused ragged dispatch)"),
     "checkpoint_every": (0, "A6 (checkpoint / slicing)"),
     "slice_iterations": (0, "A6 (checkpoint / slicing)"),
@@ -100,12 +107,60 @@ _NOT_PORTED = {
 }
 
 
+DTYPE_GUARDS = ("window", "route", "off")
+
+
 def _check_ported(opts: RouterOpts) -> None:
     for name, (default, item) in _NOT_PORTED.items():
         if getattr(opts, name) != default:
             raise NotImplementedError(
                 f"RouterOpts.{name}={getattr(opts, name)!r} is not ported "
                 f"yet (ROADMAP.md {item})")
+
+
+def _check_plane_dtype(opts: RouterOpts) -> None:
+    """The JAX Router's ValueErrors for a bad plane_dtype / dtype_guard."""
+    from .planes import PLANE_DTYPES
+
+    if str(opts.plane_dtype) not in PLANE_DTYPES:
+        raise ValueError(
+            f"plane_dtype must be one of {PLANE_DTYPES} "
+            f"(got {opts.plane_dtype!r})")
+    if str(opts.dtype_guard) not in DTYPE_GUARDS:
+        raise ValueError(
+            "dtype_guard must be 'window', 'route', or 'off' "
+            f"(got {opts.dtype_guard!r})")
+
+
+# bf16 shadow acceptance band (RouterOpts.dtype_guard): the fraction of
+# per-net status words allowed to disagree with the committed f32
+# window, and the relative tolerance on the scalar congestion summary
+DTYPE_GUARD_STATUS_FRAC = 0.02
+DTYPE_GUARD_SCAL_RTOL = 0.05
+
+
+def _dtype_band_ok(status_f32, scal_f32, status_bf16, scal_bf16,
+                   status_frac: Optional[float] = None,
+                   scal_rtol: Optional[float] = None) -> bool:
+    """Band compare of a window's bf16 shadow summary against the
+    committed f32 window (module level, so a test can force a
+    violation).  At most ``status_frac`` of the per-net status words may
+    differ, and the scalar summary (N_OVER, OVER_TOTAL, NROUTES, NEXEC,
+    MAX_SPAN) must agree to a relative tolerance with an absolute floor
+    of 1; the sweep counters are left out (reaching the fixpoint a sweep
+    earlier or later is a legitimate reduced-precision outcome)."""
+    if status_frac is None:
+        status_frac = DTYPE_GUARD_STATUS_FRAC
+    if scal_rtol is None:
+        scal_rtol = DTYPE_GUARD_SCAL_RTOL
+    st_a = np.asarray(status_f32)
+    st_b = np.asarray(status_bf16)
+    if st_a.size and float((st_a != st_b).mean()) > status_frac:
+        return False
+    a = np.asarray(scal_f32, dtype=np.float64)[:5]
+    b = np.asarray(scal_bf16, dtype=np.float64)[:5]
+    tol = np.maximum(1.0, scal_rtol * np.abs(a))
+    return bool((np.abs(a - b) <= tol).all())
 
 
 @dataclass
@@ -241,6 +296,29 @@ def _grow_paths(paths, L_new: int, N: int):
                                    value=N)
 
 
+# route_window_planes' positional arguments that are the window state
+# (occ, acc, paths, sink_delay, all_reached, bb, crit_all)
+_SHADOW_SLOTS = (2, 3, 4, 5, 6, 7, 10)
+
+
+def _shadow_window(rungs, state):
+    """The bf16 shadow of a window (JAX router.py:2161-2181): the same
+    route_window_planes calls ``rungs`` ((args, kwargs) per rung), each
+    on the state the previous one left, from ``state`` (copies of the
+    window-entry state, updated in place), with plane_dtype="bf16".
+    Returns the last rung's (status, scal) as numpy arrays."""
+    from .planes import route_window_planes
+
+    for args, kw in rungs:
+        a = list(args)
+        for slot, t in zip(_SHADOW_SLOTS, state):
+            a[slot] = t
+        occ, acc, status, scal, _ = route_window_planes(
+            *a, plane_dtype="bf16", **kw)
+        state[0], state[1] = occ, acc
+    return status.cpu().numpy(), scal.cpu().numpy()
+
+
 class Router:
     """Holds the device graph across route() calls.  ``device`` defaults
     to ``cuda`` (raises without a card); pass ``device="cpu"`` to run
@@ -249,10 +327,14 @@ class Router:
     ``opts.mesh_shards > 1`` shards the relaxation by canvas columns
     (route/planes_shard.py) over that many shards placed round-robin on
     the visible devices of ``device``'s type: ``row_mesh``.  ``metrics``
-    holds the halo ledger under the JAX package's metric names: the
+    holds, under the JAX package's metric names, the halo ledger: the
     counters ``route.mesh.halo_bytes`` and ``route.mesh.halo_exchanges``
     add up over the Router's routes, the gauges ``route.mesh.n_shards``
-    and ``route.mesh.overlap_frac`` hold the last window's values."""
+    and ``route.mesh.overlap_frac`` hold the last window's values; and
+    the plane dtype: the counter ``route.kernel.dtype_demotions`` (bf16
+    shadows that left the band) and the gauge
+    ``route.kernel.plane_dtype`` ("bf16" while a bf16 route is not
+    demoted, else "f32")."""
 
     # escalating sync schedule: window sizes between host round trips
     _WINDOWS = (2, 2, 3, 4, 5, 6, 8, 10, 10)
@@ -293,10 +375,11 @@ class Router:
             self.row_mesh = make_row_mesh(self.opts.mesh_shards, "ppermute",
                                           self.device)
 
-    def _book_halo(self, scal, batch: int) -> None:
+    def _book_halo(self, scal, batch: int, plane_dtype: str) -> None:
         """The halo ledger of one window (JAX router.py:1191-1233): each
         executed sweep exchanged one halo round per internal boundary,
-        at the byte volume of the window's plan width ``batch``."""
+        at the byte volume of the window's plan width ``batch`` in the
+        committed relaxation's plane dtype."""
         from .planes import SCAL_S_EXEC
         from .planes_shard import halo_bytes_per_sweep, modeled_overlap_frac
 
@@ -304,13 +387,15 @@ class Router:
         sweeps = int(scal[SCAL_S_EXEC])
         m["route.mesh.halo_bytes"] = (
             m.get("route.mesh.halo_bytes", 0)
-            + halo_bytes_per_sweep(self.pg, batch, rm.n_shards) * sweeps)
+            + halo_bytes_per_sweep(self.pg, batch, rm.n_shards,
+                                   plane_dtype) * sweeps)
         m["route.mesh.halo_exchanges"] = (
             m.get("route.mesh.halo_exchanges", 0)
             + (rm.n_shards - 1) * sweeps)
         m["route.mesh.n_shards"] = rm.n_shards
         m["route.mesh.overlap_frac"] = modeled_overlap_frac(
-            self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1)
+            self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1,
+            plane_dtype)
 
     def _planes_terminals(self, term):
         """Terminal tables for ``term`` as device tensors, cached on
@@ -376,6 +461,7 @@ class Router:
                 "resume is not ported yet (ROADMAP.md A6)")
         opts = self.opts
         _check_ported(opts)
+        _check_plane_dtype(opts)
         crop = normalize_crop(opts.crop)
         rr = self.rr
         R, Smax = term.sinks.shape
@@ -416,7 +502,7 @@ class Router:
                               full_bb, result, B, crop):
         """The synchronous window driver (the JAX package's
         _route_planes_windows with pipeline=False and no checkpoint,
-        bf16 or fused modes)."""
+        resilience or fused modes)."""
         from .planes import (SCAL_MAX_SPAN, SCAL_NEXEC, SCAL_NROUTES,
                              SCAL_S_EXEC, SCAL_S_USEFUL,
                              route_window_planes, unpack_window_status)
@@ -473,6 +559,14 @@ class Router:
         live_h = (term.bb_ymax - term.bb_ymin + 1).astype(np.int64)
         budget_full = np.zeros(R, dtype=bool)
         rm = self.row_mesh
+        # the plane dtype (JAX router.py:1609-1625, :1713-1720): guarded
+        # bf16 commits f32 and shadows in bf16, "off" commits bf16
+        pd_req, guard = str(opts.plane_dtype), str(opts.dtype_guard)
+        dtype_demoted = dtype_validated = False
+        m = self.metrics
+        m["route.kernel.dtype_demotions"] = m.get(
+            "route.kernel.dtype_demotions", 0)
+        m["route.kernel.plane_dtype"] = pd_req
         while it_done < opts.max_router_iterations:
             K = self._WINDOWS[min(widx, len(self._WINDOWS) - 1)]
             if host_cb:
@@ -522,6 +616,16 @@ class Router:
 
             widen_d = (None if opts.sweep_budget_div <= 1
                        else self._t(budget_full))
+            shadow_now = (pd_req == "bf16" and guard != "off"
+                          and not dtype_demoted and not dtype_validated)
+            pd_main = ("bf16" if pd_req == "bf16" and guard == "off"
+                       and not dtype_demoted else "f32")
+            shadow = []
+            if shadow_now:
+                # the window-entry state, for the shadow's replay
+                sh_state = [t.clone() for t in (occ, acc, paths,
+                                                sink_delay, all_reached,
+                                                bb, crit_d)]
             t0 = time.time()
             rung_scals = []
             for ri, (sub, tile) in enumerate(dispatch):
@@ -558,21 +662,35 @@ class Router:
                          if doubling
                          else min(Smax, _pow2_at_least(
                              math.ceil(maxfan / grp_w) + 1)))
+                # positions 2-7 and 10 are the window state (_SHADOW_SLOTS)
+                args = [self.pg, dev, occ, acc, paths, sink_delay,
+                        all_reached, bb, source_d, sinks_d, crit_d,
+                        *planes_tbl, self._t(sel_p), self._t(valid_p),
+                        full_bb, pres, opts.pres_fac_mult, opts.max_pres_fac,
+                        opts.acc_fac if ri == 0 else 0.0, it_done,
+                        it_done + 1 if force_all_next
+                        else opts.incremental_after,
+                        K, nsw, L, waves, grp_w, doubling]
+                kw = dict(topk=min(4096, N), n_colors=5, crop_tile=tile,
+                          bb0_all=bb0_d, widen_ok=wok, mesh=rm, **sta_kw)
                 occ, acc, status, scal, dmax_hist = route_window_planes(
-                    self.pg, dev, occ, acc, paths, sink_delay,
-                    all_reached, bb, source_d, sinks_d, crit_d,
-                    *planes_tbl, self._t(sel_p), self._t(valid_p),
-                    full_bb, pres, opts.pres_fac_mult, opts.max_pres_fac,
-                    opts.acc_fac if ri == 0 else 0.0, it_done,
-                    it_done + 1 if force_all_next
-                    else opts.incremental_after,
-                    K, nsw, L, waves, grp_w, doubling,
-                    topk=min(4096, N), n_colors=5, crop_tile=tile,
-                    bb0_all=bb0_d, widen_ok=wok, mesh=rm, **sta_kw)
+                    *args, plane_dtype=pd_main, **kw)
+                if shadow_now:
+                    shadow.append((args, kw))
                 rung_scals.append((scal.cpu().numpy(), tile is not None))
             force_all_next = False
             status_np = status.cpu().numpy()
             scal_np = rung_scals[-1][0]
+            if shadow:
+                # the dtype guard: replay the window's rungs in bf16 on
+                # the window-entry copies and band-compare the summaries
+                s_status, s_scal = _shadow_window(shadow, sh_state)
+                if _dtype_band_ok(status_np, scal_np, s_status, s_scal):
+                    dtype_validated = guard == "route"
+                else:
+                    dtype_demoted = True
+                    m["route.kernel.dtype_demotions"] += 1
+                    m["route.kernel.plane_dtype"] = "f32"
 
             (rrm, colors, dev_wide, unreached, live_w,
              live_h) = unpack_window_status(status_np)
@@ -609,7 +727,8 @@ class Router:
                 analyzer.crit_path_delay = cpd
             if rm is not None:
                 # one rung under a mesh: the last plan is the window's
-                self._book_halo(scal_np, sel_p.shape[1] if len(dirty) else 1)
+                self._book_halo(scal_np, sel_p.shape[1] if len(dirty) else 1,
+                                pd_main)
             pres = min(opts.max_pres_fac, pres * opts.pres_fac_mult ** K)
 
             if n_over == 0 and not rrm.any():

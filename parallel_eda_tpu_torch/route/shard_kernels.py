@@ -20,14 +20,15 @@ boundary columns (dx kx / 1, dy kx / 1..2), and INF where the edge shard
 has no neighbour: the JAX package's extract + install, in place, with no
 receive buffer.  ``halo_exchange`` and ``remote_slab_permute`` dispatch
 on the tensors' device type: CUDA tensors launch the kernel or raise,
-CPU tensors take the plain version.  Each CUDA wrapper counts its kernel
-launches in ``<wrapper>.launches``.
+CPU tensors take the plain version.  The kernel moves float32 (4-byte)
+or, in the bf16 plane mode, bfloat16 (2-byte) elements.  Each CUDA
+wrapper counts its kernel launches in ``<wrapper>.launches`` (float32)
+and ``<wrapper>.launches_bf16``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import struct
 
 import torch
 
@@ -39,7 +40,8 @@ INF = float("inf")
 
 def _setup(lib) -> None:
     lib.slab_permute_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p]
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
     lib.slab_permute_launch.restype = ctypes.c_int
     lib.slab_permute_max_moves.restype = ctypes.c_int
     lib.slab_permute_enable_peer.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -69,13 +71,33 @@ def _enable_peers(devices) -> None:
     _PEERS_ENABLED.add(key)
 
 
+# element types the kernel moves: dtype -> bytes
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def _fill_bits(fill: float, dtype) -> int:
+    """The bits of ``fill`` as one element of ``dtype``."""
+    t = torch.tensor([fill], dtype=dtype)
+    return int(t.view(torch.int32 if dtype == torch.float32
+                      else torch.int16).item()) & (
+        (1 << 8 * ELEM_BYTES[dtype]) - 1)
+
+
+def _count(wrapper, dtype, n: int) -> None:
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += n
+    else:
+        wrapper.launches += n
+
+
 def _rows(t, name: str):
     """(pointer, row stride, rows, row length) of a [B, W, cols, Y]
-    float32 CUDA view whose rows (one (b, w)) are contiguous runs of
-    cols * Y floats at a uniform stride, as column slices of a
+    float32 or bfloat16 CUDA view whose rows (one (b, w)) are contiguous
+    runs of cols * Y elements at a uniform stride, as column slices of a
     contiguous canvas are."""
-    if not t.is_cuda or t.dtype != torch.float32:
-        raise ValueError(f"{name} must be a float32 CUDA tensor")
+    if not t.is_cuda or t.dtype not in ELEM_BYTES:
+        raise ValueError(f"{name} must be a float32 or bfloat16 CUDA "
+                         "tensor")
     B, W, c, Y = t.shape
     st = t.stride()
     if st[3] != 1 or st[2] != Y or st[0] != W * st[1]:
@@ -86,17 +108,22 @@ def _rows(t, name: str):
 
 class SlabMoves:
     """One launch table per card, built once: ``moves`` is a list of
-    (source view or None, destination view, fill).  A move is launched
-    by its source's card, a fill by its destination's card.  Calling
-    the object launches every card's table on that card's current
-    stream (taken when it was built); across cards the launch waits for
-    its receivers' streams (their halo columns are free to write) and
-    they wait for it (the TPU kernel's receive semaphore).  Returns the
-    number of launches."""
+    (source view or None, destination view, fill), all of one dtype
+    (``dtype``).  A move is launched by its source's card, a fill by its
+    destination's card.  Calling the object launches every card's table
+    on that card's current stream (taken when it was built); across
+    cards the launch waits for its receivers' streams (their halo
+    columns are free to write) and they wait for it (the TPU kernel's
+    receive semaphore).  Returns the number of launches."""
 
     def __init__(self, moves):
         rows, dsts = {}, {}
+        self.dtype = moves[0][1].dtype if moves else torch.float32
         for k, (src, dst, fill) in enumerate(moves):
+            if dst.dtype != self.dtype or (src is not None
+                                           and src.dtype != self.dtype):
+                raise ValueError(f"move {k}: every move of an exchange "
+                                 "must have one dtype")
             dp, ds, nseg, seg = _rows(dst, f"move {k} destination")
             sp, ss = 0, 0
             if src is not None:
@@ -105,7 +132,7 @@ class SlabMoves:
                     raise ValueError(f"move {k}: source and destination "
                                      "shapes differ")
             card = (src if src is not None else dst).device
-            bits = struct.unpack("<I", struct.pack("<f", fill))[0]
+            bits = _fill_bits(fill, self.dtype)
             rows.setdefault(card, []).extend(
                 [sp, ss, dp, ds, nseg, seg, bits])
             dsts.setdefault(card, set()).add(dst.device)
@@ -138,7 +165,7 @@ class SlabMoves:
                                                             self.done):
             for p in peers:
                 self.streams[card].wait_event(self.free[p])
-            rc = self._fn(tab, n, idx, stream)
+            rc = self._fn(tab, n, ELEM_BYTES[self.dtype], idx, stream)
             if rc != 0:
                 raise RuntimeError(f"halo move kernel launch failed "
                                    f"(cudaError {rc})")
@@ -199,7 +226,7 @@ class HaloExchange(SlabMoves):
 
     def __call__(self) -> int:
         n = super().__call__()
-        halo_exchange_cuda.launches += n
+        _count(halo_exchange_cuda, self.dtype, n)
         return n
 
 
@@ -211,6 +238,7 @@ def halo_exchange_cuda(states, kx: int, src=None) -> None:
 
 
 halo_exchange_cuda.launches = 0
+halo_exchange_cuda.launches_bf16 = 0
 
 
 def halo_exchange(states, kx: int, src=None) -> None:
@@ -256,21 +284,24 @@ def remote_slab_permute_cuda(slabs, fwd: bool):
     if not 2 <= n <= MAX_SHARDS:
         raise ValueError(f"needs 2..{MAX_SHARDS} slabs, got {n}")
     for i, t in enumerate(slabs):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise ValueError(f"slab {i} must be a float32 CUDA tensor")
-        if t.shape != slabs[0].shape or t.stride() != slabs[0].stride():
-            raise ValueError("slabs must share one shape and layout")
-    out = [torch.empty(t.shape, dtype=torch.float32, device=t.device)
+        if not t.is_cuda or t.dtype not in ELEM_BYTES:
+            raise ValueError(f"slab {i} must be a float32 or bfloat16 CUDA "
+                             "tensor")
+        if t.shape != slabs[0].shape or t.stride() != slabs[0].stride() \
+                or t.dtype != slabs[0].dtype:
+            raise ValueError("slabs must share one shape, layout and dtype")
+    out = [torch.empty(t.shape, dtype=t.dtype, device=t.device)
            for t in slabs]
     moves = []
     for r in range(n):
         s = _sender(r, n, fwd)
         moves.append((None if s is None else slabs[s], out[r], 0.0))
-    remote_slab_permute_cuda.launches += SlabMoves(moves)()
+    _count(remote_slab_permute_cuda, slabs[0].dtype, SlabMoves(moves)())
     return out
 
 
 remote_slab_permute_cuda.launches = 0
+remote_slab_permute_cuda.launches_bf16 = 0
 
 
 def remote_slab_permute(slabs, fwd: bool):
@@ -289,8 +320,14 @@ WRAPPERS = (halo_exchange_cuda, remote_slab_permute_cuda)
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
-        w.launches = 0
+        w.launches = w.launches_bf16 = 0
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in WRAPPERS}
+    """Launches per wrapper and element type: ``name`` (float32) and
+    ``name[bf16]``."""
+    out = {}
+    for w in WRAPPERS:
+        out[w.__name__] = w.launches
+        out[w.__name__ + "[bf16]"] = w.launches_bf16
+    return out

@@ -555,3 +555,234 @@ def test_router_mesh_across_cards(cuda):
     assert (r4.wirelength, r4.iterations) == (r1.wirelength, r1.iterations)
     assert np.array_equal(r4.paths, r1.paths)
     assert np.array_equal(r4.occ, r1.occ)
+
+
+# ---- the bf16 plane mode ---------------------------------------------
+
+BF = "bf16"
+
+
+def _bf16_instance(arch_i, seed, costs, device, B=16):
+    """_instance with a wenter payload at the seeds (rounded in the bf16
+    plane mode) and one net that stops after its first sweep."""
+    mk, nx, ny = ARCHS[arch_i]
+    pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, B, seed, costs, device)
+    rng = np.random.default_rng(seed + 1)
+    w0 = torch.from_numpy(rng.uniform(0, 1e-10, tuple(d0.shape)).astype(
+        np.float32)).to(device) * (d0 == 0)
+    d0[3] = float("inf")
+    return pg, d0, cc, crit, w0
+
+
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+def test_full_kernel_bf16_matches_plain(cuda, arch_i, costs, mode):
+    """K1 in the bf16 plane mode, every shared-memory mode: bit-identical
+    to the plain bf16 relaxation (the batch loop; the kernel stops each
+    net at its own fixpoint), counted under launches_bf16."""
+    pg, d0, cc, crit, w0 = _bf16_instance(arch_i, 40, costs, cuda)
+    n0, f0 = (pk.planes_relax_full_cuda.launches_bf16,
+              pk.planes_relax_full_cuda.launches)
+    got = pk.planes_relax_full_cuda(pg, d0, cc, crit, w0, 32, mode=mode,
+                                    plane_dtype=BF)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_full_cuda.launches_bf16 == n0 + 1
+    assert pk.planes_relax_full_cuda.launches == f0
+    if mode is not None:
+        assert pk.planes_relax_full_cuda.last_mode == mode
+    assert pk.planes_relax_full_cuda.last_stats[3].tolist() == [1, 0]
+    _same(got, P.planes_relax_plain(pg, d0, cc, crit, w0, 32, BF))
+
+
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+def test_cropped_kernel_bf16_matches_plain(cuda, arch_i, costs, mode):
+    """K2 in the bf16 plane mode: the tile rounded, the cells outside it
+    d0 / wenter0 as given; origins that wrap and clamp."""
+    mk, nx, ny = ARCHS[arch_i]
+    pg, d0, cc, crit, w0 = _bf16_instance(arch_i, 41, costs, cuda)
+    rng = np.random.default_rng(42)
+    ox, oy = _origins(rng, nx, 16, cuda), _origins(rng, ny, 16, cuda)
+    args = (pg, d0, cc, crit, w0, 32, ox, oy, 4, 3)
+    n0 = pk.planes_relax_cropped_cuda.launches_bf16
+    got = pk.planes_relax_cropped_cuda(*args, mode=mode, plane_dtype=BF)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_cropped_cuda.launches_bf16 == n0 + 1
+    _same(got, P.planes_relax_cropped_plain(*args, plane_dtype=BF))
+
+
+@pytest.mark.parametrize("plane_dtype", ["f32", BF])
+@pytest.mark.parametrize("ox", [-1, -5])
+def test_cropped_kernel_negative_origin(cuda, ox, plane_dtype):
+    """A negative origin wraps by each array's extent before the clamp
+    (lax.dynamic_slice's rule): on the 14x12 mixed-length grid with 3x3
+    tiles, -1 lands the chanx and chany planes on one origin, -5 one
+    apart; K2 equals the plain version."""
+    from parallel_eda_tpu_torch.arch.model import SegmentInf
+
+    arch = minimal_arch(chan_width=12)
+    arch.segments = [
+        SegmentInf(name="l1", length=1, frequency=0.4, wire_switch=0,
+                   opin_switch=1),
+        SegmentInf(name="l2", length=2, frequency=0.3, Rmetal=80.0,
+                   Cmetal=15e-15, wire_switch=1, opin_switch=1),
+        SegmentInf(name="l4", length=4, frequency=0.3, Rmetal=60.0,
+                   Cmetal=12e-15, wire_switch=0, opin_switch=0)]
+    pg, d0, cc, crit, w0 = _instance(arch, 14, 12, 8, 43, "jitter", cuda)
+    oxs = torch.full((8,), ox, dtype=torch.int32, device=cuda)
+    oy = torch.arange(8, dtype=torch.int32, device=cuda) - 2
+    args = (pg, d0, cc, crit, w0, 32, oxs, oy, 3, 3)
+    got = P.planes_relax_cropped(*args, plane_dtype=plane_dtype)
+    torch.cuda.synchronize()
+    _same(got, P.planes_relax_cropped_plain(*args, plane_dtype=plane_dtype))
+
+
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+@pytest.mark.parametrize("s", [2, 4])
+def test_cluster_relax_bf16_matches_plain(cuda, s, arch_i, costs, mode):
+    """The cluster kernel in the bf16 plane mode (rounded halos through
+    distributed shared memory, the flag on rounded owned cells, per-net
+    termination) against the plain bf16 per-sweep loop and the step-and-
+    halo-kernel loop on bfloat16 blocks."""
+    pg, d0, cc, crit, w0 = _bf16_instance(arch_i, 44 + s, costs, cuda)
+    n0 = pk.planes_relax_cluster_cuda.launches_bf16
+    got = pk.planes_relax_cluster_cuda(pg, d0, cc, crit, w0,
+                                       TS.sweep_cap(24, s), s, mode=mode,
+                                       plane_dtype=BF)
+    torch.cuda.synchronize()
+    assert pk.planes_relax_cluster_cuda.launches_bf16 == n0 + 1
+    per_net = pk.planes_relax_cluster_cuda.last_stats[:-1].cpu()
+    assert per_net[3].tolist() == [1, 0]
+    assert torch.equal(per_net.max(0).values, got[3].cpu())
+    mesh = TS.make_row_mesh(s, "ppermute", [d0.device] * s)
+    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24, mesh,
+                                              plain=True, plane_dtype=BF))
+    b0, h0 = (pk.planes_sweep_block_cuda.launches_bf16,
+              sk.halo_exchange_cuda.launches_bf16)
+    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24, mesh,
+                                              plane_dtype=BF))
+    assert pk.planes_sweep_block_cuda.launches_bf16 > b0
+    assert sk.halo_exchange_cuda.launches_bf16 > h0
+
+
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+def test_sweep_block_kernel_bf16_matches_plain(cuda, arch_i, costs, mode):
+    """One step-kernel sweep on bfloat16 blocks (f32 inside, rounded at
+    its end; in mode 0 on an f32 workspace) against one plain sweep with
+    the same rounding, and the owned-changed flags on the rounded
+    state."""
+    from parallel_eda_tpu_torch.route.planes import (
+        _dequantize_plane_state, quantize_plane_state)
+
+    pg, d0, cc, crit, w0 = _bf16_instance(arch_i, 47, costs, cuda)
+    bf = torch.bfloat16
+    s = 2
+    kx, ((dx, dy), (ccx, ccy), (wx, wy)) = _blocks(
+        pg, d0.to(bf), cc.to(bf), w0.to(bf), s, cuda)
+    gms = TS._shard_geoms(pg, TS.make_row_mesh(s, devices=[cuda] * s), kx)
+    own = slice(1, kx + 1)
+    for k in range(s):
+        g = gms[k]
+        st = (dx[k], dy[k], g.idxx.expand(dx[k].shape).contiguous(),
+              g.idxy.expand(dy[k].shape).contiguous(), wx[k], wy[k])
+        cf = (ccx[k].float(), ccy[k].float())
+        costs_k = P._sweep_costs(g, crit, *cf)
+
+        def plain(st):
+            return quantize_plane_state(P._sweep_once(
+                g, _dequantize_plane_state(st), crit, *cf, costs_k), BF)
+        st1 = plain(st)
+        n0 = pk.planes_sweep_block_cuda.launches_bf16
+        got, stats = pk.planes_sweep_block_cuda(g, st1, crit, ccx[k],
+                                                ccy[k], (1, kx + 1),
+                                                mode=mode)
+        torch.cuda.synchronize()
+        assert pk.planes_sweep_block_cuda.launches_bf16 == n0 + 1
+        ref = plain(st1)
+        _same(got, ref)
+        flag = ((ref[0][:, :, own] < st1[0][:, :, own]).flatten(1).any(1)
+                | (ref[1][:, :, own] < st1[1][:, :, own]).flatten(1).any(1))
+        assert torch.equal(stats[:, 1].bool().cpu(), flag.cpu())
+
+
+@pytest.mark.parametrize("lagged", [False, True])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_halo_exchange_kernel_bf16_matches_plain(cuda, s, lagged):
+    """K3 on bfloat16 block states: one launch moving 2-byte elements,
+    every halo column bit-identical to the plain version's."""
+    kx = 3
+    bf = torch.bfloat16
+    states = [tuple(t.to(bf) for t in st) for st in
+              _block_states(s, kx, [cuda] * s, 50 + s + 7 * lagged)]
+    src = ([tuple(t.to(bf) for t in st) for st in
+            _block_states(s, kx, [cuda] * s, 150 + s)] if lagged else None)
+    ref = [tuple(t.cpu() for t in st) for st in states]
+    sk.halo_exchange_plain(ref, kx, None if src is None else
+                           [tuple(t.cpu() for t in st) for st in src])
+    n0, f0 = (sk.halo_exchange_cuda.launches_bf16,
+              sk.halo_exchange_cuda.launches)
+    sk.halo_exchange(states, kx, src)
+    torch.cuda.synchronize()
+    assert sk.halo_exchange_cuda.launches_bf16 == n0 + 1
+    assert sk.halo_exchange_cuda.launches == f0
+    for got, want in zip(states, ref):
+        _same(got, want)
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+def test_slab_permute_kernel_bf16_matches_plain(cuda, fwd):
+    rng = np.random.default_rng(60 + fwd)
+    canv = rng.uniform(0, 1, (3, 64, 12, 6, 7)).astype(np.float32)
+    canv[rng.random(canv.shape) < 0.2] = np.inf
+    slabs = [torch.from_numpy(canv[i]).to(cuda).to(torch.bfloat16)[:, :, 2:4]
+             for i in range(3)]
+    got = sk.remote_slab_permute(slabs, fwd)
+    torch.cuda.synchronize()
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _same(got, sk.slab_permute_plain(slabs, fwd))
+
+
+@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
+def test_sharded_relax_bf16_cuda_matches_cpu(cuda, impl):
+    pg, d0, cc, crit, w0 = _bf16_instance(0, 61, "crit", cuda)
+    mesh = TS.make_row_mesh(2, impl, [d0.device] * 2)
+    got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24, mesh, BF)
+    torch.cuda.synchronize()
+    cpu = [t.cpu() for t in (d0, cc, crit, w0)]
+    _same(got, TS.planes_relax_sharded(_pg_to(pg, "cpu"), *cpu, 24,
+                                       TS.make_row_mesh(2, impl, "cpu"), BF))
+
+
+@pytest.mark.parametrize("fields", [
+    dict(plane_dtype=BF, dtype_guard="off"),
+    dict(plane_dtype=BF, dtype_guard="window"),
+    dict(plane_dtype=BF, dtype_guard="off", mesh_shards=2),
+    dict(plane_dtype=BF, dtype_guard="off", crop="4x4")])
+def test_router_bf16_cuda_matches_cpu(cuda, fields):
+    """The Router in the bf16 plane mode on the card equals the same
+    route on the CPU, and launches the bf16 kernels."""
+    cfg = (dict(num_luts=40, num_inputs=6, num_outputs=6, chan_width=10,
+                seed=3, bb_factor=0) if "crop" in fields else
+           dict(num_luts=15, num_inputs=6, num_outputs=6, chan_width=10,
+                seed=3))
+    f = synth_flow(**cfg)
+    rc = Router(f.rr, RouterOpts(batch_size=32, **fields),
+                device="cpu").route(f.term)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    rg = Router(f.rr, RouterOpts(batch_size=32, **fields),
+                device=cuda).route(f.term)
+    counts = pk.launch_counts()
+    assert sum(v for k, v in counts.items() if k.endswith("[bf16]")) > 0
+    assert (rg.wirelength, rg.iterations, rg.total_relax_steps) == (
+        rc.wirelength, rc.iterations, rc.total_relax_steps)
+    assert np.array_equal(rg.paths, rc.paths)
+    assert np.array_equal(rg.occ, rc.occ)
+    assert np.array_equal(rg.sink_delay, rc.sink_delay)
+    check_route(f.rr, f.term, rg.paths, occ=rg.occ)

@@ -1,13 +1,23 @@
 """The port's plain planes relaxation against the JAX package's.
 
 Same inputs, made from a seed with numpy, go through the JAX function
-and its PyTorch counterpart (on the CPU, the plain version).  With
-crit == 0 the results must be BIT-identical — dist, pred, wenter and
-the [executed, useful] sweep counts — on exact (power-of-two) and on
-jittered (uniform) costs: the port's min-plus scan reproduces
-lax.associative_scan's combine tree.  With crit > 0, XLA:CPU contracts
-``cand + crit*delay`` into an FMA and PyTorch does not, so there the
-tolerance is rtol=1e-5 (the one the JAX package's Pallas tests use)."""
+and its PyTorch counterpart (on the CPU, the plain version).  The
+results must be BIT-identical — dist, pred, wenter and the [executed,
+useful] sweep counts — on exact (power-of-two), jittered (uniform) and
+crit > 0 costs: the port's min-plus scan reproduces
+lax.associative_scan's combine tree.  At crit > 0 the reference is the
+JAX package run under ``XLA_FLAGS=--xla_cpu_max_isa=AVX``: with its
+default flags XLA:CPU contracts ``crit*delay + cost`` into a fused
+multiply-add, which the port (and its ``-fmad=false`` kernels) rounds
+twice.  The flag must be set before JAX starts and this process has
+started it, so a module fixture runs this file as a script in a
+subprocess (``python tests/test_torch_planes.py out.npz f32``), which
+writes the JAX results of every crit > 0 case (full canvas, cropped,
+row-sharded) to an .npz (tests/test_torch_timing.py does the same)."""
+
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,18 +99,13 @@ def _instance(rr, pg, B, seed, costs):
             crit, w0)
 
 
-def _compare(jres, tres, costs):
-    jd, jp, jw, js = (np.asarray(a) for a in jres)
-    td, tpr, tw, ts = (a.numpy() for a in tres)
-    if costs == "crit":
-        assert np.array_equal(np.isfinite(jd), np.isfinite(td))
-        fin = np.isfinite(jd)
-        np.testing.assert_allclose(td[fin], jd[fin], rtol=1e-5)
-        return
-    assert np.array_equal(jd, td)
-    assert np.array_equal(jp, tpr)
-    assert np.array_equal(jw, tw)
-    assert np.array_equal(js, ts)
+def _compare(jres, tres):
+    """Bit-identity of (dist, pred, wenter, stats)."""
+    for k, (a, b) in enumerate(zip(jres, tres)):
+        a = np.asarray(a)
+        b = b.numpy() if torch.is_tensor(b) else np.asarray(b)
+        assert a.dtype == b.dtype, k
+        assert np.array_equal(a, b, equal_nan=True), k
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 13, 16, 26])
@@ -124,33 +129,123 @@ def test_minplus_scan_bit_identical(n, reverse):
 # plus the unidir archs of its cropped test
 RELAX_GRID = [("minimal", 4, 4, 0), ("mixed", 7, 7, 7), ("mixed", 5, 9, 11),
               ("unidir", 5, 6, 5), ("unidir_mixed", 6, 5, 3)]
+# the cropped instances (_crop_instance: arch, seed)
+CROP_CASES = [("mixed", 3), ("unidir_mixed", 5), ("minimal", 2)]
+# the row-sharded instances at crit > 0: arch -> (nx, ny, seed), and the
+# (arch, shards, schedule) cases run on them (each JAX reference is a
+# ~10 s compile)
+SHARD_GRAPHS = {"minimal": (6, 5, 21), "unidir": (7, 5, 22)}
+SHARD_CRIT = [("minimal", 2, "ppermute"), ("unidir", 3, "pallas_halo"),
+              ("minimal", 4, "ppermute")]
+
+
+def _grid_key(arch, nx, ny, seed):
+    return f"{arch}-{nx}-{ny}-{seed}"
+
+
+def _np(a):
+    return tuple(np.asarray(x) for x in a)
+
+
+def _jax_crit_results(plane_dtype, shard_cases=None):
+    """The JAX package's results of every crit > 0 case (the sharded ones
+    of ``shard_cases``, default SHARD_CRIT): key -> (dist, pred, wenter,
+    stats) as numpy arrays.  Run under the reference flags
+    (avx_reference)."""
+    from parallel_eda_tpu.route import planes_shard as JS
+
+    out = {}
+    for arch, nx, ny, seed in RELAX_GRID:
+        rr, pg = _graph(arch, nx, ny)
+        args = _instance(rr, pg, 4, seed, "crit")
+        out["full/" + _grid_key(arch, nx, ny, seed)] = _np(JP.planes_relax(
+            pg, *(jnp.asarray(a) for a in args), 64,
+            plane_dtype=plane_dtype))
+    for arch, seed in CROP_CASES:
+        rr, pg, d0, cc, crit, w0, ox, oy, cnx, cny = _crop_instance(
+            arch, seed, "crit")
+        out[f"crop/{arch}-{seed}"] = _np(JP.planes_relax_cropped(
+            pg, *(jnp.asarray(a) for a in (d0, cc, crit, w0)), 64,
+            jnp.asarray(ox), jnp.asarray(oy), cnx, cny,
+            plane_dtype=plane_dtype))
+    for arch, s, impl in (SHARD_CRIT if shard_cases is None
+                          else shard_cases):
+        nx, ny, seed = SHARD_GRAPHS[arch]
+        rr, pg = _graph(arch, nx, ny)
+        args = _instance(rr, pg, 4, seed, "crit")
+        out[f"shard/{arch}-{s}-{impl}"] = _np(JS.planes_relax_sharded(
+            pg, *(jnp.asarray(a) for a in args), 24,
+            JS.make_row_mesh(s, impl), plane_dtype=plane_dtype))
+    return out
+
+
+def write_crit_reference(path, plane_dtypes, extra=None, shard_cases=None):
+    """The JAX results of every crit > 0 case in each plane dtype of
+    ``plane_dtypes``, into the .npz ``path`` (keys
+    "<dtype>/<case>/<output index>"); ``extra`` (a dict of arrays)
+    joins them.  Run under the reference flags."""
+    out = dict(extra or {})
+    for dt in plane_dtypes:
+        for key, res in _jax_crit_results(dt, shard_cases).items():
+            for k, a in enumerate(res):
+                out[f"{dt}/{key}/{k}"] = a
+    np.savez(path, **out)
+
+
+def avx_reference(path, script, args, timeout=600):
+    """Run test file ``script`` as a script with ``args`` in a
+    subprocess under the reference flags (XLA:CPU limited to AVX, the
+    8 virtual CPU devices) and load the .npz it writes to ``path``."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=repo,
+               XLA_FLAGS="--xla_cpu_max_isa=AVX "
+                         "--xla_force_host_platform_device_count=8")
+    out = subprocess.run([sys.executable, os.path.abspath(script),
+                          str(path), *args], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    assert out.returncode == 0, out.stderr[-4000:]
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def crit_results(ref, plane_dtype, key):
+    """The reference's (dist, pred, wenter, stats) of one case."""
+    return tuple(ref[f"{plane_dtype}/{key}/{k}"] for k in range(4))
+
+
+@pytest.fixture(scope="module")
+def crit_ref(tmp_path_factory):
+    return avx_reference(tmp_path_factory.mktemp("jax_ref") / "crit.npz",
+                         __file__, ["f32"])
+
+
+def _relax_port(arch, nx, ny, seed, costs, nsweeps=64, plane_dtype="f32"):
+    rr, pg = _graph(arch, nx, ny)
+    args = _instance(rr, pg, 4, seed, costs)
+    return pg, args, TP.planes_relax(
+        to_port(pg), *(torch.from_numpy(a) for a in args), nsweeps,
+        plane_dtype)
 
 
 @pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
 @pytest.mark.parametrize("arch,nx,ny,seed", RELAX_GRID)
-def test_planes_relax_matches_jax(arch, nx, ny, seed, costs):
-    rr, pg = _graph(arch, nx, ny)
-    d0, cc, crit, w0 = _instance(rr, pg, 4, seed, costs)
-    jres = JP.planes_relax(pg, jnp.asarray(d0), jnp.asarray(cc),
-                           jnp.asarray(crit), jnp.asarray(w0), 64)
-    tres = TP.planes_relax(to_port(pg), torch.from_numpy(d0),
-                           torch.from_numpy(cc), torch.from_numpy(crit),
-                           torch.from_numpy(w0), 64)
-    _compare(jres, tres, costs)
+def test_planes_relax_matches_jax(crit_ref, arch, nx, ny, seed, costs):
+    pg, args, tres = _relax_port(arch, nx, ny, seed, costs)
+    if costs == "crit":
+        jres = crit_results(crit_ref, "f32",
+                            "full/" + _grid_key(arch, nx, ny, seed))
+    else:
+        jres = JP.planes_relax(pg, *(jnp.asarray(a) for a in args), 64)
+    _compare(jres, tres)
 
 
 def test_planes_relax_ceiling_counts():
     """A sweep ceiling below the fixpoint: every executed sweep counts as
     useful, and the truncated state still matches bit for bit."""
-    rr, pg = _graph("mixed", 7, 7)
-    d0, cc, crit, w0 = _instance(rr, pg, 4, 1, "jitter")
-    jres = JP.planes_relax(pg, jnp.asarray(d0), jnp.asarray(cc),
-                           jnp.asarray(crit), jnp.asarray(w0), 2)
-    tres = TP.planes_relax(to_port(pg), torch.from_numpy(d0),
-                           torch.from_numpy(cc), torch.from_numpy(crit),
-                           torch.from_numpy(w0), 2)
+    pg, args, tres = _relax_port("mixed", 7, 7, 1, "jitter", nsweeps=2)
+    jres = JP.planes_relax(pg, *(jnp.asarray(a) for a in args), 2)
     assert tres[3].tolist() == [2, 2]
-    _compare(jres, tres, "jitter")
+    _compare(jres, tres)
 
 
 def _crop_instance(arch, seed, costs, B=4):
@@ -209,38 +304,104 @@ def _crop_instance(arch, seed, costs, B=4):
     return rr, pg, d0, cc, crit, w0, ox, oy, cnx, cny
 
 
-@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
-@pytest.mark.parametrize("arch,seed", [("mixed", 3), ("unidir_mixed", 5),
-                                       ("minimal", 2)])
-def test_planes_relax_cropped_matches_jax(arch, seed, costs):
+def _cropped_port(arch, seed, costs, plane_dtype="f32"):
     rr, pg, d0, cc, crit, w0, ox, oy, cnx, cny = _crop_instance(
         arch, seed, costs)
-    jres = JP.planes_relax_cropped(
-        pg, jnp.asarray(d0), jnp.asarray(cc), jnp.asarray(crit),
-        jnp.asarray(w0), 64, jnp.asarray(ox), jnp.asarray(oy), cnx, cny)
-    tres = TP.planes_relax_cropped(
+    args = (d0, cc, crit, w0, ox, oy, cnx, cny)
+    return pg, args, TP.planes_relax_cropped(
         to_port(pg), torch.from_numpy(d0), torch.from_numpy(cc),
         torch.from_numpy(crit), torch.from_numpy(w0), 64,
-        torch.from_numpy(ox), torch.from_numpy(oy), cnx, cny)
-    _compare(jres, tres, costs)
+        torch.from_numpy(ox), torch.from_numpy(oy), cnx, cny, plane_dtype)
 
 
-def _tile_ids(pg, x0, y0, cnx, cny):
+def _cropped_jax(pg, args, plane_dtype="f32"):
+    d0, cc, crit, w0, ox, oy, cnx, cny = args
+    return JP.planes_relax_cropped(
+        pg, jnp.asarray(d0), jnp.asarray(cc), jnp.asarray(crit),
+        jnp.asarray(w0), 64, jnp.asarray(ox), jnp.asarray(oy), cnx, cny,
+        plane_dtype=plane_dtype)
+
+
+@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
+@pytest.mark.parametrize("arch,seed", CROP_CASES)
+def test_planes_relax_cropped_matches_jax(crit_ref, arch, seed, costs):
+    pg, args, tres = _cropped_port(arch, seed, costs)
+    if costs == "crit":
+        jres = crit_results(crit_ref, "f32", f"crop/{arch}-{seed}")
+    else:
+        jres = _cropped_jax(pg, args)
+    _compare(jres, tres)
+
+
+def sharded_crit_port(arch, s, impl, plane_dtype="f32"):
+    """The port's plain sharded relaxation of the SHARD_CRIT instance."""
+    from parallel_eda_tpu_torch.route import planes_shard as TS
+
+    nx, ny, seed = SHARD_GRAPHS[arch]
+    rr, pg = _graph(arch, nx, ny)
+    args = _instance(rr, pg, 4, seed, "crit")
+    return TS.planes_relax_sharded(
+        to_port(pg), *(torch.from_numpy(a) for a in args), 24,
+        TS.make_row_mesh(s, impl, "cpu"), plane_dtype)
+
+
+@pytest.mark.parametrize("arch,s,impl", SHARD_CRIT)
+def test_planes_relax_sharded_crit_matches_jax(crit_ref, arch, s, impl):
+    """The row-sharded relaxation at crit > 0 (both schedules, 2-4
+    shards) against the JAX package's planes_relax_sharded on its
+    virtual CPU mesh: every output and the sweep counts
+    bit-identical."""
+    got = sharded_crit_port(arch, s, impl)
+    _compare(crit_results(crit_ref, "f32", f"shard/{arch}-{s}-{impl}"), got)
+    assert (got[1] >= 0).all() and got[3][1] > 0
+
+
+@pytest.mark.parametrize("ox", [-1, -5])
+def test_cropped_negative_origin_matches_jax(ox):
+    """A negative tile origin wraps once by each array's extent before
+    the clamp, as lax.dynamic_slice does: at -1 the chanx and chany
+    planes land on one origin, at -5 (below -cnx) one apart.  The
+    14x12 mixed grid, 3x3 tiles, against JAX planes_relax_cropped."""
+    rr, pg, d0, cc, crit, w0, _, oy, _, _ = _crop_instance("mixed", 3,
+                                                           "jitter")
+    oxs = np.full(len(oy), ox, np.int32)
+    args = (d0, cc, crit, w0, oxs, oy, 3, 3)
+    tres = TP.planes_relax_cropped(
+        to_port(pg), *(torch.from_numpy(a) for a in args[:4]), 64,
+        torch.from_numpy(oxs), torch.from_numpy(oy), 3, 3)
+    _compare(_cropped_jax(pg, args), tres)
+
+
+def _place(o, extent: int, hi: int):
+    """K2's origin rule (csrc/planes_relax.cu place_origin): a negative
+    origin wraps once by the array's extent, then clamps into [0, hi]."""
+    o = o.long()
+    return torch.where(o < 0, o + extent, o).clamp(0, hi)
+
+
+def _tile_ids(pg, ox, oy, cnx, cny):
     """K2's rule for the global flat ids and corner parity of each net's
-    tile cells, from its clamped origin (x0, y0) [B], as the kernel
-    computes them: (t*NX + x0+x)*(NY+1) + y0+y on chanx, ncx +
-    (t*(NX+1) + x0+x)*NY + y0+y on chany, (x0+x + y0+y) & 1 at the
+    tile cells, from its origins ox, oy [B], as the kernel computes
+    them: the chanx planes at (x0, y0) = the origins placed on extents
+    (NX, NY+1), the chany planes at (x1, y1) placed on (NX+1, NY), the
+    corner parity at (x1, y0); ids (t*NX + x0+x)*(NY+1) + y0+y on chanx,
+    ncx + (t*(NX+1) + x1+x)*NY + y1+y on chany, (x1+x + y0+y) & 1 at the
     corners.  Returns idxx [B, W, cnx, cny+1], idxy [B, W, cnx+1, cny],
     par [B, cnx+1, cny+1] (int32)."""
     W, NX, NYp1 = pg.shape_x
     NY = NYp1 - 1
-    x0, y0 = x0[:, None, None, None], y0[:, None, None, None]
+    hx, hy = TP.crop_origin_hi(pg, cnx, cny)
+
+    def col(a):
+        return a[:, None, None, None]
+    x0, x1 = col(_place(ox, NX, hx)), col(_place(ox, NX + 1, hx))
+    y0, y1 = col(_place(oy, NYp1, hy)), col(_place(oy, NY, hy))
     ar = torch.arange
     t = ar(W)[None, :, None, None]
     idxx = (t * NX + x0 + ar(cnx)[:, None]) * NYp1 + y0 + ar(cny + 1)
-    idxy = (W * NX * NYp1 + (t * (NX + 1) + x0 + ar(cnx + 1)[:, None]) * NY
-            + y0 + ar(cny))
-    par = (x0[:, 0] + ar(cnx + 1)[:, None] + y0[:, 0] + ar(cny + 1)) & 1
+    idxy = (W * NX * NYp1 + (t * (NX + 1) + x1 + ar(cnx + 1)[:, None]) * NY
+            + y1 + ar(cny))
+    par = (x1[:, 0] + ar(cnx + 1)[:, None] + y0[:, 0] + ar(cny + 1)) & 1
     return (idxx.to(torch.int32), idxy.to(torch.int32),
             par.to(torch.int32))
 
@@ -248,68 +409,67 @@ def _tile_ids(pg, x0, y0, cnx, cny):
 @pytest.mark.parametrize("tile", [(3, 3), (5, 2), (2, 6), None])
 @pytest.mark.parametrize("arch", ["mixed", "unidir_mixed"])
 def test_crop_origin_rule_matches_crop_index(arch, tile):
-    """K2's addressing rule: one origin per net, clamped into [0,
-    crop_origin_hi], cuts every state plane and geometry array where
-    _crop_index and the JAX package's lax.dynamic_slice cut it, for
-    origins below 0 and past the grid (tile None: the whole grid); the
-    ids and parity computed from that origin (_tile_ids) equal
-    geom_cropped's idxx / idxy / base_par, the port's and JAX's.  The JAX
-    package's lax.dynamic_slice first wraps a negative start by the
-    array's extent (ROADMAP C: never reached, the window program clamps
-    the origins to >= 0 first), so JAX is held to the rule on the
-    origins >= 0 and the port's _crop_index on all of them."""
+    """K2's addressing rule: each net's origins, placed per array as
+    lax.dynamic_slice places a start (a negative origin wraps once by
+    the array's extent, then clamps into [0, crop_origin_hi]), cut every
+    state plane and geometry array where _crop_index and the JAX
+    package's lax.dynamic_slice cut it, for origins below 0 (above and
+    below minus the tile) and past the grid (tile None: the whole
+    grid); the ids and parity computed from those origins (_tile_ids)
+    equal geom_cropped's idxx / idxy / base_par, the port's and JAX's."""
     rr, pg = _graph(arch, 14, 12)
     tpg = to_port(pg)
     W, NX, NYp1 = tpg.shape_x
     NY = NYp1 - 1
     cnx, cny = tile if tile is not None else (NX, NY)
-    ox = np.array([-5, -1, 0, 1, NX - cnx, NX - cnx + 1, NX, NX + 7],
-                  np.int32)
-    oy = np.array([NY + 3, 0, -2, NY - cny, 1, NY, -9, NY - cny + 1],
-                  np.int32)
+    ox = np.array([-5, -1, 0, 1, NX - cnx, NX - cnx + 1, NX, NX + 7, -NX - 2,
+                   -cnx - 1], np.int32)
+    oy = np.array([NY + 3, 0, -2, NY - cny, 1, NY, -9, NY - cny + 1, -1,
+                   -cny - 1], np.int32)
     B = len(ox)
     tox, toy = torch.from_numpy(ox), torch.from_numpy(oy)
     hx, hy = TP.crop_origin_hi(tpg, cnx, cny)
-    x0, y0 = tox.long().clamp(0, hx), toy.long().clamp(0, hy)
     # each array's (x, y) extent; its tile is (cnx, cny) plus what its
     # extent has beyond (NX, NY)
     extents = {k: tuple(getattr(tpg, k).shape[1:]) for k in TP._GEOM_ARRAYS}
     extents.update(state_x=(NX, NYp1), state_y=(NX + 1, NY),
                    base_par=(NX + 1, NYp1))
-    nonneg = (ox >= 0) & (oy >= 0)
-    jgm = JP.geom_cropped(pg, jnp.asarray(ox[nonneg]),
-                          jnp.asarray(oy[nonneg]), cnx, cny)
+    jgm = JP.geom_cropped(pg, jnp.asarray(ox), jnp.asarray(oy), cnx, cny)
+    rows = {}
     for name, (ex, ey) in extents.items():
         sx, sy = cnx + ex - NX, cny + ey - NY
-        xi = x0[:, None] + torch.arange(sx)
-        yi = y0[:, None] + torch.arange(sy)
+        xi = _place(tox, ex, hx)[:, None] + torch.arange(sx)
+        yi = _place(toy, ey, hy)[:, None] + torch.arange(sy)
+        rows[name] = xi, yi
         assert torch.equal(TP._crop_index(tox, sx, ex), xi), name
         assert torch.equal(TP._crop_index(toy, sy, ey), yi), name
         if name in TP._GEOM_ARRAYS:
             full = np.asarray(getattr(pg, name))
             want = np.stack([full[:, xi[b].numpy()][:, :, yi[b].numpy()]
-                             for b in np.where(nonneg)[0]])
+                             for b in range(B)])
             assert np.array_equal(np.asarray(getattr(jgm, name)), want), name
+    # origins below minus the tile put the two plane families one apart
+    if tile is not None:
+        assert not torch.equal(rows["state_x"][0][:, 0],
+                               rows["state_y"][0][:, 0])
     # the state planes as the JAX package crops them
     flat = np.arange(B * tpg.ncells, dtype=np.float32).reshape(B, -1)
-    _, tiles = JP.crop_state(pg, *(jnp.asarray(flat[nonneg]),) * 3,
-                             jnp.asarray(ox[nonneg]),
-                             jnp.asarray(oy[nonneg]), cnx, cny)
+    _, tiles = JP.crop_state(pg, *(jnp.asarray(flat),) * 3,
+                             jnp.asarray(ox), jnp.asarray(oy), cnx, cny)
     fx, fy = TP._split_flat(tpg, torch.from_numpy(flat))
-    for tile_j, full, (sx, sy) in ((tiles[0], fx, (cnx, cny + 1)),
-                                   (tiles[1], fy, (cnx + 1, cny))):
-        want = torch.stack([
-            full[b][:, x0[b] + torch.arange(sx)][:, :, y0[b]
-                                                 + torch.arange(sy)]
-            for b in np.where(nonneg)[0]])
+    for tile_j, full, name in ((tiles[0], fx, "state_x"),
+                               (tiles[1], fy, "state_y")):
+        xi, yi = rows[name]
+        want = torch.stack([full[b][:, xi[b]][:, :, yi[b]]
+                            for b in range(B)])
         assert np.array_equal(np.asarray(tile_j), want.numpy())
-    idxx, idxy, par = _tile_ids(tpg, x0, y0, cnx, cny)
+    idxx, idxy, par = _tile_ids(tpg, tox, toy, cnx, cny)
     tgm = TP.geom_cropped(tpg, tox, toy, cnx, cny)
     assert torch.equal(idxx, tgm.idxx) and torch.equal(idxy, tgm.idxy)
     assert torch.equal(par, tgm.base_par)
-    assert np.array_equal(idxx[nonneg].numpy(), np.asarray(jgm.idxx))
-    assert np.array_equal(idxy[nonneg].numpy(), np.asarray(jgm.idxy))
-    assert np.array_equal(par[nonneg].numpy(), np.asarray(jgm.base_par))
+    assert np.array_equal(idxx.numpy(), np.asarray(jgm.idxx))
+    assert np.array_equal(idxy.numpy(), np.asarray(jgm.idxy))
+    assert np.array_equal(par.numpy(), np.asarray(jgm.base_par))
 
 
 @pytest.mark.parametrize("pad_y", [0, 3])
@@ -340,10 +500,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                      2, 2)
     with pytest.raises(ValueError):
         pk.planes_relax_cluster_cuda(tpg, d0, cc, crit, w0, 8, 2)
-    assert pk.launch_counts() == {"planes_relax_full_cuda": 0,
-                                  "planes_relax_cropped_cuda": 0,
-                                  "planes_sweep_block_cuda": 0,
-                                  "planes_relax_cluster_cuda": 0}
+    with pytest.raises(ValueError):
+        pk.planes_relax_full_cuda(tpg, d0, cc, crit, w0, 8,
+                                  plane_dtype="bf16")
+    names = ("planes_relax_full_cuda", "planes_relax_cropped_cuda",
+             "planes_sweep_block_cuda", "planes_relax_cluster_cuda")
+    assert pk.launch_counts() == {
+        n + m: 0 for n in names for m in ("", "[bf16]")}
 
 
 @pytest.mark.parametrize("wide,tall", [(1, 0), (0, 1), (1, 1), (-1, 0),
@@ -384,7 +547,7 @@ def test_planes_relax_matches_pallas_interpret():
     tres = TP.planes_relax(to_port(pg), torch.from_numpy(d0),
                            torch.from_numpy(cc), torch.from_numpy(crit),
                            torch.from_numpy(w0), 64)
-    _compare(jres, tres, "jitter")
+    _compare(jres, tres)
     rr, pg, d0, cc, crit, w0, ox, oy, cnx, cny = _crop_instance(
         "mixed", 3, "jitter")
     jres = planes_relax_cropped_pallas(
@@ -395,4 +558,8 @@ def test_planes_relax_matches_pallas_interpret():
         to_port(pg), torch.from_numpy(d0), torch.from_numpy(cc),
         torch.from_numpy(crit), torch.from_numpy(w0), 64,
         torch.from_numpy(ox), torch.from_numpy(oy), cnx, cny)
-    _compare(jres, tres, "jitter")
+    _compare(jres, tres)
+
+
+if __name__ == "__main__":
+    write_crit_reference(sys.argv[1], sys.argv[2:])

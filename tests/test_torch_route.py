@@ -98,7 +98,7 @@ def test_router_opts_defaults_match_jax():
 
 
 @pytest.mark.parametrize("name,value", [
-    ("pipeline", True), ("plane_dtype", "bf16"), ("fused_dispatch", True),
+    ("pipeline", True), ("fused_dispatch", True),
     ("mesh_shards", 2), ("checkpoint_every", 2), ("slice_iterations", 1),
     ("stats_dir", "x"), ("program", "ell"), ("resil", object()),
     ("program_library_dir", "x"), ("compile_cache_dir", "x")])
@@ -243,6 +243,12 @@ def test_window_matches_jax(cfg, tile, widen):
     """One K_iters=2 window from a fresh state: every state array and the
     packed status/scal summary equal the JAX program's, on the very same
     graph (the JAX graph state handed over through numpy)."""
+    window_matches_jax(cfg, tile, widen)
+
+
+def window_matches_jax(cfg, tile, widen, plane_dtype="f32"):
+    """test_window_matches_jax's comparison, in plane dtype
+    ``plane_dtype``; returns the port's scal."""
     jf = jax_synth_flow(**cfg)
     rr, term = jf.rr, jf.term
     jr = JRouter(rr, JOpts(batch_size=32, pipeline=False))
@@ -281,7 +287,7 @@ def test_window_matches_jax(cfg, tile, widen):
         jnp.float32(1.0), jnp.int32(0), jnp.int32(1),
         bb0_all=jnp.asarray(bb),
         widen_ok=None if widen_ok is None else jnp.asarray(widen_ok),
-        **common)
+        plane_dtype=plane_dtype, **common)
     fields = {f.name: np.asarray(getattr(jr.dev, f.name))
               for f in dataclasses.fields(jr.dev)
               if getattr(jr.dev, f.name) is not None}
@@ -295,7 +301,8 @@ def test_window_matches_jax(cfg, tile, widen):
         t(term.source.astype(np.int32)), t(term.sinks.astype(np.int32)),
         torch.zeros((R, S)), *(t(a) for a in tables), t(sel), t(valid),
         t(full_bb), 0.5, 1.3, 1000.0, 1.0, 0, 1, bb0_all=t(bb),
-        widen_ok=None if widen_ok is None else t(widen_ok), **common)
+        widen_ok=None if widen_ok is None else t(widen_ok),
+        plane_dtype=plane_dtype, **common)
     for j, p in ((jo[0], occ), (jo[1], acc), (jo[2], tp["paths"]),
                  (jo[3], tp["sd"]), (jo[4], tp["ar"]), (jo[5], tp["bb"]),
                  (jo[21], status), (jo[22], scal)):
@@ -305,3 +312,4 @@ def test_window_matches_jax(cfg, tile, widen):
                           equal_nan=True)
     if tile is not None:
         assert int(scal[TP.SCAL_S_EXEC]) > 0
+    return scal

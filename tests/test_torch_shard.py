@@ -94,6 +94,9 @@ def test_block_geometry_matches_jax(s, arch):
     for B in (1, 4, 64):
         assert TS.halo_bytes_per_sweep(tpg, B, s) == \
             JS.halo_bytes_per_sweep(pg, B, s)
+        for dt in ("f32", "bf16"):
+            assert TS.halo_bytes_per_sweep(tpg, B, s, dt) == \
+                JS.halo_bytes_per_sweep(pg, B, s, dt)
     jg = JS._geom_blocks(pg, s, kx)
     tg = TS._geom_blocks(tpg, s, kx)
     for name in TP._GEOM_ARRAYS + ("idxx", "idxy", "base_par"):
@@ -121,6 +124,9 @@ def test_modeled_overlap_frac():
     sweep = 4 * W * (NX * NYp1 + NXp1 * NY) * 4 / 4
     halo = TS.halo_bytes_per_sweep(tpg, 4, 4) / 3
     assert cross == round(min(1.0, sweep / (halo * 3.35e12 / 450e9)), 6)
+    # bf16 planes halve the sweep's and the halo's bytes alike
+    assert TS.modeled_overlap_frac(tpg, 4, 4, "pallas_halo", True,
+                                   "bf16") == cross
 
 
 def test_make_row_mesh_validation():
@@ -275,8 +281,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         sk.halo_exchange_cuda([st, st], kx)
     with pytest.raises(ValueError, match="mixed"):
         sk.halo_exchange([st, tuple(t.to("meta") for t in st)], kx)
-    assert sk.launch_counts() == {"halo_exchange_cuda": 0,
-                                  "remote_slab_permute_cuda": 0}
+    bf16 = [torch.zeros((2, 3, 1, 4), dtype=torch.bfloat16)] * 3
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.remote_slab_permute_cuda(bf16, True)
+    assert sk.launch_counts() == {
+        n + m: 0 for n in ("halo_exchange_cuda", "remote_slab_permute_cuda")
+        for m in ("", "[bf16]")}
 
 
 # ---- the sharded relaxation ------------------------------------------
@@ -470,7 +480,7 @@ def test_router_mesh2_ledger_matches_jax_mesh_route():
 
 
 @pytest.mark.parametrize("name,value", [
-    ("resil", object()), ("plane_dtype", "bf16"), ("fused_dispatch", True)])
+    ("resil", object()), ("fused_dispatch", True)])
 def test_mesh_rejects_unported_combinations(name, value):
     tf = synth_flow(**FIXTURE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
