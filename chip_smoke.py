@@ -69,10 +69,20 @@ Phases, one line each (any failure exits non-zero with no result line):
                  15-LUT fixture; K1, K2 and the cluster kernel against
                  their plain versions on relaxation inputs captured from
                  these routes at crit > 0
+ 10b. place    — the device annealer through flow.run_place: the bench
+                 wirelength-only (PlacerOpts(seed=3)) on the card equal
+                 to the port's CPU placement, moves/s of a warm anneal
+                 beside the native serial annealer's; a fresh 1,200-LUT
+                 config timing-driven at the default PlacerOpts (the
+                 delay lookup's sample route launches K1), legal, then
+                 routed timing-driven (legal) beside the native-placed
+                 scale route; PyTorch launches per annealing step and
+                 the device's busy share of a segment (after the
+                 profiler-free timings)
  11. launches  — every kernel's launch count over the route phases
-                 (the lag-2 mesh routes included; with several cards
-                 also a mesh-2 route with both shards on card 0, the
-                 one-card path)
+                 (the lag-2 mesh routes and the place phase included;
+                 with several cards also a mesh-2 route with both shards
+                 on card 0, the one-card path)
  12. device    — the kernels' device time per launch (torch.profiler)
                  for the cases phases 3-6 timed, and that K2's and the
                  cluster kernel's wrappers launch one kernel per call
@@ -100,6 +110,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -116,6 +127,10 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 132 * 128 * 1.98e9
 PEAK_NVLINK_BYTES_S = 450e9
 BF16 = "[bf16]"         # suffix of a kernel's bf16 plane mode (launch keys)
+BENCH_CFG = dict(num_luts=60, num_inputs=12, num_outputs=12, chan_width=12,
+                 seed=11)
+SCALE_CFG = dict(num_luts=1200, num_inputs=12, num_outputs=12,
+                 chan_width=20, seed=11)
 REPLACES = {
     "planes_relax_full_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:308",
@@ -224,14 +239,18 @@ def phase_device() -> None:
 
 def kernels_per_call(fn, reps: int = 5) -> dict:
     """The kernels one call of ``fn`` launches on the card, by name,
-    per call (memsets and copies aside), from torch.profiler."""
+    per call (memsets and copies aside), from torch.profiler.  A session
+    can drop kernel records (it once counted 3 launches of a kernel in 5
+    calls of a wrapper whose counter read 5), so a session whose count
+    of some kernel is not a whole number per call is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    seen = []
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -242,9 +261,33 @@ def kernels_per_call(fn, reps: int = 5) -> dict:
                     e.key.startswith(("Memset", "Memcpy")):
                 continue
             names[e.key] = names.get(e.key, 0) + e.count
-        if names:
-            return {k: v / reps for k, v in names.items()}
-    raise AssertionError("the profiler saw no kernel")
+        if names and all(v % reps == 0 for v in names.values()):
+            return {k: v // reps for k, v in names.items()}
+        seen.append(names)
+    raise AssertionError(f"the profiler gave no whole count per call in "
+                         f"{len(seen)} sessions: {seen}")
+
+
+def profile_call(fn):
+    """(kernels launched, device µs) of one call of ``fn`` on the card
+    (torch.profiler; memsets and copies counted too)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = us = 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            n += e.count
+            us += (getattr(e, "self_device_time_total", 0)
+                   or getattr(e, "device_time_total", 0))
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return n, us
 
 
 def launch_us(n: int = 20000) -> float:
@@ -1628,6 +1671,149 @@ def phase_sta(cases):
                    "route")
 
 
+def _first_temp_diff(a, b) -> str:
+    for i, (x, y) in enumerate(zip(a.temps, b.temps)):
+        if x != y:
+            return f"temperature {i}: {x} against {y}"
+    return f"{len(a.temps)} against {len(b.temps)} temperatures"
+
+
+def phase_place(bench_cfg, scale_cfg, scale_native):
+    """The device annealer (place/sa.py) through ``flow.run_place``:
+
+    - the bench config, wirelength-only with PlacerOpts(seed=3), as
+      bench.py's place_microbench places it: the card's placement equal
+      to the port's CPU placement (or the first different temperature is
+      named and the phase fails), moves/s of a warm anneal (total moves
+      over anneal seconds, bench.py:505) beside the native serial
+      annealer's on the same initial placement;
+    - a fresh 1,200-LUT/W=20 config, timing-driven at the default
+      PlacerOpts (M 256, tradeoff 0.5, td_place_exp 8): legal
+      (check_place), K1 launched by the delay lookup's sample route, the
+      place seconds split into delay lookup and anneal; then run_route
+      on it, legal, beside the native-placed scale route's numbers
+      ``scale_native`` (wirelength, iterations, crit path).
+
+    Returns the launch counts of the lookup and of the route, and a
+    zero-argument call for after the profiler-free timings: PyTorch
+    launches per step and the device's busy share of one segment
+    (torch.profiler)."""
+    import torch
+
+    from parallel_eda_tpu_torch.flow import run_place, run_route, synth_flow
+    from parallel_eda_tpu_torch.place import prng
+    from parallel_eda_tpu_torch.place.check import check_place
+    from parallel_eda_tpu_torch.place.sa import (Placer, PlacerOpts,
+                                                 sa_segment, sa_step)
+    from parallel_eda_tpu_torch.place.serial_sa import serial_sa_place
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+
+    # ---- bench, wirelength-only: card against CPU, moves/s ----
+    opts = PlacerOpts(seed=3)
+    gpu = run_place(synth_flow(**bench_cfg), opts, timing_driven=False,
+                    device="cuda")
+    cpu = run_place(synth_flow(**bench_cfg), opts, timing_driven=False,
+                    device="cpu")
+    if not np.array_equal(gpu.pos, cpu.pos) or \
+            gpu.place_stats.temps != cpu.place_stats.temps:
+        raise AssertionError(
+            "place bench: the card's placement differs from the CPU's; "
+            "first different temperature (8 per segment) "
+            f"{_first_temp_diff(gpu.place_stats, cpu.place_stats)}")
+    f = synth_flow(**bench_cfg)
+    pos0 = f.pos.copy()
+    placer = Placer(f.pnl, f.grid, opts, device="cuda")
+    placer.place(pos0)                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st = placer.place(pos0)
+    dt = time.perf_counter() - t0
+    ser = serial_sa_place(f.pnl, f.grid, pos0, seed=3)
+    say("place", f"bench wirelength-only: card placement equal to the CPU "
+                 f"placement ({len(st.temps)} temperatures, {st.segments} "
+                 f"segments, final bb cost {st.final_cost!r}); warm anneal "
+                 f"{dt:.3f} s, {st.total_moves} moves, sa_moves_per_sec "
+                 f"{st.total_moves / dt:.1f}; native serial_sa_place "
+                 f"{ser.wall_s:.3f} s, {ser.proposed} moves, "
+                 f"{ser.moves_per_sec:.1f} moves/s, final bb cost "
+                 f"{ser.final_cost:.2f}; host reads {st.host_reads} "
+                 f"({st.host_reads / st.segments:.2f} per segment)")
+
+    # ---- scale, timing-driven at full width ----
+    scale = synth_flow(**scale_cfg)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scale = run_place(scale, device="cuda")
+    wall = time.perf_counter() - t0
+    c_lookup = {**pk.launch_counts(), **sk.launch_counts()}
+    if c_lookup["planes_relax_full_cuda"] <= 0:
+        raise AssertionError("place scale: the delay lookup's sample route "
+                             f"never launched K1: {c_lookup}")
+    check_place(scale.pnl, scale.grid, scale.pos)
+    st = scale.place_stats
+    anneal = scale.times["place"]
+    say("place", f"scale timing-driven ({scale.pnl.num_blocks} blocks, "
+                 f"grid {scale.grid.nx}x{scale.grid.ny}, default "
+                 f"PlacerOpts): legal; {wall:.2f} s = delay lookup "
+                 f"{scale.times['delay_lookup']:.2f} s + anneal "
+                 f"{anneal:.2f} s; {st.total_moves} moves, "
+                 f"{st.total_moves / anneal:.1f} moves/s, "
+                 f"{len(st.temps)} temperatures in {st.segments} segments, "
+                 f"bb cost {st.initial_cost!r} -> {st.final_cost!r}, "
+                 f"est_crit_path {st.est_crit_path!r} s, host reads "
+                 f"{st.host_reads} ({st.host_reads / st.segments:.2f} per "
+                 f"segment); lookup launches {c_lookup}")
+    res, c_route, _ = _timing_run_route("place_scale_route", scale,
+                                        RouterOpts(batch_size=64))
+    say("place", f"scale routed after the port's annealer: wirelength "
+                 f"{res.wirelength}, {res.iterations} iterations, crit path "
+                 f"{scale.crit_path_delay!r} s; after the native annealer "
+                 f"{scale_native}")
+
+    # one warm anneal segment (one temperature of S steps) per cost mode,
+    # timed here, before any profiler session; traced after them
+    segs = []
+    for tag, fl, timing in (("bench", gpu, False), ("scale", scale, False),
+                            ("scale", scale, True)):
+        pl = Placer(fl.pnl, fl.grid, device="cuda")
+        pos, ring, occ = pl._state_from_pos(fl.pos)
+        NB = pl.pp.num_blocks
+        M = min(256, max(8, NB))
+        S = max(1, math.ceil(NB ** (4 / 3) / M))
+        crit = torch.rand(pl.pp.net_blk.shape, device="cuda")
+        key = prng.PRNGKey(0, device="cuda")
+        seg = functools.partial(sa_segment, pl.pp, pos, ring, occ, crit, 0.5,
+                                key, 0.01, 3.0, 1e-6, M, S, 1, timing)
+        step = functools.partial(sa_step, pl.pp, pos, ring, occ, crit, 1e-3,
+                                 1e9, 0.5, key, 0.01, 3.0, M, timing)
+        seg()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg()
+        torch.cuda.synchronize()
+        segs.append((tag, timing, M, S, seg, step, time.perf_counter() - t0))
+
+    def launches_per_step():
+        """PyTorch kernels per step inside a segment and per lone sa_step
+        call (which also hashes its own draws), and the device's busy
+        share of a segment (torch.profiler against the untraced
+        seconds)."""
+        for tag, timing, M, S, seg, step, dt in segs:
+            n, busy_us = profile_call(seg)
+            n1, _ = profile_call(step)
+            say("place", f"{tag} segment (timing={timing}, M={M}, one "
+                         f"temperature of {S} steps): {n / S:.1f} PyTorch "
+                         f"kernel launches per step ({n} per segment), "
+                         f"{n1} per lone sa_step call; device busy "
+                         f"{busy_us / 1e3:.2f} ms of the untraced "
+                         f"{dt * 1e3:.2f} ms ({busy_us / 1e6 / dt:.3f})")
+    return [c_lookup, c_route], launches_per_step
+
+
 def main(argv) -> int:
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -1643,10 +1829,8 @@ def main(argv) -> int:
     phase_build()
     launch0 = launch_us()
     t0 = time.time()
-    bench = synth_flow(num_luts=60, num_inputs=12, num_outputs=12,
-                       chan_width=12, seed=11)
-    scale = synth_flow(num_luts=1200, num_inputs=12, num_outputs=12,
-                       chan_width=20, seed=11)
+    bench = synth_flow(**BENCH_CFG)
+    scale = synth_flow(**SCALE_CFG)
     say("flows", f"front ends built in {time.time() - t0:.1f}s")
     rows = phase_kernels({"bench": bench, "scale": scale})
     pg_bench = P.build_planes(bench.rr, "cuda")
@@ -1726,16 +1910,22 @@ def main(argv) -> int:
                      RouterOpts(batch_size=64, mesh_shards=4))
     c_mesh.append(c)
     c_timing, sta_cases = phase_timing(bench, scale, rows, warm)
+    scale_native = (f"wirelength {scale.route.wirelength}, "
+                    f"{scale.route.iterations} iterations, crit path "
+                    f"{scale.crit_path_delay!r} s")
     c_bf16 = phase_bf16(bench, scale, res, warm)
+    c_place, place_later = phase_place(BENCH_CFG, SCALE_CFG, scale_native)
 
-    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16
+    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
+        c_place
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
                     f"mesh lag 2 (bench 2, bench 4) {c_lag2} timing "
                     f"(bench, bench mesh 2, scale) {c_timing} bf16 (bench "
                     f"off, bench window, bench mesh 2, bench mesh 2 lag 2, "
-                    f"scale off, bench timing off) {c_bf16}")
+                    f"scale off, bench timing off) {c_bf16} place "
+                    f"(scale delay lookup, scale route) {c_place}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:
@@ -1745,6 +1935,7 @@ def main(argv) -> int:
         raise AssertionError(f"never launched on the route phases: {idle}")
     launch1 = launch_us()
     phase_device()
+    place_later()
     for tag, w in warm.items():
         phase_profile(w, tag)
     del warm

@@ -1,11 +1,13 @@
 """Flow orchestration: the JAX package's flow.py in part.
 
-``prepare``, ``synth_flow`` and ``run_place_native`` are the host front
-end — arch -> netlist -> pack -> grid -> rr graph -> initial placement
--> net terminals, all numpy, plus the native C++ annealer for placed
-configs.  ``run_route`` routes the flow on the card (or the CPU when
-asked), timing-driven by default, and checks the result with the
-legality oracle; ``routes_from_result`` gives the route trees."""
+``prepare`` and ``synth_flow`` are the host front end — arch -> netlist
+-> pack -> grid -> rr graph -> initial placement -> net terminals, all
+numpy.  ``run_place`` anneals on the card (or the CPU when asked),
+timing-driven by default; ``run_place_native`` anneals with the native
+C++ serial placer instead.  ``run_route`` routes the flow on the card
+(or the CPU when asked), timing-driven by default, and checks the
+result with the legality oracle; ``routes_from_result`` gives the route
+trees."""
 
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ from .netlist.generate import generate_circuit
 from .netlist.netlist import LogicalNetlist
 from .netlist.packed import PackedNetlist
 from .pack.packer import pack_netlist
+from .place.delay_lookup import compute_delay_lookup
 from .place.initial import initial_placement
+from .place.macros import form_macros
+from .place.sa import Placer, PlacerOpts, PlaceStats, PlacerTiming
 from .route.check import check_route
 from .route.router import RouteResult, Router, RouterOpts
 from .rr.graph import RRGraph, build_rr_graph
@@ -45,6 +50,7 @@ class FlowResult:
     tg: Optional[TimingGraph] = None
     analyzer: Optional[TimingAnalyzer] = None
     route: Optional[RouteResult] = None
+    place_stats: Optional[PlaceStats] = None
     bb_factor: int = 3
     times: dict = field(default_factory=dict)   # stage -> seconds
     sdc: Optional[SdcConstraints] = None
@@ -112,6 +118,37 @@ def run_place_native(flow: FlowResult, seed: int = 7,
     res = serial_sa_place(flow.pnl, flow.grid, flow.pos, seed=seed,
                           inner_num=inner_num)
     flow.pos = res.pos
+    flow.times["place"] = time.perf_counter() - t0
+    flow.term = net_terminals(flow.pnl, flow.rr, flow.pos,
+                              bb_factor=flow.bb_factor)
+    return flow
+
+
+def run_place(flow: FlowResult, opts: Optional[PlacerOpts] = None,
+              timing_driven: bool = True, device="cuda") -> FlowResult:
+    """SA placement on ``device`` (the card unless the caller asks for
+    the CPU); refreshes the net terminals for the new positions.
+
+    Timing-driven mode (at a nonzero ``timing_tradeoff``) builds the
+    delay-lookup matrices by routing sample nets
+    (timing_place_lookup.c:981) and feeds lookup-delay STA criticalities
+    into the annealer's cost (PATH_TIMING_DRIVEN_PLACE).  Stage seconds
+    go to ``flow.times["delay_lookup"]`` and ``flow.times["place"]``."""
+    timing = None
+    opts = opts or PlacerOpts()
+    if timing_driven and opts.timing_tradeoff > 0:
+        t0 = time.perf_counter()
+        lookup = compute_delay_lookup(flow.rr, device=device)
+        flow.times["delay_lookup"] = time.perf_counter() - t0
+        if flow.tg is None:
+            flow.tg = build_timing_graph(flow.nl, flow.pnl, flow.term)
+        timing = PlacerTiming(flow.pnl, lookup, flow.term, flow.tg,
+                              td_place_exp=opts.td_place_exp, device=device)
+    t0 = time.perf_counter()
+    macros = form_macros(flow.nl, flow.pnl) if flow.nl is not None else []
+    placer = Placer(flow.pnl, flow.grid, opts, timing=timing, macros=macros,
+                    device=device)
+    flow.pos, flow.place_stats = placer.place(flow.pos)
     flow.times["place"] = time.perf_counter() - t0
     flow.term = net_terminals(flow.pnl, flow.rr, flow.pos,
                               bb_factor=flow.bb_factor)

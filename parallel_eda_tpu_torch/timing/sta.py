@@ -18,6 +18,9 @@ package's on any device.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
 from dataclasses import dataclass, fields
 from typing import Optional, Tuple
 
@@ -138,6 +141,25 @@ def sta_crit(dev: DeviceTimingGraph, route_delay: torch.Tensor,
     return crit_flat[:RS], dmax, worst, arr
 
 
+@functools.lru_cache(maxsize=None)
+def _powf():
+    f = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    f.restype = ctypes.c_float
+    f.argtypes = [ctypes.c_float, ctypes.c_float]
+    return f
+
+
+def libm_powf(x: np.ndarray, e: float) -> np.ndarray:
+    """float32 ``x ** e`` element by element through the C library's
+    ``powf`` (zeros stay zero; e > 0)."""
+    out = np.array(x, dtype=np.float32)
+    flat = out.reshape(-1)
+    powf = _powf()
+    for i in np.flatnonzero(flat):
+        flat[i] = powf(float(flat[i]), e)
+    return out
+
+
 class TimingAnalyzer:
     """Owns the timing graph on one device and exposes the router's
     callback (JAX ``TimingAnalyzer``).  ``device`` defaults to ``cuda``
@@ -213,17 +235,26 @@ class TimingAnalyzer:
 
     def analyze(self, sink_delay: np.ndarray) -> np.ndarray:
         """sink_delay [R, Smax] -> criticalities [R, Smax]; also records
-        crit_path_delay and worst_slack, both in seconds."""
+        crit_path_delay and worst_slack, both in seconds.
+
+        An exponent other than 1 and 2 is applied on the host with the C
+        library's ``powf``, as XLA:CPU applies it (it rewrites x ** 2 as
+        x * x and calls ``powf`` otherwise); ``torch.pow`` differs from
+        it in the last bit on about 2% of inputs at exponent 8.  The
+        exponent is monotone on [0, 1], so it commutes with the per-slot
+        max of sta_crit."""
         R, Smax = sink_delay.shape
         flat = np.append(np.asarray(sink_delay, np.float32).ravel(),
                          np.float32(0.0))
+        host_pow = self.crit_exp not in (1.0, 2.0)
         crit, dmax, worst, _ = sta_crit(
             self.dev, torch.from_numpy(flat).to(self.device), self.tg.depth,
-            self.crit_exp, self.max_crit, req_seed=self._req_seed,
-            use_sdc=self._req_seed is not None)
+            1.0 if host_pow else self.crit_exp, self.max_crit,
+            req_seed=self._req_seed, use_sdc=self._req_seed is not None)
         self.crit_path_delay = float(dmax)
         self.worst_slack = float(worst)
-        return crit.cpu().numpy().reshape(R, Smax)
+        crit = crit.cpu().numpy().reshape(R, Smax)
+        return libm_powf(crit, self.crit_exp) if host_pow else crit
 
     def timing_cb(self, result) -> np.ndarray:
         """The router's timing_cb hook; stamps the crit-path delay into

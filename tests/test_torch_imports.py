@@ -29,17 +29,42 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert "parallel_eda_tpu_torch.route.planes" in mods
     assert "parallel_eda_tpu_torch.route.planes_kernels" in mods
+    assert "parallel_eda_tpu_torch.place.prng" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'parallel_eda_tpu' or m.startswith('parallel_eda_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'parallel_eda_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_placer_imports_no_jax():
+    """The annealer, the delay lookup and flow.run_place, imported alone
+    and called on the CPU, pull in neither jax nor flax nor the JAX
+    package."""
+    code = (
+        "import sys\n"
+        "import parallel_eda_tpu_torch.place.sa\n"
+        "import parallel_eda_tpu_torch.place.delay_lookup\n"
+        "from parallel_eda_tpu_torch.flow import run_place, synth_flow\n"
+        "from parallel_eda_tpu_torch.place.sa import PlacerOpts\n"
+        "f = run_place(synth_flow(num_luts=10, num_inputs=3, "
+        "num_outputs=3, chan_width=8, seed=1), PlacerOpts(max_temps=2), "
+        "device='cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'parallel_eda_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok', len(f.place_stats.temps))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
 

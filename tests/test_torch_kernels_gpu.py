@@ -786,3 +786,68 @@ def test_router_bf16_cuda_matches_cpu(cuda, fields):
     assert np.array_equal(rg.occ, rc.occ)
     assert np.array_equal(rg.sink_delay, rc.sink_delay)
     check_route(f.rr, f.term, rg.paths, occ=rg.occ)
+
+
+# ---------------------------------------------------------------- placer
+
+def test_prng_cuda_matches_cpu(cuda):
+    """The threefry stream on the card equals the CPU's: split, bits,
+    randint (tensor and int bounds) and uniform."""
+    from parallel_eda_tpu_torch.place import prng
+
+    for seed in (0, 3, 11):
+        kc = prng.PRNGKey(seed, device="cpu")
+        kg = prng.PRNGKey(seed, device=cuda)
+        kc, kg = prng.split(kc, 5), prng.split(kg, 5)
+        assert torch.equal(kc, kg.cpu())
+        assert torch.equal(prng.split(kc, 7), prng.split(kg, 7).cpu())
+        assert torch.equal(prng.random_bits(kc, (3, 64)),
+                           prng.random_bits(kg, (3, 64)).cpu())
+        rl = torch.arange(1, 65)
+        assert torch.equal(prng.randint(kc[0], (64,), -rl, rl + 1),
+                           prng.randint(kg[0], (64,), -rl.to(cuda),
+                                        rl.to(cuda) + 1).cpu())
+        assert torch.equal(prng.randint(kc[1], (64,), 0, 1101),
+                           prng.randint(kg[1], (64,), 0, 1101).cpu())
+        for lo, hi in ((0.0, 1.0), (-1.0, 1.0)):
+            assert torch.equal(prng.uniform(kc[2], (256,), lo, hi),
+                               prng.uniform(kg[2], (256,), lo, hi).cpu())
+
+
+@pytest.mark.parametrize("timing", [False, True])
+def test_sa_step_cuda_matches_cpu(cuda, timing):
+    """One sa_step on one state, card against CPU: proposals, own,
+    delta, accept mask, new state, counts and moments, bit for bit."""
+    from parallel_eda_tpu_torch.place import prng
+    from parallel_eda_tpu_torch.place.delay_lookup import DelayLookup
+    from parallel_eda_tpu_torch.place.sa import (Placer, PlacerOpts,
+                                                 build_place_problem,
+                                                 sa_step)
+
+    f = synth_flow(num_luts=60, num_inputs=12, num_outputs=12,
+                   chan_width=12, seed=11)
+    rng = np.random.default_rng(0)
+    H, W = f.grid.nx + 2, f.grid.ny + 2
+    lk = DelayLookup(stack=(rng.uniform(1e-10, 2e-10, (4, 1, 1))
+                            * (1 + np.arange(H)[None, :, None]
+                               + np.arange(W)[None, None, :])
+                            ).astype(np.float32))
+    outs = []
+    for dev in ("cpu", cuda):
+        pl = Placer(f.pnl, f.grid, PlacerOpts(), device=dev)
+        pp = build_place_problem(f.pnl, f.grid, lookup=lk, device=dev)
+        pos, ring, occ = pl._state_from_pos(f.pos)
+        NN, P = pp.net_blk.shape
+        crit = torch.from_numpy(np.random.default_rng(1).uniform(
+            0, 1, (NN, P)).astype(np.float32)).to(dev)
+        M = min(256, max(8, pp.num_blocks))
+        outs.append(sa_step(pp, pos, ring, occ, crit, 2.6e-3, 3.7e8, 0.5,
+                            prng.PRNGKey(4, device=dev), 0.02, 6.0, M,
+                            timing, trace=True))
+    (*a, ta), (*b, tb) = outs
+    for x, y in zip(a, b):
+        assert torch.equal(x, y.cpu())
+    for k in ("b", "npos", "nring", "own", "delta", "u", "accept",
+              "blk_idx", "site_idx"):
+        assert torch.equal(getattr(ta, k), getattr(tb, k).cpu()), k
+    assert 0 < int(a[3]) < int(a[4])
