@@ -92,6 +92,29 @@ Phases, one line each (any failure exits non-zero with no result line):
                  untraced seconds taken in phases 7-10)
  14. sta       — the STA's kernel launches and device time per call
                  (torch.profiler) and per timing route
+ 15. cli       — the CLI, ``python -m parallel_eda_tpu_torch``, as
+                 subprocesses on the card (each through a launcher that
+                 runs the module as ``python -m`` does and writes the
+                 kernels' launch counts and the peak device memory when
+                 it exits): a tseng-class BLIF (array_multiplier(16):
+                 736 LUTs, 64 FFs, 833 nets) on the default k6_n10 arch
+                 at W=40, timing-driven place (256 moves per step) and
+                 route, --power, --gen_postsynthesis_netlist; the same
+                 BLIF on the golden VTR7 XML arch (length-4 unidir
+                 segments, the file's own timing; --binary_search, the
+                 file's W=24 being too narrow for it) and on an XML
+                 arch whose cluster has modes (frac_arch's pb tree:
+                 multi-mode packing, W=32); the .place resume of
+                 the first run (the same .route bytes); --binary_search
+                 --no_timing at the bench size (W_min legal, W_min - 1
+                 fails); the 25-LUT flow with --stats_dir on the card
+                 and with --device cpu (the same artifacts, stats rows
+                 and mdclog records, seconds and clocks aside, one row
+                 per iteration); each run legal with K1 launched, its
+                 stage seconds and peak memory printed.  Before them, K1
+                 and K2 at the first run's shapes (its rr graph, the
+                 crop tiles its grid gives) against their plain
+                 versions in every shared-memory mode that fits
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -112,6 +135,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1814,6 +1838,339 @@ def phase_place(bench_cfg, scale_cfg, scale_native):
     return [c_lookup, c_route], launches_per_step
 
 
+# runs the CLI module as ``python -m parallel_eda_tpu_torch ARGS`` does
+# (runpy, sys.argv altered) and, at exit, writes the relaxation and halo
+# kernels' launch counts and the process's peak device memory to the
+# JSON file named by its first argument
+_CLI_CHILD = """\
+import atexit, json, runpy, sys
+import torch
+from parallel_eda_tpu_torch.route import planes_kernels as pk
+from parallel_eda_tpu_torch.route import shard_kernels as sk
+out = sys.argv.pop(1)
+def report():
+    c = {**pk.launch_counts(), **sk.launch_counts()}
+    c["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                       if torch.cuda.is_initialized() else 0)
+    with open(out, "w") as f:
+        json.dump(c, f)
+atexit.register(report)
+runpy.run_module("parallel_eda_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+CLI_BASE = ["--luts", "25", "--arch", "minimal", "--route_chan_width", "12",
+            "--batch_size", "16", "--moves_per_step", "16"]
+GOLDEN_XML = os.path.join("tests", "golden", "k6_frac_n10_mem.xml")
+# an arch file whose cluster has modes: frac_arch's pb tree (pb=) with IO
+# pads, length-1 bidir wires and Fc, as tests/test_pb_pack.py writes it
+FRAC_XML = """<architecture>
+  <complexblocklist>
+    <pb_type name="io" capacity="8"/>
+    {pb}
+  </complexblocklist>
+  <device><fc default_in_type="frac" default_in_val="0.5"
+              default_out_type="frac" default_out_val="0.4"/></device>
+  <segmentlist>
+    <segment name="l1" length="1" freq="1" type="bidir"></segment>
+  </segmentlist>
+</architecture>"""
+# mult16x16 packs into 96 such clusters on a 10x10 grid; it routes at
+# W=24 in 30 iterations (native placement, the CPU): 32 leaves room
+FRAC_W = 32
+
+
+def _cli(tag, work, args, want_rc=0, timeout=900):
+    """One CLI run in ``work``/``tag`` (a subprocess); returns (stdout,
+    launches and peak memory, wall seconds).  Fails unless it exits with
+    ``want_rc``."""
+    d = os.path.join(work, tag)
+    os.makedirs(d, exist_ok=True)
+    counts = os.path.join(d, "counts.json")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath("."))
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-c", _CLI_CHILD, counts, *args],
+                       cwd=d, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    dt = time.time() - t0
+    if p.returncode != want_rc:
+        raise AssertionError(f"cli {tag}: exit {p.returncode}, want "
+                             f"{want_rc}\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    with open(counts) as f:
+        c = json.load(f)
+    return p.stdout, c, dt
+
+
+def _cli_stages(tag, out, c, dt):
+    """Print a run's stage seconds (from its own lines), K1 / K2 launches
+    and peak memory; fails on a critical path that is not finite."""
+    m = re.search(r"\(pack ([\d.]+)s, rr graph .* ([\d.]+)s\)", out)
+    stages = {"pack": float(m.group(1)), "rr_graph": float(m.group(2))}
+    m = re.search(r"placed: .*, ([\d.]+)s(, est crit path [\d.]+ ns "
+                  r"\(lookup ([\d.]+)s\))?\)", out)
+    if m:
+        stages["place"] = float(m.group(1))
+        if m.group(3):
+            stages["lookup"] = float(m.group(3))
+    m = re.search(r"routed: (\d+) iterations, wirelength (\d+), "
+                  r"([\d.]+)s", out)
+    if m is None:
+        raise AssertionError(f"cli {tag}: no routed line")
+    stages["route"] = float(m.group(3))
+    crit = re.search(r"critical path: (\S+) ns", out)
+    say("cli", f"{tag}: {m.group(1)} iterations, wirelength {m.group(2)}"
+               + (f", crit path {crit.group(1)} ns" if crit else "")
+               + f"; stage s {json.dumps(stages)}; process {dt:.1f} s; "
+               f"K1 {c['planes_relax_full_cuda']} K2 "
+               f"{c['planes_relax_cropped_cuda']} cluster "
+               f"{c['planes_relax_cluster_cuda']} launches; peak device "
+               f"memory {c['peak_bytes'] / 2 ** 20:.1f} MiB")
+    if crit is not None and not math.isfinite(float(crit.group(1))):
+        raise AssertionError(f"cli {tag}: critical path {crit.group(1)}")
+
+
+def _check_route_file(tag, flow, route_path):
+    """The .route file against the flow it was read into: every routable
+    net's tree starts at its SOURCE, holds its SINKs and has each node's
+    parent earlier in it, and no rr node is used past its capacity."""
+    from parallel_eda_tpu_torch.netlist.files import read_route_file
+
+    routes = read_route_file(route_path)
+    term, rr = flow.term, flow.rr
+    occ = np.zeros(rr.num_nodes, dtype=np.int64)
+    for r, ni in enumerate(term.net_ids):
+        rows = routes.get(int(ni))
+        if not rows or rows[0] != (int(term.source[r]), -1):
+            raise AssertionError(f"cli {tag}: net {ni} has no tree from "
+                                 "its source")
+        seen = set()
+        for node, parent in rows:
+            if parent != -1 and parent not in seen:
+                raise AssertionError(f"cli {tag}: net {ni} node {node} "
+                                     "before its parent")
+            seen.add(node)
+        sinks = term.sinks[r, :int(term.num_sinks[r])]
+        if not set(int(v) for v in sinks) <= seen:
+            raise AssertionError(f"cli {tag}: net {ni} misses a sink")
+        occ[list(seen)] += 1
+    over = int((occ > np.asarray(rr.capacity)).sum())
+    if over:
+        raise AssertionError(f"cli {tag}: {over} rr nodes over capacity")
+
+
+def _read_flow(blif, arch, chan_width, d, base):
+    """The flow of a CLI run read back from its .net and .place files."""
+    from parallel_eda_tpu_torch.flow import prepare
+    from parallel_eda_tpu_torch.netlist.blif import read_blif
+    from parallel_eda_tpu_torch.netlist.files import (read_net_file,
+                                                      read_place_file)
+    from parallel_eda_tpu_torch.rr.terminals import net_terminals
+
+    pnl = read_net_file(os.path.join(d, base + ".net"), arch)
+    flow = prepare(read_blif(blif), arch, chan_width, pnl=pnl)
+    flow.pos, _, _ = read_place_file(pnl, os.path.join(d, base + ".place"))
+    flow.term = net_terminals(pnl, flow.rr, flow.pos)
+    return flow
+
+
+def _tree_bytes(root):
+    out = {}
+    for r, _, files in os.walk(root):
+        for f in files:
+            p = os.path.join(r, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+def _stats_view(tree):
+    """A --stats_dir tree with its seconds and clocks left out: the
+    route_time column of iter_stats.txt, final_stats.txt's
+    total_route_time and each mdclog record's "t"."""
+    out = {}
+    for k, v in tree.items():
+        lines = v.decode().splitlines()
+        if k.endswith(".log"):
+            recs = [json.loads(ln) for ln in lines]
+            for rec in recs:
+                rec.pop("t")
+            out[k] = recs
+        elif k.endswith("_stats.txt"):
+            out[k] = [tok[:1] + tok[2:]
+                      if tok[0].isdigit() or tok[0] == "total_route_time"
+                      else tok for tok in (ln.split() for ln in lines)]
+        else:
+            out[k] = lines
+    return out
+
+
+def phase_cli(rows):
+    """The CLI on the card (docstring, phase 15).  ``rows`` gains K1's
+    and K2's cases at the first run's shapes.  Returns the launch counts
+    summed over the runs on the card."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from parallel_eda_tpu_torch.arch.builtin import _FRAC_PB_XML, k6_n10_arch
+    from parallel_eda_tpu_torch.arch.xml_parser import read_arch_xml
+    from parallel_eda_tpu_torch.flow import prepare
+    from parallel_eda_tpu_torch.netlist.blif import read_blif, write_blif
+    from parallel_eda_tpu_torch.netlist.synthesis import array_multiplier
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
+    from parallel_eda_tpu_torch.route.router import _size_class_buckets
+
+    work = os.path.join(BUILD_DIR, "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    blif = os.path.join(work, "mult16x16.blif")
+    write_blif(array_multiplier(16), blif)
+    arch = k6_n10_arch()
+
+    # ---- K1 and K2 at the k6_n10 shapes, against their plain versions
+    flow = prepare(read_blif(blif), arch, arch.default_chan_width)
+    pg = P.build_planes(flow.rr, "cuda")
+    nx, ny = flow.grid.nx, flow.grid.ny
+    # every rung of the crop ladder the grid gives (the Router's crop
+    # "auto" picks among them)
+    spans = np.array([2 ** k for k in range(3, 12) if 2 ** k <= max(nx, ny)]
+                     or [8])
+    tiles = [tuple(t) for t in _size_class_buckets(spans, spans, nx, ny)[0]]
+    rng = np.random.default_rng(1)
+    _, NX, NYp1 = pg.shape_x
+    B = 64
+    for kind in ("exact", "jitter", "crit"):
+        inst = _instance(flow.rr, pg, B, rng, kind == "exact",
+                         crit_on=kind == "crit")
+        origins = {t: tuple(torch.from_numpy(rng.integers(
+            -t[i] - 3, n - t[i] + 4, B).astype(np.int32)).cuda()
+            for i, n in ((0, NX), (1, NYp1 - 1))) for t in tiles}
+        _kernel_cases(rows, "cli", kind, "f32", pg, inst, 64, tiles,
+                      origins, B)
+    del flow, pg
+
+    runs = []
+    # ---- 1. the tseng-class BLIF on k6_n10 at the defaults
+    a1 = ["../mult16x16.blif", "--arch", "k6_n10", "--out_dir", "out",
+          "--power", "--gen_postsynthesis_netlist"]
+    out, c, dt = _cli("mult16x16", work, a1)
+    runs.append(c)
+    _cli_stages("mult16x16", out, c, dt)
+    if c["planes_relax_full_cuda"] <= 0:
+        raise AssertionError("cli mult16x16: K1 never launched")
+    if "Power estimation" not in out:
+        raise AssertionError("cli mult16x16: no power report")
+    d1 = os.path.join(work, "mult16x16", "out")
+    for f in ("mult16x16_post_synthesis.v", "mult16x16_post_synthesis.sdf"):
+        if not os.path.getsize(os.path.join(d1, f)):
+            raise AssertionError(f"cli mult16x16: {f} is empty")
+    _check_route_file("mult16x16", _read_flow(blif, arch, 40, d1,
+                                              "mult16x16"),
+                      os.path.join(d1, "mult16x16.route"))
+
+    # ---- 2. the same BLIF on the golden VTR7 XML arch
+    xml = os.path.abspath(GOLDEN_XML)
+    # the file's own width (24) leaves mult16x16 unroutable on the H100
+    # (646 overused nodes after 50 iterations; 39 at W=60), so the run
+    # searches for the least width that routes
+    out, c, dt = _cli("golden_xml", work, [
+        "../mult16x16.blif", "--arch", xml, "--out_dir", "out",
+        "--binary_search"])
+    runs.append(c)
+    _cli_stages("golden_xml", out, c, dt)
+    gw = int(re.search(r"binary search: W_min = (\d+)", out).group(1))
+    say("cli", f"golden_xml: W_min = {gw}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        garch = read_arch_xml(xml)
+    d2 = os.path.join(work, "golden_xml", "out")
+    _check_route_file("golden_xml", _read_flow(
+        blif, garch, gw, d2, "mult16x16"),
+        os.path.join(d2, "mult16x16.route"))
+
+    # ---- 2b. the same BLIF on a multi-mode XML arch: frac_arch's pb tree
+    # (one 6-LUT or two 5-LUTs per BLE slot) in an XML file, so the
+    # packer takes the multi-mode path (mode choice and pb routing)
+    fxml = os.path.join(work, "frac.xml")
+    with open(fxml, "w") as f:
+        f.write(FRAC_XML.format(pb=_FRAC_PB_XML.format(I=20, O=8, N=4,
+                                                       NM1=3)))
+    farch = read_arch_xml(fxml)
+    if farch.pb_tree is None:
+        raise AssertionError("cli frac_xml: the XML's modes were not read")
+    out, c, dt = _cli("frac_xml", work, [
+        "../mult16x16.blif", "--arch", "../frac.xml", "--out_dir", "out",
+        "--route_chan_width", str(FRAC_W)])
+    runs.append(c)
+    _cli_stages("frac_xml", out, c, dt)
+    d3 = os.path.join(work, "frac_xml", "out")
+    _check_route_file("frac_xml", _read_flow(blif, farch, FRAC_W, d3,
+                                             "mult16x16"),
+                      os.path.join(d3, "mult16x16.route"))
+
+    # ---- 3. the .place resume of run 1
+    out, c, dt = _cli("resume", work, [
+        "../mult16x16.blif", "--arch", "k6_n10", "--out_dir", "out",
+        "--place_file", "../mult16x16/out/mult16x16.place"])
+    runs.append(c)
+    _cli_stages("resume", out, c, dt)
+    if _tree_bytes(d1)["mult16x16.route"] != _tree_bytes(os.path.join(
+            work, "resume", "out"))["mult16x16.route"]:
+        raise AssertionError("cli resume: the .route differs from run 1's")
+    say("cli", "resume: the .place resume gives run 1's .route bytes")
+
+    # ---- 4. --binary_search --no_timing at the bench size
+    bs = ["--luts", str(BENCH_CFG["num_luts"]), "--seed",
+          str(BENCH_CFG["seed"]), "--arch", "minimal", "--no_timing",
+          "--out_dir", "out"]
+    out, c, dt = _cli("binary_search", work, bs + ["--binary_search"])
+    runs.append(c)
+    _cli_stages("binary_search", out, c, dt)
+    wmin = int(re.search(r"binary search: W_min = (\d+)", out).group(1))
+    out, c, dt = _cli("binary_search_narrow", work, bs + [
+        "--route_chan_width", str(wmin - 1), "--place_file",
+        "../binary_search/out/synth.place"], want_rc=1)
+    runs.append(c)
+    if "ROUTING FAILED" not in out:
+        raise AssertionError("cli binary_search: W_min - 1 did not fail")
+    say("cli", f"binary_search: W_min = {wmin} routes legal, W_min - 1 "
+               f"= {wmin - 1} fails ({out.strip().splitlines()[-1]}; "
+               f"{dt:.1f} s, peak device memory "
+               f"{c['peak_bytes'] / 2 ** 20:.1f} MiB)")
+
+    # ---- 5. the 25-LUT flow with --stats_dir, card against CPU
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        tag = f"flow25_{dev}"
+        out, c, dt = _cli(tag, work, CLI_BASE + [
+            "--out_dir", "out", "--stats_dir", "stats", "--device", dev])
+        _cli_stages(tag, out, c, dt)
+        if dev == "cuda":
+            runs.append(c)
+            if c["planes_relax_full_cuda"] <= 0:
+                raise AssertionError(f"cli {tag}: K1 never launched")
+        d = os.path.join(work, tag)
+        trees[dev] = (_tree_bytes(os.path.join(d, "out")),
+                      _stats_view(_tree_bytes(os.path.join(d, "stats"))))
+    if trees["cuda"][0] != trees["cpu"][0]:
+        raise AssertionError("cli flow25: the card's artifacts differ from "
+                             "the CPU's")
+    if trees["cuda"][1] != trees["cpu"][1]:
+        raise AssertionError("cli flow25: the card's stats files differ "
+                             "from the CPU's")
+    rows25 = trees["cuda"][1]["iter_stats.txt"][1:]
+    if [int(r[0]) for r in rows25] != list(range(1, len(rows25) + 1)):
+        raise AssertionError("cli flow25: not one stats row per iteration")
+    say("cli", f"flow25: card artifacts, stats files and mdclog records "
+               f"equal the CPU's ({len(rows25)} iteration rows, "
+               f"{sum(k.endswith('.log') for k in trees['cuda'][1])} "
+               "mdclog files)")
+    return {k: sum(r[k] for r in runs) for k in runs[0]
+            if k != "peak_bytes"}
+
+
 def main(argv) -> int:
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -1915,9 +2272,10 @@ def main(argv) -> int:
                     f"{scale.crit_path_delay!r} s")
     c_bf16 = phase_bf16(bench, scale, res, warm)
     c_place, place_later = phase_place(BENCH_CFG, SCALE_CFG, scale_native)
+    c_cli = phase_cli(rows)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place
+        c_place + [c_cli]
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
@@ -1925,7 +2283,8 @@ def main(argv) -> int:
                     f"(bench, bench mesh 2, scale) {c_timing} bf16 (bench "
                     f"off, bench window, bench mesh 2, bench mesh 2 lag 2, "
                     f"scale off, bench timing off) {c_bf16} place "
-                    f"(scale delay lookup, scale route) {c_place}")
+                    f"(scale delay lookup, scale route) {c_place} cli "
+                    f"(the CLI runs on the card) {c_cli}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:

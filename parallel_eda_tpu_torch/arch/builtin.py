@@ -94,3 +94,73 @@ def unidir_arch(K: int = 4, N: int = 2, I: int = 6,
     arch.Fc_out = 0.5
     arch.Fc_in = 0.5
     return arch
+
+
+_FRAC_PB_XML = """
+<pb_type name="clb">
+  <input name="I" num_pins="{I}"/>
+  <output name="O" num_pins="{O}"/>
+  <clock name="clk" num_pins="1"/>
+  <pb_type name="ble" num_pb="{N}">
+    <input name="in" num_pins="10"/>
+    <output name="out" num_pins="2"/>
+    <clock name="clk" num_pins="1"/>
+    <mode name="lut6">
+      <pb_type name="lut6" blif_model=".names" num_pb="1">
+        <input name="in" num_pins="6"/><output name="out" num_pins="1"/>
+      </pb_type>
+      <pb_type name="ff" blif_model=".latch" num_pb="1">
+        <input name="D" num_pins="1"/><output name="Q" num_pins="1"/>
+        <clock name="clk" num_pins="1"/>
+      </pb_type>
+      <interconnect>
+        <direct name="d_in" input="ble.in[5:0]" output="lut6.in"/>
+        <mux name="m_d" input="lut6.out ble.in[6]" output="ff.D"/>
+        <mux name="m_o" input="lut6.out ff.Q" output="ble.out[0]"/>
+        <direct name="d_c" input="ble.clk" output="ff.clk"/>
+      </interconnect>
+    </mode>
+    <mode name="lut5x2">
+      <pb_type name="lut5" blif_model=".names" num_pb="2">
+        <input name="in" num_pins="5"/><output name="out" num_pins="1"/>
+      </pb_type>
+      <pb_type name="ff" blif_model=".latch" num_pb="2">
+        <input name="D" num_pins="1"/><output name="Q" num_pins="1"/>
+        <clock name="clk" num_pins="1"/>
+      </pb_type>
+      <interconnect>
+        <direct name="d0" input="ble.in[4:0]" output="lut5[0].in"/>
+        <direct name="d1" input="ble.in[9:5]" output="lut5[1].in"/>
+        <mux name="m0" input="lut5[0].out ble.in[0]" output="ff[0].D"/>
+        <mux name="m1" input="lut5[1].out ble.in[5]" output="ff[1].D"/>
+        <mux name="o0" input="lut5[0].out ff[0].Q" output="ble.out[0]"/>
+        <mux name="o1" input="lut5[1].out ff[1].Q" output="ble.out[1]"/>
+        <complete name="dc" input="ble.clk" output="ff[0:1].clk"/>
+      </interconnect>
+    </mode>
+  </pb_type>
+  <interconnect>
+    <complete name="xbar" input="clb.I ble[0:{NM1}].out" output="ble[0:{NM1}].in"/>
+    <direct name="outs" input="ble[0:{NM1}].out" output="clb.O"/>
+    <complete name="clks" input="clb.clk" output="ble[0:{NM1}].clk"/>
+  </interconnect>
+</pb_type>
+"""
+
+
+def frac_arch(N: int = 4, I: int = 20, chan_width: int = 14) -> Arch:
+    """Fracturable-LUT multi-mode architecture: each of the N BLE slots
+    runs as one 6-LUT (mode lut6) or two independent 5-LUTs (mode
+    lut5x2), k6_frac-style.  The pb tree drives packing (mode choice +
+    cluster_legality.c-style detail routing, pack/pb_pack.py); the flat
+    K/N/I view drives the rr graph: I cluster inputs, 2N output pins
+    (two per slot), K=6 for BLIF reading."""
+    import xml.etree.ElementTree as ET
+
+    from ..pack.pb_type import parse_pb_type
+
+    arch = minimal_arch(K=6, N=2 * N, I=I, chan_width=chan_width)
+    arch.name = f"frac_N{N}"
+    xml = _FRAC_PB_XML.format(I=I, O=2 * N, N=N, NM1=N - 1)
+    arch.pb_tree = parse_pb_type(ET.fromstring(xml))
+    return arch

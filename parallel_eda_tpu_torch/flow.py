@@ -7,7 +7,8 @@ timing-driven by default; ``run_place_native`` anneals with the native
 C++ serial placer instead.  ``run_route`` routes the flow on the card
 (or the CPU when asked), timing-driven by default, and checks the
 result with the legality oracle; ``routes_from_result`` gives the route
-trees."""
+trees, ``save_artifacts`` writes the .net / .place / .route files, and
+``binary_search_route`` finds the least routable channel width."""
 
 from __future__ import annotations
 
@@ -195,6 +196,102 @@ def routes_from_result(term: NetTerminals, route: RouteResult,
             segs = rest
         out[int(ni)] = rows
     return out
+
+
+def save_artifacts(flow: FlowResult, out_dir: str,
+                   prefix: Optional[str] = None) -> dict:
+    """Write .net / .place / .route (the flow's checkpoint/resume surface;
+    vpr_api.c output files).  Returns {kind: path}."""
+    import os
+
+    from .netlist.files import (write_net_file, write_place_file,
+                                write_route_file)
+
+    os.makedirs(out_dir, exist_ok=True)
+    # nl.name may be a file path (BLIF with no .model line): keep only a
+    # safe basename so artifacts always land inside out_dir
+    base = os.path.basename(prefix or flow.nl.name) or "circuit"
+    paths = {}
+    p = os.path.join(out_dir, base + ".net")
+    write_net_file(flow.pnl, p)
+    paths["net"] = p
+    p = os.path.join(out_dir, base + ".place")
+    write_place_file(flow.pnl, flow.pos, flow.grid.nx, flow.grid.ny, p,
+                     net_file=paths["net"])
+    paths["place"] = p
+    if flow.route is not None:
+        routes = routes_from_result(flow.term, flow.route,
+                                    flow.rr.num_nodes)
+        p = os.path.join(out_dir, base + ".route")
+        write_route_file(flow.pnl, flow.rr, routes, p,
+                         flow.grid.nx, flow.grid.ny)
+        paths["route"] = p
+    return paths
+
+
+def binary_search_route(flow: FlowResult,
+                        opts: Optional[RouterOpts] = None,
+                        timing_driven: bool = True, max_width: int = 0,
+                        device="cuda") -> int:
+    """Find the minimum routable channel width W_min on ``device`` (the
+    reference's binary_search_place_and_route, place_and_route.c:432):
+    starting from the flow's current width, halve while routable /
+    double while not, then bisect the (failed, routed] bracket.  Leaves
+    the flow routed at W_min and returns it.  ``opts.mesh_shards``
+    shards every attempt's route.
+
+    Each new width builds a new rr graph, so the relaxation kernels'
+    launch plans of the old width (which hold its planes graph on the
+    device) are dropped before it: the search's device memory stays
+    that of one width."""
+    from .route.planes_kernels import drop_plans
+
+    last_w = [flow.rr.chan_width if flow.route is not None else -1]
+
+    def attempt(w: int) -> bool:
+        if w != flow.rr.chan_width:
+            drop_plans()
+            flow.rr = build_rr_graph(flow.arch, flow.grid, chan_width=w)
+        flow.term = net_terminals(flow.pnl, flow.rr, flow.pos,
+                                  bb_factor=flow.bb_factor)
+        flow.tg = None          # routed-delay indices depend on term
+        flow.analyzer = None
+        run_route(flow, opts, timing_driven=timing_driven, verify=False,
+                  device=device)
+        last_w[0] = w
+        return flow.route.success
+
+    w = flow.rr.chan_width
+    if attempt(w):
+        hi = w
+        lo = 0                  # nothing known to fail yet
+        while hi > 1:
+            half = hi // 2
+            if attempt(half):
+                hi = half
+            else:
+                lo = half
+                break
+    else:
+        lo = w
+        while True:
+            w = min(w * 2, max_width) if max_width else w * 2
+            if attempt(w):
+                hi = w
+                break
+            lo = w
+            if max_width and w >= max_width:
+                raise RuntimeError(f"unroutable even at W={w}")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if attempt(mid):
+            hi = mid
+        else:
+            lo = mid
+    if last_w[0] != hi:
+        attempt(hi)             # leave the flow routed at W_min
+    check_route(flow.rr, flow.term, flow.route.paths, occ=flow.route.occ)
+    return hi
 
 
 def run_route(flow: FlowResult, opts: Optional[RouterOpts] = None,

@@ -207,14 +207,28 @@ def pack_netlist(nl: LogicalNetlist, arch: Arch,
     # flat crossbar model
     pb_tree = getattr(arch, "pb_tree", None)
     if pb_tree is not None:
-        raise NotImplementedError(
-            "multi-mode pb_type packing (arch.pb_tree) is not ported yet; "
-            "see ROADMAP.md, queue A")
+        from .pb_pack import pb_capacity, pb_cluster_feasible
 
-    def feasible(mem):
-        return cluster_routable(bles, mem, clocks, arch)
-    cap = N
-    I_eff = I
+        # nets consumed by pads / hard blocks must surface on cluster
+        # output pins (the want_out leg of the legality route)
+        ext_nets = {p.inputs[0] for p in nl.primitives
+                    if p.kind == PRIM_OUTPAD and p.inputs}
+        for p in nl.primitives:
+            if p.kind == PRIM_HARD:
+                ext_nets.update(n for n in p.inputs if n is not None)
+
+        def feasible(mem):
+            # ``consumers`` binds late: the map is filled just below
+            return pb_cluster_feasible(bles, mem, clocks, arch,
+                                       consumers=consumers,
+                                       ext_nets=ext_nets)
+        cap = pb_capacity(pb_tree)
+        I_eff = sum(p.width for p in pb_tree.ports if p.dir == "input")
+    else:
+        def feasible(mem):
+            return cluster_routable(bles, mem, clocks, arch)
+        cap = N
+        I_eff = I
 
     # net -> producing/consuming BLE indices (over non-clock nets)
     producers: Dict[str, int] = {}

@@ -203,6 +203,13 @@ def _plan(kind: int, pg, B: int, device: torch.device, mode, tile=None,
     return plan
 
 
+def drop_plans() -> None:
+    """Forget every launch plan (each holds its planes graph and launch
+    tables on the device): for a caller that replaces the graph, as a
+    channel-width search does at each width."""
+    _PLANS.clear()
+
+
 def _check_flats(pg, d0_flat, cc_flat, crit_c, wenter0):
     """The flats' checks; returns crit as a contiguous [B] tensor."""
     B, nc = d0_flat.shape

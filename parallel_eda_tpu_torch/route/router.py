@@ -20,6 +20,14 @@ window-entry state (the shadow), whose packed summary must stay within
 the band of ``_dtype_band_ok`` or the route stops shadowing (a
 demotion); "route" shadows only until the first window within the band.
 The resilience ladder's "dtype" step is not ported (ROADMAP.md A13).
+
+``stats_dir`` is the diagnostics mode, as in the JAX package: windows of
+one iteration, iter_stats.txt / final_stats.txt (``write_stats_files``)
+and route_report.txt in that directory, the per-(window, category)
+records of ``mdclog.MdcLogger`` under its logs/, and, with
+``dump_routes``, every iteration's routes (routes_iter_N.txt).  The JAX
+package's metrics.json and devprof.json there come from its obs/
+package, which is not ported (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -102,7 +110,6 @@ _NOT_PORTED = {
     "fused_dispatch": (False, "A12 (fused ragged dispatch)"),
     "checkpoint_every": (0, "A6 (checkpoint / slicing)"),
     "slice_iterations": (0, "A6 (checkpoint / slicing)"),
-    "stats_dir": (None, "A13 (stats files and observability)"),
     "program": ("planes", "A11 (ELL program)"),
 }
 
@@ -161,6 +168,79 @@ def _dtype_band_ok(status_f32, scal_f32, status_bf16, scal_bf16,
     b = np.asarray(scal_bf16, dtype=np.float64)[:5]
     tol = np.maximum(1.0, scal_rtol * np.abs(a))
     return bool((np.abs(a - b) <= tol).all())
+
+
+# how many overused rr-node ids each window's congestion record lists
+_CONGESTION_TOPK = 8
+
+
+def _top_overused(occ, capacity, k: int = _CONGESTION_TOPK) -> list:
+    """Top-k overused rr-node ids for the mdclog congestion record:
+    [[node_id, overuse], ...] sorted by overuse descending, only nodes
+    with occ > capacity."""
+    over = np.asarray(occ).astype(np.int64) - np.asarray(capacity)
+    k = min(int(k), over.size)
+    if k <= 0:
+        return []
+    idx = np.argpartition(over, -k)[-k:]
+    idx = idx[np.argsort(-over[idx], kind="stable")]
+    return [[int(i), int(over[i])] for i in idx if over[i] > 0]
+
+
+def write_stats_files(stats_dir: str, result: "RouteResult") -> None:
+    """Emit iter_stats.txt / final_stats.txt in the reference's schema
+    (partitioning_multi_sink_delta_stepping_route.cxx:5925-5935 header +
+    :6307-6318 rows; :6344-6360 final) so runs can be diffed against the
+    reference's own output files."""
+    import os
+
+    os.makedirs(stats_dir, exist_ok=True)
+    with open(os.path.join(stats_dir, "iter_stats.txt"), "w") as f:
+        f.write("iteration route_time relax_steps batches rerouted_nets "
+                "overused_nodes overuse_total overuse_pct crit_path_delay\n")
+        for s in result.stats:
+            f.write(f"{s.iteration} {s.route_time_s:.6f} {s.relax_steps} "
+                    f"{s.batches} {s.rerouted_nets} {s.overused_nodes} "
+                    f"{s.overuse_total} {s.overuse_pct:.4f} "
+                    f"{s.crit_path_delay:.6e}\n")
+    with open(os.path.join(stats_dir, "final_stats.txt"), "w") as f:
+        f.write(f"routed {int(result.success)}\n")
+        f.write(f"num_iterations {result.iterations}\n")
+        f.write(f"total_route_time "
+                f"{sum(s.route_time_s for s in result.stats):.6f}\n")
+        f.write(f"total_relax_steps {result.total_relax_steps}\n")
+        f.write(f"total_relax_steps_useful "
+                f"{result.total_relax_steps_useful}\n")
+        f.write(f"total_relax_steps_wasted "
+                f"{result.total_relax_steps_wasted}\n")
+        f.write(f"total_net_routes {result.total_net_routes}\n")
+        f.write(f"wirelength {result.wirelength}\n")
+        # the converged iteration breaks out before its timing callback,
+        # so report the last stamped crit-path value
+        cpd = float("nan")
+        for s in reversed(result.stats):
+            if s.crit_path_delay == s.crit_path_delay:
+                cpd = s.crit_path_delay
+                break
+        f.write(f"final_crit_path_delay {cpd:.6e}\n")
+
+
+def _dump_routes(stats_dir: str, it: int, paths: np.ndarray,
+                 N: int) -> None:
+    """routes_iter_N.txt per-iteration dump (…cxx:6167 diagnostics):
+    one line per (net, sink) with the node path sink->tree."""
+    import os
+
+    os.makedirs(stats_dir, exist_ok=True)
+    with open(os.path.join(stats_dir, f"routes_iter_{it}.txt"), "w") as f:
+        R, S, _ = paths.shape
+        for r in range(R):
+            for s in range(S):
+                seg = paths[r, s]
+                seg = seg[seg < N]
+                if seg.size:
+                    f.write(f"{r} {s}: " +
+                            " ".join(str(v) for v in seg) + "\n")
 
 
 @dataclass
@@ -397,6 +477,32 @@ class Router:
             self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1,
             plane_dtype)
 
+    def _log_window(self, mlog, widx, it_done, K, ndirty, nexec, w_steps,
+                    n_over, over_total, pres, widened, occ, colors, rrm,
+                    precise, sweep_boost, cpd, dmax_hist) -> None:
+        """The mdclog records of one committed window (JAX router.py
+        :1252-1270): route, congestion, schedule and, when timed,
+        timing."""
+        k = self.opts.congestion_topk
+        top = _top_overused(occ.cpu().numpy(),
+                            self.dev.capacity.cpu().numpy(),
+                            k=k if k > 0 else _CONGESTION_TOPK)
+        mlog.set_mdc(widx)
+        mlog.log("route", iteration=it_done, K=K, rerouted=ndirty,
+                 groups=nexec, relax_steps=w_steps)
+        mlog.log("congestion", overused_nodes=n_over,
+                 overuse_total=over_total, pres_fac=round(pres, 4),
+                 widened=widened, top_overused=top)
+        mlog.log("schedule",
+                 colors=int(np.max(colors) + 1
+                            if colors is not None and len(colors) else 0),
+                 dirty_next=int(rrm.sum()), precise=precise,
+                 sweep_boost=sweep_boost)
+        if cpd == cpd:
+            mlog.log("timing", crit_path_delay=cpd,
+                     dmax_hist=[None if d != d else float(d)
+                                for d in dmax_hist.cpu().tolist()])
+
     def _planes_terminals(self, term):
         """Terminal tables for ``term`` as device tensors, cached on
         id(term) across route() calls."""
@@ -493,13 +599,27 @@ class Router:
         full_bb = self._t(np.array([0, rr.grid.nx + 1, 0, rr.grid.ny + 1],
                                    dtype=np.int32))
         result = RouteResult(False, 0, None, None, None, 0)
-        return self._route_planes_windows(
-            term, crit, timing_cb, analyzer, occ, acc, paths, sink_delay,
-            all_reached, bb, full_bb, result, B, crop)
+        from ..mdclog import MdcLogger
+
+        # per-(window, category) records: a no-op without stats_dir
+        with MdcLogger(opts.stats_dir) as mlog:
+            result = self._route_planes_windows(
+                term, crit, timing_cb, analyzer, occ, acc, paths,
+                sink_delay, all_reached, bb, full_bb, result, B, crop, mlog)
+        if opts.stats_dir:
+            import os
+
+            from .report import write_route_report
+
+            write_stats_files(opts.stats_dir, result)
+            write_route_report(
+                os.path.join(opts.stats_dir, "route_report.txt"),
+                rr, result.occ, R)
+        return result
 
     def _route_planes_windows(self, term, crit, timing_cb, analyzer, occ,
                               acc, paths, sink_delay, all_reached, bb,
-                              full_bb, result, B, crop):
+                              full_bb, result, B, crop, mlog):
         """The synchronous window driver (the JAX package's
         _route_planes_windows with pipeline=False and no checkpoint,
         resilience or fused modes)."""
@@ -569,8 +689,9 @@ class Router:
         m["route.kernel.plane_dtype"] = pd_req
         while it_done < opts.max_router_iterations:
             K = self._WINDOWS[min(widx, len(self._WINDOWS) - 1)]
-            if host_cb:
-                # the host callback needs every iteration's delays
+            if host_cb or opts.stats_dir:
+                # the host callback needs every iteration's delays; the
+                # stats files take one row per iteration
                 K = 1
             K = min(K, opts.max_router_iterations - it_done)
             widx += 1
@@ -725,11 +846,18 @@ class Router:
                 overuse_pct=100.0 * n_over / max(1, N), crit_path_delay=cpd))
             if analyzer is not None and cpd == cpd:
                 analyzer.crit_path_delay = cpd
+            if mlog.enabled:
+                self._log_window(mlog, widx, it_done, K, len(dirty), nexec,
+                                 w_steps, n_over, over_total, pres,
+                                 result.widened_nets, occ, colors, rrm,
+                                 precise, sweep_boost, cpd, dmax_hist)
             if rm is not None:
                 # one rung under a mesh: the last plan is the window's
                 self._book_halo(scal_np, sel_p.shape[1] if len(dirty) else 1,
                                 pd_main)
             pres = min(opts.max_pres_fac, pres * opts.pres_fac_mult ** K)
+            if opts.stats_dir and opts.dump_routes:
+                _dump_routes(opts.stats_dir, it_done, paths.cpu().numpy(), N)
 
             if n_over == 0 and not rrm.any():
                 finish_set = nsinks_np > 1

@@ -30,6 +30,11 @@ def test_port_imports_no_jax():
     assert "parallel_eda_tpu_torch.route.planes" in mods
     assert "parallel_eda_tpu_torch.route.planes_kernels" in mods
     assert "parallel_eda_tpu_torch.place.prng" in mods
+    for m in ("__main__", "arch.xml_parser", "pack.pb_pack", "pack.pb_type",
+              "netlist.blif", "netlist.files", "netlist.synthesis",
+              "netlist.verilog", "route.report", "power", "draw", "viewer",
+              "mdclog"):
+        assert f"parallel_eda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

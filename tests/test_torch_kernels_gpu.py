@@ -851,3 +851,28 @@ def test_sa_step_cuda_matches_cpu(cuda, timing):
               "blk_idx", "site_idx"):
         assert torch.equal(getattr(ta, k), getattr(tb, k).cpu()), k
     assert 0 < int(a[3]) < int(a[4])
+
+
+def test_cli_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The 25-LUT CLI flow (timing-driven place and route) on the card
+    writes the same .net, .place and .route bytes as with --device cpu,
+    and the card's run launches K1."""
+    import os
+
+    from parallel_eda_tpu_torch.__main__ import main
+
+    args = ["--luts", "25", "--arch", "minimal", "--route_chan_width", "12",
+            "--batch_size", "16", "--moves_per_step", "16", "--out_dir",
+            "out"]
+    files = {}
+    for dev in ("cuda", "cpu"):
+        (tmp_path / dev).mkdir()
+        monkeypatch.chdir(tmp_path / dev)
+        n0 = pk.planes_relax_full_cuda.launches
+        assert main(args + ["--device", dev]) == 0
+        if dev == "cuda":
+            assert pk.planes_relax_full_cuda.launches > n0
+        files[dev] = {f: (tmp_path / dev / "out" / f).read_bytes()
+                      for f in sorted(os.listdir(tmp_path / dev / "out"))}
+    assert set(files["cuda"]) == {"synth.net", "synth.place", "synth.route"}
+    assert files["cuda"] == files["cpu"]

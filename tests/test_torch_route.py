@@ -102,7 +102,14 @@ def test_router_opts_defaults_match_jax():
     ("mesh_shards", 2), ("checkpoint_every", 2), ("slice_iterations", 1),
     ("stats_dir", "x"), ("program", "ell"), ("resil", object()),
     ("program_library_dir", "x"), ("compile_cache_dir", "x")])
-def test_unported_options_raise(name, value):
+def test_unported_options_raise(name, value, tmp_path):
+    """Each option the port does not have raises naming its ROADMAP.md
+    item.  ``stats_dir`` is ported: its case routes the parity fixture
+    with the stats files in ``value`` and holds them against the JAX
+    Router's."""
+    if name == "stats_dir":
+        _check_stats_dir(tmp_path / value)
+        return
     tf = synth_flow(**FIXTURE)
     opts = {name: value}
     if name == "mesh_shards":
@@ -110,6 +117,54 @@ def test_unported_options_raise(name, value):
         opts["fused_dispatch"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu")
+
+
+def _stats_lines(d, fname):
+    """The stats file's lines with the seconds column left out."""
+    out = []
+    for ln in (d / fname).read_text().splitlines():
+        tok = ln.split()
+        if tok[0] != "iteration" and (fname == "iter_stats.txt"
+                                      or tok[0] == "total_route_time"):
+            del tok[1]
+        out.append(tok)
+    return out
+
+
+def _check_stats_dir(d):
+    """The port's stats_dir files against the JAX Router's on the parity
+    fixture, congestion-driven: iter_stats.txt (one row per iteration),
+    final_stats.txt and route_report.txt equal but for the seconds, the
+    mdclog records equal but for their clocks, and routes_iter_N.txt
+    (``dump_routes``) equal."""
+    import json
+
+    opts = dict(batch_size=32, dump_routes=True)
+    jf = jax_synth_flow(**FIXTURE)
+    JRouter(jf.rr, JOpts(pipeline=False, stats_dir=str(d / "jax"),
+                         **opts)).route(jf.term)
+    tf = synth_flow(**FIXTURE)
+    tres = TR.Router(tf.rr, TR.RouterOpts(stats_dir=str(d / "port"),
+                                          **opts), device="cpu").route(
+        tf.term)
+    assert tres.success
+    assert [s.iteration for s in tres.stats] == list(
+        range(1, tres.iterations + 1))
+    for f in ("iter_stats.txt", "final_stats.txt"):
+        assert _stats_lines(d / "port", f) == _stats_lines(d / "jax", f)
+    port_files = sorted(p.relative_to(d / "port")
+                        for p in (d / "port").rglob("*") if p.is_file())
+    assert len(port_files) > 4
+    for rel in port_files:
+        body = (d / "port" / rel).read_text()
+        want = (d / "jax" / rel).read_text()
+        if rel.suffix == ".log":
+            body, want = ([{k: v for k, v in json.loads(ln).items()
+                            if k != "t"} for ln in t.splitlines()]
+                          for t in (body, want))
+        elif rel.name in ("iter_stats.txt", "final_stats.txt"):
+            continue
+        assert body == want, rel
 
 
 def test_resume_raises():
