@@ -115,8 +115,29 @@ Phases, one line each (any failure exits non-zero with no result line):
                  and K2 at the first run's shapes (its rr graph, the
                  crop tiles its grid gives) against their plain
                  versions in every shared-memory mode that fits
+ 16. elastic   — the route driver's pipeline and elastic surface: the
+                 placed scale config routed in turns synchronously
+                 (pipeline=False) and pipelined (the default every other
+                 phase runs), paths, occupancy, wirelength, iterations,
+                 stats rows (seconds aside), sweeps and congestion
+                 records equal, each route's seconds and route.pipeline.*
+                 figures printed; the scale route with slice_iterations=5
+                 resumed slice by slice until it succeeds, bit-identical
+                 to the unsliced route (slices, checkpoint bytes, the
+                 host ms taking and re-uploading a checkpoint); the bench
+                 route's checkpoint of a slice's yield at iteration 4
+                 resumed across mesh layouts on one card (1 -> 2 and 4,
+                 2 -> 1, 4 -> 1; the cluster kernel at 2 and 4): 537 /
+                 22 with paths equal; the scale route's last checkpoint
+                 under checkpoint_every=1 (the finishing pass's) resumed
+                 with no budget left: legal; and the cli phase's first
+                 run once more with --sync: the same .route bytes
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
+
+Every route runs the Router's default, the pipelined driver
+(RouterOpts.pipeline), so each route phase's bit-identity checks hold
+the pipeline too.
 
 Every host-clock timing (ms per call, route seconds) is taken before
 the first profiler session: a session can leave the process's later
@@ -2171,6 +2192,185 @@ def phase_cli(rows):
             if k != "peak_bytes"}
 
 
+def _same_route(tag, got, want, whole=True):
+    """``got`` equals ``want``: wirelength, iterations, paths and
+    occupancy and, for a ``whole`` route (not a route's last slice), the
+    stats rows (seconds aside), the sweep ledger and the congestion
+    records."""
+    def rows(r):
+        return [(s.iteration, s.overused_nodes, s.overuse_total,
+                 s.rerouted_nets, s.relax_steps, s.batches, s.overuse_pct)
+                for s in r.stats]
+    diff = [k for k, same in (
+        ("wirelength", got.wirelength == want.wirelength),
+        ("iterations", got.iterations == want.iterations),
+        ("paths", np.array_equal(got.paths, want.paths)),
+        ("occ", np.array_equal(got.occ, want.occ)),
+        ("congestion", not whole or got.congestion == want.congestion),
+        ("stats", not whole or rows(got) == rows(want)),
+        ("sweeps", not whole
+         or got.total_relax_steps == want.total_relax_steps)) if not same]
+    if diff:
+        raise AssertionError(f"{tag}: {diff} differ")
+
+
+def _ckpt_bytes(ck) -> int:
+    """Host bytes of a RouteCheckpoint's arrays (state, driver, fin_save)."""
+    arrs = [getattr(ck, k) for k in ("occ", "acc", "paths", "sink_delay",
+                                     "all_reached", "bb", "crit")]
+    arrs += [v for v in ck.driver.values() if isinstance(v, np.ndarray)]
+    arrs += list((ck.fin_save or ())[:5])
+    return int(sum(a.nbytes for a in arrs))
+
+
+def _slices(tag, flow, opts, resume=None):
+    """Route ``flow`` on the card, resuming each slice's checkpoint until
+    the route succeeds.  Returns (last result, slices, launches summed,
+    seconds, checkpoints taken, their host ms, resume ms summed, the
+    largest checkpoint's bytes)."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.check import check_route
+    from parallel_eda_tpu_torch.route.router import Router
+
+    router = Router(flow.rr, opts, device="cuda")
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = router.route(flow.term, resume=resume)
+    n, ck_bytes, resume_ms = 1, 0, 0.0
+    while not res.success:
+        if res.checkpoint is None or n > 100:
+            raise AssertionError(f"{tag}: failed without a checkpoint")
+        ck_bytes = max(ck_bytes, _ckpt_bytes(res.checkpoint))
+        res = router.route(flow.term, resume=res.checkpoint)
+        resume_ms += router.metrics["route.elastic.resume_ms"]
+        n += 1
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    check_route(flow.rr, flow.term, res.paths, occ=res.occ)
+    m = router.metrics
+    return (res, n, {**pk.launch_counts(), **sk.launch_counts()}, dt,
+            m.get("route.elastic.checkpoints", 0),
+            m.get("route.elastic.checkpoint_ms_total", 0.0), resume_ms,
+            ck_bytes)
+
+
+def _pipeline_figures(router) -> str:
+    return json.dumps({k.split(".")[-1]: v for k, v in router.metrics.items()
+                       if k.startswith("route.pipeline.")})
+
+
+def phase_elastic(bench, bench_res, scale):
+    """The pipelined and elastic route driver on the card (docstring,
+    phase 16).  Returns the launch counts summed over its routes."""
+    from parallel_eda_tpu_torch.route.check import check_route
+    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
+    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+
+    runs = []
+    # ---- pipelined against sync at scale, in turns
+    secs = {True: [], False: []}
+    ref = None
+    for p in (False, True, True, False):
+        tag = "elastic_scale_" + ("pipelined" if p else "sync")
+        res, c, dt, router = _route(tag, scale, RouterOpts(
+            batch_size=64, pipeline=p))
+        runs.append(c)
+        secs[p].append(dt)
+        say("elastic", f"{tag}: {dt:.3f} s, route.pipeline.* "
+                       f"{_pipeline_figures(router)}")
+        if ref is None:
+            ref = res
+        else:
+            _same_route(tag, res, ref)
+    if not ref.congestion:
+        raise AssertionError("elastic: the scale route recorded no "
+                             "congestion")
+    say("elastic", f"scale route s pipelined {secs[True]}, sync "
+                   f"{secs[False]} (turns sync, pipelined, pipelined, "
+                   f"sync); {len(ref.congestion)} congestion records equal")
+
+    # ---- sliced and resumed at scale
+    res, n, c, dt, cks, ck_ms, rs_ms, ck_b = _slices(
+        "elastic_sliced", scale, RouterOpts(batch_size=64,
+                                            slice_iterations=5))
+    runs.append(c)
+    _same_route("elastic_sliced", res, ref, whole=False)
+    if n < 2:
+        raise AssertionError("elastic_sliced: the route was not sliced")
+    say("elastic", f"scale slice_iterations=5: {n} slices, bit-identical "
+                   f"to the unsliced route; {dt:.3f} s in all; "
+                   f"checkpoint {ck_b} bytes, taken in "
+                   f"{ck_ms / max(1, cks):.3f} ms ({cks} taken), resumed "
+                   f"(uploaded) in {rs_ms / max(1, n - 1):.3f} ms")
+
+    # ---- mesh resumes at bench, each way, on one card: the checkpoint
+    # of a slice's yield at iteration 4
+    for src, dsts in ((1, (2, 4)), (2, (1,)), (4, (1,))):
+        r = Router(bench.rr, RouterOpts(batch_size=64, mesh_shards=src,
+                                        slice_iterations=4), device="cuda")
+        ck = r.route(bench.term).checkpoint
+        if ck is None:
+            raise AssertionError(f"elastic: no checkpoint at mesh {src}")
+        for dst in dsts:
+            tag = f"elastic_mesh{src}_to_{dst}"
+            mres, n, c, _, _, _, _, _ = _slices(
+                tag, bench, RouterOpts(batch_size=64, mesh_shards=dst),
+                resume=ck)
+            runs.append(c)
+            if (mres.wirelength, mres.iterations) != (537, 22) or not \
+                    np.array_equal(mres.paths, bench_res.paths):
+                raise AssertionError(
+                    f"{tag}: {mres.wirelength} / {mres.iterations}, paths "
+                    "differ from the single-device bench route")
+            say("elastic", f"{tag}: checkpoint at iteration {ck.it_done} "
+                           f"resumed: 537 / 22, paths equal; cluster "
+                           f"launches {c['planes_relax_cluster_cuda']}")
+
+    # ---- the finishing pass's checkpoint at scale, no budget left
+    res, _, c, _, cks, ck_ms, _, _ = _slices(
+        "elastic_finish", scale, RouterOpts(batch_size=64,
+                                            checkpoint_every=1))
+    runs.append(c)
+    ck = res.checkpoint
+    if not (ck.driver["finish_done"] and ck.fin_save is not None):
+        raise AssertionError("elastic_finish: the last checkpoint is not "
+                             "the finishing pass's")
+    back = Router(scale.rr, RouterOpts(
+        batch_size=64, max_router_iterations=ck.it_done),
+        device="cuda").route(scale.term, resume=ck)
+    if not back.success:
+        raise AssertionError("elastic_finish: the legal route was lost")
+    check_route(scale.rr, scale.term, back.paths, occ=back.occ)
+    say("elastic", f"finishing pass: checkpoint at iteration {ck.it_done} "
+                   f"({_ckpt_bytes(ck)} bytes with fin_save; {cks} "
+                   f"checkpoints in {ck_ms:.3f} ms), resumed with no budget "
+                   f"left: legal, wirelength {back.wirelength} in "
+                   f"{back.iterations} iterations")
+
+    # ---- the CLI's --sync against the cli phase's default run
+    work = os.path.join(BUILD_DIR, "cli")
+    a1 = ["../mult16x16.blif", "--arch", "k6_n10", "--out_dir", "out",
+          "--power", "--gen_postsynthesis_netlist"]
+    out, c, dt = _cli("mult16x16_sync", work, a1 + ["--sync"])
+    runs.append(c)
+    _cli_stages("mult16x16_sync", out, c, dt)
+    with open(os.path.join(work, "mult16x16", "out", "mult16x16.route"),
+              "rb") as f:
+        want = f.read()
+    with open(os.path.join(work, "mult16x16_sync", "out",
+                           "mult16x16.route"), "rb") as f:
+        if f.read() != want:
+            raise AssertionError("cli --sync: the .route differs from the "
+                                 "default (pipelined) run's")
+    say("elastic", "cli --sync: the .route bytes of the default run")
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
+
+
 def main(argv) -> int:
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -2273,9 +2473,10 @@ def main(argv) -> int:
     c_bf16 = phase_bf16(bench, scale, res, warm)
     c_place, place_later = phase_place(BENCH_CFG, SCALE_CFG, scale_native)
     c_cli = phase_cli(rows)
+    c_elastic = phase_elastic(bench, res, scale)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place + [c_cli]
+        c_place + [c_cli, c_elastic]
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
@@ -2284,7 +2485,8 @@ def main(argv) -> int:
                     f"off, bench window, bench mesh 2, bench mesh 2 lag 2, "
                     f"scale off, bench timing off) {c_bf16} place "
                     f"(scale delay lookup, scale route) {c_place} cli "
-                    f"(the CLI runs on the card) {c_cli}")
+                    f"(the CLI runs on the card) {c_cli} elastic "
+                    f"(its routes, resumes and CLI run) {c_elastic}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:

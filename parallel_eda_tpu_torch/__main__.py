@@ -15,10 +15,11 @@ unless it says ``cpu`` (the plain PyTorch versions of the kernels), and
 asking for the card without one fails.  What the port does not do yet
 fails naming its ROADMAP.md item: the ``serve`` and ``daemon``
 subcommands (in ``main``) and, in ``check_options``,
-``--compile_cache_dir`` (A14) and ``--trace`` (A13).  ``--sync`` is
-accepted and changes nothing: the port's route is always the
-synchronous one.  ``--mesh NETxNODE`` shards the relaxation over
-NET*NODE row shards (``RouterOpts.mesh_shards``).
+``--compile_cache_dir`` (A14) and ``--trace`` (A13).  The route is
+pipelined unless ``--sync`` asks for the synchronous driver, as in the
+JAX CLI (``RouterOpts.pipeline``; both give the same route).  ``--mesh
+NETxNODE`` shards the relaxation over NET*NODE row shards
+(``RouterOpts.mesh_shards``).
 """
 
 from __future__ import annotations
@@ -109,9 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Chrome trace of the whole flow: not ported "
                    "(ROADMAP.md A13)")
     p.add_argument("--sync", action="store_true",
-                   help="accepted for the JAX CLI's sake; no effect: the "
-                   "port routes synchronously always (bit-identical to "
-                   "the pipelined route)")
+                   help="disable the host/device route pipeline (drain "
+                   "every window before further host work); "
+                   "bit-identical results, for isolating pipeline issues")
     p.add_argument("--compile_cache_dir", default="",
                    help="persistent compile cache: not ported "
                    "(ROADMAP.md A14)")
@@ -320,7 +321,8 @@ def _run_flow(args) -> int:
             astar_fac=args.astar_fac,
             batch_size=args.batch_size, sink_group=args.sink_group,
             crop=args.crop, finish_precise=not args.no_finish,
-            stats_dir=args.stats_dir or None, mesh_shards=shards)
+            stats_dir=args.stats_dir or None, pipeline=not args.sync,
+            mesh_shards=shards)
         import contextlib
         prof = contextlib.nullcontext()
         if args.profile:

@@ -1514,12 +1514,10 @@ def route_window_planes(
     NXg = pg.shape_x[1]
     NYg = pg.shape_y[2]
     dev_wide = span >= (NXg + NYg)
-    wb = torch.clamp((bb[:, 1] - bb[:, 0] + 1 + 7) // 8, 0, 255)
-    hb = torch.clamp((bb[:, 3] - bb[:, 2] + 1 + 7) // 8, 0, 255)
     unreached = ~all_reached
     status = (rrm.to(_I32) | (dev_wide.to(_I32) << 1)
               | (unreached.to(_I32) << 2) | ((colors & 0x1F) << 3)
-              | (hb.to(_I32) << 8) | (wb.to(_I32) << 16))
+              | live_size_bits(bb))
     scal = torch.stack([
         (over > 0).sum(), over.sum(),
         torch.tensor(nroutes, device=device),
@@ -1527,6 +1525,15 @@ def route_window_planes(
         torch.tensor(s_exec, device=device),
         torch.tensor(s_useful, device=device)]).to(_I32)
     return occ, acc, status, scal, dmax_hist
+
+
+def live_size_bits(bb):
+    """Bits 8-23 of the window status word: each net's live bb height
+    (bits 8-15) and width (bits 16-23) in 8-tile buckets, from its bbs
+    [R, 4] int32 (x lo, x hi, y lo, y hi)."""
+    wb = torch.clamp((bb[:, 1] - bb[:, 0] + 1 + 7) // 8, 0, 255)
+    hb = torch.clamp((bb[:, 3] - bb[:, 2] + 1 + 7) // 8, 0, 255)
+    return (hb.to(_I32) << 8) | (wb.to(_I32) << 16)
 
 
 def unpack_window_status(status):

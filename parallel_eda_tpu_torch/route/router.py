@@ -8,10 +8,29 @@ last), and the host reads back one packed status word per net plus a
 scalar summary per window, from which it decides convergence, plateau
 widening, sweep-budget promotion and the next window's batch plan.
 
-This driver is the synchronous one (``pipeline=False`` in the JAX
-package, bit-identical to its pipelined mode by construction).  Options
-the port does not implement yet raise NotImplementedError naming their
-ROADMAP.md item when set to a non-default value.
+``pipeline=True`` (the default, as in the JAX package) is the two-stage
+host/device pipeline: the window's packed summary comes back through a
+non-blocking copy (pinned host memory and a CUDA event on the card),
+the previous window's bookkeeping (stats row, congestion record, mdclog
+records, halo ledger) runs while the current window is in flight, and
+the summary read is the window's one blocking point.  Every dispatch is
+planned from the same fully read summary as ``pipeline=False`` (the
+CLI's ``--sync``: every rung drained before further host work), so the
+two modes are bit-identical.  ``Router.metrics`` holds the pipeline's
+``route.pipeline.*`` figures under the JAX package's names.
+
+Elastic routing, as in the JAX package: ``checkpoint_every`` snapshots
+the whole negotiation at window boundaries into
+``RouteResult.checkpoint`` (a ``RouteCheckpoint``), ``route(resume=)``
+continues it under this Router's device and ``mesh_shards``, and
+``slice_iterations`` yields at the first window boundary past the
+slice with ``success=False`` and the checkpoint to resume from.
+``checkpoint_to_numpy`` / ``checkpoint_from_numpy`` carry a checkpoint
+to and from the JAX package's field names.  ``RouteResult.congestion``
+holds the per-window top-k overused nodes (``congestion_topk``).
+
+Options the port does not implement yet raise NotImplementedError
+naming their ROADMAP.md item when set to a non-default value.
 
 Reduced-precision planes (``plane_dtype="bf16"``) follow the JAX
 package's ``dtype_guard``: "off" commits the bf16 relaxation; "window"
@@ -32,6 +51,8 @@ package, which is not ported (ROADMAP.md A13).
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
@@ -66,8 +87,8 @@ def normalize_crop(value) -> str:
 class RouterOpts:
     """The JAX package's RouterOpts: same field names and defaults
     (s_router_opts, vpr_types.h:708-770, with SetupVPR.c defaults),
-    except ``pipeline``, which defaults to False — the port's driver is
-    the synchronous one.  See the JAX package for each knob's meaning."""
+    ``pipeline=True`` included.  See the JAX package for each knob's
+    meaning."""
     max_router_iterations: int = 50
     initial_pres_fac: float = 0.5
     pres_fac_mult: float = 1.3
@@ -90,7 +111,7 @@ class RouterOpts:
     crop: str = "auto"            # "auto" | "off" | "WxH"
     sweep_budget_div: int = 3
     finish_precise: bool = True
-    pipeline: bool = False
+    pipeline: bool = True
     compile_cache_dir: Optional[str] = None
     congestion_topk: int = 8
     program_library_dir: Optional[str] = None
@@ -103,13 +124,10 @@ class RouterOpts:
 
 # option -> (default, ROADMAP.md item that ports it)
 _NOT_PORTED = {
-    "pipeline": (False, "A6 (pipelined window driver)"),
     "resil": (None, "A13 (resilience wiring)"),
     "program_library_dir": (None, "A14 (serve stack / kernel cache)"),
     "compile_cache_dir": (None, "A14 (serve stack / kernel cache)"),
     "fused_dispatch": (False, "A12 (fused ragged dispatch)"),
-    "checkpoint_every": (0, "A6 (checkpoint / slicing)"),
-    "slice_iterations": (0, "A6 (checkpoint / slicing)"),
     "program": ("planes", "A11 (ELL program)"),
 }
 
@@ -258,6 +276,65 @@ class RouteStats:
 
 
 @dataclass
+class RouteCheckpoint:
+    """Host snapshot of the whole negotiation state at a window boundary
+    (JAX router.py:269-294, the same fields): the state arrays as numpy,
+    ``it_done``, ``pres``, the host scheduling state ``driver`` (the
+    keys of CHECKPOINT_DRIVER_KEYS) and, while the wirelength finishing
+    pass is live, ``fin_save``: the pre-finish legal (occ, paths,
+    sink_delay, all_reached, bb, it_done), restored by a resumed route
+    that cannot re-legalize within its budget.  A checkpoint resumes
+    under any device and any ``mesh_shards``."""
+    occ: np.ndarray
+    acc: np.ndarray
+    paths: np.ndarray
+    sink_delay: np.ndarray
+    all_reached: np.ndarray
+    bb: np.ndarray
+    crit: np.ndarray
+    it_done: int
+    pres: float
+    driver: dict
+    fin_save: Optional[tuple] = None
+
+
+# RouteCheckpoint.driver's keys (JAX router.py:2470-2483)
+CHECKPOINT_DRIVER_KEYS = (
+    "widx", "dirty", "colors", "wide", "bb_full", "best_over",
+    "stall_windows", "sweep_boost", "precise", "full_reroute_done",
+    "force_all_next", "finish_done", "budget_full", "widened_nets",
+    "crop_full")
+_CHECKPOINT_ARRAYS = ("occ", "acc", "paths", "sink_delay", "all_reached",
+                      "bb", "crit")
+
+
+def checkpoint_to_numpy(ck: RouteCheckpoint) -> dict:
+    """``ck`` as a dict under the JAX package's field names (numpy
+    arrays, Python scalars, the driver dict, the fin_save tuple), every
+    array copied: the JAX package's ``RouteCheckpoint(**d)`` takes it."""
+    return copy.deepcopy({f.name: getattr(ck, f.name)
+                          for f in dataclasses.fields(ck)})
+
+
+def checkpoint_from_numpy(fields: dict) -> RouteCheckpoint:
+    """The port's checkpoint from a dict carrying the JAX package's
+    field names (a JAX RouteCheckpoint's fields), every array copied.
+    Raises ValueError when the driver dict lacks one of its keys: a
+    resume without it would part from the unsliced route windows
+    later."""
+    d = copy.deepcopy(dict(fields))
+    missing = [k for k in CHECKPOINT_DRIVER_KEYS if k not in d["driver"]]
+    if missing:
+        raise ValueError(f"checkpoint driver state lacks {missing}")
+    for k in _CHECKPOINT_ARRAYS:
+        d[k] = np.asarray(d[k])
+    fs = d.get("fin_save")
+    if fs is not None:
+        d["fin_save"] = tuple(np.asarray(a) for a in fs[:5]) + (int(fs[5]),)
+    return RouteCheckpoint(**d)
+
+
+@dataclass
 class RouteResult:
     success: bool
     iterations: int
@@ -273,6 +350,78 @@ class RouteResult:
     total_relax_steps_cropped: int = 0
     widened_nets: int = 0
     windowed_nets: int = 0
+    # latest window-boundary snapshot (checkpoint_every, slice_iterations)
+    checkpoint: Optional[RouteCheckpoint] = None
+    # per-window records {window, iteration, overused_nodes,
+    # overuse_total, pres_fac, top_overused: [[node, overuse], ...]}
+    # (congestion_topk > 0), in both pipeline modes
+    congestion: List[dict] = field(default_factory=list)
+
+
+class _PlanStaging:
+    """Named device slots for the per-rung plan tensors (JAX router.py
+    :664-690): ``put`` skips the upload when its slot already holds an
+    equal array, counting ``route.pipeline.upload_skips`` in
+    ``metrics``.  The window never writes its plan tensors, so a slot is
+    reused across windows as it stands."""
+
+    def __init__(self, device, metrics: dict):
+        self._device = device
+        self._metrics = metrics
+        self._slots = {}
+
+    def put(self, name: str, host_arr):
+        host_arr = np.asarray(host_arr)
+        slot = self._slots.get(name)
+        if (slot is not None and slot[0].shape == host_arr.shape
+                and slot[0].dtype == host_arr.dtype
+                and np.array_equal(slot[0], host_arr)):
+            k = "route.pipeline.upload_skips"
+            self._metrics[k] = self._metrics.get(k, 0) + 1
+            return slot[1]
+        # a copy of its own: on the CPU the tensor shares its memory
+        own = np.ascontiguousarray(host_arr).copy()
+        dev = torch.from_numpy(own).to(self._device, non_blocking=True)
+        self._slots[name] = (own, dev)
+        return dev
+
+
+class _HostCopy:
+    """Host copies of device tensors, started without blocking the host:
+    on the card, non-blocking copies into pinned buffers of their own
+    (fresh for every window in flight) fenced by one CUDA event, which
+    ``numpy()`` waits for.  Tensors the caller put on the CPU are read
+    as they are: they must not be written after the copy is taken."""
+
+    def __init__(self, tensors):
+        self._event = None
+        self._host = list(tensors)
+        if self._host[0].is_cuda:
+            dev = self._host[0].device
+            self._host = [torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(dev))
+
+    def numpy(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
+
+
+def _host_snapshot(t) -> np.ndarray:
+    """A numpy copy of ``t`` (never a view: the window writes the state
+    in place)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+# per-route pipeline gauges (JAX router.py:2594-2604), zeroed by route()
+_PIPELINE_GAUGES = tuple("route.pipeline." + k for k in (
+    "host_plan_ms", "device_exec_ms", "stall_ms", "overlap_frac",
+    "host_overlap_frac", "host_plan_ms_total", "device_exec_ms_total",
+    "stall_ms_total", "host_serial_ms_total"))
 
 
 def _median_cut_bins(pts_x: np.ndarray, pts_y: np.ndarray,
@@ -410,11 +559,26 @@ class Router:
     holds, under the JAX package's metric names, the halo ledger: the
     counters ``route.mesh.halo_bytes`` and ``route.mesh.halo_exchanges``
     add up over the Router's routes, the gauges ``route.mesh.n_shards``
-    and ``route.mesh.overlap_frac`` hold the last window's values; and
-    the plane dtype: the counter ``route.kernel.dtype_demotions`` (bf16
+    and ``route.mesh.overlap_frac`` hold the last window's values; the
+    plane dtype: the counter ``route.kernel.dtype_demotions`` (bf16
     shadows that left the band) and the gauge
     ``route.kernel.plane_dtype`` ("bf16" while a bf16 route is not
-    demoted, else "f32")."""
+    demoted, else "f32"); and the pipeline: the counters
+    ``route.pipeline.blocking_syncs`` (one per pipelined window, one per
+    rung under ``pipeline=False``), ``upload_skips`` (plan uploads
+    skipped as unchanged) and ``crit_upload_skips`` (criticalities a
+    ``timing_cb`` left unchanged), and the gauges of _PIPELINE_GAUGES,
+    zeroed at the start of each route.  Host seconds: ``host_plan`` is
+    planning and staging the rungs plus the deferred bookkeeping,
+    ``device_exec`` the span from the first rung's call to the summary
+    read (pipelined; under ``pipeline=False`` the rungs' calls and
+    drains), ``stall`` the wait at the summary read, ``overlap_frac``
+    device_exec over the route's wall time and ``host_overlap_frac``
+    the share of host_plan done while a window was in flight.  The
+    port's own counters ``route.elastic.checkpoints`` and
+    ``route.elastic.checkpoint_ms_total`` (host seconds taking them) and
+    the gauge ``route.elastic.resume_ms`` (re-uploading a checkpoint)
+    time the elastic surface."""
 
     # escalating sync schedule: window sizes between host round trips
     _WINDOWS = (2, 2, 3, 4, 5, 6, 8, 10, 10)
@@ -441,6 +605,7 @@ class Router:
                              "rr.graph.build_rr_graph (track switch map)")
         self.pg = build_planes(rr, self.device)
         self._pt_key = None
+        self._cap_np = None
         # lag 1 ("ppermute") on every device.  Lag 2 ("pallas_halo")
         # pays extra sweeps for a transfer that can land behind the next
         # sweep, and here each shard's transfer shares its sweep's
@@ -450,10 +615,14 @@ class Router:
         # ported: a failure raises.
         self.row_mesh = None
         self.metrics: dict = {}
+        self._staging = _PlanStaging(self.device, self.metrics)
         if self.opts.mesh_shards > 1:
             from .planes_shard import make_row_mesh
             self.row_mesh = make_row_mesh(self.opts.mesh_shards, "ppermute",
                                           self.device)
+
+    def _count(self, name: str, n: int = 1) -> None:
+        self.metrics[name] = self.metrics.get(name, 0) + n
 
     def _book_halo(self, scal, batch: int, plane_dtype: str) -> None:
         """The halo ledger of one window (JAX router.py:1191-1233): each
@@ -465,43 +634,85 @@ class Router:
 
         rm, m = self.row_mesh, self.metrics
         sweeps = int(scal[SCAL_S_EXEC])
-        m["route.mesh.halo_bytes"] = (
-            m.get("route.mesh.halo_bytes", 0)
-            + halo_bytes_per_sweep(self.pg, batch, rm.n_shards,
-                                   plane_dtype) * sweeps)
-        m["route.mesh.halo_exchanges"] = (
-            m.get("route.mesh.halo_exchanges", 0)
-            + (rm.n_shards - 1) * sweeps)
+        self._count("route.mesh.halo_bytes", halo_bytes_per_sweep(
+            self.pg, batch, rm.n_shards, plane_dtype) * sweeps)
+        self._count("route.mesh.halo_exchanges", (rm.n_shards - 1) * sweeps)
         m["route.mesh.n_shards"] = rm.n_shards
         m["route.mesh.overlap_frac"] = modeled_overlap_frac(
             self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1,
             plane_dtype)
 
-    def _log_window(self, mlog, widx, it_done, K, ndirty, nexec, w_steps,
-                    n_over, over_total, pres, widened, occ, colors, rrm,
-                    precise, sweep_boost, cpd, dmax_hist) -> None:
-        """The mdclog records of one committed window (JAX router.py
-        :1252-1270): route, congestion, schedule and, when timed,
-        timing."""
-        k = self.opts.congestion_topk
-        top = _top_overused(occ.cpu().numpy(),
-                            self.dev.capacity.cpu().numpy(),
-                            k=k if k > 0 else _CONGESTION_TOPK)
-        mlog.set_mdc(widx)
-        mlog.log("route", iteration=it_done, K=K, rerouted=ndirty,
-                 groups=nexec, relax_steps=w_steps)
-        mlog.log("congestion", overused_nodes=n_over,
-                 overuse_total=over_total, pres_fac=round(pres, 4),
-                 widened=widened, top_overused=top)
-        mlog.log("schedule",
-                 colors=int(np.max(colors) + 1
-                            if colors is not None and len(colors) else 0),
-                 dirty_next=int(rrm.sum()), precise=precise,
-                 sweep_boost=sweep_boost)
-        if cpd == cpd:
-            mlog.log("timing", crit_path_delay=cpd,
-                     dmax_hist=[None if d != d else float(d)
-                                for d in dmax_hist.cpu().tolist()])
+    def _book_window(self, bk: dict, result: RouteResult, mlog) -> None:
+        """The bookkeeping of one committed window (JAX router.py
+        :1166-1270), from ``bk``, values captured at the window's control
+        step: the work ledger and the stats row, the halo ledger, the
+        congestion record and the mdclog records (route, congestion,
+        schedule and, when timed, timing).  Nothing here feeds the
+        control loop, so the pipelined driver runs it while the next
+        window is in flight."""
+        from .planes import SCAL_NEXEC, SCAL_NROUTES, SCAL_S_EXEC, \
+            SCAL_S_USEFUL
+
+        w_steps = w_useful = w_crop = nexec = 0
+        for v, cropped in bk["rung_scals"]:
+            result.total_net_routes += int(v[SCAL_NROUTES])
+            nexec += int(v[SCAL_NEXEC])
+            w_steps += int(v[SCAL_S_EXEC])
+            w_useful += int(v[SCAL_S_USEFUL])
+            if cropped:
+                w_crop += int(v[SCAL_S_EXEC])
+        result.total_relax_steps += w_steps
+        result.total_relax_steps_useful += w_useful
+        result.total_relax_steps_wasted += w_steps - w_useful
+        result.total_relax_steps_cropped += w_crop
+        n_over = bk["n_over"]
+        result.stats.append(RouteStats(
+            bk["it_done"], n_over, bk["over_total"], bk["ndirty"],
+            bk["t_wall1"] - bk["t_wall0"], relax_steps=w_steps,
+            batches=nexec,
+            overuse_pct=100.0 * n_over / max(1, self.rr.num_nodes),
+            crit_path_delay=bk["cpd"]))
+        if bk["halo"] is not None:
+            self._book_halo(*bk["halo"])
+        top = []
+        if bk["occ_ref"] is not None:
+            if self._cap_np is None:
+                self._cap_np = self.dev.capacity.cpu().numpy()
+            k = self.opts.congestion_topk
+            top = _top_overused(bk["occ_ref"].numpy()[0], self._cap_np,
+                                k=k if k > 0 else _CONGESTION_TOPK)
+            result.congestion.append({
+                "window": bk["widx"], "iteration": bk["it_done"],
+                "overused_nodes": n_over,
+                "overuse_total": bk["over_total"],
+                "pres_fac": round(bk["pres"], 6),
+                "top_overused": top})
+        if mlog.enabled:
+            mlog.set_mdc(bk["widx"])
+            mlog.log("route", iteration=bk["it_done"], K=bk["K"],
+                     rerouted=bk["ndirty"], groups=nexec,
+                     relax_steps=w_steps)
+            mlog.log("congestion", overused_nodes=n_over,
+                     overuse_total=bk["over_total"],
+                     pres_fac=round(bk["pres"], 4), widened=bk["widened"],
+                     top_overused=top)
+            mlog.log("schedule", colors=bk["colors_max"],
+                     dirty_next=bk["dirty_next"], precise=bk["precise"],
+                     sweep_boost=bk["sweep_boost"])
+            if bk["cpd"] == bk["cpd"]:
+                mlog.log("timing", crit_path_delay=bk["cpd"],
+                         dmax_hist=[None if d != d else float(d)
+                                    for d in bk["dmax_hist"].tolist()])
+
+    def _occ_snapshot(self, occ, pipelined: bool, mlog):
+        """Occupancy for one window's congestion record (JAX router.py
+        :1271-1287), None with the record off.  Synchronous: the live
+        tensor, booked at once.  Pipelined: a copy of its own (``clone``)
+        whose host copy streams behind the next window and is read when
+        the window is booked."""
+        if self.opts.congestion_topk <= 0 and not mlog.enabled:
+            return None
+        return _HostCopy([occ.clone() if pipelined else occ])
 
     def _planes_terminals(self, term):
         """Terminal tables for ``term`` as device tensors, cached on
@@ -547,9 +758,14 @@ class Router:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
+    def _upload(self, a):
+        """A device copy of checkpoint array ``a`` (never sharing its
+        memory: the route writes its state in place)."""
+        return torch.tensor(np.asarray(a), device=self.device)
+
     def route(self, term: NetTerminals, crit: Optional[np.ndarray] = None,
               timing_cb=None, analyzer=None,
-              resume=None) -> RouteResult:
+              resume: Optional[RouteCheckpoint] = None) -> RouteResult:
         """Route all nets.  ``crit`` [R, Smax] per-sink criticalities
         (None or 0 => congestion-driven), clamped at 0.99.
 
@@ -560,14 +776,15 @@ class Router:
         in ``analyzer.crit_path_delay``.  ``timing_cb``, without an
         analyzer, is called on the host after every iteration (windows of
         one iteration) with the current result and returns the next
-        criticalities (router.cxx:28,42).  ``resume`` is not ported yet
-        (ROADMAP.md A6) and raises when given."""
-        if resume is not None:
-            raise NotImplementedError(
-                "resume is not ported yet (ROADMAP.md A6)")
+        criticalities (router.cxx:28,42).  ``resume`` (a RouteCheckpoint,
+        e.g. ``RouteResult.checkpoint``) continues that negotiation: its
+        state is uploaded to this Router's device and mesh layout and its
+        criticalities replace ``crit``."""
         opts = self.opts
         _check_ported(opts)
         _check_plane_dtype(opts)
+        for k in _PIPELINE_GAUGES:
+            self.metrics[k] = 0.0
         crop = normalize_crop(opts.crop)
         rr = self.rr
         R, Smax = term.sinks.shape
@@ -584,18 +801,30 @@ class Router:
             # max_criticality clamp (VPR --max_criticality 0.99): a crit
             # of 1 would zero the congestion term and stall negotiation
             crit = np.minimum(np.asarray(crit, dtype=np.float32), 0.99)
-        occ = torch.zeros(N, dtype=torch.int32, device=self.device)
-        acc = torch.ones(N, dtype=torch.float32, device=self.device)
-        span0 = (int(((term.bb_xmax - term.bb_xmin)
-                      + (term.bb_ymax - term.bb_ymin)).max()) if R else 8)
-        L = path_budget(span0, self.max_len)
-        paths = torch.full((R, Smax, L), N, dtype=torch.int32,
-                           device=self.device)
-        sink_delay = torch.full((R, Smax), float("inf"),
-                                dtype=torch.float32, device=self.device)
-        all_reached = torch.zeros(R, dtype=torch.bool, device=self.device)
-        bb = self._t(np.stack([term.bb_xmin, term.bb_xmax, term.bb_ymin,
-                               term.bb_ymax], axis=1).astype(np.int32))
+        if resume is None:
+            occ = torch.zeros(N, dtype=torch.int32, device=self.device)
+            acc = torch.ones(N, dtype=torch.float32, device=self.device)
+            span0 = (int(((term.bb_xmax - term.bb_xmin)
+                          + (term.bb_ymax - term.bb_ymin)).max()) if R else 8)
+            paths = torch.full((R, Smax, path_budget(span0, self.max_len)),
+                               N, dtype=torch.int32, device=self.device)
+            sink_delay = torch.full((R, Smax), float("inf"),
+                                    dtype=torch.float32, device=self.device)
+            all_reached = torch.zeros(R, dtype=torch.bool,
+                                      device=self.device)
+            bb = self._t(np.stack([term.bb_xmin, term.bb_xmax,
+                                   term.bb_ymin, term.bb_ymax],
+                                  axis=1).astype(np.int32))
+        else:
+            # the checkpointed negotiation under THIS Router's device and
+            # mesh layout; its path store keeps its own budget
+            tr0 = time.perf_counter()
+            occ, acc, paths, sink_delay, all_reached, bb = (
+                self._upload(getattr(resume, k))
+                for k in _CHECKPOINT_ARRAYS[:6])
+            crit = resume.crit
+            self.metrics["route.elastic.resume_ms"] = round(
+                (time.perf_counter() - tr0) * 1e3, 3)
         full_bb = self._t(np.array([0, rr.grid.nx + 1, 0, rr.grid.ny + 1],
                                    dtype=np.int32))
         result = RouteResult(False, 0, None, None, None, 0)
@@ -605,7 +834,8 @@ class Router:
         with MdcLogger(opts.stats_dir) as mlog:
             result = self._route_planes_windows(
                 term, crit, timing_cb, analyzer, occ, acc, paths,
-                sink_delay, all_reached, bb, full_bb, result, B, crop, mlog)
+                sink_delay, all_reached, bb, full_bb, result, B, crop, mlog,
+                resume)
         if opts.stats_dir:
             import os
 
@@ -619,12 +849,11 @@ class Router:
 
     def _route_planes_windows(self, term, crit, timing_cb, analyzer, occ,
                               acc, paths, sink_delay, all_reached, bb,
-                              full_bb, result, B, crop, mlog):
-        """The synchronous window driver (the JAX package's
-        _route_planes_windows with pipeline=False and no checkpoint,
-        resilience or fused modes)."""
-        from .planes import (SCAL_MAX_SPAN, SCAL_NEXEC, SCAL_NROUTES,
-                             SCAL_S_EXEC, SCAL_S_USEFUL,
+                              full_bb, result, B, crop, mlog, resume):
+        """The window driver: the JAX package's _route_planes_windows
+        with its pipelined and synchronous modes, checkpoints, resume
+        and slicing (no resilience or fused modes)."""
+        from .planes import (SCAL_MAX_SPAN, live_size_bits,
                              route_window_planes, unpack_window_status)
 
         opts = self.opts
@@ -668,9 +897,6 @@ class Router:
             crop_forced = (min(cwf, rr.grid.nx - 1),
                            min(chf, rr.grid.ny - 1))
         crop_full = crop != "auto" and crop_forced is None
-
-        L = int(paths.shape[2])
-        L_cap = self.max_len
         # static initial bbs: the crop anchor
         bb0_d = self._t(np.stack(
             [term.bb_xmin, term.bb_xmax, term.bb_ymin, term.bb_ymax],
@@ -678,15 +904,65 @@ class Router:
         live_w = (term.bb_xmax - term.bb_xmin + 1).astype(np.int64)
         live_h = (term.bb_ymax - term.bb_ymin + 1).astype(np.int64)
         budget_full = np.zeros(R, dtype=bool)
+        if resume is not None:
+            # elastic resume (JAX router.py:1525-1591): the host
+            # scheduling state of the checkpoint; route() uploaded the
+            # device state
+            pres = resume.pres
+            it_done = resume.it_done
+            d = resume.driver
+            widx = d["widx"]
+            dirty = d["dirty"].copy()
+            colors = None if d["colors"] is None else d["colors"].copy()
+            wide = d["wide"].copy()
+            bb_full = d["bb_full"].copy()
+            best_over = d["best_over"]
+            stall_windows = d["stall_windows"]
+            sweep_boost = d["sweep_boost"]
+            precise = d["precise"]
+            full_reroute_done = d["full_reroute_done"]
+            finish_done = d["finish_done"]
+            force_all_next = d["force_all_next"]
+            result.widened_nets = d["widened_nets"]
+            crop_full = d["crop_full"]
+            budget_full = d["budget_full"].copy()
+            # the live bb sizes as the last window's summary gave them, in
+            # 8-tile buckets (ROADMAP.md C8: the JAX Router takes the exact
+            # widths here, so its resumed route leaves the unsliced one)
+            live_w, live_h = unpack_window_status(live_size_bits(
+                torch.from_numpy(np.asarray(resume.bb))).numpy())[4:]
+            fs = resume.fin_save
+            if fs is not None:
+                # re-arm the pre-finish legal snapshot
+                fin_save = tuple(self._upload(a) for a in fs[:5]) + (
+                    int(fs[5]),)
+
+        L = int(paths.shape[2])
+        L_cap = self.max_len
+        next_ckpt = (it_done + opts.checkpoint_every
+                     if opts.checkpoint_every else None)
+        # cooperative yield target: a checkpoint at the slice's edge
+        yield_at = (it_done + opts.slice_iterations
+                    if opts.slice_iterations else None)
+        if yield_at is not None:
+            next_ckpt = (yield_at if next_ckpt is None
+                         else min(next_ckpt, yield_at))
+        sliced_yield = False
         rm = self.row_mesh
         # the plane dtype (JAX router.py:1609-1625, :1713-1720): guarded
         # bf16 commits f32 and shadows in bf16, "off" commits bf16
         pd_req, guard = str(opts.plane_dtype), str(opts.dtype_guard)
         dtype_demoted = dtype_validated = False
         m = self.metrics
-        m["route.kernel.dtype_demotions"] = m.get(
-            "route.kernel.dtype_demotions", 0)
+        self._count("route.kernel.dtype_demotions", 0)
         m["route.kernel.plane_dtype"] = pd_req
+        # a host callback and per-iteration stats rows serialize the loop
+        # anyway (JAX router.py:1592-1598)
+        pipelined = bool(opts.pipeline) and not opts.stats_dir \
+            and not host_cb
+        book = None           # the last window's deferred bookkeeping
+        pl_tot_host = pl_ov_host = pl_exec = pl_stall = pl_serial = 0.0
+        t_prev_end = time.perf_counter()
         while it_done < opts.max_router_iterations:
             K = self._WINDOWS[min(widx, len(self._WINDOWS) - 1)]
             if host_cb or opts.stats_dir:
@@ -736,7 +1012,7 @@ class Router:
                 dispatch = [(dirty, None)]
 
             widen_d = (None if opts.sweep_budget_div <= 1
-                       else self._t(budget_full))
+                       else self._staging.put("widen", budget_full))
             shadow_now = (pd_req == "bf16" and guard != "off"
                           and not dtype_demoted and not dtype_validated)
             pd_main = ("bf16" if pd_req == "bf16" and guard == "off"
@@ -749,7 +1025,10 @@ class Router:
                                                 bb, crit_d)]
             t0 = time.time()
             rung_scals = []
+            plan_s = plan0_s = call_s = sync_block_s = 0.0
+            t_disp0 = None
             for ri, (sub, tile) in enumerate(dispatch):
+                tp0 = time.perf_counter()
                 sel_p, valid_p = self._plan_groups(
                     sub, colors, nsinks_np, cx_np, cy_np, B)
                 ws, hs = spans(sub)
@@ -775,7 +1054,7 @@ class Router:
                 if wok is not None and len(sub):
                     wok_np = budget_full.copy()
                     wok_np[sub[spans_full <= nsw]] = True
-                    wok = self._t(wok_np)
+                    wok = self._staging.put(f"wok{ri}", wok_np)
                 maxfan = int(nsinks_np[sub].max()) if len(sub) else 1
                 doubling = opts.sink_group == 0 and not precise
                 grp_w = 1 if precise and opts.sink_group == 0 else grp
@@ -786,7 +1065,8 @@ class Router:
                 # positions 2-7 and 10 are the window state (_SHADOW_SLOTS)
                 args = [self.pg, dev, occ, acc, paths, sink_delay,
                         all_reached, bb, source_d, sinks_d, crit_d,
-                        *planes_tbl, self._t(sel_p), self._t(valid_p),
+                        *planes_tbl, self._staging.put(f"sel{ri}", sel_p),
+                        self._staging.put(f"valid{ri}", valid_p),
                         full_bb, pres, opts.pres_fac_mult, opts.max_pres_fac,
                         opts.acc_fac if ri == 0 else 0.0, it_done,
                         it_done + 1 if force_all_next
@@ -794,14 +1074,45 @@ class Router:
                         K, nsw, L, waves, grp_w, doubling]
                 kw = dict(topk=min(4096, N), n_colors=5, crop_tile=tile,
                           bb0_all=bb0_d, widen_ok=wok, mesh=rm, **sta_kw)
+                tp1 = time.perf_counter()
+                plan_s += tp1 - tp0
+                if ri == 0:
+                    plan0_s, t_disp0 = tp1 - tp0, tp1
                 occ, acc, status, scal, dmax_hist = route_window_planes(
                     *args, plane_dtype=pd_main, **kw)
+                tp2 = time.perf_counter()
+                call_s += tp2 - tp1
                 if shadow_now:
                     shadow.append((args, kw))
-                rung_scals.append((scal.cpu().numpy(), tile is not None))
+                rung_scals.append((scal, tile is not None))
+                if not pipelined:
+                    # --sync: drain the rung before any further host work
+                    scal.cpu()
+                    sync_block_s += time.perf_counter() - tp2
+                    self._count("route.pipeline.blocking_syncs")
             force_all_next = False
-            status_np = status.cpu().numpy()
-            scal_np = rung_scals[-1][0]
+            # the window's packed summary, copied to the host without
+            # blocking; read at the stall below
+            summary = _HostCopy(
+                [status, torch.stack([s for s, _ in rung_scals])]
+                + ([dmax_hist] if analyzer is not None else []))
+
+            # the overlapped host stage: the previous window's bookkeeping
+            # while this one is in flight
+            book_s = 0.0
+            if book is not None:
+                tb0 = time.perf_counter()
+                self._book_window(book, result, mlog)
+                book = None
+                book_s = time.perf_counter() - tb0
+
+            # the stall: the window's one blocking point when pipelined
+            t_st0 = time.perf_counter()
+            host = summary.numpy()
+            t_st1 = time.perf_counter()
+            status_np, scal_all = host[0], host[1]
+            dmax_np = host[2] if analyzer is not None else None
+            scal_np = scal_all[-1]
             if shadow:
                 # the dtype guard: replay the window's rungs in bf16 on
                 # the window-entry copies and band-compare the summaries
@@ -810,9 +1121,42 @@ class Router:
                     dtype_validated = guard == "route"
                 else:
                     dtype_demoted = True
-                    m["route.kernel.dtype_demotions"] += 1
+                    self._count("route.kernel.dtype_demotions")
                     m["route.kernel.plane_dtype"] = "f32"
 
+            # pipeline accounting (JAX router.py:2232-2281)
+            stall_s = (t_st1 - t_st0) + sync_block_s
+            if pipelined:
+                self._count("route.pipeline.blocking_syncs")
+                exec_s = t_st1 - t_disp0
+                serial_s = t_disp0 - t_prev_end
+            else:
+                exec_s = call_s + sync_block_s
+                serial_s = (t_st1 - t_prev_end) - exec_s
+            t_prev_end = t_st1
+            tot_host_w = plan_s + book_s
+            ov_host_w = (plan_s - plan0_s) + book_s if pipelined else 0.0
+            pl_tot_host += tot_host_w
+            pl_ov_host += ov_host_w
+            pl_exec += exec_s
+            pl_stall += stall_s
+            pl_serial += serial_s
+            pfx = "route.pipeline."
+            m.update({
+                pfx + "host_plan_ms": round(tot_host_w * 1e3, 3),
+                pfx + "device_exec_ms": round(exec_s * 1e3, 3),
+                pfx + "stall_ms": round(stall_s * 1e3, 3),
+                pfx + "overlap_frac": round(
+                    pl_exec / max(pl_exec + pl_serial, 1e-9), 4),
+                pfx + "host_overlap_frac": round(
+                    pl_ov_host / max(pl_tot_host, 1e-9), 4),
+                pfx + "host_plan_ms_total": round(pl_tot_host * 1e3, 3),
+                pfx + "device_exec_ms_total": round(pl_exec * 1e3, 3),
+                pfx + "stall_ms_total": round(pl_stall * 1e3, 3),
+                pfx + "host_serial_ms_total": round(pl_serial * 1e3, 3)})
+
+            # control: everything below feeds the next dispatch, so it
+            # stays at the stall in both modes
             (rrm, colors, dev_wide, unreached, live_w,
              live_h) = unpack_window_status(status_np)
             n_over, over_total = int(scal_np[0]), int(scal_np[1])
@@ -824,37 +1168,31 @@ class Router:
             it_done += K
             # the last rung's crit-path delay after the window's last
             # iteration
-            cpd = (float(dmax_hist[K - 1]) if analyzer is not None
+            cpd = (float(dmax_np[K - 1]) if analyzer is not None
                    else float("nan"))
-
-            # bookkeeping: the work ledger and one stats row per window
-            w_steps = w_useful = w_crop = nexec = 0
-            for v, cropped in rung_scals:
-                result.total_net_routes += int(v[SCAL_NROUTES])
-                nexec += int(v[SCAL_NEXEC])
-                w_steps += int(v[SCAL_S_EXEC])
-                w_useful += int(v[SCAL_S_USEFUL])
-                if cropped:
-                    w_crop += int(v[SCAL_S_EXEC])
-            result.total_relax_steps += w_steps
-            result.total_relax_steps_useful += w_useful
-            result.total_relax_steps_wasted += w_steps - w_useful
-            result.total_relax_steps_cropped += w_crop
-            result.stats.append(RouteStats(
-                it_done, n_over, over_total, len(dirty), time.time() - t0,
-                relax_steps=w_steps, batches=nexec,
-                overuse_pct=100.0 * n_over / max(1, N), crit_path_delay=cpd))
+            # the window's bookkeeping, every field a captured value
+            book = dict(
+                widx=widx, it_done=it_done, K=K, n_over=n_over,
+                over_total=over_total, ndirty=len(dirty), pres=pres,
+                cpd=cpd, t_wall0=t0, t_wall1=time.time(),
+                rung_scals=[(v, c) for v, (_, c) in zip(scal_all,
+                                                         rung_scals)],
+                colors_max=int(np.max(colors) + 1
+                               if colors is not None and len(colors)
+                               else 0),
+                dirty_next=int(rrm.sum()), precise=precise,
+                sweep_boost=sweep_boost, widened=result.widened_nets,
+                dmax_hist=dmax_np,
+                occ_ref=self._occ_snapshot(occ, pipelined, mlog),
+                # one rung under a mesh: the last plan is the window's
+                halo=(None if rm is None else
+                      (scal_np, sel_p.shape[1] if len(dirty) else 1,
+                       pd_main)))
             if analyzer is not None and cpd == cpd:
                 analyzer.crit_path_delay = cpd
-            if mlog.enabled:
-                self._log_window(mlog, widx, it_done, K, len(dirty), nexec,
-                                 w_steps, n_over, over_total, pres,
-                                 result.widened_nets, occ, colors, rrm,
-                                 precise, sweep_boost, cpd, dmax_hist)
-            if rm is not None:
-                # one rung under a mesh: the last plan is the window's
-                self._book_halo(scal_np, sel_p.shape[1] if len(dirty) else 1,
-                                pd_main)
+            if not pipelined:
+                self._book_window(book, result, mlog)
+                book = None
             pres = min(opts.max_pres_fac, pres * opts.pres_fac_mult ** K)
             if opts.stats_dir and opts.dump_routes:
                 _dump_routes(opts.stats_dir, it_done, paths.cpu().numpy(), N)
@@ -929,15 +1267,68 @@ class Router:
                 new_crit = np.minimum(np.asarray(
                     timing_cb(result), dtype=np.float32), 0.99)
                 # unchanged criticalities keep the tensor on the device
-                if not np.array_equal(new_crit, crit):
+                if np.array_equal(new_crit, crit):
+                    self._count("route.pipeline.crit_upload_skips")
+                else:
                     crit = new_crit
                     crit_d = torch.tensor(crit, device=self.device)
+
+            if next_ckpt is not None and it_done >= next_ckpt:
+                # the window-boundary snapshot (JAX router.py:2448-2494):
+                # everything a resume needs, under any device or mesh
+                tc0 = time.perf_counter()
+                a = [_host_snapshot(t) for t in (
+                    occ, acc, paths, sink_delay, all_reached, bb, crit_d)]
+                fin_ck = None
+                if fin_save is not None:
+                    # the finishing pass is live: carry its legal state
+                    fin_ck = tuple(_host_snapshot(t)
+                                   for t in fin_save[:5]) + (
+                        int(fin_save[5]),)
+                result.checkpoint = RouteCheckpoint(
+                    *a, it_done=it_done, pres=pres, driver=dict(
+                        widx=widx, dirty=dirty.copy(),
+                        colors=(None if colors is None
+                                else np.asarray(colors).copy()),
+                        wide=wide.copy(), bb_full=bb_full.copy(),
+                        best_over=best_over, stall_windows=stall_windows,
+                        sweep_boost=sweep_boost, precise=precise,
+                        full_reroute_done=full_reroute_done,
+                        force_all_next=force_all_next,
+                        finish_done=finish_done,
+                        budget_full=budget_full.copy(),
+                        widened_nets=result.widened_nets,
+                        crop_full=crop_full),
+                    fin_save=fin_ck)
+                next_ckpt = it_done + opts.checkpoint_every
+                mlog.log("elastic", event="checkpoint", it_done=it_done,
+                         pres=round(pres, 4))
+                self._count("route.elastic.checkpoints")
+                self._count("route.elastic.checkpoint_ms_total", round(
+                    (time.perf_counter() - tc0) * 1e3, 3))
+                if yield_at is not None and it_done >= yield_at:
+                    # the slice's yield: the checkpoint is the resume
+                    # point
+                    sliced_yield = True
+                    result.iterations = it_done
+                    break
         else:
             result.iterations = opts.max_router_iterations
 
-        if not result.success and fin_save is not None:
+        if book is not None:
+            # the last window's bookkeeping, after the device is idle
+            tb0 = time.perf_counter()
+            self._book_window(book, result, mlog)
+            pl_tot_host += time.perf_counter() - tb0
+            m["route.pipeline.host_overlap_frac"] = round(
+                pl_ov_host / max(pl_tot_host, 1e-9), 4)
+            m["route.pipeline.host_plan_ms_total"] = round(
+                pl_tot_host * 1e3, 3)
+
+        if not result.success and fin_save is not None and not sliced_yield:
             # the finishing pass could not re-legalize within budget:
-            # restore the pre-finish legal state
+            # restore the pre-finish legal state (a slice's yield keeps
+            # the in-finish state: its checkpoint carries fin_save)
             occ, paths, sink_delay, all_reached, bb, fin_it = fin_save
             result.success = True
             result.iterations = fin_it

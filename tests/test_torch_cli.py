@@ -38,6 +38,7 @@ GOLDEN_XML = os.path.join(REPO, "tests", "golden", "k6_frac_n10_mem.xml")
 CASES = {
     "timing": BASE + ["--draw", "draw", "--power",
                       "--gen_postsynthesis_netlist"],
+    "timing_sync": BASE + ["--sync"],
     "no_timing": BASE + ["--no_timing", "--sync"],
     "place_resume": BASE + ["--place_file", "../timing/out/synth.place"],
     "net_resume": BASE + ["--net_file", "../timing/out/synth.net",
@@ -207,6 +208,16 @@ def test_cli_resumes_give_the_same_route(port_dir):
     for f in ("synth.net", "synth.place"):
         assert _bytes(port_dir, "net_resume", "out", f) == _bytes(
             port_dir, "timing", "out", f)
+
+
+def test_cli_sync_matches_jax_default(jax_dir, tmp_path):
+    """--sync (the synchronous driver) writes the .net, .place and .route
+    bytes of the JAX CLI's default, pipelined run."""
+    d = _port_runs(tmp_path, ["timing_sync"])
+    assert _text(d, "timing_sync", "rc.txt") == "0"
+    for f in ("synth.net", "synth.place", "synth.route"):
+        assert _bytes(d, "timing_sync", "out", f) == _bytes(
+            jax_dir, "timing", "out", f), f
 
 
 def test_cli_views_and_post_synthesis_match_jax(jax_dir, port_dir):

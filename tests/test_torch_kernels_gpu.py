@@ -788,6 +788,60 @@ def test_router_bf16_cuda_matches_cpu(cuda, fields):
     check_route(f.rr, f.term, rg.paths, occ=rg.occ)
 
 
+# the 40-LUT flow of tests/test_torch_elastic.py
+ELASTIC_FLOW = dict(num_luts=40, num_inputs=8, num_outputs=8,
+                    chan_width=12, seed=3)
+
+
+def _same_route(a, b):
+    assert (a.success, a.iterations, a.wirelength) == (
+        b.success, b.iterations, b.wirelength)
+    for k in ("paths", "occ", "sink_delay"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    assert a.congestion == b.congestion
+
+
+def test_router_pipelined_cuda_matches_sync(cuda):
+    """On the card the pipelined route (pinned summaries, one blocking
+    read a window) equals the synchronous one and the CPU route: state,
+    stats rows and congestion records."""
+    f = synth_flow(**ELASTIC_FLOW)
+    res = {}
+    for dev, p in (("cpu", True), (cuda, True), (cuda, False)):
+        r = Router(f.rr, RouterOpts(batch_size=32, pipeline=p), device=dev)
+        res[str(dev), p] = r.route(f.term)
+        if dev is cuda and p:
+            assert r.metrics["route.pipeline.blocking_syncs"] == len(
+                res[str(dev), p].stats)
+    want = res["cpu", True]
+    assert want.success and want.congestion
+    for k in ((str(cuda), True), (str(cuda), False)):
+        _same_route(res[k], want)
+        assert [(s.iteration, s.relax_steps) for s in res[k].stats] == \
+            [(s.iteration, s.relax_steps) for s in want.stats]
+
+
+def test_router_sliced_resume_cuda_matches_cpu(cuda):
+    """Sliced on the card (slice_iterations=2) and resumed until success,
+    the route equals the CPU's unsliced route."""
+    f = synth_flow(**ELASTIC_FLOW)
+    want = Router(f.rr, RouterOpts(batch_size=32), device="cpu").route(
+        f.term)
+    r = Router(f.rr, RouterOpts(batch_size=32, slice_iterations=2),
+               device=cuda)
+    got = r.route(f.term)
+    slices = 1
+    while not got.success:
+        got = r.route(f.term, resume=got.checkpoint)
+        slices += 1
+    assert slices > 2
+    for k in ("iterations", "wirelength"):
+        assert getattr(got, k) == getattr(want, k), k
+    for k in ("paths", "occ", "sink_delay"):
+        assert np.array_equal(getattr(got, k), getattr(want, k)), k
+    check_route(f.rr, f.term, got.paths, occ=got.occ)
+
+
 # ---------------------------------------------------------------- placer
 
 def test_prng_cuda_matches_cpu(cuda):

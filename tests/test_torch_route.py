@@ -93,13 +93,11 @@ def test_router_opts_defaults_match_jax():
     jd = {f.name: f.default for f in dataclasses.fields(JR.RouterOpts)}
     td = {f.name: f.default for f in dataclasses.fields(TR.RouterOpts)}
     assert set(jd) == set(td)
-    jd["pipeline"] = False      # the port's driver is the synchronous one
     assert jd == td
 
 
 @pytest.mark.parametrize("name,value", [
-    ("pipeline", True), ("fused_dispatch", True),
-    ("mesh_shards", 2), ("checkpoint_every", 2), ("slice_iterations", 1),
+    ("fused_dispatch", True), ("mesh_shards", 2),
     ("stats_dir", "x"), ("program", "ell"), ("resil", object()),
     ("program_library_dir", "x"), ("compile_cache_dir", "x")])
 def test_unported_options_raise(name, value, tmp_path):
@@ -165,14 +163,6 @@ def _check_stats_dir(d):
         elif rel.name in ("iter_stats.txt", "final_stats.txt"):
             continue
         assert body == want, rel
-
-
-def test_resume_raises():
-    """Checkpoint resume is not ported yet (ROADMAP.md A6)."""
-    tf = synth_flow(**FIXTURE)
-    r = TR.Router(tf.rr, TR.RouterOpts(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        r.route(tf.term, resume=object())
 
 
 @pytest.mark.parametrize("nx,ny,min_count", [(25, 25, 8), (9, 12, 1),
