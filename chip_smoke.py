@@ -101,8 +101,8 @@ Phases, one line each (any failure exits non-zero with no result line):
                  at W=40, timing-driven place (256 moves per step) and
                  route, --power, --gen_postsynthesis_netlist; the same
                  BLIF on the golden VTR7 XML arch (length-4 unidir
-                 segments, the file's own timing; --binary_search, the
-                 file's W=24 being too narrow for it) and on an XML
+                 segments, the file's own timing; at W=96, the file's
+                 W=24 being too narrow for it and W_min 85) and on an XML
                  arch whose cluster has modes (frac_arch's pb tree:
                  multi-mode packing, W=32); the .place resume of
                  the first run (the same .route bytes); --binary_search
@@ -132,6 +132,22 @@ Phases, one line each (any failure exits non-zero with no result line):
                  under checkpoint_every=1 (the finishing pass's) resumed
                  with no budget left: legal; and the cli phase's first
                  run once more with --sync: the same .route bytes
+ 17. ell       — the ELL program (RouterOpts(program="ell"): the
+                 gather-based Bellman-Ford search, plain PyTorch on the
+                 card, no hand-written kernel): the bench routed windowed
+                 (the default) and global (windowed=False) on the card
+                 and on the CPU, legal, paths, occupancy, sink delays,
+                 stats rows (relax steps per iteration), windowed and
+                 widened nets equal, and wirelength / iterations equal
+                 to the JAX package's (624 / 9 and 614 / 11); the bench
+                 timing-driven through flow.run_route (the analyzer as
+                 the per-iteration timing_cb) on the card equal to the
+                 CPU route, crit path included; the native-placed scale
+                 config routed windowed once on the card: legal, its
+                 seconds, iterations, wirelength, windowed / widened
+                 nets and relax steps beside the card's name and power
+                 limit; its PyTorch launches per route and device busy
+                 share from one profiled warm route in phase 13
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -1882,6 +1898,9 @@ runpy.run_module("parallel_eda_tpu_torch", run_name="__main__",
 CLI_BASE = ["--luts", "25", "--arch", "minimal", "--route_chan_width", "12",
             "--batch_size", "16", "--moves_per_step", "16"]
 GOLDEN_XML = os.path.join("tests", "golden", "k6_frac_n10_mem.xml")
+# the golden XML's route width for mult16x16: above the W_min of 85
+# that --binary_search found on the H100
+GOLDEN_W = 96
 # an arch file whose cluster has modes: frac_arch's pb tree (pb=) with IO
 # pads, length-1 bidir wires and Fc, as tests/test_pb_pack.py writes it
 FRAC_XML = """<architecture>
@@ -2094,15 +2113,15 @@ def phase_cli(rows):
     # ---- 2. the same BLIF on the golden VTR7 XML arch
     xml = os.path.abspath(GOLDEN_XML)
     # the file's own width (24) leaves mult16x16 unroutable on the H100
-    # (646 overused nodes after 50 iterations; 39 at W=60), so the run
-    # searches for the least width that routes
+    # (646 overused nodes after 50 iterations; 39 at W=60); --binary_search
+    # found W_min 85 there (78 s of process), so the run routes at
+    # GOLDEN_W above it (the binary search runs at the bench size below)
+    gw = GOLDEN_W
     out, c, dt = _cli("golden_xml", work, [
         "../mult16x16.blif", "--arch", xml, "--out_dir", "out",
-        "--binary_search"])
+        "--route_chan_width", str(gw)])
     runs.append(c)
     _cli_stages("golden_xml", out, c, dt)
-    gw = int(re.search(r"binary search: W_min = (\d+)", out).group(1))
-    say("cli", f"golden_xml: W_min = {gw}")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         garch = read_arch_xml(xml)
@@ -2371,6 +2390,123 @@ def phase_elastic(bench, bench_res, scale):
     return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
 
 
+# the ELL program's bench routes (RouterOpts(batch_size=64,
+# program="ell")): wirelength and iterations of the JAX package's Router
+# on XLA:CPU, windowed (the default) and global (windowed=False)
+ELL_BENCH = {True: (624, 9), False: (614, 11)}
+
+
+def _ell_same(tag, got, want):
+    """``got`` equals ``want`` as _same_route holds a whole route, and
+    in sink delays and windowed / widened nets."""
+    _same_route(tag, got, want)
+    diff = [k for k, same in (
+        ("sink_delay", np.array_equal(got.sink_delay, want.sink_delay)),
+        ("windowed_nets", got.windowed_nets == want.windowed_nets),
+        ("widened_nets", got.widened_nets == want.widened_nets))
+        if not same]
+    if diff:
+        raise AssertionError(f"{tag}: {diff} differ")
+
+
+def _ell_route(tag, flow, opts, device):
+    """Route ``flow`` with the ELL program on ``device``, legal or raise.
+    Returns (result, hand-written kernel launches, seconds, router)."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.check import check_route
+    from parallel_eda_tpu_torch.route.router import Router
+
+    router = Router(flow.rr, opts, device=device)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = router.route(flow.term)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = {**pk.launch_counts(), **sk.launch_counts()}
+    if not res.success:
+        raise AssertionError(f"{tag}: route did not converge")
+    check_route(flow.rr, flow.term, res.paths, occ=res.occ)
+    say(tag, f"{device}: legal: wirelength {res.wirelength}, "
+             f"{res.iterations} iterations, {dt:.2f} s route, "
+             f"{res.total_net_routes} net routes, windowed nets "
+             f"{res.windowed_nets}, widened {res.widened_nets}, relax "
+             f"steps {res.total_relax_steps} (per iteration "
+             f"{[s.relax_steps for s in res.stats]}), {len(flow.term.source)}"
+             f" nets, grid {flow.grid.nx}x{flow.grid.ny}, "
+             f"{flow.rr.num_nodes} rr nodes, in-degree "
+             f"{router.dev.max_in_degree}")
+    return res, counts, dt, router
+
+
+def _ell_bench(bench):
+    """The ELL program's bench routes on the card against the CPU and the
+    JAX numbers, windowed and global, and timing-driven."""
+    from parallel_eda_tpu_torch.flow import run_route, synth_flow
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+
+    for windowed in (True, False):
+        tag = "ell_bench" if windowed else "ell_bench_global"
+        opts = RouterOpts(batch_size=64, program="ell", windowed=windowed)
+        card, c, dt, _ = _ell_route(tag, bench, opts, "cuda")
+        cpu, _, dt_cpu, _ = _ell_route(tag, bench, opts, "cpu")
+        _ell_same(tag, card, cpu)
+        if (card.wirelength, card.iterations) != ELL_BENCH[windowed]:
+            raise AssertionError(
+                f"{tag}: expected wirelength {ELL_BENCH[windowed][0]} in "
+                f"{ELL_BENCH[windowed][1]} iterations (JAX), got "
+                f"{card.wirelength} in {card.iterations}")
+        if any(c.values()):
+            raise AssertionError(f"{tag}: a planes kernel ran on the ELL "
+                                 f"route: {c}")
+        say(tag, f"card route = CPU route (paths, occupancy, sink delays, "
+                 f"stats rows, windowed/widened nets) = JAX's "
+                 f"{ELL_BENCH[windowed]}; {dt:.2f} s card, {dt_cpu:.2f} s "
+                 "CPU")
+
+    # timing-driven: run_route's analyzer, the host timing_cb per iteration
+    opts = RouterOpts(batch_size=64, program="ell")
+    flows = {}
+    for d in ("cuda", "cpu"):
+        f = flows[d] = synth_flow(**BENCH_CFG)
+        run_route(f, opts, timing_driven=True, device=d)
+    _ell_same("ell_timing", flows["cuda"].route, flows["cpu"].route)
+    cpd = (flows["cuda"].crit_path_delay, flows["cpu"].crit_path_delay)
+    if cpd[0] != cpd[1]:
+        raise AssertionError(f"ell_timing: crit path {cpd[0]!r} on the "
+                             f"card, {cpd[1]!r} on the CPU")
+    r = flows["cuda"].route
+    say("ell_timing", f"run_route timing-driven: card = CPU route, "
+                      f"wirelength {r.wirelength}, {r.iterations} "
+                      f"iterations, crit path {cpd[0]!r} s, "
+                      f"{flows['cuda'].times['route']:.2f} s card, "
+                      f"{flows['cpu'].times['route']:.2f} s CPU")
+
+
+def phase_ell(bench, scale, smi, warm):
+    """The ELL program (docstring, phase 17).  ``warm`` gains the scale
+    route for the profile phase."""
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+
+    _ell_bench(bench)
+    # the scale config at full size, windowed, once on the card
+    opts = RouterOpts(batch_size=64, program="ell")
+    res, c, dt, router = _ell_route("ell_scale", scale, opts, "cuda")
+    if any(c.values()):
+        raise AssertionError(f"ell_scale: a planes kernel ran: {c}")
+    say("ell_scale", f"{dt:.2f} s route, {res.iterations} iterations, "
+                     f"wirelength {res.wirelength}, windowed nets "
+                     f"{res.windowed_nets}, widened {res.widened_nets}, "
+                     f"relax steps {res.total_relax_steps}, net routes "
+                     f"{res.total_net_routes} on {smi}")
+    # launches per route and busy share: one profiled warm route (phase 13)
+    warm["scale_ell"] = (functools.partial(router.route, scale.term), dt)
+
+
 def main(argv) -> int:
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -2474,6 +2610,7 @@ def main(argv) -> int:
     c_place, place_later = phase_place(BENCH_CFG, SCALE_CFG, scale_native)
     c_cli = phase_cli(rows)
     c_elastic = phase_elastic(bench, res, scale)
+    phase_ell(bench, scale, smi, warm)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
         c_place + [c_cli, c_elastic]

@@ -73,8 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--astar_fac", type=float, default=1.0,
                    help="A* pruning aggressiveness in the bb-windowed "
                    "search (VPR --astar_fac; 1.0 admissible, >1 faster/"
-                   "riskier; no effect on the planes route, the only "
-                   "one the port has)")
+                   "riskier): RouterOpts.astar_fac, read by the ELL "
+                   "program's A* gate; no effect on full-device searches "
+                   "or the planes route")
     p.add_argument("--batch_size", type=int, default=64,
                    help="nets routed concurrently (replaces --num_threads)")
     p.add_argument("--sink_group", type=int, default=1,

@@ -33,7 +33,8 @@ import torch
 
 from ..rr.graph import CHANX, CHANY, IPIN, OPIN, RRGraph
 from .device_graph import DeviceRRGraph
-from .search import JITTER_EPS, congestion_cost, usage_from_paths
+from .search import (_col, congestion_cost, congestion_jitter,
+                     usage_from_paths)
 
 INF = float("inf")
 _I32 = torch.int32
@@ -1023,13 +1024,6 @@ def _as_row_mesh(mesh):
 # ---------------------------------------------------------------------------
 
 
-def _col(a, fill):
-    """Append one trash/pad column along the last axis."""
-    pad = torch.full(a.shape[:-1] + (1,), fill, dtype=a.dtype,
-                     device=a.device)
-    return torch.cat([a, pad], dim=-1)
-
-
 def _take(a, idx):
     """take_along_axis on axis 1 (idx of any integer dtype)."""
     return torch.gather(a, 1, idx.long())
@@ -1121,12 +1115,8 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
     occ_view = occ[None, :] - old_usage.to(_I32)
 
     cong = congestion_cost(dev, occ_view, acc, pres_fac)      # [B, N]
-    # deterministic per-(net, node) jitter, the JAX package's int32 hash;
-    # only its low 16 bits are read, so the int64 product (no wrap) gives
-    # the same bits as the int32 wraparound
-    h = (sel[:, None] * (2654435761 & 0x7FFFFFFF)
-         + torch.arange(N, device=device)[None, :] * 40503)
-    jitter = 1.0 + JITTER_EPS * ((h & 0xFFFF).to(_F32) / 65536.0)
+    # deterministic per-(net, node) jitter, the JAX package's hash
+    jitter = congestion_jitter(sel, torch.arange(N, device=device))
     inside = ((dev.xhigh[None, :] >= b_bb[:, 0, None])
               & (dev.xlow[None, :] <= b_bb[:, 1, None])
               & (dev.yhigh[None, :] >= b_bb[:, 2, None])

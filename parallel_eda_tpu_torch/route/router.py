@@ -32,6 +32,16 @@ holds the per-window top-k overused nodes (``congestion_topk``).
 Options the port does not implement yet raise NotImplementedError
 naming their ROADMAP.md item when set to a non-default value.
 
+``program="ell"`` is the JAX package's any-graph fallback: the
+gather-based Bellman-Ford search of route/search.py, one batch at a
+time against the whole-circuit state, with per-net bounding-box windows
+and their A* gate (``windowed``, ``window_max_frac``,
+``window_max_bytes``, ``astar_fac``), the conflict-colored commit
+schedule and one summary read per iteration (``_route_ell``).  The
+pipeline, checkpoints, slicing and congestion records are the planes
+program's, as in JAX.  ``program="planes_pallas"`` is the planes route:
+the port's relaxation kernels already are its hand-written kernels.
+
 Reduced-precision planes (``plane_dtype="bf16"``) follow the JAX
 package's ``dtype_guard``: "off" commits the bf16 relaxation; "window"
 commits the f32 route and replays every window in bf16 on copies of the
@@ -64,8 +74,11 @@ import torch
 from ..device import resolve_device
 from ..rr.graph import RRGraph
 from ..rr.terminals import NetTerminals
-from .device_graph import DeviceRRGraph, to_device
-from .search import wirelength_on_device
+from .device_graph import DeviceRRGraph, to_device, wire_cost_floor
+from .search import (WindowTables, build_windows, conflict_subset,
+                     iteration_summary, route_batch_resident,
+                     route_batch_resident_win, window_sizes,
+                     wirelength_on_device)
 
 
 def normalize_crop(value) -> str:
@@ -95,11 +108,11 @@ class RouterOpts:
     acc_fac: float = 1.0
     bb_factor: int = 3
     batch_size: int = 64          # nets routed concurrently
-    program: str = "planes"       # "ell" is not ported yet
+    program: str = "planes"       # "planes" | "planes_pallas" | "ell"
     sink_group: int = 0           # 0 = all sinks per wave (doubling)
     max_pres_fac: float = 1000.0
     incremental_after: int = 1
-    windowed: bool = True         # ELL-program knob (inert for planes)
+    windowed: bool = True         # ELL program: bb windows (+ A* gate)
     window_max_frac: float = 0.7
     window_max_bytes: int = 4 << 30
     astar_fac: float = 1.0
@@ -128,7 +141,6 @@ _NOT_PORTED = {
     "program_library_dir": (None, "A14 (serve stack / kernel cache)"),
     "compile_cache_dir": (None, "A14 (serve stack / kernel cache)"),
     "fused_dispatch": (False, "A12 (fused ragged dispatch)"),
-    "program": ("planes", "A11 (ELL program)"),
 }
 
 
@@ -477,6 +489,34 @@ def _order_and_chunk(g, nsinks, cx, cy, B):
     return [ordered[lo:lo + B] for lo in range(0, len(ordered), B)]
 
 
+def _color_schedule(idx: np.ndarray, conflict: np.ndarray):
+    """Greedy-color the net conflict graph (conflict [I, I] bool from
+    search.conflict_subset); each color class becomes its own commit
+    group (custom_vertex_coloring …cxx:3323)."""
+    n = len(idx)
+    color = np.zeros(n, dtype=np.int64)
+    for i in range(1, n):
+        taken = np.unique(color[:i][conflict[i, :i]])
+        c = 0
+        for t in taken:          # taken is sorted: first gap wins
+            if t != c:
+                break
+            c += 1
+        color[i] = c
+    ncolors = int(color.max()) + 1
+    if ncolors == 1:
+        return [idx]
+    return [idx[color == c] for c in range(ncolors)]
+
+
+def _pad_to(a: np.ndarray, B: int, fill) -> np.ndarray:
+    n = a.shape[0]
+    if n == B:
+        return a
+    pad = np.full((B - n,) + a.shape[1:], fill, dtype=a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
 def _pow2_at_least(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
@@ -592,18 +632,29 @@ class Router:
         from .lookahead import build_lookahead
         from .planes import build_planes
 
-        la = build_lookahead(rr)
+        self._la_host = la = build_lookahead(rr)
         self._lmin_seg = tuple(
             int(la.len_same[la.axis == a].min())
             if (la.axis == a).any() else 1 for a in (0, 1))
-        self.dev: DeviceRRGraph = to_device(rr, self.device)
+        # the program switch (JAX router.py:722-758): "planes" and
+        # "planes_pallas" run the planes route (the port's relaxation
+        # kernels are the hand-written form of both); anything else is
+        # the ELL program, the only one that reads the ELL tables
+        program = self.opts.program
+        planes = program in ("planes", "planes_pallas")
+        self.dev: DeviceRRGraph = to_device(rr, self.device, la=la,
+                                            ell=not planes)
         nx, ny = rr.grid.nx, rr.grid.ny
         # path-length bound: a bb-confined path can wind, give slack
         self.max_len = 4 * (nx + ny) + 64
-        if rr.wire_switch_of_track is None:
-            raise ValueError("program='planes' needs a graph built by "
-                             "rr.graph.build_rr_graph (track switch map)")
-        self.pg = build_planes(rr, self.device)
+        self.pg = None
+        if planes:
+            if rr.wire_switch_of_track is None:
+                raise ValueError(
+                    f"program={program!r} needs a graph built by "
+                    f"rr.graph.build_rr_graph (track switch map); use "
+                    f"program='ell' for foreign graphs")
+            self.pg = build_planes(rr, self.device)
         self._pt_key = None
         self._cap_np = None
         # lag 1 ("ppermute") on every device.  Lag 2 ("pallas_halo")
@@ -617,6 +668,17 @@ class Router:
         self.metrics: dict = {}
         self._staging = _PlanStaging(self.device, self.metrics)
         if self.opts.mesh_shards > 1:
+            if program == "planes_pallas":
+                raise ValueError(
+                    "program='planes_pallas' does not support "
+                    "mesh_shards > 1 (the packed kernel is "
+                    "single-device VMEM-resident); use "
+                    "program='planes' — the sharded pallas_halo rung "
+                    "engages on TPU backends")
+            if self.pg is None:
+                raise ValueError(
+                    "mesh_shards > 1 needs a planes program "
+                    "(program='planes')")
             from .planes_shard import make_row_mesh
             self.row_mesh = make_row_mesh(self.opts.mesh_shards, "ppermute",
                                           self.device)
@@ -714,6 +776,16 @@ class Router:
             return None
         return _HostCopy([occ.clone() if pipelined else occ])
 
+    def _lb_scale(self):
+        """[4] scale vector for the windowed A* gate (JAX router.py
+        :1311): the flat (congestion, delay) per-tile floors x astar_fac,
+        astar_fac itself (applied on the device to the per-cost-index
+        delay bound) and the IPIN+SINK delay tail."""
+        min_cong, min_delay, _ = wire_cost_floor(self.rr)
+        af = self.opts.astar_fac
+        return (min_cong * af, min_delay * af, af,
+                self._la_host.term_delay)
+
     def _planes_terminals(self, term):
         """Terminal tables for ``term`` as device tensors, cached on
         id(term) across route() calls."""
@@ -782,9 +854,17 @@ class Router:
         criticalities replace ``crit``."""
         opts = self.opts
         _check_ported(opts)
-        _check_plane_dtype(opts)
         for k in _PIPELINE_GAUGES:
             self.metrics[k] = 0.0
+        if self.pg is None:
+            # the ELL program: the analyzer degrades to the per-iteration
+            # host callback (JAX router.py:2702-2705)
+            if analyzer is not None and timing_cb is None:
+                timing_cb = analyzer.timing_cb
+            if resume is not None:
+                raise ValueError("resume is supported by the planes program")
+            return self._route_ell(term, crit, timing_cb)
+        _check_plane_dtype(opts)
         crop = normalize_crop(opts.crop)
         rr = self.rr
         R, Smax = term.sinks.shape
@@ -836,6 +916,254 @@ class Router:
                 term, crit, timing_cb, analyzer, occ, acc, paths,
                 sink_delay, all_reached, bb, full_bb, result, B, crop, mlog,
                 resume)
+        if opts.stats_dir:
+            import os
+
+            from .report import write_route_report
+
+            write_stats_files(opts.stats_dir, result)
+            write_route_report(
+                os.path.join(opts.stats_dir, "route_report.txt"),
+                rr, result.occ, R)
+        return result
+
+    def _ell_windows(self, bb, R: int):
+        """The windowed search's setup (JAX router.py:2803-2841): the
+        nets whose boxes hold under ``window_max_frac`` of the nodes get
+        window tables (compacted rows, built in chunks of nets); the
+        others are born wide and take the global program.  Returns
+        (win, win_row, wide, lb_scale), win None when the tables would
+        exceed ``window_max_bytes`` or no net is small enough."""
+        opts, dev = self.opts, self.dev
+        N = dev.num_nodes
+        wide = np.zeros(R, dtype=bool)
+        # chunk over nets: the [chunk, N] membership intermediate
+        chunk = max(1, int(2e8) // max(1, N))
+        sizes = np.concatenate(
+            [window_sizes(dev, bb[lo:lo + chunk]).cpu().numpy()
+             for lo in range(0, R, chunk)])
+        small = sizes < opts.window_max_frac * N
+        small_idx = np.where(small)[0]
+        nbox = int(_pow2_at_least(
+            max(1, int(sizes[small].max())))) if small.any() else N
+        tbl_bytes = len(small_idx) * nbox * dev.max_in_degree * 9
+        if not small.any() or tbl_bytes > opts.window_max_bytes:
+            return None, None, wide, None
+        bb_small = bb[self._t(small_idx)]
+        win = WindowTables.cat([
+            build_windows(dev, bb_small[lo:lo + chunk], nbox)
+            for lo in range(0, len(small_idx), chunk)])
+        win_row = np.full(R, 0, dtype=np.int32)
+        win_row[small_idx] = np.arange(len(small_idx), dtype=np.int32)
+        lb_scale = torch.tensor(self._lb_scale(), dtype=torch.float32,
+                                device=self.device)
+        return win, win_row, ~small, lb_scale
+
+    def _route_ell(self, term: NetTerminals, crit, timing_cb) -> RouteResult:
+        """The ELL program's route (JAX router.py:2714-3054): every
+        iteration rips up and reroutes the nets that need it, batch by
+        batch (conflict colors, then windowed and wide nets apart, each
+        through _order_and_chunk), each batch one route_batch_resident
+        or route_batch_resident_win against the whole-circuit state, then
+        ONE summary read (reroute mask, reached flags, overuse, the
+        relax-step counter kept on the device).  Unreached nets widen to
+        the whole device, the path store grows to the full budget, and a
+        plateau widens the stuck nets; ``timing_cb`` runs after every
+        iteration.  The pipeline, checkpoints and congestion records
+        belong to the planes program."""
+        opts = self.opts
+        normalize_crop(opts.crop)
+        rr, dev = self.rr, self.dev
+        R, Smax = term.sinks.shape
+        N = rr.num_nodes
+        B = min(opts.batch_size, max(1, R))
+        if crit is None:
+            crit = np.zeros((R, Smax), dtype=np.float32)
+        else:
+            crit = np.minimum(np.asarray(crit, dtype=np.float32), 0.99)
+        occ = torch.zeros(N, dtype=torch.int32, device=self.device)
+        acc = torch.ones(N, dtype=torch.float32, device=self.device)
+        span0 = (int(((term.bb_xmax - term.bb_xmin)
+                      + (term.bb_ymax - term.bb_ymin)).max()) if R else 8)
+        L_e = path_budget(span0, self.max_len)
+        L_cap = self.max_len
+        paths = torch.full((R, Smax, L_e), N, dtype=torch.int32,
+                           device=self.device)
+        sink_delay = torch.full((R, Smax), float("inf"),
+                                dtype=torch.float32, device=self.device)
+        all_reached = torch.zeros(R, dtype=torch.bool, device=self.device)
+        bb = self._t(np.stack([term.bb_xmin, term.bb_xmax, term.bb_ymin,
+                               term.bb_ymax], axis=1).astype(np.int32))
+        full_bb = self._t(np.array([0, rr.grid.nx + 1, 0, rr.grid.ny + 1],
+                                   dtype=np.int32))
+        source_d = self._t(term.source.astype(np.int32))
+        sinks_d = self._t(term.sinks.astype(np.int32))
+        nsinks_np = term.num_sinks.astype(np.int64)
+        cx_np = ((term.bb_xmin + term.bb_xmax) // 2).astype(np.int64)
+        cy_np = ((term.bb_ymin + term.bb_ymax) // 2).astype(np.int64)
+
+        win = win_row = lb_scale = None
+        wide = np.zeros(R, dtype=bool)   # nets routed in global space
+        if opts.windowed:
+            win, win_row, wide, lb_scale = self._ell_windows(bb, R)
+        bb_full = np.zeros(R, dtype=bool)  # nets already on full-device bb
+
+        pres_fac = opts.initial_pres_fac
+        result = RouteResult(False, 0, None, None, None, 0)
+        if win is not None:
+            result.windowed_nets = int((~wide).sum())
+        n_over = -1
+        crit_d = None                    # uploaded once; refreshed on cb
+        stall = 0                        # phase-two plateau counter
+        best_over = 1 << 30
+        rrm = np.ones(R, dtype=bool)
+        steps_dev = torch.zeros((), dtype=torch.int32, device=self.device)
+        prev_steps = 0
+        # one static wave cap for every batch (the wave loop ends once
+        # every sink is done)
+        waves = max(1, Smax)
+        grp = Smax if opts.sink_group == 0 else opts.sink_group
+        grp = max(1, min(grp, Smax))
+
+        for it in range(1, opts.max_router_iterations + 1):
+            t0 = time.time()
+            if it <= opts.incremental_after:
+                idx = np.arange(R)
+            else:
+                idx = np.where(rrm)[0]
+            if it > 1 and len(idx) > 1 and n_over > 0:
+                I = _pow2_at_least(len(idx))
+                # top_k's k is at most the node count
+                K = min(_pow2_at_least(min(max(n_over, 1), 4096)), N)
+                idx_pad = _pad_to(idx.astype(np.int32), I, -1)
+                conflict = conflict_subset(dev, occ, paths,
+                                           self._t(idx_pad), K).cpu().numpy()
+                groups = _color_schedule(idx,
+                                         conflict[:len(idx), :len(idx)])
+            else:
+                groups = [idx]
+            # fanout classes, spatial round-robin inside a class; nets on
+            # a full-device box cannot use the windows and go through the
+            # global program in batches of their own
+            batches = []
+            for g in groups:
+                parts = ((g[~wide[g]], g[wide[g]]) if win is not None
+                         else (g,))
+                for gp in parts:
+                    batches.extend(_order_and_chunk(
+                        gp, nsinks_np, cx_np, cy_np, B))
+            if crit_d is None:
+                crit_d = self._t(crit)
+            # the f32 present factor (jnp.float32(pres_fac))
+            pres_t = float(np.float32(pres_fac))
+            for sel in batches:
+                if len(sel) == 0:
+                    continue
+                nsel = len(sel)
+                b_valid = np.zeros(B, dtype=bool)
+                b_valid[:nsel] = True
+                sel_d = self._t(_pad_to(sel.astype(np.int32), B, 0))
+                valid_d = self._t(b_valid)
+                if win is not None and not wide[sel[0]]:
+                    selw_d = self._t(_pad_to(win_row[sel].astype(np.int32),
+                                             B, 0))
+                    (paths, sink_delay, all_reached, occ,
+                     steps) = route_batch_resident_win(
+                        dev, win, occ, acc, pres_t, paths, sink_delay,
+                        all_reached, source_d, sinks_d, crit_d, sel_d,
+                        selw_d, valid_d, lb_scale, self.max_len, L_e, waves,
+                        grp)
+                else:
+                    (paths, sink_delay, all_reached, bb, occ,
+                     steps) = route_batch_resident(
+                        dev, occ, acc, pres_t, paths, sink_delay,
+                        all_reached, bb, source_d, sinks_d, crit_d, sel_d,
+                        valid_d, full_bb, self.max_len, L_e, waves, grp)
+                steps_dev = steps_dev + steps
+                result.total_net_routes += nsel
+
+            # ONE device->host read per iteration: the reroute mask,
+            # reached flags, overuse summary and step counter, packed
+            rrm_t, ar_t, n_over_t, over_t, st_t = iteration_summary(
+                dev, occ, paths, all_reached, steps_dev)
+            summ = torch.cat([rrm_t.to(torch.int32), ar_t.to(torch.int32),
+                              torch.stack([n_over_t, over_t, st_t])]
+                             ).cpu().numpy()
+            rrm, ar = summ[:R].astype(bool), summ[R:2 * R].astype(bool)
+            n_over, over_total, st_tot = (int(v) for v in summ[2 * R:])
+            it_steps = st_tot - prev_steps
+            prev_steps = st_tot
+
+            # a net that failed a sink gets the full device next time
+            # (place_and_route.c bb relaxation) and leaves the windowed
+            # program for good; any unreached sink means a full-device
+            # search comes next, so the path store takes the full budget
+            if (~ar).any() and L_e < L_cap:
+                paths = _grow_paths(paths, L_cap, N)
+                L_e = L_cap
+            newly_wide = ~ar & ~wide
+            if newly_wide.any():
+                wide |= newly_wide
+                bb_full |= newly_wide
+                result.widened_nets += int(newly_wide.sum())
+                bb[self._t(newly_wide)] = full_bb
+            # phase-two safety valve (…cxx:6238-6267): plateau_iters
+            # iterations without a new best overuse widen every congested
+            # net not already on a full-device box
+            if n_over < best_over:
+                stall = 0
+                best_over = n_over
+            elif n_over > 0:
+                stall += 1
+            if stall >= opts.plateau_iters and n_over > 0:
+                stuck = rrm & ~bb_full
+                if stuck.any():
+                    wide |= stuck
+                    bb_full |= stuck
+                    result.widened_nets += int(stuck.sum())
+                    bb[self._t(stuck)] = full_bb
+                    if L_e < L_cap:
+                        paths = _grow_paths(paths, L_cap, N)
+                        L_e = L_cap
+                stall = 0
+            result.total_relax_steps += it_steps
+            # no per-sweep convergence measurement here: every step
+            # counts as useful (useful + wasted == total)
+            result.total_relax_steps_useful += it_steps
+            result.stats.append(RouteStats(
+                it, n_over, over_total, len(idx), time.time() - t0,
+                relax_steps=it_steps, batches=len(batches),
+                overuse_pct=100.0 * n_over / max(1, N)))
+            if opts.stats_dir and opts.dump_routes:
+                _dump_routes(opts.stats_dir, it, paths.cpu().numpy(), N)
+
+            if n_over == 0 and bool(ar.all()):
+                result.success = True
+                result.iterations = it
+                break
+
+            # PathFinder history / present update (congestion.h:177-193)
+            acc = acc + float(np.float32(opts.acc_fac)) * torch.clamp(
+                occ - dev.capacity, min=0).to(torch.float32)
+            pres_fac = min(opts.max_pres_fac, pres_fac * opts.pres_fac_mult)
+
+            if timing_cb is not None:
+                result.sink_delay = sink_delay.cpu().numpy()
+                new_crit = np.minimum(
+                    np.asarray(timing_cb(result), dtype=np.float32), 0.99)
+                if np.array_equal(new_crit, crit):
+                    # unchanged: keep the device copy
+                    self._count("route.pipeline.crit_upload_skips")
+                else:
+                    crit = new_crit
+                    crit_d = None
+        else:
+            result.iterations = opts.max_router_iterations
+
+        result.wirelength = int(wirelength_on_device(dev, paths))
+        result.paths = paths.cpu().numpy()
+        result.sink_delay = sink_delay.cpu().numpy()
+        result.occ = occ.cpu().numpy()
         if opts.stats_dir:
             import os
 

@@ -104,9 +104,16 @@ def test_unported_options_raise(name, value, tmp_path):
     """Each option the port does not have raises naming its ROADMAP.md
     item.  ``stats_dir`` is ported: its case routes the parity fixture
     with the stats files in ``value`` and holds them against the JAX
-    Router's."""
+    Router's.  ``program="ell"`` is ported too: its Router is built (the
+    ELL tables on the device) and tests/test_torch_ell.py holds its
+    routes against the JAX Router's."""
     if name == "stats_dir":
         _check_stats_dir(tmp_path / value)
+        return
+    if name == "program":
+        r = TR.Router(synth_flow(**FIXTURE).rr, TR.RouterOpts(program=value),
+                      device="cpu")
+        assert r.pg is None and r.dev.max_in_degree > 0
         return
     tf = synth_flow(**FIXTURE)
     opts = {name: value}
