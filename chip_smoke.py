@@ -72,7 +72,10 @@ Phases, one line each (any failure exits non-zero with no result line):
  10b. place    — the device annealer through flow.run_place: the bench
                  wirelength-only (PlacerOpts(seed=3)) on the card equal
                  to the port's CPU placement, moves/s of a warm anneal
-                 beside the native serial annealer's; a fresh 1,200-LUT
+                 beside the native serial annealer's; the bench
+                 timing-driven at the default PlacerOpts on the card
+                 equal to the CPU's (temperature rows, est crit path;
+                 else the first different row is named); a fresh 1,200-LUT
                  config timing-driven at the default PlacerOpts (the
                  delay lookup's sample route launches K1), legal, then
                  routed timing-driven (legal) beside the native-placed
@@ -142,12 +145,35 @@ Phases, one line each (any failure exits non-zero with no result line):
                  to the JAX package's (624 / 9 and 614 / 11); the bench
                  timing-driven through flow.run_route (the analyzer as
                  the per-iteration timing_cb) on the card equal to the
-                 CPU route, crit path included; the native-placed scale
-                 config routed windowed once on the card: legal, its
+                 CPU route, crit path included; a native-placed 300-LUT
+                 config (W=16) whose window tables fit, most nets
+                 windowed, on the card equal to the CPU route; the
+                 native-placed scale config routed windowed once on the
+                 card (its tables pass window_max_bytes): legal, its
                  seconds, iterations, wirelength, windowed / widened
                  nets and relax steps beside the card's name and power
                  limit; its PyTorch launches per route and device busy
                  share from one profiled warm route in phase 13
+ 18. fused     — the fused window dispatch (RouterOpts.fused_dispatch:
+                 each window's crop ladder as one
+                 route_window_planes_fused call, issued through
+                 Router.route_gen) on the card: the bench fused = the
+                 per-rung bench route (phase 7) = the bench fused on the
+                 CPU (537 / 22), the route.kernel.fused_rungs and
+                 dispatches_per_window gauges per window; fused =
+                 per-rung with equal launch counts at bf16 "off" (520 /
+                 16), at mesh_shards=2 (the cluster kernel) and
+                 timing-driven through flow.run_route (522 / 22, the
+                 same crit path); the placed scale config fused =
+                 per-rung path for path with equal launches, warm route
+                 seconds of both taken in turns, and (after the
+                 profiler-free timings) the K1/K2 launches of the scale
+                 route's first window in each mode by torch.profiler,
+                 equal; two jobs on the
+                 bench rr graph (its terminals and an initial placement
+                 from seed 5) driven in lockstep through
+                 route_window_planes_multi, each equal to its solo fused
+                 route
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -226,8 +252,13 @@ for _k in list(SOURCES):
     SOURCES[_k + BF16] = SOURCES[_k]
 
 
+_T0 = time.time()
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One result line, tagged with its phase and the script's seconds
+    so far."""
+    print(f"[{phase} {time.time() - _T0:.0f}s] {msg}", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1184,12 +1215,25 @@ def _cluster_bf16(cfg, pg, shard_counts, kind, nsw, B, inst):
     return out
 
 
-def _route(tag, flow, opts, impl=None, devices=None, analyzer=None):
+def _fresh_metrics(snapshots=False):
+    """A fresh process metrics registry (kept as ``_fresh_metrics.last``):
+    the Router's counters and gauges of the routes that follow, and with
+    ``snapshots`` their per-window snapshots."""
+    from parallel_eda_tpu_torch.obs import MetricsRegistry, set_metrics
+
+    _fresh_metrics.last = set_metrics(MetricsRegistry(enabled=snapshots))
+    return _fresh_metrics.last
+
+
+def _route(tag, flow, opts, impl=None, devices=None, analyzer=None,
+           snapshots=False):
     """Route ``flow`` on the card, legal or raise; with ``impl``, under
     that exchange schedule instead of the Router's own; with
     ``devices``, the shards on those cards instead of round-robin; with
     ``analyzer``, timing-driven (the STA between iterations inside each
-    window).  Returns (result, launches, seconds, router)."""
+    window).  The route's metrics are in a registry of its own (the
+    process registry until the next route).  Returns (result, launches,
+    seconds, router)."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes_kernels as pk
@@ -1199,6 +1243,7 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None):
                                                            uses_cluster)
     from parallel_eda_tpu_torch.route.router import Router
 
+    reg = _fresh_metrics(snapshots)
     router = Router(flow.rr, opts, device="cuda")
     if impl is not None or devices is not None:
         router.row_mesh = make_row_mesh(opts.mesh_shards, impl or "ppermute",
@@ -1223,13 +1268,14 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None):
              f"{flow.grid.nx}x{flow.grid.ny}, launches {counts}")
     if opts.plane_dtype != "f32":
         say(tag, f"plane dtype {opts.plane_dtype}, guard "
-                 f"{opts.dtype_guard}: {json.dumps(router.metrics)}")
+                 f"{opts.dtype_guard}: "
+                 f"{json.dumps(reg.values('route.kernel.'))}")
     rm = router.row_mesh
     if rm is not None:
         say(tag, f"mesh_shards={rm.n_shards} ({rm.impl}) on {rm.n_cards} "
                  f"card(s): sweeps executed {res.total_relax_steps}, useful "
                  f"{res.total_relax_steps_useful}; halo ledger "
-                 f"{json.dumps(router.metrics)}")
+                 f"{json.dumps(reg.values('route.mesh.'))}")
         # the committed relaxation's kernels (a mesh route here is f32 or
         # bf16 "off"); the other mode's must not run
         on = BF16 if opts.plane_dtype == "bf16" else ""
@@ -1632,7 +1678,7 @@ def phase_bf16(bench, scale, bench_f32, warm):
                              "shadow window rung(s), "
                              f"{c['planes_relax_full_cuda' + BF16]} bf16 K1 "
                              "launches, dtype demotions "
-                             f"{router.metrics['route.kernel.dtype_demotions']}")
+                             + str(_metric("route.kernel.dtype_demotions")))
     counts.append(c)
 
     for tag, impl in (("mesh2", None), ("mesh2_lag2", "pallas_halo")):
@@ -1801,6 +1847,28 @@ def phase_place(bench_cfg, scale_cfg, scale_native):
                  f"{ser.moves_per_sec:.1f} moves/s, final bb cost "
                  f"{ser.final_cost:.2f}; host reads {st.host_reads} "
                  f"({st.host_reads / st.segments:.2f} per segment)")
+
+    # ---- bench, timing-driven at the default PlacerOpts: card against
+    # CPU (ROADMAP.md C11) ----
+    tp, secs = {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        tp[d] = run_place(synth_flow(**bench_cfg), PlacerOpts(), device=d)
+        secs[d] = time.perf_counter() - t0
+    g, c = tp["cuda"].place_stats, tp["cpu"].place_stats
+    if not np.array_equal(tp["cuda"].pos, tp["cpu"].pos) or \
+            g.temps != c.temps or g.final_cost != c.final_cost or \
+            g.est_crit_path != c.est_crit_path:
+        raise AssertionError(
+            "place bench timing-driven: the card's placement differs from "
+            "the CPU's; first different temperature row "
+            f"{_first_temp_diff(g, c)}; est crit path {g.est_crit_path!r} "
+            f"against {c.est_crit_path!r}")
+    say("place", f"bench timing-driven, default PlacerOpts: card placement "
+                 f"= CPU placement ({len(g.temps)} temperatures, final bb "
+                 f"cost {g.final_cost!r}, est crit path "
+                 f"{g.est_crit_path!r} s); {secs['cuda']:.2f} s card, "
+                 f"{secs['cpu']:.2f} s CPU (delay lookup and anneal)")
 
     # ---- scale, timing-driven at full width ----
     scale = synth_flow(**scale_cfg)
@@ -2023,14 +2091,32 @@ def _tree_bytes(root):
     return out
 
 
+# metrics.json's host-clock instruments
+TIMED_METRICS = ("route.pipeline.host_plan_ms", "route.pipeline.device_exec_ms",
+                 "route.pipeline.stall_ms", "route.pipeline.overlap_frac",
+                 "route.pipeline.host_overlap_frac",
+                 "route.pipeline.host_plan_ms_total",
+                 "route.pipeline.device_exec_ms_total",
+                 "route.pipeline.stall_ms_total",
+                 "route.pipeline.host_serial_ms_total", "route.window_wall_s")
+
+
 def _stats_view(tree):
     """A --stats_dir tree with its seconds and clocks left out: the
     route_time column of iter_stats.txt, final_stats.txt's
-    total_route_time and each mdclog record's "t"."""
+    total_route_time, each mdclog record's "t" and metrics.json's
+    TIMED_METRICS."""
     out = {}
     for k, v in tree.items():
         lines = v.decode().splitlines()
-        if k.endswith(".log"):
+        if k == "metrics.json":
+            doc = json.loads(v)
+            for vals in [doc["values"]] + [sn["values"]
+                                           for sn in doc["snapshots"]]:
+                for name in TIMED_METRICS:
+                    vals.pop(name, None)
+            out[k] = doc
+        elif k.endswith(".log"):
             recs = [json.loads(ln) for ln in lines]
             for rec in recs:
                 rec.pop("t")
@@ -2203,7 +2289,8 @@ def phase_cli(rows):
     rows25 = trees["cuda"][1]["iter_stats.txt"][1:]
     if [int(r[0]) for r in rows25] != list(range(1, len(rows25) + 1)):
         raise AssertionError("cli flow25: not one stats row per iteration")
-    say("cli", f"flow25: card artifacts, stats files and mdclog records "
+    say("cli", f"flow25: card artifacts, stats files (metrics.json but "
+               f"for its host-clock instruments) and mdclog records "
                f"equal the CPU's ({len(rows25)} iteration rows, "
                f"{sum(k.endswith('.log') for k in trees['cuda'][1])} "
                "mdclog files)")
@@ -2254,6 +2341,7 @@ def _slices(tag, flow, opts, resume=None):
     from parallel_eda_tpu_torch.route.check import check_route
     from parallel_eda_tpu_torch.route.router import Router
 
+    reg = _fresh_metrics()
     router = Router(flow.rr, opts, device="cuda")
     pk.reset_launch_counts()
     sk.reset_launch_counts()
@@ -2266,21 +2354,31 @@ def _slices(tag, flow, opts, resume=None):
             raise AssertionError(f"{tag}: failed without a checkpoint")
         ck_bytes = max(ck_bytes, _ckpt_bytes(res.checkpoint))
         res = router.route(flow.term, resume=res.checkpoint)
-        resume_ms += router.metrics["route.elastic.resume_ms"]
+        resume_ms += reg.gauge("route.elastic.resume_ms").value
         n += 1
     torch.cuda.synchronize()
     dt = time.time() - t0
     check_route(flow.rr, flow.term, res.paths, occ=res.occ)
-    m = router.metrics
+    m = reg.values()
     return (res, n, {**pk.launch_counts(), **sk.launch_counts()}, dt,
             m.get("route.elastic.checkpoints", 0),
             m.get("route.elastic.checkpoint_ms_total", 0.0), resume_ms,
             ck_bytes)
 
 
-def _pipeline_figures(router) -> str:
-    return json.dumps({k.split(".")[-1]: v for k, v in router.metrics.items()
-                       if k.startswith("route.pipeline.")})
+def _metric(name):
+    """An instrument's value in the process registry (0 if unset)."""
+    from parallel_eda_tpu_torch.obs import get_metrics
+
+    return get_metrics().values().get(name, 0)
+
+
+def _pipeline_figures() -> str:
+    """The last route's route.pipeline.* figures (its own registry)."""
+    from parallel_eda_tpu_torch.obs import get_metrics
+
+    return json.dumps({k.split(".")[-1]: v for k, v in
+                       get_metrics().values("route.pipeline.").items()})
 
 
 def phase_elastic(bench, bench_res, scale):
@@ -2301,7 +2399,7 @@ def phase_elastic(bench, bench_res, scale):
         runs.append(c)
         secs[p].append(dt)
         say("elastic", f"{tag}: {dt:.3f} s, route.pipeline.* "
-                       f"{_pipeline_figures(router)}")
+                       f"{_pipeline_figures()}")
         if ref is None:
             ref = res
         else:
@@ -2487,12 +2585,34 @@ def _ell_bench(bench):
                       f"{flows['cpu'].times['route']:.2f} s CPU")
 
 
+# a mid-size config whose ELL window tables fit window_max_bytes, so
+# that its nets take the windowed program: held card = CPU (ROADMAP.md
+# C10; the scale config's CPU route takes too long for this script)
+ELL_MID_CFG = dict(SCALE_CFG, num_luts=300, chan_width=16)
+
+
 def phase_ell(bench, scale, smi, warm):
     """The ELL program (docstring, phase 17).  ``warm`` gains the scale
     route for the profile phase."""
+    from parallel_eda_tpu_torch.flow import run_place_native, synth_flow
     from parallel_eda_tpu_torch.route.router import RouterOpts
 
     _ell_bench(bench)
+    # the mid-size config, native-placed, windowed: card against CPU
+    mid = run_place_native(synth_flow(**ELL_MID_CFG))
+    opts = RouterOpts(batch_size=64, program="ell")
+    card, c, dt, _ = _ell_route("ell_mid", mid, opts, "cuda")
+    cpu, _, dt_cpu, _ = _ell_route("ell_mid", mid, opts, "cpu")
+    _ell_same("ell_mid", card, cpu)
+    R = len(mid.term.source)
+    if card.windowed_nets * 2 <= R or any(c.values()):
+        raise AssertionError(f"ell_mid: {card.windowed_nets} of {R} nets "
+                             f"windowed, planes launches {c}")
+    say("ell_mid", f"{ELL_MID_CFG['num_luts']} LUTs, W="
+                   f"{ELL_MID_CFG['chan_width']}: card route = CPU route "
+                   f"(paths, occupancy, sink delays, stats rows, "
+                   f"windowed/widened nets), {card.windowed_nets} of {R} "
+                   f"nets windowed; {dt:.2f} s card, {dt_cpu:.2f} s CPU")
     # the scale config at full size, windowed, once on the card
     opts = RouterOpts(batch_size=64, program="ell")
     res, c, dt, router = _ell_route("ell_scale", scale, opts, "cuda")
@@ -2505,6 +2625,239 @@ def phase_ell(bench, scale, smi, warm):
                      f"{res.total_net_routes} on {smi}")
     # launches per route and busy share: one profiled warm route (phase 13)
     warm["scale_ell"] = (functools.partial(router.route, scale.term), dt)
+
+
+def _split_request(req):
+    """A fused-window request's arguments as route_window_planes_multi's
+    per-job (state, dynamics, statics) triple (a minimal copy of the
+    lockstep merge of the JAX package's serve/fused.py, ROADMAP.md
+    A14.2)."""
+    a, kw = req.f_args, req.f_kwargs
+    state = (a[2], a[3], a[4], a[5], a[6], a[7], a[10])
+    dyn = (a[8], a[9], tuple(a[11:22]), a[22], a[23], a[24],
+           a[25], a[26], a[27], a[28], a[29], a[30],
+           kw.get("bb0_all"), kw.get("widen_oks"))
+    return state, dyn, (a[31], a[32], kw["rung_desc"], kw["topk"])
+
+
+def _lockstep(router, jobs):
+    """Several jobs' route_gen generators on one Router, in lockstep:
+    each step's pending requests go into one route_window_planes_multi
+    call when two or more are pending, else through the Router's own
+    dispatch.  ``jobs``: [(term, opts)].  Returns (results, multi
+    calls)."""
+    from parallel_eda_tpu_torch.route.planes import route_window_planes_multi
+
+    gens, pend, done = [], [], [None] * len(jobs)
+
+    def advance(j, value=None, first=False):
+        router.opts = jobs[j][1]
+        router._staging_prefix = f"job{j}/"
+        try:
+            pend[j] = next(gens[j]) if first else gens[j].send(value)
+        except StopIteration as e:
+            pend[j], done[j] = None, e.value
+
+    for j, (term, opts) in enumerate(jobs):
+        router.opts = opts
+        gens.append(router.route_gen(term))
+        pend.append(None)
+        advance(j, first=True)
+    calls = 0
+    while any(p is not None for p in pend):
+        live = [j for j, p in enumerate(pend) if p is not None]
+        if len(live) > 1:
+            states, dyns, statics = zip(*(_split_request(pend[j])
+                                          for j in live))
+            kw0 = pend[live[0]].f_kwargs
+            outs = route_window_planes_multi(
+                router.pg, router.dev, states, dyns, job_statics=statics,
+                n_colors=kw0["n_colors"], plane_dtype=kw0["plane_dtype"])
+            calls += 1
+        else:
+            outs = [router._exec_window_request(pend[live[0]])]
+        for j, o in zip(live, outs):
+            advance(j, o)
+    return done, calls
+
+
+def _profiled_launches(run, keys, want):
+    """Launches of the kernels whose device name holds each of ``keys``
+    in one call of ``run`` (torch.profiler), taken again (three times at
+    most) while they differ from the wrappers' counts ``want`` (a trace
+    now and then drops records)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        got = {k: 0 for k in keys}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                for k in keys:
+                    if k in e.key:
+                        got[k] += e.count
+        if [got[k] for k in keys] == want:
+            break
+    return got
+
+
+def phase_fused(bench, bench_res, scale):
+    """The fused window dispatch (RouterOpts.fused_dispatch: a window's
+    whole crop ladder as one route_window_planes_fused call, issued
+    through Router.route_gen) and the multi-job window on the card
+    (docstring, phase 18).  Returns the launch counts summed over its
+    card routes and a zero-argument call for after the profiler-free
+    timings, which traces the first window (two iterations) of the scale
+    route in each mode, a window of several crop rungs, and holds their
+    K1/K2 launches by torch.profiler equal to each other and to the
+    wrappers' counts (a whole scale route takes ~50 s to trace)."""
+    import torch
+
+    from parallel_eda_tpu_torch.flow import synth_flow
+    from parallel_eda_tpu_torch.place.initial import initial_placement
+    from parallel_eda_tpu_torch.route.check import check_route
+    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+    from parallel_eda_tpu_torch.rr.terminals import net_terminals
+
+    runs = []
+    # ---- bench: fused on the card = per-rung on the card = fused on
+    # the CPU, f32; then bf16 "off" and mesh 2 (the cluster kernel)
+    fused = RouterOpts(batch_size=64, fused_dispatch=True)
+    res, c, dt, _ = _route("fused_bench", bench, fused, snapshots=True)
+    runs.append(c)
+    reg = _fresh_metrics.last
+    rungs = reg.series("route.kernel.fused_rungs", phase="route")
+    disp = reg.series("route.kernel.dispatches_per_window", phase="route")
+    _same_route("fused_bench", res, bench_res)
+    _want("fused_bench", res, (537, 22, bench_res.total_relax_steps))
+    t0 = time.time()
+    cpu = Router(bench.rr, fused, device="cpu").route(bench.term)
+    dt_cpu = time.time() - t0
+    _same_route("fused_bench_cpu", cpu, res)
+    if set(disp) != {1} or len(rungs) != len(res.stats):
+        raise AssertionError(f"fused_bench: gauges fused_rungs {rungs}, "
+                             f"dispatches_per_window {disp}")
+    say("fused", f"bench fused on the card = per-rung on the card = fused "
+                 f"on the CPU (537 / 22, paths, occupancy, stats rows, "
+                 f"congestion records); {dt:.2f} s card, {dt_cpu:.2f} s "
+                 f"CPU; per window (pipelined, booked a window late) "
+                 f"route.kernel.fused_rungs {rungs}, "
+                 f"dispatches_per_window {disp}")
+    off = dict(plane_dtype="bf16", dtype_guard="off")
+    for tag, kw, want in (("bf16_off", off, (520, 16)),
+                          ("mesh2", dict(mesh_shards=2), (537, 22))):
+        per, c0, dt0, _ = _route(f"fused_{tag}_per_rung", bench,
+                                 RouterOpts(batch_size=64, **kw))
+        fres, c1, dt1, _ = _route(f"fused_{tag}", bench, RouterOpts(
+            batch_size=64, fused_dispatch=True, **kw))
+        runs += [c0, c1]
+        _same_route(f"fused_{tag}", fres, per)
+        if (fres.wirelength, fres.iterations) != want or c0 != c1:
+            raise AssertionError(f"fused_{tag}: {fres.wirelength} / "
+                                 f"{fres.iterations} (want {want}), "
+                                 f"launches {c1} against {c0}")
+        say("fused", f"bench {tag}: fused = per-rung ({want[0]} / "
+                     f"{want[1]}), launches equal {c1}; {dt1:.2f} s fused, "
+                     f"{dt0:.2f} s per-rung")
+    # timing-driven with the analyzer (the device STA through the rungs)
+    tim = {}
+    for fz in (False, True):
+        f = synth_flow(**BENCH_CFG)
+        tres, c, dt = _timing_run_route(
+            "fused_timing" if fz else "fused_timing_per_rung", f,
+            RouterOpts(batch_size=64, fused_dispatch=fz))
+        runs.append(c)
+        tim[fz] = (tres, f.crit_path_delay, dt)
+    _same_route("fused_timing", tim[True][0], tim[False][0])
+    if tim[True][1] != tim[False][1] or \
+            (tim[True][0].wirelength, tim[True][0].iterations) != (522, 22):
+        raise AssertionError(f"fused_timing: crit path {tim[True][1]!r} "
+                             f"against {tim[False][1]!r}")
+    say("fused", f"bench timing-driven: fused = per-rung (522 / 22, crit "
+                 f"path {tim[True][1]!r} s both); {tim[True][2]:.2f} s "
+                 f"fused, {tim[False][2]:.2f} s per-rung")
+
+    # ---- scale: fused = per-rung, path for path; then warm seconds of
+    # the same Routers in turns
+    import parallel_eda_tpu_torch.route.planes_kernels as pk
+    import parallel_eda_tpu_torch.route.shard_kernels as sk
+
+    routers, sres, launches = {}, {}, {}
+    for fz in (False, True):
+        routers[fz] = Router(scale.rr, RouterOpts(
+            batch_size=64, fused_dispatch=fz), device="cuda")
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        sres[fz] = routers[fz].route(scale.term)
+        launches[fz] = {**pk.launch_counts(), **sk.launch_counts()}
+        check_route(scale.rr, scale.term, sres[fz].paths, occ=sres[fz].occ)
+        runs.append(launches[fz])
+    _same_route("fused_scale", sres[True], sres[False])
+    if launches[True] != launches[False]:
+        raise AssertionError(f"fused_scale: launches {launches[True]} "
+                             f"against per-rung {launches[False]}")
+    secs = {False: [], True: []}
+    for fz in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        routers[fz].route(scale.term)
+        torch.cuda.synchronize()
+        secs[fz].append(time.time() - t0)
+    say("fused", f"scale fused = per-rung (wirelength "
+                 f"{sres[True].wirelength}, {sres[True].iterations} "
+                 f"iterations, paths, occupancy, stats rows, sweeps), "
+                 f"launches equal {launches[True]}; warm route s in turns "
+                 f"per-rung {secs[False]}, fused {secs[True]}")
+
+    # ---- multi: two jobs on the bench rr graph in lockstep
+    pos_b = initial_placement(bench.pnl, bench.grid, seed=5)
+    term_b = net_terminals(bench.pnl, bench.rr, pos_b,
+                           bb_factor=bench.bb_factor)
+    solo_b = Router(bench.rr, fused, device="cuda").route(term_b)
+    check_route(bench.rr, term_b, solo_b.paths, occ=solo_b.occ)
+    t0 = time.time()
+    (ma, mb), calls = _lockstep(Router(bench.rr, fused, device="cuda"),
+                                [(bench.term, fused), (term_b, fused)])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    _same_route("fused_multi_a", ma, res)
+    _same_route("fused_multi_b", mb, solo_b)
+    say("fused", f"multi: two jobs on the bench rr graph (its terminals "
+                 f"and an initial placement from seed 5) in lockstep, "
+                 f"{calls} route_window_planes_multi calls: job a = its "
+                 f"solo fused route ({ma.wirelength} / {ma.iterations}), "
+                 f"job b = its solo fused route ({mb.wirelength} / "
+                 f"{mb.iterations}); {dt:.2f} s for both")
+    if calls < 1:
+        raise AssertionError("fused_multi: no multi call was made")
+
+    def later():
+        keys = ["planes_relax_full_kernel", "planes_relax_cropped_kernel"]
+        got, want = {}, {}
+        for fz in (False, True):
+            r = Router(scale.rr, RouterOpts(
+                batch_size=64, fused_dispatch=fz, max_router_iterations=2),
+                device="cuda")
+            pk.reset_launch_counts()
+            r.route(scale.term)                  # counted, and warm
+            c = pk.launch_counts()
+            want[fz] = [c["planes_relax_full_cuda"],
+                        c["planes_relax_cropped_cuda"]]
+            got[fz] = _profiled_launches(
+                functools.partial(r.route, scale.term), keys, want[fz])
+        say("fused", f"scale, first window: K1/K2 launches by "
+                     f"torch.profiler per-rung {got[False]}, fused "
+                     f"{got[True]} (wrappers: {want[False]}, {want[True]})")
+        if got[True] != got[False] or want[True] != want[False] or \
+                [got[True][k] for k in keys] != want[True]:
+            raise AssertionError("fused_scale: the profiler's K1/K2 "
+                                 "launches differ between the modes")
+
+    return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}, later
 
 
 def main(argv) -> int:
@@ -2611,9 +2964,10 @@ def main(argv) -> int:
     c_cli = phase_cli(rows)
     c_elastic = phase_elastic(bench, res, scale)
     phase_ell(bench, scale, smi, warm)
+    c_fused, fused_later = phase_fused(bench, res, scale)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place + [c_cli, c_elastic]
+        c_place + [c_cli, c_elastic, c_fused]
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
@@ -2623,7 +2977,8 @@ def main(argv) -> int:
                     f"scale off, bench timing off) {c_bf16} place "
                     f"(scale delay lookup, scale route) {c_place} cli "
                     f"(the CLI runs on the card) {c_cli} elastic "
-                    f"(its routes, resumes and CLI run) {c_elastic}")
+                    f"(its routes, resumes and CLI run) {c_elastic} fused "
+                    f"(its card routes) {c_fused}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:
@@ -2634,6 +2989,7 @@ def main(argv) -> int:
     launch1 = launch_us()
     phase_device()
     place_later()
+    fused_later()
     for tag, w in warm.items():
         phase_profile(w, tag)
     del warm

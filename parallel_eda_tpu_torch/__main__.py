@@ -15,7 +15,10 @@ unless it says ``cpu`` (the plain PyTorch versions of the kernels), and
 asking for the card without one fails.  What the port does not do yet
 fails naming its ROADMAP.md item: the ``serve`` and ``daemon``
 subcommands (in ``main``) and, in ``check_options``,
-``--compile_cache_dir`` (A14) and ``--trace`` (A13).  The route is
+``--compile_cache_dir`` (A14).  ``--trace FILE`` writes a Chrome trace
+of the whole flow (exported even when the flow fails) and
+``--stats_dir`` also gets the metrics registry as metrics.json, as in
+the JAX CLI.  The route is
 pipelined unless ``--sync`` asks for the synchronous driver, as in the
 JAX CLI (``RouterOpts.pipeline``; both give the same route).  ``--mesh
 NETxNODE`` shards the relaxation over NET*NODE row shards
@@ -100,16 +103,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write per-run iter_stats.txt / final_stats.txt "
                    "(the reference's <circuit>_stats_N/ files), "
                    "route_report.txt and the per-window logs/ here "
-                   "(windows of one iteration); the JAX package's "
-                   "metrics.json and devprof.json are not written "
-                   "(ROADMAP.md A13)")
+                   "(windows of one iteration) and the metrics "
+                   "snapshots as metrics.json; the JAX package's "
+                   "devprof.json is not written (ROADMAP.md A13-rest)")
     p.add_argument("--profile", default="",
                    help="capture a torch.profiler trace of routing into "
                    "this dir (a Chrome trace-event JSON; open in "
                    "Perfetto or chrome://tracing)")
     p.add_argument("--trace", default="",
-                   help="Chrome trace of the whole flow: not ported "
-                   "(ROADMAP.md A13)")
+                   help="write a Chrome trace-event JSON of the whole "
+                   "flow here (stage, place and route spans; open in "
+                   "Perfetto or chrome://tracing)")
     p.add_argument("--sync", action="store_true",
                    help="disable the host/device route pipeline (drain "
                    "every window before further host work); "
@@ -204,9 +208,6 @@ def check_options(args) -> None:
         errs.append("--sdc needs timing analysis; drop --no_timing")
     if args.profile and not args.route:
         errs.append("--profile traces routing; drop --no_route")
-    if args.trace:
-        errs.append("--trace is not ported yet (ROADMAP.md A13, "
-                    "observability)")
     if args.compile_cache_dir:
         errs.append("--compile_cache_dir is not ported yet (ROADMAP.md "
                     "A14, kernel cache)")
@@ -234,7 +235,31 @@ def main(argv=None) -> int:
             raise SystemExit(f"--settings_file: {e}")
     args = build_parser().parse_args(argv)
     check_options(args)
-    return _run_flow(args)
+
+    # one tracer and metrics registry for the whole flow; the trace is
+    # exported in a finally, so a failed run keeps its timeline
+    from .obs import Tracer, get_metrics, set_tracer
+    tracer = None
+    if args.trace:
+        tracer = Tracer()
+        set_tracer(tracer)
+    if args.trace or args.stats_dir:
+        get_metrics().enabled = True
+    try:
+        return _run_flow(args)
+    finally:
+        if args.stats_dir:
+            import os
+            os.makedirs(args.stats_dir, exist_ok=True)
+            mpath = os.path.join(args.stats_dir, "metrics.json")
+            get_metrics().dump(mpath)
+            print(f"metrics snapshots in {mpath}")
+        if tracer is not None:
+            set_tracer(None)
+            tracer.export(args.trace)
+            print(f"trace in {args.trace} (open in Perfetto / "
+                  f"chrome://tracing; summarize with "
+                  f"tools/trace_report.py)")
 
 
 def _run_flow(args) -> int:

@@ -12,7 +12,6 @@ trees, ``save_artifacts`` writes the .net / .place / .route files, and
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -23,6 +22,7 @@ from .arch.model import Arch
 from .netlist.generate import generate_circuit
 from .netlist.netlist import LogicalNetlist
 from .netlist.packed import PackedNetlist
+from .obs import stage
 from .pack.packer import pack_netlist
 from .place.delay_lookup import compute_delay_lookup
 from .place.initial import initial_placement
@@ -69,10 +69,9 @@ def prepare(nl: LogicalNetlist, arch: Arch, chan_width: int,
     """Front end through initial placement + rr-graph (no SA, no route).
     Pass ``pnl`` to start from a packed netlist instead of packing."""
     times: dict = {}
-    t0 = time.perf_counter()
-    if pnl is None:
-        pnl = pack_netlist(nl, arch)
-    times["pack"] = time.perf_counter() - t0
+    with stage("pack", times):
+        if pnl is None:
+            pnl = pack_netlist(nl, arch)
     n_io = n_clb = 0
     hard_counts: dict = {}
     for i in range(pnl.num_blocks):
@@ -86,9 +85,8 @@ def prepare(nl: LogicalNetlist, arch: Arch, chan_width: int,
     grid = size_grid(n_clb, n_io, arch, nx=nx, ny=ny,
                      hard_counts=hard_counts)
     pos = initial_placement(pnl, grid, seed=seed)
-    t0 = time.perf_counter()
-    rr = build_rr_graph(arch, grid, chan_width=chan_width)
-    times["rr_graph"] = time.perf_counter() - t0
+    with stage("rr_graph", times):
+        rr = build_rr_graph(arch, grid, chan_width=chan_width)
     term = net_terminals(pnl, rr, pos, bb_factor=bb_factor)
     return FlowResult(arch=arch, nl=nl, pnl=pnl, grid=grid, pos=pos,
                       rr=rr, term=term, bb_factor=bb_factor, times=times)
@@ -115,11 +113,10 @@ def run_place_native(flow: FlowResult, seed: int = 7,
     terminals for the new positions."""
     from .place.serial_sa import serial_sa_place
 
-    t0 = time.perf_counter()
-    res = serial_sa_place(flow.pnl, flow.grid, flow.pos, seed=seed,
-                          inner_num=inner_num)
-    flow.pos = res.pos
-    flow.times["place"] = time.perf_counter() - t0
+    with stage("place", flow.times, native=True):
+        res = serial_sa_place(flow.pnl, flow.grid, flow.pos, seed=seed,
+                              inner_num=inner_num)
+        flow.pos = res.pos
     flow.term = net_terminals(flow.pnl, flow.rr, flow.pos,
                               bb_factor=flow.bb_factor)
     return flow
@@ -138,19 +135,18 @@ def run_place(flow: FlowResult, opts: Optional[PlacerOpts] = None,
     timing = None
     opts = opts or PlacerOpts()
     if timing_driven and opts.timing_tradeoff > 0:
-        t0 = time.perf_counter()
-        lookup = compute_delay_lookup(flow.rr, device=device)
-        flow.times["delay_lookup"] = time.perf_counter() - t0
+        with stage("delay_lookup", flow.times):
+            lookup = compute_delay_lookup(flow.rr, device=device)
         if flow.tg is None:
             flow.tg = build_timing_graph(flow.nl, flow.pnl, flow.term)
         timing = PlacerTiming(flow.pnl, lookup, flow.term, flow.tg,
                               td_place_exp=opts.td_place_exp, device=device)
-    t0 = time.perf_counter()
-    macros = form_macros(flow.nl, flow.pnl) if flow.nl is not None else []
-    placer = Placer(flow.pnl, flow.grid, opts, timing=timing, macros=macros,
-                    device=device)
-    flow.pos, flow.place_stats = placer.place(flow.pos)
-    flow.times["place"] = time.perf_counter() - t0
+    with stage("place", flow.times):
+        macros = (form_macros(flow.nl, flow.pnl) if flow.nl is not None
+                  else [])
+        placer = Placer(flow.pnl, flow.grid, opts, timing=timing,
+                        macros=macros, device=device)
+        flow.pos, flow.place_stats = placer.place(flow.pos)
     flow.term = net_terminals(flow.pnl, flow.rr, flow.pos,
                               bb_factor=flow.bb_factor)
     return flow
@@ -313,10 +309,9 @@ def run_route(flow: FlowResult, opts: Optional[RouterOpts] = None,
             flow.analyzer = TimingAnalyzer(flow.tg, sdc=flow.sdc,
                                            device=device)
     router = Router(flow.rr, opts, device=device)
-    t0 = time.perf_counter()
-    flow.route = router.route(
-        flow.term, analyzer=flow.analyzer if timing_driven else None)
-    flow.times["route"] = time.perf_counter() - t0
+    with stage("route", flow.times, timing_driven=timing_driven):
+        flow.route = router.route(
+            flow.term, analyzer=flow.analyzer if timing_driven else None)
     if timing_driven:
         flow.analyzer.analyze(flow.route.sink_delay)
     if verify and flow.route.success:

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..netlist.packed import PackedNetlist
+from ..obs import get_metrics, span
 from ..rr.grid import DeviceGrid
 from . import prng
 
@@ -1095,37 +1096,54 @@ class Placer:
                 crit, _ = self._crit(pos)
             n_temps = min(SEG, opts.max_temps - temp_i)
             key, k = prng.split(key)
-            (pos, ring, occ, t_d, rlim_d, na_a, nv_a, bb_a, live_a, ts_a,
-             rl_a) = sa_segment(pp, pos, ring, occ, crit, tt, k,
-                                np.float32(t), np.float32(rlim),
-                                np.float32(exit_t), M, steps, n_temps, timing)
-            # rigid macro relocations ride along once per segment, at the
-            # segment's starting t and rlim and the last read bb cost
-            if self._mac_blocks is not None:
-                Lm = int(self._mac_blocks.shape[1])
-                Mm = min(32, max(4, len(self.macros)))
-                inv_bb_m = np.float32(1.0 / max(bb_cost, 1e-30))
-                for _ in range(4):
-                    key, k2 = prng.split(key)
-                    pos, ring, occ, _ = macro_step(
-                        pp, self._mac_blocks, self._mac_len, pos, ring, occ,
-                        k2, np.float32(t), np.float32(rlim), inv_bb_m, Mm, Lm)
-            # ONE host read per segment
-            rows = self._read(torch.stack(
-                [na_a.to(torch.float64), nv_a.to(torch.float64),
-                 bb_a.to(torch.float64), live_a.to(torch.float64),
-                 ts_a.to(torch.float64), rl_a.to(torch.float64),
-                 t_d.to(torch.float64).expand(n_temps),
-                 rlim_d.to(torch.float64).expand(n_temps)]))
+            with span("place.segment", cat="place", n_temps=n_temps,
+                      t=float(t)):
+                (pos, ring, occ, t_d, rlim_d, na_a, nv_a, bb_a, live_a,
+                 ts_a, rl_a) = sa_segment(
+                    pp, pos, ring, occ, crit, tt, k, np.float32(t),
+                    np.float32(rlim), np.float32(exit_t), M, steps,
+                    n_temps, timing)
+                # rigid macro relocations ride along once per segment,
+                # at the segment's starting t and rlim and the last read
+                # bb cost
+                if self._mac_blocks is not None:
+                    Lm = int(self._mac_blocks.shape[1])
+                    Mm = min(32, max(4, len(self.macros)))
+                    inv_bb_m = np.float32(1.0 / max(bb_cost, 1e-30))
+                    for _ in range(4):
+                        key, k2 = prng.split(key)
+                        pos, ring, occ, _ = macro_step(
+                            pp, self._mac_blocks, self._mac_len, pos, ring,
+                            occ, k2, np.float32(t), np.float32(rlim),
+                            inv_bb_m, Mm, Lm)
+                # ONE host read per segment
+                rows = self._read(torch.stack(
+                    [na_a.to(torch.float64), nv_a.to(torch.float64),
+                     bb_a.to(torch.float64), live_a.to(torch.float64),
+                     ts_a.to(torch.float64), rl_a.to(torch.float64),
+                     t_d.to(torch.float64).expand(n_temps),
+                     rlim_d.to(torch.float64).expand(n_temps)]))
             stats.segments += 1
             t, rlim = float(rows[6, 0]), float(rows[7, 0])
+            reg = get_metrics()
             for i in range(n_temps):
                 if rows[3, i] == 0.0:
                     break
                 na_i, nv_i = int(rows[0, i]), int(rows[1, i])
+                srat = na_i / max(1, nv_i)
                 stats.temps.append((float(rows[4, i]), float(rows[2, i]),
-                                    na_i / max(1, nv_i), float(rows[5, i])))
+                                    srat, float(rows[5, i])))
                 stats.total_moves += nv_i
+                # per-temperature telemetry (JAX place/sa.py:881-891)
+                reg.gauge("place.t").set(float(rows[4, i]))
+                reg.gauge("place.bb_cost").set(float(rows[2, i]))
+                reg.gauge("place.success_rate").set(srat)
+                reg.gauge("place.rlim").set(float(rows[5, i]))
+                reg.counter("place.moves").inc(nv_i)
+                reg.counter("place.accepted_moves").inc(na_i)
+                reg.histogram("place.acceptance_rate").record(srat)
+                reg.snapshot(phase="place",
+                             temperature=len(stats.temps) - 1)
             temp_i += n_temps
             bb_cost = float(rows[2, -1])
             # exit_crit (place.c:270)
@@ -1146,6 +1164,12 @@ class Placer:
         stats.final_td_cost = float(fin[1]) if timing else 0.0
         if timing:
             _, stats.est_crit_path = self._crit(pos)
+        reg = get_metrics()
+        reg.gauge("place.final_cost").set(stats.final_cost)
+        reg.gauge("place.total_moves").set(int(stats.total_moves))
+        if stats.est_crit_path == stats.est_crit_path:
+            reg.gauge("place.est_crit_path").set(float(stats.est_crit_path))
+        reg.snapshot(phase="place_final", temps=len(stats.temps))
         # final legality audit (check_place, place.c:253): an annealer
         # bug must never hand the router an illegal placement silently
         from .check import check_place

@@ -3,7 +3,9 @@
 Each source ``csrc/<name>.cu`` has a plain C interface; it is compiled
 with nvcc for sm_90a into ``parallel_eda_tpu_torch/build/lib<name>.so``
 at first use (or by chip_smoke.py, which starts every build at once)
-and loaded with ctypes.  Nothing here runs at import.
+and loaded with ctypes.  Nothing here runs at import.  Each build's
+seconds go to ``obs.trace.note_build`` (the tracer's "cuda.build"
+spans, ``compile_seconds()``).
 """
 
 from __future__ import annotations
@@ -52,13 +54,17 @@ class CudaLib:
     def start_build(self) -> subprocess.Popen:
         """Start nvcc in the background; finish with finish_build()."""
         os.makedirs(BUILD_DIR, exist_ok=True)
-        self.info["t0"] = time.time()
+        self.info["t0"] = time.perf_counter()
         return subprocess.Popen(self.command(), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self, proc: subprocess.Popen) -> dict:
+        from ..obs.trace import note_build
+
         out, _ = proc.communicate()
-        self.info["seconds"] = time.time() - self.info.pop("t0")
+        t0 = self.info.pop("t0")
+        self.info["seconds"] = time.perf_counter() - t0
+        note_build(self.name, t0, self.info["seconds"])
         self.info["ptxas"] = [ln.strip() for ln in out.splitlines()
                               if "ptxas" in ln or "spill" in ln
                               or "Used" in ln]

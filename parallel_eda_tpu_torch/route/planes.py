@@ -1517,6 +1517,129 @@ def route_window_planes(
     return occ, acc, status, scal, dmax_hist
 
 
+def _fused_ladder(
+        pg: PlanesGraph, dev: DeviceRRGraph, occ, acc,
+        paths, sink_delay, all_reached, bb,
+        source_all, sinks_all, crit_all,
+        opin_node_all, entry_cell_all, entry_oidx_all, entry_delay_all,
+        sink_uid_all, uid_cell, uid_ipin, uid_delay,
+        direct_oidx_all, direct_ipin_all, direct_delay_all,
+        sel_plans, valid_plans, full_bb,
+        pres0, pres_mult, max_pres, acc_fac, it0, force_until,
+        K_iters: int, max_len: int, rung_desc, topk: int, n_colors: int,
+        mesh, tdev, req_seed, sta_depth: int, crit_exp: float,
+        max_crit: float, use_sdc: bool, bb0_all, widen_oks,
+        plane_dtype: str):
+    """The body shared by route_window_planes_fused (one job) and
+    route_window_planes_multi (one call per member job): walk
+    ``rung_desc``, one route_window_planes call per rung on its own
+    plans and widen gate, the state threaded rung to rung."""
+    if widen_oks is None:
+        widen_oks = (None,) * len(rung_desc)
+    scals = []
+    for r, (crop_tile, nsweeps, num_waves, group,
+            doubling) in enumerate(rung_desc):
+        occ, acc, status, scal, dmax_hist = route_window_planes(
+            pg, dev, occ, acc, paths, sink_delay, all_reached, bb,
+            source_all, sinks_all, crit_all,
+            opin_node_all, entry_cell_all, entry_oidx_all,
+            entry_delay_all, sink_uid_all, uid_cell, uid_ipin, uid_delay,
+            direct_oidx_all, direct_ipin_all, direct_delay_all,
+            sel_plans[r], valid_plans[r], full_bb,
+            pres0, pres_mult, max_pres, acc_fac if r == 0 else 0.0,
+            it0, force_until, K_iters, nsweeps, max_len, num_waves,
+            group, doubling, topk=topk, n_colors=n_colors,
+            crop_tile=crop_tile, bb0_all=bb0_all, widen_ok=widen_oks[r],
+            mesh=mesh, tdev=tdev, req_seed=req_seed, sta_depth=sta_depth,
+            crit_exp=crit_exp, max_crit=max_crit, use_sdc=use_sdc,
+            plane_dtype=plane_dtype)
+        scals.append(scal)
+    return occ, acc, status, torch.stack(scals), dmax_hist
+
+
+def route_window_planes_fused(
+        pg: PlanesGraph, dev: DeviceRRGraph, occ, acc,
+        paths, sink_delay, all_reached, bb,
+        source_all, sinks_all, crit_all,
+        opin_node_all, entry_cell_all, entry_oidx_all, entry_delay_all,
+        sink_uid_all, uid_cell, uid_ipin, uid_delay,
+        direct_oidx_all, direct_ipin_all, direct_delay_all,
+        sel_plans, valid_plans, full_bb,
+        pres0: float, pres_mult: float, max_pres: float, acc_fac: float,
+        it0: int, force_until: int,
+        K_iters: int, max_len: int, rung_desc=(), topk: int = 1024,
+        n_colors: int = 5, mesh=None, tdev=None, req_seed=None,
+        sta_depth: int = 0, crit_exp: float = 1.0, max_crit: float = 0.99,
+        use_sdc: bool = False, bb0_all=None, widen_oks=None,
+        plane_dtype: str = "f32"):
+    """A window's whole crop ladder in one call (JAX
+    ``route_window_planes_fused``): ``rung_desc`` holds one
+    (crop_tile, nsweeps, num_waves, group, doubling) tuple per populated
+    size-class rung, and each rung runs route_window_planes on its own
+    ``sel_plans[r]`` / ``valid_plans[r]`` and ``widen_oks[r]`` (None: no
+    gate on any rung), the state carried from rung to rung as the
+    per-rung loop carries it.  ``acc_fac`` applies on rung 0 only, and
+    ``pres`` re-escalates from the same ``pres0`` on every rung.  The
+    device STA (``tdev``) and the row mesh (``mesh``) pass through to
+    every rung.
+
+    In eager PyTorch this is a host loop over the same launches as the
+    per-rung dispatch: it saves no launch and no host read, and exists
+    so that the Router's fused mode and the generator driver have the
+    JAX package's dispatch unit.
+
+    Returns (occ, acc, status, scals [n_rungs, SCAL_LEN], dmax_hist):
+    the last rung's occ, acc, status and dmax_hist, and every rung's
+    scal, stacked; ``paths``, ``sink_delay``, ``all_reached``, ``bb``
+    and ``crit_all`` are updated in place.  In JAX's 24-tuple these are
+    elements 0, 1, 21, 23 and 14, the last rung's scal (element 22) is
+    ``scals[-1]``, and elements 2-5 and 13 are the in-place tensors."""
+    return _fused_ladder(
+        pg, dev, occ, acc, paths, sink_delay, all_reached, bb,
+        source_all, sinks_all, crit_all,
+        opin_node_all, entry_cell_all, entry_oidx_all, entry_delay_all,
+        sink_uid_all, uid_cell, uid_ipin, uid_delay,
+        direct_oidx_all, direct_ipin_all, direct_delay_all,
+        sel_plans, valid_plans, full_bb,
+        pres0, pres_mult, max_pres, acc_fac, it0, force_until,
+        K_iters, max_len, rung_desc, topk, n_colors, mesh, tdev,
+        req_seed, sta_depth, crit_exp, max_crit, use_sdc, bb0_all,
+        widen_oks, plane_dtype)
+
+
+def route_window_planes_multi(pg: PlanesGraph, dev: DeviceRRGraph,
+                              job_states, job_dynamics, job_statics=(),
+                              n_colors: int = 5, plane_dtype: str = "f32"):
+    """The fused windows of several jobs on one device graph in one call
+    (JAX ``route_window_planes_multi``).  Job j brings its own state
+    ``job_states[j]`` = (occ, acc, paths, sink_delay, all_reached, bb,
+    crit_all), its own tensors ``job_dynamics[j]`` = (source_all,
+    sinks_all, tables[11], sel_plans, valid_plans, full_bb, pres0,
+    pres_mult, max_pres, acc_fac, it0, force_until, bb0_all, widen_oks)
+    and its own statics ``job_statics[j]`` = (K_iters, max_len,
+    rung_desc, topk).  Nothing is computed across jobs, so each job's
+    result is its route_window_planes_fused result.  One device, no row
+    mesh and no device STA, as in JAX.
+
+    Returns one route_window_planes_fused result per job, in
+    ``job_states`` order; each job's in-place tensors are updated."""
+    outs = []
+    for st, dyn, (K_iters, max_len, rung_desc, topk) in zip(
+            job_states, job_dynamics, job_statics):
+        occ, acc, paths, sink_delay, all_reached, bb, crit_all = st
+        (source_all, sinks_all, tables, sel_plans, valid_plans, full_bb,
+         pres0, pres_mult, max_pres, acc_fac, it0, force_until, bb0_all,
+         widen_oks) = dyn
+        outs.append(_fused_ladder(
+            pg, dev, occ, acc, paths, sink_delay, all_reached, bb,
+            source_all, sinks_all, crit_all, *tables,
+            sel_plans, valid_plans, full_bb,
+            pres0, pres_mult, max_pres, acc_fac, it0, force_until,
+            K_iters, max_len, rung_desc, topk, n_colors, None, None,
+            None, 0, 1.0, 0.99, False, bb0_all, widen_oks, plane_dtype))
+    return tuple(outs)
+
+
 def live_size_bits(bb):
     """Bits 8-23 of the window status word: each net's live bb height
     (bits 8-15) and width (bits 16-23) in 8-tile buckets, from its bbs

@@ -8,6 +8,13 @@ last), and the host reads back one packed status word per net plus a
 scalar summary per window, from which it decides convergence, plateau
 widening, sweep-budget promotion and the next window's batch plan.
 
+``route()`` drives the generator ``route_gen`` (``_drive_windows``):
+the window loop yields a ``WindowDispatchRequest`` at each fused window
+dispatch (``fused_dispatch=True``: the window's whole crop ladder as one
+``planes.route_window_planes_fused`` call) and takes the call's result
+back, so that a caller can drive several jobs' generators in lockstep
+and merge their requests into one ``route_window_planes_multi`` call.
+
 ``pipeline=True`` (the default, as in the JAX package) is the two-stage
 host/device pipeline: the window's packed summary comes back through a
 non-blocking copy (pinned host memory and a CUDA event on the card),
@@ -16,8 +23,15 @@ records, halo ledger) runs while the current window is in flight, and
 the summary read is the window's one blocking point.  Every dispatch is
 planned from the same fully read summary as ``pipeline=False`` (the
 CLI's ``--sync``: every rung drained before further host work), so the
-two modes are bit-identical.  ``Router.metrics`` holds the pipeline's
-``route.pipeline.*`` figures under the JAX package's names.
+two modes are bit-identical.
+
+Metrics and trace spans go to the process-wide registry and tracer of
+``obs`` (``get_metrics()``, ``get_tracer()``) under the JAX package's
+names: per window the ``route.*`` work ledger and a snapshot, per route
+the final gauges, the ``route.dispatch.*`` variant counters, the
+pipeline's ``route.pipeline.*`` figures, and the ``route.window``,
+``route.iter``, ``route.kernel`` and ``route.pipeline.{plan,exec}``
+spans.
 
 Elastic routing, as in the JAX package: ``checkpoint_every`` snapshots
 the whole negotiation at window boundaries into
@@ -54,9 +68,9 @@ The resilience ladder's "dtype" step is not ported (ROADMAP.md A13).
 one iteration, iter_stats.txt / final_stats.txt (``write_stats_files``)
 and route_report.txt in that directory, the per-(window, category)
 records of ``mdclog.MdcLogger`` under its logs/, and, with
-``dump_routes``, every iteration's routes (routes_iter_N.txt).  The JAX
-package's metrics.json and devprof.json there come from its obs/
-package, which is not ported (ROADMAP.md A13).
+``dump_routes``, every iteration's routes (routes_iter_N.txt).  The CLI
+writes the registry there as metrics.json; the JAX package's
+devprof.json is not written (ROADMAP.md A13-rest).
 """
 
 from __future__ import annotations
@@ -66,12 +80,13 @@ import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import get_metrics, get_tracer
 from ..rr.graph import RRGraph
 from ..rr.terminals import NetTerminals
 from .device_graph import DeviceRRGraph, to_device, wire_cost_floor
@@ -140,7 +155,6 @@ _NOT_PORTED = {
     "resil": (None, "A13 (resilience wiring)"),
     "program_library_dir": (None, "A14 (serve stack / kernel cache)"),
     "compile_cache_dir": (None, "A14 (serve stack / kernel cache)"),
-    "fused_dispatch": (False, "A12 (fused ragged dispatch)"),
 }
 
 
@@ -370,16 +384,57 @@ class RouteResult:
     congestion: List[dict] = field(default_factory=list)
 
 
+# canonical dispatch signatures seen by this process (JAX router.py
+# :566-584): a variant's first dispatch counts route.dispatch.compiles,
+# every later one route.dispatch.cache_hits.  On the card a new variant
+# is a new set of launch shapes, whose launch plans the kernel wrappers
+# build at its first launch (planes_kernels._plan); nothing is compiled
+# at dispatch.  Process state on purpose: a registry reset keeps warm
+# variants warm.
+_DISPATCH_VARIANTS = set()
+
+
+def _note_dispatch_variant(key) -> bool:
+    """Record one dispatch signature; True when it is new."""
+    reg = get_metrics()
+    if key in _DISPATCH_VARIANTS:
+        reg.counter("route.dispatch.cache_hits").inc()
+        return False
+    _DISPATCH_VARIANTS.add(key)
+    reg.counter("route.dispatch.compiles").inc()
+    return True
+
+
+class WindowDispatchRequest:
+    """One planned fused-window dispatch that ``Router.route_gen``
+    yields (JAX router.py:587-609): its variant key, the arguments of
+    ``planes.route_window_planes_fused``, and the same rungs planned for
+    per-rung dispatch (``per_rung_fb``, for the resilience chain of
+    ROADMAP.md A13-rest; nothing calls it yet), and the resilience
+    runtime (None).  The caller sends back the call's result: the
+    solo driver through ``Router._exec_window_request``, a lockstep
+    driver through one ``route_window_planes_multi`` call over several
+    jobs' requests."""
+    __slots__ = ("vkey", "f_args", "f_kwargs", "per_rung_fb",
+                 "resil_rt")
+
+    def __init__(self, vkey, f_args, f_kwargs, per_rung_fb, resil_rt):
+        self.vkey = vkey
+        self.f_args = f_args
+        self.f_kwargs = f_kwargs
+        self.per_rung_fb = per_rung_fb
+        self.resil_rt = resil_rt
+
+
 class _PlanStaging:
     """Named device slots for the per-rung plan tensors (JAX router.py
     :664-690): ``put`` skips the upload when its slot already holds an
-    equal array, counting ``route.pipeline.upload_skips`` in
-    ``metrics``.  The window never writes its plan tensors, so a slot is
-    reused across windows as it stands."""
+    equal array, counting ``route.pipeline.upload_skips``.  The window
+    never writes its plan tensors, so a slot is reused across windows as
+    it stands."""
 
-    def __init__(self, device, metrics: dict):
+    def __init__(self, device):
         self._device = device
-        self._metrics = metrics
         self._slots = {}
 
     def put(self, name: str, host_arr):
@@ -388,8 +443,7 @@ class _PlanStaging:
         if (slot is not None and slot[0].shape == host_arr.shape
                 and slot[0].dtype == host_arr.dtype
                 and np.array_equal(slot[0], host_arr)):
-            k = "route.pipeline.upload_skips"
-            self._metrics[k] = self._metrics.get(k, 0) + 1
+            get_metrics().counter("route.pipeline.upload_skips").inc()
             return slot[1]
         # a copy of its own: on the CPU the tensor shares its memory
         own = np.ascontiguousarray(host_arr).copy()
@@ -429,7 +483,8 @@ def _host_snapshot(t) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
-# per-route pipeline gauges (JAX router.py:2594-2604), zeroed by route()
+# per-route pipeline gauges (JAX router.py:2594-2604), zeroed at the
+# start of every route
 _PIPELINE_GAUGES = tuple("route.pipeline." + k for k in (
     "host_plan_ms", "device_exec_ms", "stall_ms", "overlap_frac",
     "host_overlap_frac", "host_plan_ms_total", "device_exec_ms_total",
@@ -570,21 +625,22 @@ def _grow_paths(paths, L_new: int, N: int):
 _SHADOW_SLOTS = (2, 3, 4, 5, 6, 7, 10)
 
 
-def _shadow_window(rungs, state):
-    """The bf16 shadow of a window (JAX router.py:2161-2181): the same
-    route_window_planes calls ``rungs`` ((args, kwargs) per rung), each
-    on the state the previous one left, from ``state`` (copies of the
+def _shadow_window(stash, state):
+    """The bf16 shadow of a window (JAX router.py:2161-2181): the
+    window's calls ``stash`` ((fn, args, kwargs, variant key) each: one
+    route_window_planes call per rung, or the one fused call), each on
+    the state the previous one left, from ``state`` (copies of the
     window-entry state, updated in place), with plane_dtype="bf16".
     Returns the last rung's (status, scal) as numpy arrays."""
-    from .planes import route_window_planes
-
-    for args, kw in rungs:
+    for fn, args, kw, vkey in stash:
+        _note_dispatch_variant(vkey + ("shadow_bf16",))
         a = list(args)
         for slot, t in zip(_SHADOW_SLOTS, state):
             a[slot] = t
-        occ, acc, status, scal, _ = route_window_planes(
-            *a, plane_dtype="bf16", **kw)
+        occ, acc, status, scal, _ = fn(*a, **{**kw, "plane_dtype": "bf16"})
         state[0], state[1] = occ, acc
+    if scal.dim() == 2:
+        scal = scal[-1]          # the fused call's last rung
     return status.cpu().numpy(), scal.cpu().numpy()
 
 
@@ -595,30 +651,28 @@ class Router:
 
     ``opts.mesh_shards > 1`` shards the relaxation by canvas columns
     (route/planes_shard.py) over that many shards placed round-robin on
-    the visible devices of ``device``'s type: ``row_mesh``.  ``metrics``
-    holds, under the JAX package's metric names, the halo ledger: the
-    counters ``route.mesh.halo_bytes`` and ``route.mesh.halo_exchanges``
-    add up over the Router's routes, the gauges ``route.mesh.n_shards``
-    and ``route.mesh.overlap_frac`` hold the last window's values; the
-    plane dtype: the counter ``route.kernel.dtype_demotions`` (bf16
-    shadows that left the band) and the gauge
-    ``route.kernel.plane_dtype`` ("bf16" while a bf16 route is not
-    demoted, else "f32"); and the pipeline: the counters
-    ``route.pipeline.blocking_syncs`` (one per pipelined window, one per
-    rung under ``pipeline=False``), ``upload_skips`` (plan uploads
-    skipped as unchanged) and ``crit_upload_skips`` (criticalities a
-    ``timing_cb`` left unchanged), and the gauges of _PIPELINE_GAUGES,
-    zeroed at the start of each route.  Host seconds: ``host_plan`` is
-    planning and staging the rungs plus the deferred bookkeeping,
-    ``device_exec`` the span from the first rung's call to the summary
-    read (pipelined; under ``pipeline=False`` the rungs' calls and
-    drains), ``stall`` the wait at the summary read, ``overlap_frac``
-    device_exec over the route's wall time and ``host_overlap_frac``
-    the share of host_plan done while a window was in flight.  The
-    port's own counters ``route.elastic.checkpoints`` and
-    ``route.elastic.checkpoint_ms_total`` (host seconds taking them) and
-    the gauge ``route.elastic.resume_ms`` (re-uploading a checkpoint)
-    time the elastic surface."""
+    the visible devices of ``device``'s type: ``row_mesh``.
+
+    The registry (``obs.get_metrics()``) gets, under the JAX package's
+    names: the halo ledger (counters ``route.mesh.halo_bytes`` and
+    ``route.mesh.halo_exchanges``, gauges ``route.mesh.n_shards`` and
+    ``route.mesh.overlap_frac``); the plane dtype (counter
+    ``route.kernel.dtype_demotions``, bf16 shadows that left the band,
+    and gauge ``route.kernel.plane_dtype``); the dispatch shape (gauges
+    ``route.kernel.fused_rungs`` and ``route.kernel.dispatches_per_window``);
+    and the pipeline: the counters ``route.pipeline.blocking_syncs``
+    (one per pipelined window, one per dispatch under
+    ``pipeline=False``), ``upload_skips`` and ``crit_upload_skips``, and
+    the gauges of _PIPELINE_GAUGES, zeroed at the start of each route.
+    Host seconds: ``host_plan`` is planning and staging the rungs plus
+    the deferred bookkeeping, ``device_exec`` the span from the first
+    dispatch to the summary read (pipelined; under ``pipeline=False``
+    the calls and drains), ``stall`` the wait at the summary read,
+    ``overlap_frac`` device_exec over the route's wall time and
+    ``host_overlap_frac`` the share of host_plan done while a window was
+    in flight.  The port's own counters ``route.elastic.checkpoints``
+    and ``route.elastic.checkpoint_ms_total`` and the gauge
+    ``route.elastic.resume_ms`` time the elastic surface."""
 
     # escalating sync schedule: window sizes between host round trips
     _WINDOWS = (2, 2, 3, 4, 5, 6, 8, 10, 10)
@@ -665,8 +719,11 @@ class Router:
         # ladder (pallas_halo -> ppermute -> single chip) is not
         # ported: a failure raises.
         self.row_mesh = None
-        self.metrics: dict = {}
-        self._staging = _PlanStaging(self.device, self.metrics)
+        self._staging = _PlanStaging(self.device)
+        # staging-slot namespace: a caller driving several jobs'
+        # route_gen generators against this Router sets a prefix per job
+        # before each advance, so their plan slots do not alias
+        self._staging_prefix = ""
         if self.opts.mesh_shards > 1:
             if program == "planes_pallas":
                 raise ValueError(
@@ -683,9 +740,6 @@ class Router:
             self.row_mesh = make_row_mesh(self.opts.mesh_shards, "ppermute",
                                           self.device)
 
-    def _count(self, name: str, n: int = 1) -> None:
-        self.metrics[name] = self.metrics.get(name, 0) + n
-
     def _book_halo(self, scal, batch: int, plane_dtype: str) -> None:
         """The halo ledger of one window (JAX router.py:1191-1233): each
         executed sweep exchanged one halo round per internal boundary,
@@ -694,15 +748,17 @@ class Router:
         from .planes import SCAL_S_EXEC
         from .planes_shard import halo_bytes_per_sweep, modeled_overlap_frac
 
-        rm, m = self.row_mesh, self.metrics
+        rm, reg = self.row_mesh, get_metrics()
         sweeps = int(scal[SCAL_S_EXEC])
-        self._count("route.mesh.halo_bytes", halo_bytes_per_sweep(
+        reg.counter("route.mesh.halo_bytes").inc(halo_bytes_per_sweep(
             self.pg, batch, rm.n_shards, plane_dtype) * sweeps)
-        self._count("route.mesh.halo_exchanges", (rm.n_shards - 1) * sweeps)
-        m["route.mesh.n_shards"] = rm.n_shards
-        m["route.mesh.overlap_frac"] = modeled_overlap_frac(
-            self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1,
-            plane_dtype)
+        reg.counter("route.mesh.halo_exchanges").inc(
+            (rm.n_shards - 1) * sweeps)
+        reg.set_gauges({
+            "route.mesh.n_shards": rm.n_shards,
+            "route.mesh.overlap_frac": modeled_overlap_frac(
+                self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1,
+                plane_dtype)})
 
     def _book_window(self, bk: dict, result: RouteResult, mlog) -> None:
         """The bookkeeping of one committed window (JAX router.py
@@ -734,6 +790,12 @@ class Router:
             batches=nexec,
             overuse_pct=100.0 * n_over / max(1, self.rr.num_nodes),
             crit_path_delay=bk["cpd"]))
+        self._obs_window(bk["tw0"], bk["it_done"], bk["K"], n_over,
+                         bk["over_total"], bk["ndirty"], w_steps,
+                         bk["pres"], bk["cpd"], nexec,
+                         relax_useful=w_useful, bucket_occ=bk["bucket_occ"],
+                         compaction=bk["compaction"],
+                         kernel_plans=bk["kplans"], tw1=bk["tw1"])
         if bk["halo"] is not None:
             self._book_halo(*bk["halo"])
         top = []
@@ -765,6 +827,79 @@ class Router:
                 mlog.log("timing", crit_path_delay=bk["cpd"],
                          dmax_hist=[None if d != d else float(d)
                                     for d in bk["dmax_hist"].tolist()])
+
+    @staticmethod
+    def _obs_window(tw0: float, it_done: int, K: int, n_over: int,
+                    over_total: int, rerouted: int, relax_steps: int,
+                    pres: float, cpd: float, batches: int,
+                    relax_useful: Optional[int] = None,
+                    bucket_occ=(), compaction: float = 1.0,
+                    kernel_plans=(), tw1: Optional[float] = None) -> None:
+        """Trace and metrics of one committed window (JAX router.py
+        :1088-1163): a route.window span, a route.kernel span per
+        dispatched rung, K route.iter spans (the window's wall time
+        shared evenly, approx=True when K > 1), the work ledger's
+        counters and gauges, and the per-window snapshot.  ``tw1`` is
+        the window's end (perf_counter seconds): the pipelined driver
+        books a window while the next one runs."""
+        if tw1 is None:
+            tw1 = time.perf_counter()
+        useful = relax_steps if relax_useful is None else relax_useful
+        tr = get_tracer()
+        if tr is not None:
+            tr.add_complete(
+                "route.window", tw0, tw1 - tw0, cat="route",
+                first_iter=it_done - K + 1, last_iter=it_done, K=K,
+                rerouted=rerouted, overused_nodes=n_over,
+                relax_steps=relax_steps,
+                relax_steps_useful=int(useful),
+                relax_steps_wasted=int(relax_steps - useful))
+            for kp in kernel_plans:
+                tr.add_complete("route.kernel", tw0, 0.0, cat="route",
+                                **kp)
+            dt = (tw1 - tw0) / max(1, K)
+            for j in range(K):
+                tr.add_complete("route.iter", tw0 + j * dt, dt,
+                                cat="route", it=it_done - K + 1 + j,
+                                overused=int(n_over),
+                                pres_fac=round(float(pres), 4),
+                                approx=K > 1)
+        reg = get_metrics()
+        reg.counter("route.iterations").inc(K)
+        reg.counter("route.relax_steps").inc(relax_steps)
+        reg.counter("route.relax_steps_useful").inc(int(useful))
+        reg.counter("route.relax_steps_wasted").inc(
+            int(relax_steps - useful))
+        for occ_frac in bucket_occ:
+            reg.histogram("route.bucket_occupancy").record(float(occ_frac))
+        reg.gauge("route.compaction_ratio").set(round(float(compaction),
+                                                      6))
+        reg.counter("route.batches").inc(batches)
+        reg.gauge("route.overused_nodes").set(int(n_over))
+        reg.gauge("route.overuse_total").set(int(over_total))
+        reg.gauge("route.dirty_nets").set(int(rerouted))
+        reg.gauge("route.pres_fac").set(round(float(pres), 6))
+        if cpd == cpd:
+            reg.gauge("route.crit_path_delay").set(float(cpd))
+        reg.histogram("route.window_wall_s").record(tw1 - tw0)
+        reg.snapshot(phase="route", iteration=int(it_done))
+
+    def _obs_final(self, result: "RouteResult") -> None:
+        """The end-of-route gauges and snapshot (JAX router.py
+        :1289-1308); overused_wire_nodes is route_report's count."""
+        from .report import overused_wire_nodes
+
+        reg = get_metrics()
+        reg.gauge("route.success").set(bool(result.success))
+        reg.gauge("route.wirelength").set(int(result.wirelength))
+        reg.gauge("route.widened_nets").set(int(result.widened_nets))
+        reg.gauge("route.net_routes").set(int(result.total_net_routes))
+        total = max(1, result.total_relax_steps)
+        reg.gauge("route.relax_wasted_frac").set(
+            round(result.total_relax_steps_wasted / total, 6))
+        reg.gauge("route.overused_wire_nodes").set(
+            overused_wire_nodes(self.rr, result.occ))
+        reg.snapshot(phase="route_final", iteration=result.iterations)
 
     def _occ_snapshot(self, occ, pipelined: bool, mlog):
         """Occupancy for one window's congestion record (JAX router.py
@@ -851,20 +986,50 @@ class Router:
         criticalities (router.cxx:28,42).  ``resume`` (a RouteCheckpoint,
         e.g. ``RouteResult.checkpoint``) continues that negotiation: its
         state is uploaded to this Router's device and mesh layout and its
-        criticalities replace ``crit``."""
+        criticalities replace ``crit``.
+
+        The planes program runs ``route_gen`` with ``_drive_windows``,
+        which issues every window request as it comes."""
+        if self.pg is not None:
+            return self._drive_windows(self.route_gen(
+                term, crit=crit, timing_cb=timing_cb, analyzer=analyzer,
+                resume=resume))
+        _check_ported(self.opts)
+        get_metrics().set_gauges({k: 0.0 for k in _PIPELINE_GAUGES})
+        # the ELL program: the analyzer degrades to the per-iteration
+        # host callback (JAX router.py:2702-2705)
+        if analyzer is not None and timing_cb is None:
+            timing_cb = analyzer.timing_cb
+        if resume is not None:
+            raise ValueError("resume is supported by the planes program")
+        return self._route_ell(term, crit, timing_cb)
+
+    def route_gen(self, term: NetTerminals,
+                  crit: Optional[np.ndarray] = None,
+                  timing_cb: Optional[Callable] = None, analyzer=None,
+                  resume: Optional[RouteCheckpoint] = None):
+        """The planes route as a generator (JAX router.py:2559-2684): it
+        sets up the route's device state, then runs the window loop,
+        yielding a ``WindowDispatchRequest`` at every fused window
+        dispatch (``fused_dispatch=True``) and taking the result of
+        ``route_window_planes_fused`` on the request's arguments back
+        through ``send``.  Its StopIteration value is the RouteResult.
+        ``route()`` drives it with ``_drive_windows``; a lockstep
+        driver may instead merge several jobs' requests into one
+        ``planes.route_window_planes_multi`` call.
+
+        Setup runs at the first ``next()``.  The generator reads this
+        Router's ``opts`` and ``_staging_prefix`` as it runs, so a caller
+        driving several jobs on one Router sets both for the owning job
+        before each advance."""
+        if self.pg is None:
+            raise ValueError("route_gen is supported by the planes program")
         opts = self.opts
         _check_ported(opts)
-        for k in _PIPELINE_GAUGES:
-            self.metrics[k] = 0.0
-        if self.pg is None:
-            # the ELL program: the analyzer degrades to the per-iteration
-            # host callback (JAX router.py:2702-2705)
-            if analyzer is not None and timing_cb is None:
-                timing_cb = analyzer.timing_cb
-            if resume is not None:
-                raise ValueError("resume is supported by the planes program")
-            return self._route_ell(term, crit, timing_cb)
         _check_plane_dtype(opts)
+        # per-route gauges: a route that never reaches one does not
+        # inherit the previous route's value (JAX router.py:2586-2600)
+        get_metrics().set_gauges({k: 0.0 for k in _PIPELINE_GAUGES})
         crop = normalize_crop(opts.crop)
         rr = self.rr
         R, Smax = term.sinks.shape
@@ -903,19 +1068,23 @@ class Router:
                 self._upload(getattr(resume, k))
                 for k in _CHECKPOINT_ARRAYS[:6])
             crit = resume.crit
-            self.metrics["route.elastic.resume_ms"] = round(
-                (time.perf_counter() - tr0) * 1e3, 3)
+            get_metrics().gauge("route.elastic.resume_ms").set(round(
+                (time.perf_counter() - tr0) * 1e3, 3))
         full_bb = self._t(np.array([0, rr.grid.nx + 1, 0, rr.grid.ny + 1],
                                    dtype=np.int32))
         result = RouteResult(False, 0, None, None, None, 0)
         from ..mdclog import MdcLogger
 
-        # per-(window, category) records: a no-op without stats_dir
-        with MdcLogger(opts.stats_dir) as mlog:
-            result = self._route_planes_windows(
+        tr = get_tracer()
+        # per-(window, category) records: a no-op without stats_dir;
+        # around the yields, so a closed generator closes its files
+        with MdcLogger(opts.stats_dir,
+                       t0=tr.t0 if tr is not None else None) as mlog:
+            result = yield from self._route_planes_windows(
                 term, crit, timing_cb, analyzer, occ, acc, paths,
                 sink_delay, all_reached, bb, full_bb, result, B, crop, mlog,
                 resume)
+        self._obs_final(result)
         if opts.stats_dir:
             import os
 
@@ -926,6 +1095,25 @@ class Router:
                 os.path.join(opts.stats_dir, "route_report.txt"),
                 rr, result.occ, R)
         return result
+
+    def _exec_window_request(self, req: WindowDispatchRequest):
+        """Issue one fused-window request (JAX router.py:1037-1055,
+        without the guarded and program-library branches, which are not
+        ported): the call runs, or raises."""
+        from .planes import route_window_planes_fused
+
+        _note_dispatch_variant(req.vkey)
+        return route_window_planes_fused(*req.f_args, **req.f_kwargs)
+
+    def _drive_windows(self, gen) -> RouteResult:
+        """The solo driver of a route_gen generator (JAX router.py
+        :1057-1068): each request issued at once, its result sent back."""
+        try:
+            req = next(gen)
+            while True:
+                req = gen.send(self._exec_window_request(req))
+        except StopIteration as e:
+            return e.value
 
     def _ell_windows(self, bb, R: int):
         """The windowed search's setup (JAX router.py:2803-2841): the
@@ -1027,6 +1215,7 @@ class Router:
 
         for it in range(1, opts.max_router_iterations + 1):
             t0 = time.time()
+            tw0 = time.perf_counter()
             if it <= opts.incremental_after:
                 idx = np.arange(R)
             else:
@@ -1134,6 +1323,8 @@ class Router:
                 it, n_over, over_total, len(idx), time.time() - t0,
                 relax_steps=it_steps, batches=len(batches),
                 overuse_pct=100.0 * n_over / max(1, N)))
+            self._obs_window(tw0, it, 1, n_over, over_total, len(idx),
+                             it_steps, pres_fac, float("nan"), len(batches))
             if opts.stats_dir and opts.dump_routes:
                 _dump_routes(opts.stats_dir, it, paths.cpu().numpy(), N)
 
@@ -1153,7 +1344,8 @@ class Router:
                     np.asarray(timing_cb(result), dtype=np.float32), 0.99)
                 if np.array_equal(new_crit, crit):
                     # unchanged: keep the device copy
-                    self._count("route.pipeline.crit_upload_skips")
+                    get_metrics().counter(
+                        "route.pipeline.crit_upload_skips").inc()
                 else:
                     crit = new_crit
                     crit_d = None
@@ -1164,6 +1356,7 @@ class Router:
         result.paths = paths.cpu().numpy()
         result.sink_delay = sink_delay.cpu().numpy()
         result.occ = occ.cpu().numpy()
+        self._obs_final(result)
         if opts.stats_dir:
             import os
 
@@ -1178,11 +1371,13 @@ class Router:
     def _route_planes_windows(self, term, crit, timing_cb, analyzer, occ,
                               acc, paths, sink_delay, all_reached, bb,
                               full_bb, result, B, crop, mlog, resume):
-        """The window driver: the JAX package's _route_planes_windows
-        with its pipelined and synchronous modes, checkpoints, resume
-        and slicing (no resilience or fused modes)."""
+        """The window driver, a generator: the JAX package's
+        _route_planes_windows with its pipelined and synchronous modes,
+        checkpoints, resume, slicing and the fused dispatch, which
+        yields its request (no resilience modes)."""
         from .planes import (SCAL_MAX_SPAN, live_size_bits,
-                             route_window_planes, unpack_window_status)
+                             route_window_planes, route_window_planes_fused,
+                             unpack_window_status)
 
         opts = self.opts
         rr, dev = self.rr, self.dev
@@ -1281,9 +1476,11 @@ class Router:
         # bf16 commits f32 and shadows in bf16, "off" commits bf16
         pd_req, guard = str(opts.plane_dtype), str(opts.dtype_guard)
         dtype_demoted = dtype_validated = False
-        m = self.metrics
-        self._count("route.kernel.dtype_demotions", 0)
-        m["route.kernel.plane_dtype"] = pd_req
+        reg = get_metrics()
+        tr = get_tracer()
+        reg.gauge("route.kernel.plane_dtype").set(pd_req)
+        program_vk = opts.program == "planes_pallas"
+        mesh_vk = False if rm is None else (rm.n_shards, rm.impl)
         # a host callback and per-iteration stats rows serialize the loop
         # anyway (JAX router.py:1592-1598)
         pipelined = bool(opts.pipeline) and not opts.stats_dir \
@@ -1339,24 +1536,29 @@ class Router:
                 # mesh splits the canvas instead of the crop ladder
                 dispatch = [(dirty, None)]
 
+            stg = self._staging_prefix
             widen_d = (None if opts.sweep_budget_div <= 1
-                       else self._staging.put("widen", budget_full))
+                       else self._staging.put(stg + "widen", budget_full))
             shadow_now = (pd_req == "bf16" and guard != "off"
                           and not dtype_demoted and not dtype_validated)
             pd_main = ("bf16" if pd_req == "bf16" and guard == "off"
                        and not dtype_demoted else "f32")
+            # fused iff asked (JAX router.py:1721-1723; the port has no
+            # legacy GSPMD mesh and no resilience ladder)
+            fused_now = bool(opts.fused_dispatch)
             shadow = []
             if shadow_now:
                 # the window-entry state, for the shadow's replay
                 sh_state = [t.clone() for t in (occ, acc, paths,
                                                 sink_delay, all_reached,
                                                 bb, crit_d)]
-            t0 = time.time()
-            rung_scals = []
-            plan_s = plan0_s = call_s = sync_block_s = 0.0
-            t_disp0 = None
-            for ri, (sub, tile) in enumerate(dispatch):
-                tp0 = time.perf_counter()
+
+            def plan_rung(sub, tile, ri):
+                """Host planning of one rung of this window's crop
+                ladder (JAX router.py:1748-1839): batch plan, sweep
+                budget, widen gate, wave cap and the staged uploads,
+                shared by the per-rung and the fused dispatch, so both
+                run the same rungs."""
                 sel_p, valid_p = self._plan_groups(
                     sub, colors, nsinks_np, cx_np, cy_np, B)
                 ws, hs = spans(sub)
@@ -1382,7 +1584,7 @@ class Router:
                 if wok is not None and len(sub):
                     wok_np = budget_full.copy()
                     wok_np[sub[spans_full <= nsw]] = True
-                    wok = self._staging.put(f"wok{ri}", wok_np)
+                    wok = self._staging.put(f"{stg}wok{ri}", wok_np)
                 maxfan = int(nsinks_np[sub].max()) if len(sub) else 1
                 doubling = opts.sink_group == 0 and not precise
                 grp_w = 1 if precise and opts.sink_group == 0 else grp
@@ -1390,39 +1592,175 @@ class Router:
                          if doubling
                          else min(Smax, _pow2_at_least(
                              math.ceil(maxfan / grp_w) + 1)))
-                # positions 2-7 and 10 are the window state (_SHADOW_SLOTS)
-                args = [self.pg, dev, occ, acc, paths, sink_delay,
-                        all_reached, bb, source_d, sinks_d, crit_d,
-                        *planes_tbl, self._staging.put(f"sel{ri}", sel_p),
-                        self._staging.put(f"valid{ri}", valid_p),
-                        full_bb, pres, opts.pres_fac_mult, opts.max_pres_fac,
-                        opts.acc_fac if ri == 0 else 0.0, it_done,
-                        it_done + 1 if force_all_next
-                        else opts.incremental_after,
-                        K, nsw, L, waves, grp_w, doubling]
-                kw = dict(topk=min(4096, N), n_colors=5, crop_tile=tile,
-                          bb0_all=bb0_d, widen_ok=wok, mesh=rm, **sta_kw)
-                tp1 = time.perf_counter()
-                plan_s += tp1 - tp0
-                if ri == 0:
-                    plan0_s, t_disp0 = tp1 - tp0, tp1
-                occ, acc, status, scal, dmax_hist = route_window_planes(
-                    *args, plane_dtype=pd_main, **kw)
-                tp2 = time.perf_counter()
-                call_s += tp2 - tp1
+                # the route.kernel span's fields (the layout gauges of
+                # JAX's _plan_block_nets are ROADMAP.md A13-rest)
+                kplan = dict(tile=None if tile is None else list(tile),
+                             nets=max(1, len(sub)), nsweeps=int(nsw),
+                             plane_dtype=pd_main)
+                return dict(
+                    tile=tile, nsw=nsw, waves=waves, grp_w=grp_w,
+                    doubling=doubling, wok=wok,
+                    sel_d=self._staging.put(f"{stg}sel{ri}", sel_p),
+                    valid_d=self._staging.put(f"{stg}valid{ri}", valid_p),
+                    kplan=kplan, sel_shape=sel_p.shape,
+                    ledger=(int(valid_p.sum()), valid_p.shape[1],
+                            int(valid_p.any(axis=1).sum())))
+
+            force_until = (it_done + 1 if force_all_next
+                           else opts.incremental_after)
+            # positions 2-7 and 10 are the window state (_SHADOW_SLOTS)
+            state_args = lambda: (  # noqa: E731
+                self.pg, dev, occ, acc, paths, sink_delay, all_reached, bb,
+                source_d, sinks_d, crit_d, *planes_tbl)
+
+            def rung_call(p, esc):
+                """Planned rung ``p`` as route_window_planes (args,
+                kwargs); ``esc`` applies acc_fac (the first rung)."""
+                args = (*state_args(), p["sel_d"], p["valid_d"], full_bb,
+                        pres, opts.pres_fac_mult, opts.max_pres_fac,
+                        opts.acc_fac if esc else 0.0, it_done, force_until,
+                        K, p["nsw"], L, p["waves"], p["grp_w"],
+                        p["doubling"])
+                kw = dict(topk=min(4096, N), n_colors=5,
+                          crop_tile=p["tile"], bb0_all=bb0_d,
+                          widen_ok=p["wok"], mesh=rm, plane_dtype=pd_main,
+                          **sta_kw)
+                return args, kw
+
+            def rung_vkey(p):
+                return (p["tile"], K, p["nsw"], L, p["waves"], p["grp_w"],
+                        p["doubling"], p["sel_shape"][0], p["sel_shape"][1],
+                        p["wok"] is None, program_vk, mesh_vk, bool(sta_kw),
+                        R, Smax, N, pd_main)
+
+            t0 = time.time()
+            tw0 = time.perf_counter()
+            kplans, bucket_occ = [], []
+            comp_num = comp_den = 0
+            plan_s = plan0_s = call_s = sync_block_s = 0.0
+            t_disp0 = None
+
+            def book_ledger(p):
+                nonlocal comp_num, comp_den
+                kplans.append(p["kplan"])
+                nvalid, bg, grows = p["ledger"]
+                if grows:
+                    bucket_occ.append(nvalid / (grows * bg))
+                    comp_num += grows * bg
+                    comp_den += grows * B
+
+            def drain(scal, t_after, rung):
+                # --sync: drain the dispatch before any further host work
+                nonlocal sync_block_s
+                scal.cpu()
+                te1 = time.perf_counter()
+                sync_block_s += te1 - t_after
+                reg.counter("route.pipeline.blocking_syncs").inc()
+                if tr is not None:
+                    tr.mark("route.pipeline.exec", t_after, te1,
+                            cat="route", window=widx, rung=rung, K=K,
+                            pipelined=False)
+
+            if fused_now:
+                # the fused dispatch: every populated rung planned first,
+                # then the whole ladder as one route_window_planes_fused
+                # call, issued by whoever drives this generator
+                tp0 = time.perf_counter()
+                plans = [plan_rung(sub, tile, ri)
+                         for ri, (sub, tile) in enumerate(dispatch)]
+                for p in plans:
+                    book_ledger(p)
+                rung_desc = tuple((p["tile"], p["nsw"], p["waves"],
+                                   p["grp_w"], p["doubling"]) for p in plans)
+                widen_oks = (None if all(p["wok"] is None for p in plans)
+                             else tuple(p["wok"] for p in plans))
+                f_args = (*state_args(),
+                          tuple(p["sel_d"] for p in plans),
+                          tuple(p["valid_d"] for p in plans), full_bb,
+                          pres, opts.pres_fac_mult, opts.max_pres_fac,
+                          opts.acc_fac, it_done, force_until, K, L)
+                f_kwargs = dict(rung_desc=rung_desc, topk=min(4096, N),
+                                n_colors=5, mesh=rm, bb0_all=bb0_d,
+                                widen_oks=widen_oks, plane_dtype=pd_main,
+                                **sta_kw)
+                vkey = ("fused", rung_desc, K, L,
+                        tuple(p["sel_shape"] for p in plans),
+                        widen_oks is None, program_vk, mesh_vk,
+                        bool(sta_kw), R, Smax, N, pd_main)
                 if shadow_now:
-                    shadow.append((args, kw))
-                rung_scals.append((scal, tile is not None))
+                    shadow.append((route_window_planes_fused, f_args,
+                                   f_kwargs, vkey))
+
+                def per_rung_fb(plans=plans, vkey=vkey):
+                    # the same planned rungs, one call each: the same
+                    # result as the fused call (resilience chain, A13-rest)
+                    scals = []
+                    for ri2, p2 in enumerate(plans):
+                        _note_dispatch_variant(vkey + ("per_rung", ri2))
+                        a2, kw2 = rung_call(p2, ri2 == 0)
+                        out2 = route_window_planes(*a2, **kw2)
+                        scals.append(out2[3])
+                    return out2[:3] + (torch.stack(scals), out2[4])
+
+                tp1 = time.perf_counter()
+                plan_s = plan0_s = tp1 - tp0
+                t_disp0 = tp1
+                if tr is not None:
+                    tr.mark("route.pipeline.plan", tp0, tp1, cat="route",
+                            stage="plan", window=widx, rung=0,
+                            nets=len(dirty), fused=True,
+                            rungs=len(dispatch))
+                occ, acc, status, scal_stack, dmax_hist = yield \
+                    WindowDispatchRequest(vkey, f_args, f_kwargs,
+                                          per_rung_fb, None)
+                tp2 = time.perf_counter()
+                call_s = tp2 - tp1
                 if not pipelined:
-                    # --sync: drain the rung before any further host work
-                    scal.cpu()
-                    sync_block_s += time.perf_counter() - tp2
-                    self._count("route.pipeline.blocking_syncs")
+                    drain(scal_stack, tp2, 0)
+                last_plan = plans[-1]
+            else:
+                scals = []
+                for ri, (sub, tile) in enumerate(dispatch):
+                    tp0 = time.perf_counter()
+                    p = plan_rung(sub, tile, ri)
+                    args, kw = rung_call(p, ri == 0)
+                    vkey = rung_vkey(p)
+                    _note_dispatch_variant(vkey)
+                    tp1 = time.perf_counter()
+                    plan_s += tp1 - tp0
+                    if ri == 0:
+                        plan0_s, t_disp0 = tp1 - tp0, tp1
+                    if tr is not None:
+                        tr.mark("route.pipeline.plan", tp0, tp1,
+                                cat="route", stage="plan", window=widx,
+                                rung=ri, nets=len(sub),
+                                tile=None if tile is None else list(tile))
+                    occ, acc, status, scal, dmax_hist = route_window_planes(
+                        *args, **kw)
+                    tp2 = time.perf_counter()
+                    call_s += tp2 - tp1
+                    if shadow_now:
+                        shadow.append((route_window_planes, args, kw,
+                                       vkey))
+                    scals.append(scal)
+                    if not pipelined:
+                        drain(scal, tp2, ri)
+                    book_ledger(p)
+                    last_plan = p
+                scal_stack = torch.stack(scals)
+            rung_cropped = [tile is not None for _, tile in dispatch]
             force_all_next = False
+            # one relaxation dispatch per window when fused, one per
+            # populated crop rung otherwise (the bf16 shadow's replays
+            # are not counted)
+            reg.set_gauges({
+                "route.kernel.fused_rungs": len(dispatch),
+                "route.kernel.dispatches_per_window":
+                    1 if fused_now else len(dispatch)})
             # the window's packed summary, copied to the host without
             # blocking; read at the stall below
             summary = _HostCopy(
-                [status, torch.stack([s for s, _ in rung_scals])]
+                [status, scal_stack]
                 + ([dmax_hist] if analyzer is not None else []))
 
             # the overlapped host stage: the previous window's bookkeeping
@@ -1430,9 +1768,14 @@ class Router:
             book_s = 0.0
             if book is not None:
                 tb0 = time.perf_counter()
+                bwidx = book["widx"]
                 self._book_window(book, result, mlog)
                 book = None
-                book_s = time.perf_counter() - tb0
+                tb1 = time.perf_counter()
+                book_s = tb1 - tb0
+                if tr is not None:
+                    tr.mark("route.pipeline.plan", tb0, tb1, cat="route",
+                            stage="summary", window=bwidx)
 
             # the stall: the window's one blocking point when pipelined
             t_st0 = time.perf_counter()
@@ -1442,22 +1785,27 @@ class Router:
             dmax_np = host[2] if analyzer is not None else None
             scal_np = scal_all[-1]
             if shadow:
-                # the dtype guard: replay the window's rungs in bf16 on
+                # the dtype guard: replay the window's calls in bf16 on
                 # the window-entry copies and band-compare the summaries
                 s_status, s_scal = _shadow_window(shadow, sh_state)
                 if _dtype_band_ok(status_np, scal_np, s_status, s_scal):
                     dtype_validated = guard == "route"
                 else:
                     dtype_demoted = True
-                    self._count("route.kernel.dtype_demotions")
-                    m["route.kernel.plane_dtype"] = "f32"
+                    reg.counter("route.kernel.dtype_demotions").inc()
+                    reg.gauge("route.kernel.plane_dtype").set("f32")
 
             # pipeline accounting (JAX router.py:2232-2281)
             stall_s = (t_st1 - t_st0) + sync_block_s
             if pipelined:
-                self._count("route.pipeline.blocking_syncs")
+                reg.counter("route.pipeline.blocking_syncs").inc()
                 exec_s = t_st1 - t_disp0
                 serial_s = t_disp0 - t_prev_end
+                if tr is not None:
+                    tr.mark("route.pipeline.exec", t_disp0, t_st1,
+                            cat="route", window=widx, K=K,
+                            rungs=1 if fused_now else len(dispatch),
+                            pipelined=True)
             else:
                 exec_s = call_s + sync_block_s
                 serial_s = (t_st1 - t_prev_end) - exec_s
@@ -1470,7 +1818,7 @@ class Router:
             pl_stall += stall_s
             pl_serial += serial_s
             pfx = "route.pipeline."
-            m.update({
+            reg.set_gauges({
                 pfx + "host_plan_ms": round(tot_host_w * 1e3, 3),
                 pfx + "device_exec_ms": round(exec_s * 1e3, 3),
                 pfx + "stall_ms": round(stall_s * 1e3, 3),
@@ -1502,9 +1850,10 @@ class Router:
             book = dict(
                 widx=widx, it_done=it_done, K=K, n_over=n_over,
                 over_total=over_total, ndirty=len(dirty), pres=pres,
-                cpd=cpd, t_wall0=t0, t_wall1=time.time(),
-                rung_scals=[(v, c) for v, (_, c) in zip(scal_all,
-                                                         rung_scals)],
+                cpd=cpd, t_wall0=t0, t_wall1=time.time(), tw0=tw0,
+                tw1=t_st1, rung_scals=list(zip(scal_all, rung_cropped)),
+                bucket_occ=bucket_occ,
+                compaction=comp_num / max(1, comp_den), kplans=kplans,
                 colors_max=int(np.max(colors) + 1
                                if colors is not None and len(colors)
                                else 0),
@@ -1514,7 +1863,8 @@ class Router:
                 occ_ref=self._occ_snapshot(occ, pipelined, mlog),
                 # one rung under a mesh: the last plan is the window's
                 halo=(None if rm is None else
-                      (scal_np, sel_p.shape[1] if len(dirty) else 1,
+                      (scal_np, last_plan["sel_shape"][1] if len(dirty)
+                       else 1,
                        pd_main)))
             if analyzer is not None and cpd == cpd:
                 analyzer.crit_path_delay = cpd
@@ -1596,7 +1946,8 @@ class Router:
                     timing_cb(result), dtype=np.float32), 0.99)
                 # unchanged criticalities keep the tensor on the device
                 if np.array_equal(new_crit, crit):
-                    self._count("route.pipeline.crit_upload_skips")
+                    get_metrics().counter(
+                        "route.pipeline.crit_upload_skips").inc()
                 else:
                     crit = new_crit
                     crit_d = torch.tensor(crit, device=self.device)
@@ -1631,8 +1982,8 @@ class Router:
                 next_ckpt = it_done + opts.checkpoint_every
                 mlog.log("elastic", event="checkpoint", it_done=it_done,
                          pres=round(pres, 4))
-                self._count("route.elastic.checkpoints")
-                self._count("route.elastic.checkpoint_ms_total", round(
+                reg.counter("route.elastic.checkpoints").inc()
+                reg.counter("route.elastic.checkpoint_ms_total").inc(round(
                     (time.perf_counter() - tc0) * 1e3, 3))
                 if yield_at is not None and it_done >= yield_at:
                     # the slice's yield: the checkpoint is the resume
@@ -1648,10 +1999,11 @@ class Router:
             tb0 = time.perf_counter()
             self._book_window(book, result, mlog)
             pl_tot_host += time.perf_counter() - tb0
-            m["route.pipeline.host_overlap_frac"] = round(
-                pl_ov_host / max(pl_tot_host, 1e-9), 4)
-            m["route.pipeline.host_plan_ms_total"] = round(
-                pl_tot_host * 1e3, 3)
+            reg.set_gauges({
+                "route.pipeline.host_overlap_frac": round(
+                    pl_ov_host / max(pl_tot_host, 1e-9), 4),
+                "route.pipeline.host_plan_ms_total": round(
+                    pl_tot_host * 1e3, 3)})
 
         if not result.success and fin_save is not None and not sliced_yield:
             # the finishing pass could not re-legalize within budget:

@@ -47,6 +47,7 @@ from parallel_eda_tpu_torch.route import planes_shard as TS  # noqa: E402
 from parallel_eda_tpu_torch.route import router as TR  # noqa: E402
 from parallel_eda_tpu_torch.route.check import check_route  # noqa: E402
 from test_torch_route import (CROP_FIXTURE, FIXTURE,  # noqa: E402
+                              metric_values, port_metrics,
                               _assert_same_route, window_matches_jax)
 
 BF = "bf16"
@@ -266,12 +267,14 @@ def _jax_route(cfg, fields, mesh_shards=1):
 
 
 def _port_route(cfg, fields, mesh_shards=1):
+    """The port's route and its metrics (a registry of its own)."""
     tf = synth_flow(**cfg)
-    r = TR.Router(tf.rr, TR.RouterOpts(mesh_shards=mesh_shards, **fields),
-                  device="cpu")
-    res = r.route(tf.term)
+    with port_metrics() as reg:
+        r = TR.Router(tf.rr, TR.RouterOpts(mesh_shards=mesh_shards,
+                                           **fields), device="cpu")
+        res = r.route(tf.term)
     check_route(tf.rr, tf.term, res.paths, occ=res.occ)
-    return r, res
+    return metric_values(reg), res
 
 
 @pytest.mark.parametrize("name,cfg,fields", [
@@ -282,14 +285,14 @@ def test_route_bf16_off_matches_jax(name, cfg, fields):
     the JAX Router's bf16 route (a different route from the f32 one)."""
     fields = dict(fields, plane_dtype=BF, dtype_guard="off")
     jres, jm = _jax_route(cfg, fields)
-    r, tres = _port_route(cfg, fields)
+    m, tres = _port_route(cfg, fields)
     _assert_same_route(jres, tres)
     assert (tres.wirelength, tres.iterations) == EXPECT[name]
     if name == "crop":
         assert tres.total_relax_steps_cropped > 0
-    assert r.metrics["route.kernel.plane_dtype"] == \
+    assert m["route.kernel.plane_dtype"] == \
         jm["route.kernel.plane_dtype"] == BF
-    assert r.metrics["route.kernel.dtype_demotions"] == 0
+    assert m["route.kernel.dtype_demotions"] == 0
 
 
 @pytest.mark.parametrize("guard", ["window", "route"])
@@ -301,11 +304,11 @@ def test_route_bf16_guarded_matches_jax(guard):
     read JAX's registry values."""
     fields = dict(batch_size=32, plane_dtype=BF, dtype_guard=guard)
     jres, jm = _jax_route(FIXTURE, fields)
-    r, tres = _port_route(FIXTURE, fields)
+    m, tres = _port_route(FIXTURE, fields)
     _assert_same_route(jres, tres)
     assert (tres.wirelength, tres.iterations) == EXPECT["f32"]
     for k in ("route.kernel.dtype_demotions", "route.kernel.plane_dtype"):
-        assert r.metrics[k] == jm[k], k
+        assert m[k] == jm[k], k
 
 
 def test_forced_band_violation_demotes_dtype(monkeypatch):
@@ -313,13 +316,13 @@ def test_forced_band_violation_demotes_dtype(monkeypatch):
     the counter fires once, the gauge reads "f32", and the route is the
     f32 one (the JAX package's test, without the resilience ladder)."""
     monkeypatch.setattr(TR, "_dtype_band_ok", lambda *a, **k: False)
-    r, tres = _port_route(FIXTURE, dict(batch_size=32, plane_dtype=BF))
+    m, tres = _port_route(FIXTURE, dict(batch_size=32, plane_dtype=BF))
     _, base = _port_route(FIXTURE, dict(batch_size=32))
     assert np.array_equal(tres.paths, base.paths)
     assert np.array_equal(tres.occ, base.occ)
     assert tres.wirelength == base.wirelength
-    assert r.metrics["route.kernel.dtype_demotions"] == 1
-    assert r.metrics["route.kernel.plane_dtype"] == "f32"
+    assert m["route.kernel.dtype_demotions"] == 1
+    assert m["route.kernel.plane_dtype"] == "f32"
 
 
 def test_dtype_band_matches_jax():
@@ -359,11 +362,11 @@ def test_router_mesh2_bf16_matches_jax_mesh_route():
     halo ledger (2 bytes a cell) JAX's."""
     fields = dict(batch_size=32, plane_dtype=BF, dtype_guard="off")
     jres, jm = _jax_route(FIXTURE, fields, mesh_shards=2)
-    r, tres = _port_route(FIXTURE, fields, mesh_shards=2)
+    m, tres = _port_route(FIXTURE, fields, mesh_shards=2)
     _assert_same_route(jres, tres)
     for k in ("route.mesh.halo_bytes", "route.mesh.halo_exchanges"):
-        assert r.metrics[k] == jm[k], k
-    assert r.metrics["route.kernel.plane_dtype"] == BF
+        assert m[k] == jm[k], k
+    assert m["route.kernel.plane_dtype"] == BF
 
 
 def test_timing_route_bf16_matches_jax(ref):

@@ -3,7 +3,7 @@ with ``--device cpu``) against the JAX package's CLI on the same
 arguments: the .net / .place / .route artifacts byte for byte, the
 printed lines but for their seconds, the stats files but for their
 seconds and clocks, the views, the power report and the post-synthesis
-Verilog and SDF.
+Verilog and SDF, and the names in the --trace file and in metrics.json.
 
 The JAX side is timing-driven, so it runs under
 ``XLA_FLAGS=--xla_cpu_max_isa=AVX`` (ROADMAP.md C2: with its default
@@ -42,7 +42,7 @@ CASES = {
     "no_timing": BASE + ["--no_timing", "--sync"],
     "place_resume": BASE + ["--place_file", "../timing/out/synth.place"],
     "net_resume": BASE + ["--net_file", "../timing/out/synth.net",
-                          "--stats_dir", "stats"],
+                          "--stats_dir", "stats", "--trace", "trace.json"],
     "binary_search": ["--luts", "10", "--arch", "minimal", "--seed", "4",
                       "--batch_size", "16", "--moves_per_step", "16",
                       "--max_router_iterations", "25", "--no_timing",
@@ -161,13 +161,9 @@ def _bytes(*parts):
 
 
 def _stdout(d, name):
-    """The case's printed lines with every seconds figure masked; the
-    JAX CLI's metrics.json line is left out (the port does not write
-    metrics.json: ROADMAP.md A13)."""
-    lines = [re.sub(r"\d+\.\d+s\b", "<s>", ln)
-             for ln in _text(d, name, "stdout.txt").splitlines()
-             if not ln.startswith("metrics snapshots in ")]
-    return lines
+    """The case's printed lines with every seconds figure masked."""
+    return [re.sub(r"\d+\.\d+s\b", "<s>", ln)
+            for ln in _text(d, name, "stdout.txt").splitlines()]
 
 
 def _tree(d, name, sub):
@@ -192,9 +188,9 @@ def _assert_same_run(jd, td, name):
 @pytest.mark.parametrize("name", TIER1)
 def test_cli_matches_jax(jax_dir, port_dir, name):
     """rc, printed lines (seconds aside) and every artifact byte for
-    byte: timing-driven (with --stats_dir, --draw, --power and
+    byte: timing-driven (with --draw, --power and
     --gen_postsynthesis_netlist), --no_timing --sync, and the .place and
-    .net resumes."""
+    .net resumes (the latter with --stats_dir and --trace)."""
     _assert_same_run(jax_dir, port_dir, name)
 
 
@@ -267,10 +263,56 @@ def test_cli_stats_dir_matches_jax(jax_dir, port_dir):
     t = logs(port_dir)
     assert t == logs(jax_dir)
     assert os.path.join("window_1", "timing.log") in t
-    # the JAX package's obs/ files are not written (ROADMAP.md A13)
+    # the JAX package's devprof.json is not written (ROADMAP.md
+    # A13-rest)
     files = set(os.listdir(os.path.join(port_dir, "net_resume", "stats")))
     assert files == {"iter_stats.txt", "final_stats.txt",
-                     "route_report.txt", "logs"}
+                     "route_report.txt", "logs", "metrics.json"}
+    assert set(os.listdir(os.path.join(jax_dir, "net_resume",
+                                       "stats"))) - files == {
+        "devprof.json"}
+
+
+# what the JAX CLI's trace and metrics.json hold that the port's do not:
+# XLA's compile phases (the port builds its CUDA libraries instead, as
+# "cuda.build" spans, on the card only), and the instruments of ROADMAP.md
+# A13-rest (the kernel-layout gauges and devprof's route.devcost.*)
+COMPILE_SPANS = ("jax.compile.",)
+A13_REST = ("route.kernel.bytes_per_sweep", "route.kernel.lane_occupancy",
+            "route.kernel.packed_block_size", "route.devcost.")
+
+
+def _trace_names(d):
+    with open(os.path.join(d, "net_resume", "trace.json")) as f:
+        evs = json.load(f)["traceEvents"]
+    return {(e["name"], e["ph"]) for e in evs
+            if e["ph"] != "M" and not e["name"].startswith(COMPILE_SPANS)}
+
+
+def _metric_names(d):
+    with open(os.path.join(d, "net_resume", "stats", "metrics.json")) as f:
+        doc = json.load(f)
+    names = set(doc["values"])
+    for s in doc["snapshots"]:
+        names |= set(s["values"])
+    return ({n for n in names if not n.startswith(A13_REST)},
+            [s["labels"]["phase"] for s in doc["snapshots"]])
+
+
+def test_cli_trace_and_metrics_names_match_jax(jax_dir, port_dir):
+    """--trace and --stats_dir on the .net resume: the trace's event
+    names (span, counter track) and metrics.json's instrument names and
+    snapshot phases are the JAX CLI's, but for XLA's compile spans and
+    the A13-rest instruments."""
+    t = _trace_names(port_dir)
+    assert {("route.window", "X"), ("route.pipeline.plan", "X"),
+            ("route.kernel", "X"), ("place.segment", "X"),
+            ("route.overused_nodes", "C")} <= t
+    assert t == _trace_names(jax_dir)
+    names, phases = _metric_names(port_dir)
+    assert {"route.dispatch.compiles", "route.wirelength", "place.t",
+            "route.kernel.fused_rungs"} <= names
+    assert (names, phases) == _metric_names(jax_dir)
 
 
 def test_cli_binary_search_wmin(tmp_path, monkeypatch):
@@ -392,9 +434,21 @@ def test_cli_settings_file(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,item", [
     (["serve", "--help"], "A14"), (["daemon", "run"], "A14"),
     (["--trace", "t.json"], "A13"), (["--compile_cache_dir", "c"], "A14")])
-def test_cli_unported_fail_naming_roadmap(argv, item):
+def test_cli_unported_fail_naming_roadmap(argv, item, port_dir):
+    """What the port does not do fails naming its ROADMAP.md item.
+    ``--trace`` (A13) is ported: the .net resume's run wrote its trace,
+    exported after the flow, with the flow's stages in it."""
     from parallel_eda_tpu_torch.__main__ import main
 
+    if argv[0] == "--trace":
+        assert "trace in trace.json (open in Perfetto" in _text(
+            port_dir, "net_resume", "stdout.txt")
+        with open(os.path.join(port_dir, "net_resume", "trace.json")) as f:
+            doc = json.load(f)
+        stages = {e["name"] for e in doc["traceEvents"]
+                  if e.get("cat") == "stage"}
+        assert {"pack", "rr_graph", "place", "route"} <= stages
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
         main(argv)
 

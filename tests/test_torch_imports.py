@@ -33,7 +33,7 @@ def test_port_imports_no_jax():
     for m in ("__main__", "arch.xml_parser", "pack.pb_pack", "pack.pb_type",
               "netlist.blif", "netlist.files", "netlist.synthesis",
               "netlist.verilog", "route.report", "power", "draw", "viewer",
-              "mdclog"):
+              "mdclog", "obs", "obs.metrics", "obs.trace"):
         assert f"parallel_eda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -14,6 +14,7 @@ import torch
 
 from parallel_eda_tpu_torch.arch.builtin import minimal_arch, unidir_arch
 from parallel_eda_tpu_torch.flow import synth_flow
+from parallel_eda_tpu_torch.obs import MetricsRegistry, set_metrics
 from parallel_eda_tpu_torch.route import planes as P
 from parallel_eda_tpu_torch.route import planes_kernels as pk
 from parallel_eda_tpu_torch.route import planes_shard as TS
@@ -808,11 +809,12 @@ def test_router_pipelined_cuda_matches_sync(cuda):
     f = synth_flow(**ELASTIC_FLOW)
     res = {}
     for dev, p in (("cpu", True), (cuda, True), (cuda, False)):
+        reg = set_metrics(MetricsRegistry())
         r = Router(f.rr, RouterOpts(batch_size=32, pipeline=p), device=dev)
         res[str(dev), p] = r.route(f.term)
         if dev is cuda and p:
-            assert r.metrics["route.pipeline.blocking_syncs"] == len(
-                res[str(dev), p].stats)
+            assert reg.counter("route.pipeline.blocking_syncs").value == \
+                len(res[str(dev), p].stats)
     want = res["cpu", True]
     assert want.success and want.congestion
     for k in ((str(cuda), True), (str(cuda), False)):

@@ -20,6 +20,7 @@ from parallel_eda_tpu.route import RouterOpts as JOpts
 from parallel_eda_tpu_torch.flow import synth_flow
 from parallel_eda_tpu_torch.route import router as TR
 from parallel_eda_tpu_torch.route.check import check_route
+from test_torch_route import metric_values, port_metrics
 
 MODES = [True, False]
 CK = dict(checkpoint_every=2, max_router_iterations=4)
@@ -38,9 +39,12 @@ def _jax(jf, pipeline, resume=None, **kw):
 
 
 def _port(tf, pipeline, resume=None, **kw):
-    r = TR.Router(tf.rr, TR.RouterOpts(pipeline=pipeline, **OPTS, **kw),
-                  device="cpu")
-    return r.route(tf.term, resume=resume), r.metrics
+    """The port's route in mode ``pipeline`` and its metrics."""
+    with port_metrics() as reg:
+        r = TR.Router(tf.rr, TR.RouterOpts(pipeline=pipeline, **OPTS, **kw),
+                      device="cpu")
+        res = r.route(tf.term, resume=resume)
+    return res, metric_values(reg)
 
 
 @pytest.fixture(scope="module")
@@ -141,11 +145,12 @@ def test_crit_upload_skipped_when_unchanged():
     const = np.full(tf.term.sinks.shape, 0.4, dtype=np.float32)
     out = {}
     for p in MODES:
-        r = TR.Router(tf.rr, TR.RouterOpts(pipeline=p, **OPTS),
-                      device="cpu")
-        res = r.route(tf.term, crit=const, timing_cb=lambda _r: const)
+        with port_metrics() as reg:
+            r = TR.Router(tf.rr, TR.RouterOpts(pipeline=p, **OPTS),
+                          device="cpu")
+            res = r.route(tf.term, crit=const, timing_cb=lambda _r: const)
         assert res.success
-        assert r.metrics["route.pipeline.crit_upload_skips"] == \
+        assert reg.counter("route.pipeline.crit_upload_skips").value == \
             len(res.stats) - 1 >= 1
         out[p] = res
     assert_same_route(out[False], out[True])
@@ -155,15 +160,15 @@ def test_plan_staging_skips_equal_uploads():
     """_PlanStaging reuses a slot's tensor for an equal array (counting
     the skip), uploads a changed one, keeps slots apart by name, and
     never shares memory with the caller's array."""
-    m = {}
-    st = TR._PlanStaging(torch.device("cpu"), m)
-    a = np.arange(12, dtype=np.int32).reshape(3, 4)
-    d1 = st.put("sel", a)
-    assert st.put("sel", a.copy()) is d1
-    assert m["route.pipeline.upload_skips"] == 1
-    a[0, 0] = 7
-    assert int(d1[0, 0]) == 0
-    d3 = st.put("sel", a)
-    assert d3 is not d1 and torch.equal(d3, torch.from_numpy(a))
-    assert st.put("valid", a) is not d3
-    assert m["route.pipeline.upload_skips"] == 1
+    with port_metrics() as reg:
+        st = TR._PlanStaging(torch.device("cpu"))
+        a = np.arange(12, dtype=np.int32).reshape(3, 4)
+        d1 = st.put("sel", a)
+        assert st.put("sel", a.copy()) is d1
+        assert reg.counter("route.pipeline.upload_skips").value == 1
+        a[0, 0] = 7
+        assert int(d1[0, 0]) == 0
+        d3 = st.put("sel", a)
+        assert d3 is not d1 and torch.equal(d3, torch.from_numpy(a))
+        assert st.put("valid", a) is not d3
+        assert reg.counter("route.pipeline.upload_skips").value == 1

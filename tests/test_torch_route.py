@@ -4,6 +4,8 @@ relaxation ledger and the per-window stats rows must be identical, and
 check_route legal.  Also the host-side helpers and the search.py subset
 against their JAX counterparts."""
 
+import collections
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ from parallel_eda_tpu.route import planes as JP
 from parallel_eda_tpu.route import router as JR
 from parallel_eda_tpu.route import search as JS
 from parallel_eda_tpu.route.device_graph import to_device as jax_to_device
+from parallel_eda_tpu_torch import obs as TOBS
 from parallel_eda_tpu_torch.flow import synth_flow
 from parallel_eda_tpu_torch.route import planes as TP
 from parallel_eda_tpu_torch.route import router as TR
@@ -35,9 +38,39 @@ CROP_FIXTURE = dict(num_luts=40, num_inputs=6, num_outputs=6,
                     chan_width=10, seed=3, bb_factor=0)
 
 
+@contextlib.contextmanager
+def port_metrics():
+    """A fresh port metrics registry for the block (the process's own
+    restored after it)."""
+    old = TOBS.get_metrics()
+    reg = TOBS.set_metrics(TOBS.MetricsRegistry())
+    try:
+        yield reg
+    finally:
+        TOBS.set_metrics(old)
+
+
+def metric_values(reg):
+    """The registry's values; an instrument never touched reads 0, as a
+    counter the JAX tests read with ``reg.counter(k).value`` does."""
+    return collections.defaultdict(int, reg.values())
+
+
+_JAX_ROUTES: dict = {}
+
+
+def _jax_route(cfg, opts):
+    """The JAX Router's route (pipeline=False), cached per configuration."""
+    key = (tuple(sorted(cfg.items())), tuple(sorted(opts.items())))
+    if key not in _JAX_ROUTES:
+        jf = jax_synth_flow(**cfg)
+        _JAX_ROUTES[key] = jf, JRouter(jf.rr, JOpts(
+            pipeline=False, **opts)).route(jf.term)
+    return _JAX_ROUTES[key]
+
+
 def _route_both(cfg, opts):
-    jf = jax_synth_flow(**cfg)
-    jres = JRouter(jf.rr, JOpts(pipeline=False, **opts)).route(jf.term)
+    jf, jres = _jax_route(cfg, opts)
     tf = synth_flow(**cfg)
     tres = TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu").route(
         tf.term)
@@ -106,9 +139,23 @@ def test_unported_options_raise(name, value, tmp_path):
     with the stats files in ``value`` and holds them against the JAX
     Router's.  ``program="ell"`` is ported too: its Router is built (the
     ELL tables on the device) and tests/test_torch_ell.py holds its
-    routes against the JAX Router's."""
+    routes against the JAX Router's.  So is ``fused_dispatch``: its case
+    routes the parity fixture fused, one dispatch a window, and holds it
+    against the JAX route of test_router_matches_jax_parity_fixture
+    (JAX's tests/test_kernel_pack.py holds JAX's fused route equal to
+    that one)."""
     if name == "stats_dir":
         _check_stats_dir(tmp_path / value)
+        return
+    if name == "fused_dispatch":
+        tf = synth_flow(**FIXTURE)
+        with port_metrics() as reg:
+            tres = TR.Router(tf.rr, TR.RouterOpts(batch_size=32,
+                                                  fused_dispatch=value),
+                             device="cpu").route(tf.term)
+        _assert_same_route(_jax_route(FIXTURE, dict(batch_size=32))[1],
+                           tres)
+        assert reg.gauge("route.kernel.dispatches_per_window").value == 1
         return
     if name == "program":
         r = TR.Router(synth_flow(**FIXTURE).rr, TR.RouterOpts(program=value),
@@ -119,7 +166,7 @@ def test_unported_options_raise(name, value, tmp_path):
     opts = {name: value}
     if name == "mesh_shards":
         # the mesh is ported; an unported mode under it still raises
-        opts["fused_dispatch"] = True
+        opts["resil"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu")
 

@@ -572,5 +572,79 @@ def test_pow2_relax_is_tie_heavy():
     assert ties > 50
 
 
+# ROADMAP.md C9: (over, pres_fac) where XLA:CPU's default flags contract
+# the present cost 1 + over * pres_fac into one FMA, one ulp off
+C9_CASES = ((97, 0.65), (393, 0.65), (605, 0.845))
+
+
+def _c9_inputs():
+    over = np.array([o for o, _ in C9_CASES], np.int32)
+    cap = np.ones_like(over)
+    pres = np.array([p for _, p in C9_CASES], np.float32)
+    return over, cap, over + cap - 1, pres
+
+
+def c9_jax() -> np.ndarray:
+    """JAX's congestion_cost_arrays at the C9 cases under this
+    process's flags: one jit call each, base and acc 1, pres_fac a
+    float32 scalar."""
+    import jax
+    import jax.numpy as jnp
+
+    from parallel_eda_tpu.route.search import congestion_cost_arrays
+
+    over, cap, occ, pres = _c9_inputs()
+    f = jax.jit(congestion_cost_arrays)
+    one = np.ones(1, np.float32)
+    return np.array([np.asarray(f(one, cap[i:i + 1], occ[i:i + 1], one,
+                                  jnp.float32(pres[i])))[0]
+                     for i in range(len(over))], np.float32)
+
+
+def _host_has_fma() -> bool:
+    try:
+        with open("/proc/cpuinfo") as f:
+            return "fma" in f.read().split()
+    except OSError:
+        return False
+
+
+def test_congestion_cost_arrays_c9_pinned(tmp_path):
+    """ROADMAP.md C9, pinned: the port's present cost rounds the product
+    and the sum separately, so at the C9 cases it equals numpy's float32
+    1 + (over * pres) and JAX's function under
+    XLA_FLAGS=--xla_cpu_max_isa=AVX (run in a subprocess), with pres_fac
+    a float32 tensor (the planes step) or a Python float (the ELL
+    search).  Recorded: JAX with its default flags, in this process,
+    contracts the FMA on a host that has one and is one ulp off at every
+    case."""
+    from parallel_eda_tpu_torch.route.search import congestion_cost_arrays
+
+    over, cap, occ, pres = _c9_inputs()
+    want = np.float32(1.0) + over.astype(np.float32) * pres
+    one = torch.ones(1)
+    for i in range(len(over)):
+        args = (one, torch.from_numpy(cap[i:i + 1]),
+                torch.from_numpy(occ[i:i + 1]), one)
+        for p in (torch.tensor(pres[i]), float(pres[i])):
+            got = congestion_cost_arrays(*args, p)
+            assert got.dtype == torch.float32
+            assert got.numpy()[0] == want[i], (C9_CASES[i], p)
+    path = tmp_path / "c9.npy"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          str(path), "--c9"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert np.array_equal(np.load(path), want)
+    ulps = np.abs(c9_jax().view(np.int32) - want.view(np.int32))
+    assert ulps.tolist() == ([1] * len(over) if _host_has_fma()
+                             else [0] * len(over))
+
+
 if __name__ == "__main__":
-    write_reference(sys.argv[1], sys.argv[2:])
+    if sys.argv[2:] == ["--c9"]:
+        np.save(sys.argv[1], c9_jax())
+    else:
+        write_reference(sys.argv[1], sys.argv[2:])

@@ -42,7 +42,8 @@ from parallel_eda_tpu_torch.route import shard_kernels as sk
 from parallel_eda_tpu_torch.route import router as TR
 from parallel_eda_tpu_torch.route.check import check_route
 from test_torch_planes import to_port
-from test_torch_route import FIXTURE, _assert_same_route
+from test_torch_route import (FIXTURE, _assert_same_route, metric_values,
+                              port_metrics)
 
 ARCHS = {"minimal": (lambda: minimal_arch(chan_width=6), 6, 5, 4, 0),
          "unidir": (lambda: unidir_arch(chan_width=6, length=2), 7, 5, 3, 2)}
@@ -425,24 +426,32 @@ def _jax_route():
     return _CACHE["route"]
 
 
-def _port_mesh_route(s):
-    tf = synth_flow(**FIXTURE)
-    r = TR.Router(tf.rr, TR.RouterOpts(batch_size=32, mesh_shards=s),
-                  device="cpu")
-    res = r.route(tf.term)
-    check_route(tf.rr, tf.term, res.paths, occ=res.occ)
-    return r, res
+_MESH_ROUTES: dict = {}
+
+
+def _port_mesh_route(s, **opts):
+    """The port's mesh-``s`` route of FIXTURE (cached per options): its
+    Router, metrics (a registry of its own) and result."""
+    key = (s, tuple(sorted(opts.items())))
+    if key not in _MESH_ROUTES:
+        tf = synth_flow(**FIXTURE)
+        with port_metrics() as reg:
+            r = TR.Router(tf.rr, TR.RouterOpts(batch_size=32, mesh_shards=s,
+                                               **opts), device="cpu")
+            res = r.route(tf.term)
+        check_route(tf.rr, tf.term, res.paths, occ=res.occ)
+        _MESH_ROUTES[key] = r, metric_values(reg), res
+    return _MESH_ROUTES[key]
 
 
 def _assert_route_matches_single_device(s):
     jres = _jax_route()
-    r, tres = _port_mesh_route(s)
+    r, m, tres = _port_mesh_route(s)
     assert tres.success
     assert (tres.wirelength, tres.iterations) == (jres.wirelength,
                                                   jres.iterations)
     assert np.array_equal(tres.paths, jres.paths)
     assert np.array_equal(tres.occ, jres.occ)
-    m = r.metrics
     assert m["route.mesh.halo_exchanges"] == (s - 1) * tres.total_relax_steps
     assert m["route.mesh.halo_bytes"] > 0
     assert m["route.mesh.n_shards"] == s
@@ -472,16 +481,26 @@ def test_router_mesh2_ledger_matches_jax_mesh_route():
         jm = get_metrics().values("route.mesh.")
     finally:
         set_metrics(old)
-    r, tres = _port_mesh_route(2)
+    _, m, tres = _port_mesh_route(2)
     _assert_same_route(jres, tres)
     for k in ("route.mesh.halo_bytes", "route.mesh.halo_exchanges",
               "route.mesh.n_shards", "route.mesh.overlap_frac"):
-        assert r.metrics[k] == jm[k], k
+        assert m[k] == jm[k], k
 
 
 @pytest.mark.parametrize("name,value", [
     ("resil", object()), ("fused_dispatch", True)])
 def test_mesh_rejects_unported_combinations(name, value):
+    """An unported option under the mesh raises naming its ROADMAP.md
+    item.  ``fused_dispatch`` is ported: the fused window keeps the row
+    mesh (JAX planes.py:1926), and its mesh-2 route is the per-rung
+    one."""
+    if name == "fused_dispatch":
+        _, m, fused = _port_mesh_route(2, fused_dispatch=True)
+        _assert_same_route(_port_mesh_route(2)[2], fused)
+        assert m["route.kernel.dispatches_per_window"] == 1
+        assert m["route.mesh.n_shards"] == 2
+        return
     tf = synth_flow(**FIXTURE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Router(tf.rr, TR.RouterOpts(mesh_shards=2, **{name: value}),
@@ -496,5 +515,6 @@ def test_router_mesh_placement():
     rm = r.row_mesh
     assert rm.devices == (torch.device("cpu"),) * 3 and rm.n_cards == 1
     for s in (0, 1):
-        r = TR.Router(tf.rr, TR.RouterOpts(mesh_shards=s), device="cpu")
-        assert r.row_mesh is None and r.metrics == {}
+        with port_metrics() as reg:
+            r = TR.Router(tf.rr, TR.RouterOpts(mesh_shards=s), device="cpu")
+        assert r.row_mesh is None and reg.values() == {}
