@@ -174,6 +174,30 @@ Phases, one line each (any failure exits non-zero with no result line):
                  from seed 5) driven in lockstep through
                  route_window_planes_multi, each equal to its solo fused
                  route
+ 19. resil     — resilience, devprof and the route service on the card:
+                 the bench guarded (RouterOpts.resil) without faults =
+                 the unguarded route with the same launches; the kernel
+                 ladder forced down (two injected errors quarantine jit
+                 -> pallas_g1, mode <= 1; four -> xla, mode 0), each
+                 route = the bench route, launches per shared-memory
+                 mode counted, six errors on one dispatch poisoned, no
+                 plain version on a CUDA tensor; kernel_layout's modelled
+                 mode = each K1/K2 case's auto mode; a stats_dir bench
+                 route's devprof.json (CUDA-event ms and launches per
+                 kernel, as many events as launches) beside phase 3's K1
+                 time; a RouteService with four bench-graph jobs (the
+                 bench terminals and three seeded placements) on two
+                 tenants sliced every 5 iterations, each = its solo card
+                 route, then under a five-site plan (dispatch.error,
+                 dispatch.hang, checkpoint.corrupt, corpus.torn,
+                 backend.loss) the same, every failure the guard absorbed
+                 one the plan fired; one bench job at mesh_shards=2 whose
+                 member is lost, demoted to single_chip, = the bench
+                 route; the placed scale config through the service under
+                 dispatch errors and a torn checkpoint = the scale route
+                 path for path; and ``python -m parallel_eda_tpu_torch
+                 serve`` as subprocesses with and without --chaos: rc 0,
+                 the same jobs done
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -2099,13 +2123,17 @@ TIMED_METRICS = ("route.pipeline.host_plan_ms", "route.pipeline.device_exec_ms",
                  "route.pipeline.device_exec_ms_total",
                  "route.pipeline.stall_ms_total",
                  "route.pipeline.host_serial_ms_total", "route.window_wall_s")
+# devprof's measured gauges: CUDA-event times on the card, none on the
+# CPU (route.devcost.variants stays compared)
+DEVPROF_MEASURED = ("route.devcost.device_ms", "route.devcost.launches")
 
 
 def _stats_view(tree):
     """A --stats_dir tree with its seconds and clocks left out: the
     route_time column of iter_stats.txt, final_stats.txt's
-    total_route_time, each mdclog record's "t" and metrics.json's
-    TIMED_METRICS."""
+    total_route_time, each mdclog record's "t", metrics.json's
+    TIMED_METRICS and DEVPROF_MEASURED, and devprof.json's measurements
+    (its variants and their modelled rows are kept)."""
     out = {}
     for k, v in tree.items():
         lines = v.decode().splitlines()
@@ -2113,9 +2141,12 @@ def _stats_view(tree):
             doc = json.loads(v)
             for vals in [doc["values"]] + [sn["values"]
                                            for sn in doc["snapshots"]]:
-                for name in TIMED_METRICS:
+                for name in TIMED_METRICS + DEVPROF_MEASURED:
                     vals.pop(name, None)
             out[k] = doc
+        elif k == "devprof.json":
+            out[k] = [(r["key"], r["meta"])
+                      for r in json.loads(v)["records"]]
         elif k.endswith(".log"):
             recs = [json.loads(ln) for ln in lines]
             for rec in recs:
@@ -2286,11 +2317,25 @@ def phase_cli(rows):
     if trees["cuda"][1] != trees["cpu"][1]:
         raise AssertionError("cli flow25: the card's stats files differ "
                              "from the CPU's")
+    # devprof.json: the same variants and modelled rows; CUDA-event
+    # times on the card, "unavailable" on the CPU
+    dps = {}
+    for dev in ("cuda", "cpu"):
+        with open(os.path.join(work, f"flow25_{dev}", "stats",
+                               "devprof.json")) as f:
+            dps[dev] = json.load(f)["records"]
+    if not any("kernels" in r for r in dps["cuda"]) or any(
+            r.get("unavailable", "").startswith("cpu") for r in dps["cuda"]) \
+            or any("unavailable" not in r for r in dps["cpu"]):
+        raise AssertionError("cli flow25: devprof.json not measured on the "
+                             "card or measured on the CPU")
     rows25 = trees["cuda"][1]["iter_stats.txt"][1:]
     if [int(r[0]) for r in rows25] != list(range(1, len(rows25) + 1)):
         raise AssertionError("cli flow25: not one stats row per iteration")
     say("cli", f"flow25: card artifacts, stats files (metrics.json but "
-               f"for its host-clock instruments) and mdclog records "
+               f"for its host-clock and CUDA-event instruments, "
+               f"devprof.json's variants: {len(dps['cuda'])}, measured on "
+               f"the card) and mdclog records "
                f"equal the CPU's ({len(rows25)} iteration rows, "
                f"{sum(k.endswith('.log') for k in trees['cuda'][1])} "
                "mdclog files)")
@@ -2860,6 +2905,392 @@ def phase_fused(bench, bench_res, scale):
     return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}, later
 
 
+RESIL_CHAOS = ("dispatch.error:3:20,dispatch.hang:2:20,checkpoint.corrupt:1:4,"
+               "corpus.torn:1:4,backend.loss:1:6")
+SERVE_CHAOS = "dispatch.error:2:4,dispatch.hang:1:4,checkpoint.corrupt:1:3"
+
+
+def _resil_counts():
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+
+    return {**pk.launch_counts(), **sk.launch_counts()}
+
+
+def _guard_absorbed_only_plan(tag, m, fired):
+    """Every failure the guard absorbed is a firing of the plan: injected
+    errors and hangs against the guard's error and timeout counters, and
+    no poisoned dispatch."""
+    n_err = len(fired.get("dispatch.error", ()))
+    n_hang = len(fired.get("dispatch.hang", ()))
+    got = (m.get("route.resil.dispatch_errors", 0),
+           m.get("route.resil.watchdog_timeouts", 0),
+           m.get("route.resil.poisoned_dispatches", 0))
+    if got != (n_err, n_hang, 0):
+        raise AssertionError(f"{tag}: the guard absorbed (errors, timeouts, "
+                             f"poisoned) {got}; the plan fired {n_err} "
+                             f"errors and {n_hang} hangs")
+
+
+def _service(tag, flow, opts, jobs, slice_iters, resil=None, runs=None):
+    """``jobs`` [(name, terminals, tenant)] through a RouteService on the
+    card; returns (the jobs in admission order, seconds, service)."""
+    import torch
+
+    from parallel_eda_tpu_torch.serve.service import (RouteService,
+                                                      ServeJobSpec)
+
+    _fresh_metrics()
+    svc = RouteService(flow.rr, opts, slice_iters=slice_iters,
+                       runs_dir=runs, scenario=tag, resil=resil,
+                       device="cuda")
+    for name, term, tenant in jobs:
+        svc.admit(ServeJobSpec(term=term, name=name), tenant=tenant,
+                  max_retries=3, job_id=name)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    done = svc.run()
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    bad = [(j.job_id, j.state.value, j.error) for j in done
+           if j.state.value != "done"]
+    if bad:
+        raise AssertionError(f"{tag}: jobs not done: {bad}")
+    order = {name: k for k, (name, _, _) in enumerate(jobs)}
+    return sorted(done, key=lambda j: order[j.job_id]), dt, svc
+
+
+def phase_resil(bench, bench_res, scale, scale_res, rows, smi):
+    """Resilience, devprof and the route service on the card (docstring,
+    phase 19).  Returns the launch counts summed over its card work."""
+    import torch
+
+    from parallel_eda_tpu_torch.obs import get_devprof
+    from parallel_eda_tpu_torch.place.initial import initial_placement
+    from parallel_eda_tpu_torch.resil import (DispatchPoisonedError,
+                                              FaultPlan, Resilience,
+                                              ResilOpts)
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
+    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+    from parallel_eda_tpu_torch.rr.terminals import net_terminals
+
+    work = os.path.join(BUILD_DIR, "resil")
+    subprocess.run(["rm", "-rf", work], check=True)
+    os.makedirs(work)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    runs = []
+    opts = RouterOpts(batch_size=64)
+
+    # no plain version on a CUDA tensor in any rung of this phase
+    plain = {}
+
+    def no_plain(name, fn):
+        def run(*a, **k):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                raise AssertionError(f"{name} ran on a CUDA tensor")
+            return fn(*a, **k)
+        plain[name] = fn
+        setattr(P, name, run)
+    no_plain("planes_relax_plain", P.planes_relax_plain)
+    no_plain("planes_relax_cropped_plain", P.planes_relax_cropped_plain)
+    try:
+        # ---- the model mode of kernel_layout = the card's auto mode
+        # (the cases whose canvas the row names: a phase-10 case captured
+        # from a route names no shape)
+        widths = {k["cfg"]: k["shape"][0]
+                  for k in rows["planes_relax_full_cuda"] if "shape" in k}
+        checked = 0
+        for name, kind in (("planes_relax_full_cuda", pk.FULL),
+                           ("planes_relax_cropped_cuda", pk.TILE)):
+            for c in rows[name]:
+                key = "tile" if kind == pk.TILE else "shape"
+                if key not in c or c["cfg"] not in widths:
+                    continue
+                W = widths[c["cfg"]]
+                X, Y = c["tile"] if kind == pk.TILE else c["shape"][1:]
+                checked += 1
+                if pk.auto_mode(kind, W, X, Y) != c["mode"]:
+                    raise AssertionError(
+                        f"resil: kernel_layout's mode "
+                        f"{pk.auto_mode(kind, W, X, Y)} != the card's "
+                        f"{c['mode']} for {name} {c['cfg']} {X}x{Y}")
+        if checked < 4:
+            raise AssertionError(f"resil: {checked} kernel cases named "
+                                 "their canvas")
+
+        # ---- the guard without faults: the unguarded route's launches
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        g0 = Router(bench.rr, opts, device="cuda").route(bench.term)
+        c_none = _resil_counts()
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        rt = Resilience(ResilOpts())
+        g1 = Router(bench.rr, RouterOpts(batch_size=64, resil=rt),
+                    device="cuda").route(bench.term)
+        c_guard = _resil_counts()
+        _same_route("resil_guard", g1, bench_res)
+        _same_route("resil_none", g0, bench_res)
+        if c_guard != c_none:
+            raise AssertionError(f"resil_guard: launches {c_guard} != the "
+                                 f"unguarded route's {c_none}")
+        runs += [c_none, c_guard]
+        # the guard's cost: warm bench routes unguarded and guarded (no
+        # fault), in turns
+        ru = Router(bench.rr, opts, device="cuda")
+        rg = Router(bench.rr, RouterOpts(batch_size=64, resil=Resilience(
+            ResilOpts())), device="cuda")
+        ru.route(bench.term)
+        rg.route(bench.term)
+        secs = {"none": [], "guard": []}
+        for tag, r in (("none", ru), ("guard", rg), ("guard", rg),
+                       ("none", ru)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r.route(bench.term)
+            torch.cuda.synchronize()
+            secs[tag].append(time.time() - t0)
+        per_win = ((sum(secs["guard"]) - sum(secs["none"])) / 2
+                   / len(g1.stats) * 1e3)
+        say("resil_guard", f"warm bench route s unguarded {secs['none']}, "
+                           f"guarded (no fault) {secs['guard']}: "
+                           f"{per_win:+.3f} ms per window over "
+                           f"{len(g1.stats)} windows on {smi}")
+
+        # ---- the kernel dimension: auto -> mode <= 1 -> mode 0
+        modes = {}
+        for n_err, label in ((2, "pallas_g1"), (4, "xla")):
+            pk.reset_launch_counts()
+            sk.reset_launch_counts()
+            rt = Resilience(ResilOpts(fault_plan=FaultPlan(
+                1, {"dispatch.error": (n_err, n_err)}), backoff_s=0.0))
+            r = Router(bench.rr, RouterOpts(batch_size=64, resil=rt),
+                       device="cuda").route(bench.term)
+            _same_route(f"resil_{label}", r, bench_res)
+            q = sorted(v for vs in rt.guard._quarantine.values() for v in vs)
+            modes[label] = pk.mode_launch_counts()
+            runs.append(_resil_counts())
+            lo = 1 if label == "pallas_g1" else 0
+            if sum(modes[label][w][lo] for w in modes[label]) <= 0 or \
+                    any(modes[label][w][m] for w in modes[label]
+                        for m in range(lo)):
+                raise AssertionError(f"resil_{label}: launches per mode "
+                                     f"{modes[label]}")
+            want_q = ["jit"] if label == "pallas_g1" else ["jit",
+                                                           "pallas_g1"]
+            if q != want_q:
+                raise AssertionError(f"resil_{label}: quarantined {q}")
+        rt = Resilience(ResilOpts(fault_plan=FaultPlan(
+            1, {"dispatch.error": (6, 6)}), backoff_s=0.0))
+        try:
+            Router(bench.rr, RouterOpts(batch_size=64, resil=rt),
+                   device="cuda").route(bench.term)
+            raise AssertionError("resil_poison: six errors on one dispatch "
+                                 "did not poison it")
+        except DispatchPoisonedError as e:
+            poisoned = str(e)
+        say("resil", f"bench guarded without faults = unguarded (537 / 22, "
+                     f"the same launches {c_guard}); forced descent: "
+                     f"jit quarantined -> pallas_g1 (mode <= 1) and jit, "
+                     f"pallas_g1 quarantined -> xla (mode 0), each route "
+                     f"= the bench route, launches per mode {modes}; six "
+                     f"errors on one dispatch: {poisoned[:80]}; no plain "
+                     f"version on a CUDA tensor")
+
+        # ---- devprof: a stats_dir route's CUDA-event ms
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        sd = os.path.join(work, "stats")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sres = Router(bench.rr, RouterOpts(batch_size=64, stats_dir=sd),
+                      device="cuda").route(bench.term)
+        dt = time.time() - t0
+        runs.append(_resil_counts())
+        if get_devprof().enabled:
+            raise AssertionError("devprof stayed on after the route")
+        with open(os.path.join(sd, "devprof.json")) as f:
+            doc = json.load(f)
+        # a variant whose dispatches found no dirty net launched nothing
+        recs = [r for r in doc["records"] if "kernels" in r]
+        if not recs or any(r["unavailable"] != "no kernel launches recorded"
+                           for r in doc["records"] if "kernels" not in r):
+            raise AssertionError(
+                f"devprof: records {[r.get('unavailable') for r in doc['records']]}")
+        per = {}
+        for r in recs:
+            for k, v in r["kernels"].items():
+                a = per.setdefault(k, [0, 0.0])
+                a[0] += v["launches"]
+                a[1] += v["ms"]
+        c_sd = runs[-1]
+        for k, (n, _) in per.items():
+            if n != c_sd[k]:
+                raise AssertionError(f"devprof: {n} {k} events, "
+                                     f"{c_sd[k]} launches")
+        k1 = next(c for c in rows["planes_relax_full_cuda"]
+                  if c["cfg"] == "bench" and "ms" in c)
+        say("resil_devprof", f"bench stats_dir route ({sres.wirelength} / "
+                             f"{sres.iterations}, {dt:.2f} s): "
+                             f"{len(recs)} variants measured; per kernel "
+                             f"launches and CUDA-event ms "
+                             f"{json.dumps(per)}; K1 ms per launch "
+                             f"{per['planes_relax_full_cuda'][1] / per['planes_relax_full_cuda'][0]:.4f} "
+                             f"beside the kernel phase's bench K1 "
+                             f"{k1['ms']:.4f} ms (B=64, {k1['sweeps']} "
+                             f"sweeps); dominant {json.dumps(doc['summary'])}"
+                             f" on {smi}")
+
+        # ---- the route service: four jobs, two tenants, sliced
+        terms = [("bench", bench.term, "t0")]
+        for sd_ in (5, 6, 7):
+            pos = initial_placement(bench.pnl, bench.grid, seed=sd_)
+            terms.append((f"place{sd_}", net_terminals(
+                bench.pnl, bench.rr, pos, bb_factor=bench.bb_factor),
+                f"t{sd_ % 2}"))
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        solo, solo_s = {}, 0.0
+        for name, term, _ in terms:
+            t0 = time.time()
+            solo[name] = (bench_res if name == "bench" else
+                          Router(bench.rr, opts, device="cuda").route(term))
+            solo_s += time.time() - t0
+        jobs, dt_free, _ = _service("resil_serve", bench, opts, terms, 5)
+        for j in jobs:
+            _same_route(f"resil_serve {j.job_id}", j.result["result"],
+                        solo[j.job_id], whole=False)
+        if any(j.preemptions == 0 for j in jobs):
+            raise AssertionError("resil_serve: a job was never preempted")
+        runs.append(_resil_counts())
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        plan = FaultPlan.parse(7, RESIL_CHAOS)
+        cjobs, dt_chaos, _ = _service(
+            "resil_chaos", bench, opts, terms, 5, ResilOpts(
+                fault_plan=plan, checkpoint_dir=os.path.join(work, "ck"),
+                watchdog_s=10.0, backoff_s=0.01),
+            runs=os.path.join(work, "runs"))
+        runs.append(_resil_counts())
+        for j in cjobs:
+            _same_route(f"resil_chaos {j.job_id}", j.result["result"],
+                        solo[j.job_id], whole=False)
+        fired = plan.summary()["fired"]
+        if len(fired) != 5:
+            raise AssertionError(f"resil_chaos: fired {fired}")
+        m = _metric_values("route.resil.")
+        _guard_absorbed_only_plan("resil_chaos", m, fired)
+        retried = _metric_values("route.serve.").get(
+            "route.serve.jobs_retried", 0)
+        if retried != len(fired["backend.loss"]):
+            raise AssertionError(f"resil_chaos: {retried} job retries for "
+                                 f"{fired['backend.loss']} backend losses")
+        say("resil_serve", f"4 jobs, 2 tenants, sliced every 5 iterations, "
+                           f"each = its solo card route "
+                           f"{[(j.job_id, j.result['wirelength'], j.result['iterations'], j.preemptions) for j in jobs]}"
+                           f"; {dt_free:.2f} s service ({dt_free / 4:.2f} s "
+                           f"per job) beside {solo_s:.2f} s of solo routes; "
+                           f"under the plan {json.dumps(fired)} the same "
+                           f"jobs and paths in {dt_chaos:.2f} s, "
+                           f"route.resil.* {json.dumps(m)}, "
+                           f"{retried} job retries; on {smi}")
+        # one job at mesh_shards=2: the loss lands it on one card
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        # the loss fires at the fourth window's mesh check (index 0 is
+        # the slice's start): the cluster kernel ran before it
+        mplan = FaultPlan(12, {"backend.loss": (1, 6)})
+        mjobs, dt_m, msvc = _service(
+            "resil_mesh", bench, RouterOpts(batch_size=64, mesh_shards=2),
+            terms[:1], 0, ResilOpts(fault_plan=mplan))
+        runs.append(_resil_counts())
+        _same_route("resil_mesh", mjobs[0].result["result"], bench_res,
+                    whole=False)
+        mm = _metric_values("route.mesh.")
+        cm = runs[-1]
+        if msvc.resil.ladder.name("mesh") != "single_chip" or \
+                mm.get("route.mesh.mesh_demotions", 0) < 1 or \
+                mplan.summary()["fired"] != {"backend.loss": [4]} or \
+                cm["planes_relax_cluster_cuda"] <= 0 or \
+                cm["planes_relax_full_cuda"] <= 0:
+            raise AssertionError(f"resil_mesh: ladder "
+                                 f"{msvc.resil.ladder.snapshot()}, {mm}, "
+                                 f"launches {cm}")
+        say("resil_mesh", f"bench at mesh_shards=2 (cluster kernel) with a "
+                          f"member lost at its fourth window: demoted to "
+                          f"single_chip, = the bench route, {dt_m:.2f} s; "
+                          f"{json.dumps(mm)}; launches {cm}")
+
+        # ---- the scale config: one job, dispatch errors and a torn
+        # checkpoint
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        splan = FaultPlan.parse(7, "dispatch.error:2:20,"
+                                   "checkpoint.corrupt:1:2")
+        sjobs, dt_s, _ = _service(
+            "resil_scale", scale, opts, [("scale", scale.term, "t0")], 10,
+            ResilOpts(fault_plan=splan,
+                      checkpoint_dir=os.path.join(work, "ck_scale"),
+                      watchdog_s=30.0, backoff_s=0.01))
+        runs.append(_resil_counts())
+        _same_route("resil_scale", sjobs[0].result["result"], scale_res,
+                    whole=False)
+        sfired = splan.summary()["fired"]
+        if set(sfired) != {"dispatch.error", "checkpoint.corrupt"}:
+            raise AssertionError(f"resil_scale: fired {sfired}")
+        _guard_absorbed_only_plan("resil_scale",
+                                  _metric_values("route.resil."), sfired)
+        say("resil_scale", f"scale job through the service, sliced every "
+                           f"10 iterations, under {json.dumps(sfired)}: "
+                           f"wirelength {sjobs[0].result['wirelength']}, "
+                           f"{sjobs[0].result['iterations']} iterations, "
+                           f"paths = the scale route's; {dt_s:.2f} s on "
+                           f"{smi}")
+    finally:
+        for name, fn in plain.items():
+            setattr(P, name, fn)
+
+    # ---- python -m parallel_eda_tpu_torch serve, with and without chaos
+    out = {}
+    for tag, extra in (("free", []), ("chaos", ["--chaos", SERVE_CHAOS])):
+        ck = os.path.join(work, f"serve_ck_{tag}")
+        t0 = time.time()
+        p = subprocess.run(
+            [sys.executable, "-m", "parallel_eda_tpu_torch", "serve",
+             "--jobs", "2", "--luts", "15", "--slice", "3",
+             "--watchdog_s", "10", "--checkpoint_dir", ck] + extra,
+            capture_output=True, text=True, timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"serve {tag}: rc {p.returncode}\n"
+                                 f"{p.stderr[-3000:]}")
+        doc = json.loads(p.stdout.strip().splitlines()[-1])
+        out[tag] = ([(j["state"], j["wirelength"], j["iterations"])
+                     for j in doc["jobs"]], time.time() - t0, doc)
+    if out["chaos"][0] != out["free"][0] or any(
+            st != "done" for st, _, _ in out["free"][0]):
+        raise AssertionError(f"serve: chaos {out['chaos'][0]} != "
+                             f"{out['free'][0]}")
+    res_doc = out["chaos"][2]["resil"]
+    say("resil_cli", f"python -m parallel_eda_tpu_torch serve (2 jobs, "
+                     f"sliced every 3): rc 0, jobs {out['free'][0]} "
+                     f"with and without --chaos '{SERVE_CHAOS}' "
+                     f"(fired {json.dumps(res_doc['faults']['fired'])}, "
+                     f"ladder {json.dumps(res_doc['ladder'])}); "
+                     f"{out['free'][1]:.1f} s / {out['chaos'][1]:.1f} s "
+                     f"per process")
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+def _metric_values(prefix):
+    from parallel_eda_tpu_torch.obs import get_metrics
+
+    return get_metrics().values(prefix)
+
+
 def main(argv) -> int:
     if argv:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -2950,7 +3381,8 @@ def main(argv) -> int:
     scale = run_place_native(scale)
     say("scale", f"placed {scale.pnl.num_blocks} blocks in "
                  f"{time.time() - t0:.1f}s (native SA)")
-    _, c_scale, _, _ = _route("scale", scale, RouterOpts(batch_size=64))
+    scale_res, c_scale, _, _ = _route("scale", scale,
+                                      RouterOpts(batch_size=64))
     warm["scale"] = warm_route(scale, RouterOpts(batch_size=64))
     _, c, _, _ = _route("scale_mesh4", scale,
                      RouterOpts(batch_size=64, mesh_shards=4))
@@ -2965,9 +3397,10 @@ def main(argv) -> int:
     c_elastic = phase_elastic(bench, res, scale)
     phase_ell(bench, scale, smi, warm)
     c_fused, fused_later = phase_fused(bench, res, scale)
+    c_resil = phase_resil(bench, res, scale, scale_res, rows, smi)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place + [c_cli, c_elastic, c_fused]
+        c_place + [c_cli, c_elastic, c_fused, c_resil]
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
@@ -2978,7 +3411,8 @@ def main(argv) -> int:
                     f"(scale delay lookup, scale route) {c_place} cli "
                     f"(the CLI runs on the card) {c_cli} elastic "
                     f"(its routes, resumes and CLI run) {c_elastic} fused "
-                    f"(its card routes) {c_fused}")
+                    f"(its card routes) {c_fused} resil (its card routes "
+                    f"and services) {c_resil}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:

@@ -12,12 +12,15 @@ Flags, defaults, messages and printed lines are the JAX package's
 compares line by line, seconds aside.  The port's own flag is
 ``--device {cuda,cpu}``: placement and routing run on the CUDA card
 unless it says ``cpu`` (the plain PyTorch versions of the kernels), and
-asking for the card without one fails.  What the port does not do yet
-fails naming its ROADMAP.md item: the ``serve`` and ``daemon``
-subcommands (in ``main``) and, in ``check_options``,
-``--compile_cache_dir`` (A14).  ``--trace FILE`` writes a Chrome trace
-of the whole flow (exported even when the flow fails) and
-``--stats_dir`` also gets the metrics registry as metrics.json, as in
+asking for the card without one fails.  ``serve`` runs the route
+service (serve/cli.py, with its own flags).  What the port does not do
+yet fails naming its ROADMAP.md item: the ``daemon`` subcommand (A14.4,
+in ``main``) and, in ``check_options``, ``--compile_cache_dir``
+(A14.3); serve's ``--library``, ``--export_library``,
+``--compile_cache_dir`` (A14.3) and ``--fused`` (A14.2) in
+serve/cli.py.  ``--trace FILE`` writes a Chrome trace of the whole flow
+(exported even when the flow fails) and ``--stats_dir`` also gets the
+metrics registry as metrics.json and the route's devprof.json, as in
 the JAX CLI.  The route is
 pipelined unless ``--sync`` asks for the synchronous driver, as in the
 JAX CLI (``RouterOpts.pipeline``; both give the same route).  ``--mesh
@@ -32,7 +35,7 @@ import sys
 import time
 
 # what the port does not do yet -> its ROADMAP.md item
-_SUBCOMMANDS = {"serve": "A14, serve stack", "daemon": "A14, serve stack"}
+_SUBCOMMANDS = {"daemon": "A14.4, the route daemon"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,8 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "(the reference's <circuit>_stats_N/ files), "
                    "route_report.txt and the per-window logs/ here "
                    "(windows of one iteration) and the metrics "
-                   "snapshots as metrics.json; the JAX package's "
-                   "devprof.json is not written (ROADMAP.md A13-rest)")
+                   "snapshots as metrics.json and the per-kernel "
+                   "CUDA-event times as devprof.json")
     p.add_argument("--profile", default="",
                    help="capture a torch.profiler trace of routing into "
                    "this dir (a Chrome trace-event JSON; open in "
@@ -120,7 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "bit-identical results, for isolating pipeline issues")
     p.add_argument("--compile_cache_dir", default="",
                    help="persistent compile cache: not ported "
-                   "(ROADMAP.md A14)")
+                   "(ROADMAP.md A14.3)")
     p.add_argument("--no_timing", action="store_true",
                    help="congestion-driven only (NO_TIMING algorithm)")
     p.add_argument("--sdc", default="",
@@ -210,7 +213,7 @@ def check_options(args) -> None:
         errs.append("--profile traces routing; drop --no_route")
     if args.compile_cache_dir:
         errs.append("--compile_cache_dir is not ported yet (ROADMAP.md "
-                    "A14, kernel cache)")
+                    "A14.3, program library)")
     if errs:
         raise SystemExit("option errors:\n  " + "\n  ".join(errs))
 
@@ -218,6 +221,10 @@ def check_options(args) -> None:
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        # the route service subcommand (serve/cli.py): its own flags
+        from .serve.cli import main as serve_main
+        return serve_main(argv[1:])
     if argv and argv[0] in _SUBCOMMANDS:
         raise SystemExit(f"the '{argv[0]}' subcommand is not ported yet "
                          f"(ROADMAP.md {_SUBCOMMANDS[argv[0]]})")

@@ -1,17 +1,22 @@
-"""Observability: span tracing and the metrics registry, as in the JAX
-package's ``obs/`` (its metrics.py and trace.py; devprof, the SLO plane
-and the run store are not ported).
+"""Observability: span tracing, the metrics registry, device profiling
+and the run corpus, as in the JAX package's ``obs/`` (its metrics.py,
+trace.py, devprof.py and runstore.py; the SLO plane is not ported,
+ROADMAP.md A14.4).
 
   trace.py    — span tracer -> Chrome trace-event JSON (Perfetto);
                 the seconds spent building the CUDA libraries are its
                 "cuda.build" spans
   metrics.py  — counters, gauges and histograms, snapshotted per route
                 window and per annealing temperature, dumpable as JSON
+  devprof.py  — CUDA-event milliseconds per kernel and dispatch variant
+                (devprof.json of a stats_dir route)
+  runstore.py — the append-only, scenario-keyed run corpus
 
 Both are no-ops until a driver enables them (``set_tracer``,
 ``MetricsRegistry.enabled``).
 """
 
+from .devprof import DevProfiler, get_devprof, set_devprof
 from .metrics import (COUNTER_TRACKS, Counter, Gauge, Histogram,
                       MetricsRegistry, get_metrics, set_metrics)
 from .trace import (FlightRecorder, Tracer, compile_seconds, get_tracer,
@@ -19,6 +24,7 @@ from .trace import (FlightRecorder, Tracer, compile_seconds, get_tracer,
                     stage)
 
 __all__ = [
+    "DevProfiler", "get_devprof", "set_devprof",
     "COUNTER_TRACKS", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "get_metrics", "set_metrics",
     "FlightRecorder", "Tracer", "compile_seconds", "get_tracer",

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..obs.devprof import get_devprof
 from ..rr.graph import CHANX, CHANY, IPIN, OPIN, RRGraph
 from .device_graph import DeviceRRGraph
 from .search import (_col, congestion_cost, congestion_jitter,
@@ -983,6 +984,7 @@ def planes_relax(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
         return planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c,
                                       wenter0, nsweeps,
                                       plane_dtype=plane_dtype)
+    get_devprof().note_cpu_call()
     return planes_relax_plain(pg, d0_flat, cc_flat, crit_c, wenter0,
                               nsweeps, plane_dtype)
 
@@ -1001,6 +1003,7 @@ def planes_relax_cropped(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
         return planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c,
                                          wenter0, nsweeps, ox, oy, cnx,
                                          cny, plane_dtype=plane_dtype)
+    get_devprof().note_cpu_call()
     return planes_relax_cropped_plain(pg, d0_flat, cc_flat, crit_c,
                                       wenter0, nsweeps, ox, oy, cnx, cny,
                                       plane_dtype)

@@ -31,18 +31,37 @@ wrappers take CUDA tensors only and raise on anything else; the CPU path
 is the plain version in planes.py / planes_shard.py.  Each wrapper
 counts its launches in ``<wrapper>.launches`` (f32 plane mode) and
 ``<wrapper>.launches_bf16`` (bf16 plane mode: ``plane_dtype="bf16"``,
-dist and wenter carried in bfloat16 between f32 sweeps) and keeps the
-shared-memory mode of its last launch in ``<wrapper>.last_mode`` (0
-global state, 1 dist in shared memory, 2 dist and scan costs).  K1, K2
+dist and wenter carried in bfloat16 between f32 sweeps), and per
+shared-memory mode in ``<wrapper>.mode_launches`` (0 global state, 1
+dist in shared memory, 2 dist and scan costs); the full, cropped and
+cluster wrappers keep the mode of their last launch in
+``<wrapper>.last_mode``.  K1, K2
 and the cluster relaxation take and return the f32 flats in both plane
 modes; the step kernel takes bfloat16 blocks in the bf16 plane mode.
+
+``kernel_mode_cap(cap)`` caps the auto mode of every launch made inside
+it (the "kernel" dimension of the resilience ladder, resil/ladder.py:
+None, 1 or 0); a wrapper given ``mode=`` takes that mode as it is.  While
+the process's DevProfiler (obs/devprof.py) is enabled, each launch is
+bracketed by a pair of CUDA events on its stream, read only at the
+profiler's ``capture_all``.
+
+``kernel_layout`` is the port's meaning of the JAX package's
+route.kernel.* layout gauges (JAX router.py _plan_block_nets): nets per
+thread block, canvas cells over launched thread-slots, and the modelled
+global-memory bytes of one sweep in the mode the launch takes (with the
+card's shared-memory limit modelled by ``SMEM_OPTIN``, so that the CPU
+route reports the card's plan).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
+
+from ..obs.devprof import get_devprof
 
 from .cuda_lib import CudaLib, Launch, check_tensor as _check
 from .planes import crop_origin_hi, plane_torch_dtype
@@ -58,6 +77,122 @@ def threads_for(ncells: int) -> int:
     """Threads per block: 1024 for a large canvas, 512 for a small one
     (fewer warps at each barrier)."""
     return 1024 if ncells > 4096 else 512
+
+
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of the H100 (227 KB): the
+# limit kernel_layout models the auto mode with
+SMEM_OPTIN = 232448
+
+
+def _line_lanes(n: int) -> int:
+    g = 2
+    while g * 8 < n and g < 32:
+        g *= 2
+    return g
+
+
+def smem_bytes(kind: int, mode: int, W: int, X: int, Y: int) -> int:
+    """Dynamic shared bytes of a launch in ``mode`` (csrc/planes_relax.cu
+    smem_bytes): ``mode`` floats per canvas cell, the line-scan scratch
+    of every warp, and the cluster's two flags."""
+    ncells = W * X * (Y + 1) + W * (X + 1) * Y
+    scratch = (2 * max(X, Y) + 1) * (32 // _line_lanes(min(X, Y)))
+    return (4 * (mode * ncells + threads_for(ncells) // 32 * scratch)
+            + (8 if kind == CLUSTER else 0))
+
+
+def auto_mode(kind: int, W: int, X: int, Y: int,
+              cap_bytes: int = SMEM_OPTIN) -> int:
+    """The mode a launch takes without ``mode=`` (csrc/planes_relax.cu
+    auto_mode): the most shared state within ``cap_bytes``."""
+    for mode in (2, 1):
+        if smem_bytes(kind, mode, W, X, Y) <= cap_bytes:
+            return mode
+    return 0
+
+
+# the kernel ladder's cap on the auto mode (kernel_mode_cap)
+_MODE_CAP = [None]
+
+
+@contextlib.contextmanager
+def kernel_mode_cap(cap):
+    """Cap the shared-memory mode of every launch in the block at
+    ``cap`` (None: the auto mode), the port's "kernel" ladder levels."""
+    old = _MODE_CAP[0]
+    _MODE_CAP[0] = cap
+    try:
+        yield
+    finally:
+        _MODE_CAP[0] = old
+
+
+def _launch_shape(shape_x, kind: int, tile=None, shards: int = 0):
+    """(W, X, Y) of one launch's block (the table's v[1..3]) on a canvas
+    of plane shape ``shape_x`` (planes_shard.row_block_cols for the
+    sharded kinds)."""
+    W, NX, NYp1 = shape_x
+    if kind == TILE:
+        return W, int(tile[0]), int(tile[1])
+    if kind in (CLUSTER, BLOCK):
+        return W, max(2, -(-(NX + 2) // shards)) + 2, NYp1 - 1
+    return W, NX, NYp1 - 1
+
+
+# global bytes per canvas cell: a relaxation's flats (d0, cc, wenter0
+# read; dist, pred, wenter written; f32 in both plane modes), and one
+# sweep of state kept in global memory (cc read, dist and wenter in the
+# plane dtype read and written, pred read and written)
+FLATS_BYTES_PER_CELL = 24
+
+
+def global_sweep_bytes_per_cell(itemsize: int) -> int:
+    return 4 + 4 * int(itemsize) + 8
+
+
+def kernel_layout(shape_x, shape_y, nnets: int, nsweeps: int, tile=None,
+                  shards: int = 0, per_sweep: bool = False,
+                  plane_dtype: str = "f32") -> dict:
+    """The route.kernel.* row of one dispatch in the port's layout:
+    ``variant`` (the wrapper and the mode its launch takes, e.g.
+    "planes_relax_cropped_cuda/mode2"), ``mode``, ``block_nets`` (nets
+    per thread block: 1 for K1, K2 and the step, 1 per cluster for the
+    cluster kernel), ``lane_occupancy`` (the net's canvas cells over the
+    thread-slots launched for it: threads_for threads per block, each
+    taking ceil(cells / threads) cells) and ``bytes_per_sweep`` (the
+    global-memory bytes of one sweep over ``nnets`` nets: in modes 1-2
+    the flats' one load and one store per relaxation amortised over
+    ``nsweeps``, in mode 0 and for the per-sweep step one traversal of
+    the state per sweep).  ``shape_x`` / ``shape_y``: the full canvas's
+    plane shapes (PlanesGraph.shape_x / shape_y)."""
+    from .planes import plane_itemsize
+
+    kind = (TILE if tile is not None else BLOCK if per_sweep
+            else CLUSTER if shards else FULL)
+    W, X, Y = _launch_shape(shape_x, kind, tile, shards)
+    ncanvas = (W * shape_x[1] * shape_x[2]
+               + shape_y[0] * shape_y[1] * shape_y[2])
+    blk = W * X * (Y + 1) + W * (X + 1) * Y
+    thr = threads_for(blk)
+    slots = thr * -(-blk // thr) * (shards if kind in (CLUSTER, BLOCK)
+                                    else 1)
+    cells = blk if kind == TILE else ncanvas
+    mode = auto_mode(kind, W, X, Y)
+    n = max(1, int(nnets))
+    if mode == 0 or kind == BLOCK:
+        per_sweep_bytes = (global_sweep_bytes_per_cell(
+            plane_itemsize(plane_dtype)) * cells * n)
+    else:
+        # K2 reads and writes the full flats and relaxes the tile
+        flats = (FLATS_BYTES_PER_CELL * cells if kind != TILE else
+                 (FLATS_BYTES_PER_CELL - 4) * ncanvas + 4 * cells)
+        per_sweep_bytes = flats * n / max(1, int(nsweeps))
+    name = {FULL: "planes_relax_full_cuda", TILE: "planes_relax_cropped_cuda",
+            CLUSTER: "planes_relax_cluster_cuda",
+            BLOCK: "planes_sweep_block_cuda"}[kind]
+    return dict(variant=f"{name}/mode{mode}", mode=mode, block_nets=1,
+                lane_occupancy=round(cells / slots, 4),
+                bytes_per_sweep=int(per_sweep_bytes))
 
 
 def _setup(lib) -> None:
@@ -109,11 +244,12 @@ def _ints(B, W, X, Y, stride_x, directional, nsweeps, strides, own, mode,
                                int(plane_dtype == "bf16")])
 
 
-def _count(wrapper, plane_dtype: str) -> None:
+def _count(wrapper, plane_dtype: str, mode: int) -> None:
     if plane_dtype == "bf16":
         wrapper.launches_bf16 += 1
     else:
         wrapper.launches += 1
+    wrapper.mode_launches[mode] += 1
 
 
 def _check_line(lib, X: int, Yp1: int, what: str) -> None:
@@ -192,6 +328,19 @@ _PLANS: dict = {}
 
 def _plan(kind: int, pg, B: int, device: torch.device, mode, tile=None,
           shards: int = 0, plane_dtype: str = "f32") -> _FlatsPlan:
+    """The launch plan; without ``mode`` the auto mode, capped by
+    kernel_mode_cap."""
+    plan = _plan_exact(kind, pg, B, device, mode, tile, shards, plane_dtype)
+    cap = _MODE_CAP[0]
+    if mode is None and cap is not None and plan.mode > cap:
+        plan = _plan_exact(kind, pg, B, device, int(cap), tile, shards,
+                           plane_dtype)
+    return plan
+
+
+def _plan_exact(kind: int, pg, B: int, device: torch.device, mode,
+                tile=None, shards: int = 0,
+                plane_dtype: str = "f32") -> _FlatsPlan:
     plane_torch_dtype(plane_dtype)
     key = (kind, id(pg), B, tile, shards, device.index, mode, plane_dtype)
     plan = _PLANS.get(key)
@@ -226,7 +375,7 @@ def _check_flats(pg, d0_flat, cc_flat, crit_c, wenter0):
 
 
 def _launch_flats(plan: _FlatsPlan, d0_flat, cc_flat, crit, wenter0,
-                  nsweeps: int, extra=()):
+                  nsweeps: int, extra=(), name: str = ""):
     """Allocate the outputs, set the plan's pointers (``extra``: (slot,
     pointer) pairs) and launch once.  Returns (dist, pred, wenter,
     stats [B + 1, 2]): each net's [executed, useful] sweeps, then their
@@ -248,7 +397,12 @@ def _launch_flats(plan: _FlatsPlan, d0_flat, cc_flat, crit, wenter0,
     for k, ptr in extra:
         run.p[k] = ptr
     run.v[6] = int(nsweeps)
-    run()
+    dp = get_devprof()
+    if dp.enabled:
+        with dp.launch(name, dev):
+            run()
+    else:
+        run()
     dist, pred, wenter = out.unbind(0)
     return dist, pred.view(torch.int32), wenter, stats
 
@@ -267,9 +421,10 @@ def planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
     B = d0_flat.shape[0]
     plan = _plan(FULL, pg, B, d0_flat.device, mode,
                  plane_dtype=plane_dtype)
-    dist, pred, wenter, stats = _launch_flats(plan, d0_flat, cc_flat, crit,
-                                              wenter0, nsweeps)
-    _count(planes_relax_full_cuda, plane_dtype)
+    dist, pred, wenter, stats = _launch_flats(
+        plan, d0_flat, cc_flat, crit, wenter0, nsweeps,
+        name="planes_relax_full_cuda")
+    _count(planes_relax_full_cuda, plane_dtype, plan.mode)
     planes_relax_full_cuda.last_mode = plan.mode
     planes_relax_full_cuda.last_stats = stats
     return dist, pred, wenter, stats[B]
@@ -307,8 +462,9 @@ def planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
                  plane_dtype=plane_dtype)
     dist, pred, wenter, stats = _launch_flats(
         plan, d0_flat, cc_flat, crit, wenter0, nsweeps,
-        ((33, ox.data_ptr()), (34, oy.data_ptr())))
-    _count(planes_relax_cropped_cuda, plane_dtype)
+        ((33, ox.data_ptr()), (34, oy.data_ptr())),
+        name="planes_relax_cropped_cuda")
+    _count(planes_relax_cropped_cuda, plane_dtype, plan.mode)
     planes_relax_cropped_cuda.last_mode = plan.mode
     planes_relax_cropped_cuda.last_stats = stats
     return dist, pred, wenter, stats[B]
@@ -344,9 +500,10 @@ def planes_relax_cluster_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
     if plan.ws_numel:
         ws = torch.empty(plan.ws_numel, dtype=torch.float32, device=dev)
         extra = ((35, ws.data_ptr()),)
-    dist, pred, wenter, stats = _launch_flats(plan, d0_flat, cc_flat, crit,
-                                              wenter0, nsweeps, extra)
-    _count(planes_relax_cluster_cuda, plane_dtype)
+    dist, pred, wenter, stats = _launch_flats(
+        plan, d0_flat, cc_flat, crit, wenter0, nsweeps, extra,
+        name="planes_relax_cluster_cuda")
+    _count(planes_relax_cluster_cuda, plane_dtype, plan.mode)
     planes_relax_cluster_cuda.last_mode = plan.mode
     planes_relax_cluster_cuda.last_stats = stats
     return dist, pred, wenter, stats[B]
@@ -399,6 +556,9 @@ def sweep_block_launcher(gm, state, crit_c, cc_x, cc_y, own, out, stats,
                  plane_dtype=plane_dtype)
     run_mode = lib.planes_relax_mode(BLOCK, (ctypes.c_longlong * len(ints))(
         *ints))
+    cap = _MODE_CAP[0]
+    if mode is None and cap is not None and run_mode > cap:
+        ints[17] = run_mode = int(cap)
     # the bf16 step's f32 working dist, in mode 0
     ws = (torch.empty(B * (sx + sy), dtype=torch.float32, device=dx.device)
           if plane_dtype == "bf16" and run_mode == 0 else None)
@@ -414,8 +574,13 @@ def sweep_block_launcher(gm, state, crit_c, cc_x, cc_y, own, out, stats,
                     keep=(gm, state, out, stats, crit, cc_x, cc_y, ws))
 
     def run() -> None:
-        launch()
-        _count(planes_sweep_block_cuda, plane_dtype)
+        dp = get_devprof()
+        if dp.enabled:
+            with dp.launch("planes_sweep_block_cuda", dx.device):
+                launch()
+        else:
+            launch()
+        _count(planes_sweep_block_cuda, plane_dtype, run_mode)
 
     run.mode = run_mode
     return run
@@ -448,11 +613,20 @@ planes_sweep_block_cuda.launches_bf16 = 0
 
 WRAPPERS = (planes_relax_full_cuda, planes_relax_cropped_cuda,
             planes_sweep_block_cuda, planes_relax_cluster_cuda)
+for _w in WRAPPERS:
+    _w.mode_launches = {0: 0, 1: 0, 2: 0}
 
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = w.launches_bf16 = 0
+        w.mode_launches = {0: 0, 1: 0, 2: 0}
+
+
+def mode_launch_counts() -> dict:
+    """Launches per wrapper and shared-memory mode (both plane modes):
+    ``name`` -> {mode: launches}."""
+    return {w.__name__: dict(w.mode_launches) for w in WRAPPERS}
 
 
 def launch_counts() -> dict:

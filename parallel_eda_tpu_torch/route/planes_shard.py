@@ -31,7 +31,8 @@ The mesh's ``impl`` names the schedule, as in the JAX package:
   after two consecutive globally stable sweeps.
 
 Which path runs is decided by the mesh and the schedule
-(``uses_cluster``), never by a failure:
+(``uses_cluster``), never by a failure of its own (the Router's
+resilience ladder may choose the per-sweep loop, ``RowMesh.per_sweep``):
 
 * lag 1 with every shard on the tensors' card: one launch of the
   cluster kernel (planes_kernels.planes_relax_cluster_cuda) runs the
@@ -66,6 +67,7 @@ from typing import Tuple
 
 import torch
 
+from ..obs.devprof import get_devprof
 from .planes import (INF, PlanesGeom, PlanesGraph, _dequantize_plane_state,
                      _flat, _split_flat, _sweep_costs, _sweep_once,
                      plane_itemsize, plane_torch_dtype,
@@ -92,6 +94,9 @@ class RowMesh:
     (repeats allowed) and the exchange schedule."""
     devices: Tuple[torch.device, ...]
     impl: str = "ppermute"
+    # run lag 1 on one card as the per-sweep loop (the resilience
+    # ladder's "ppermute" mesh level) instead of the cluster kernel
+    per_sweep: bool = False
     # per-PlanesGraph block geometry, built once per mesh
     _geom: dict = field(default_factory=dict, compare=False, repr=False)
 
@@ -379,8 +384,8 @@ class _CardSweeps:
 def uses_cluster(rmesh: RowMesh, device: torch.device) -> bool:
     """Whether planes_relax_sharded runs as one cluster launch: the lag-1
     schedule with every shard on ``device``, a card."""
-    return (rmesh.impl == "ppermute" and device.type == "cuda"
-            and set(rmesh.devices) == {device})
+    return (rmesh.impl == "ppermute" and not rmesh.per_sweep
+            and device.type == "cuda" and set(rmesh.devices) == {device})
 
 
 def sweep_cap(nsweeps: int, n_shards: int) -> int:
@@ -447,6 +452,8 @@ def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
               for dx, dy, wx, wy, g in zip(*blocks(d0_flat, INF),
                                            *blocks(wenter0, 0.0), gms)]
     card = devs[0].type == "cuda" and not plain
+    if devs[0].type != "cuda":
+        get_devprof().note_cpu_call()
     run = (_CardSweeps if card else _PlainSweeps)(
         gms, states, crits, ccx, ccy, kx, home, plane_dtype)
 

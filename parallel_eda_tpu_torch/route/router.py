@@ -46,6 +46,25 @@ holds the per-window top-k overused nodes (``congestion_topk``).
 Options the port does not implement yet raise NotImplementedError
 naming their ROADMAP.md item when set to a non-default value.
 
+``RouterOpts.resil`` (a ``resil.Resilience``) runs every window dispatch
+under the resilience guard, as in the JAX package: a chain of
+bit-identical rungs handed to ``DispatchGuard.run`` (retry with capped
+backoff, per-variant quarantine, descent), the fault sites armed, and
+the degradation ladder's dimensions consulted at every window
+(resil/ladder.py names the port's form of each level).  The per-rung
+chain is jit -> pallas_g1 -> xla: the relaxation kernels in the auto
+mode, with the mode capped at 1, then at 0 (``kernel_mode_cap``; the
+kernel rungs exist on the card, and on the CPU for
+``program="planes_pallas"`` as in JAX, where the plain versions take no
+mode).  The fused chain is fused -> per_rung, the mesh chain
+pallas_halo (the cluster kernel, on a card) -> ppermute (the per-sweep
+loop) -> single_chip, and a lost mesh member (``backend.loss``) lands
+the route on one device.  The port's window writes paths, sink delays,
+reach flags, boxes and crit in place, so a guarded dispatch keeps the
+window-entry tensors (``_WindowEntry``) and restores them before a
+retry or a descent.  With ``resil=None`` nothing of this runs: no copy,
+no extra sync, the same launches.
+
 ``program="ell"`` is the JAX package's any-graph fallback: the
 gather-based Bellman-Ford search of route/search.py, one batch at a
 time against the whole-circuit state, with per-net bounding-box windows
@@ -62,15 +81,17 @@ commits the f32 route and replays every window in bf16 on copies of the
 window-entry state (the shadow), whose packed summary must stay within
 the band of ``_dtype_band_ok`` or the route stops shadowing (a
 demotion); "route" shadows only until the first window within the band.
-The resilience ladder's "dtype" step is not ported (ROADMAP.md A13).
+A demotion also steps the resilience ladder's "dtype" dimension.
 
 ``stats_dir`` is the diagnostics mode, as in the JAX package: windows of
 one iteration, iter_stats.txt / final_stats.txt (``write_stats_files``)
 and route_report.txt in that directory, the per-(window, category)
 records of ``mdclog.MdcLogger`` under its logs/, and, with
 ``dump_routes``, every iteration's routes (routes_iter_N.txt).  The CLI
-writes the registry there as metrics.json; the JAX package's
-devprof.json is not written (ROADMAP.md A13-rest).
+writes the registry there as metrics.json, and the route writes
+devprof.json (obs/devprof.py: CUDA-event milliseconds per kernel and
+dispatch variant, read after the route).  The route.kernel.* layout
+gauges carry the port's layout (planes_kernels.kernel_layout).
 """
 
 from __future__ import annotations
@@ -86,7 +107,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..obs import get_metrics, get_tracer
+from ..obs import get_devprof, get_metrics, get_tracer
 from ..rr.graph import RRGraph
 from ..rr.terminals import NetTerminals
 from .device_graph import DeviceRRGraph, to_device, wire_cost_floor
@@ -152,9 +173,8 @@ class RouterOpts:
 
 # option -> (default, ROADMAP.md item that ports it)
 _NOT_PORTED = {
-    "resil": (None, "A13 (resilience wiring)"),
-    "program_library_dir": (None, "A14 (serve stack / kernel cache)"),
-    "compile_cache_dir": (None, "A14 (serve stack / kernel cache)"),
+    "program_library_dir": (None, "A14.3 (program library)"),
+    "compile_cache_dir": (None, "A14.3 (program library)"),
 }
 
 
@@ -408,13 +428,13 @@ def _note_dispatch_variant(key) -> bool:
 class WindowDispatchRequest:
     """One planned fused-window dispatch that ``Router.route_gen``
     yields (JAX router.py:587-609): its variant key, the arguments of
-    ``planes.route_window_planes_fused``, and the same rungs planned for
-    per-rung dispatch (``per_rung_fb``, for the resilience chain of
-    ROADMAP.md A13-rest; nothing calls it yet), and the resilience
-    runtime (None).  The caller sends back the call's result: the
-    solo driver through ``Router._exec_window_request``, a lockstep
-    driver through one ``route_window_planes_multi`` call over several
-    jobs' requests."""
+    ``planes.route_window_planes_fused``, the same rungs planned for
+    per-rung dispatch (``per_rung_fb``: the last rung of the guarded
+    fused chain, the ladder's "dispatch" fallback) and the resilience
+    runtime (``RouterOpts.resil`` or None).  The caller sends back the
+    call's result: the solo driver through
+    ``Router._exec_window_request``, a lockstep driver through one
+    ``route_window_planes_multi`` call over several jobs' requests."""
     __slots__ = ("vkey", "f_args", "f_kwargs", "per_rung_fb",
                  "resil_rt")
 
@@ -481,6 +501,32 @@ def _host_snapshot(t) -> np.ndarray:
     """A numpy copy of ``t`` (never a view: the window writes the state
     in place)."""
     return t.detach().to("cpu", copy=True).numpy()
+
+
+# the window call's arguments it writes in place (paths, sink_delay,
+# all_reached, bb, crit_all), in route_window_planes and
+# route_window_planes_fused alike; occ and acc come back as new tensors
+_IN_PLACE_SLOTS = (4, 5, 6, 7, 10)
+
+
+class _WindowEntry:
+    """The tensors a guarded window call writes in place, copied at its
+    entry: a failure after some of the call's launches leaves them half
+    written, so every rung but the first restores them before it runs
+    (the JAX program is atomic under donation; the port's window is many
+    launches)."""
+
+    def __init__(self, args):
+        self._live = [args[i] for i in _IN_PLACE_SLOTS]
+        self._copy = [t.clone() for t in self._live]
+        self._runs = 0
+
+    def __call__(self) -> None:
+        """Called at the start of every attempt."""
+        if self._runs:
+            for live, saved in zip(self._live, self._copy):
+                live.copy_(saved)
+        self._runs += 1
 
 
 # per-route pipeline gauges (JAX router.py:2594-2604), zeroed at the
@@ -715,10 +761,17 @@ class Router:
         # pays extra sweeps for a transfer that can land behind the next
         # sweep, and here each shard's transfer shares its sweep's
         # stream, so nothing overlaps and lag 2 is only slower on the
-        # card (chip_smoke.py's mesh lines time both).  The JAX mesh
-        # ladder (pallas_halo -> ppermute -> single chip) is not
-        # ported: a failure raises.
+        # card (chip_smoke.py's mesh lines time both).  Under
+        # RouterOpts.resil the ladder's "mesh" dimension picks the form
+        # per window (_active_row_mesh): the cluster kernel, the
+        # per-sweep loop, or one device once a member is lost.
         self.row_mesh = None
+        self._row_meshes = None
+        self._mesh_lost = False
+        # the kernel ladder's rungs (pallas_g1, xla) exist where the
+        # relaxation kernels run, and where JAX has them (planes_pallas)
+        self._kernel_rungs = (self.device.type == "cuda"
+                              or program == "planes_pallas")
         self._staging = _PlanStaging(self.device)
         # staging-slot namespace: a caller driving several jobs'
         # route_gen generators against this Router sets a prefix per job
@@ -736,19 +789,213 @@ class Router:
                 raise ValueError(
                     "mesh_shards > 1 needs a planes program "
                     "(program='planes')")
-            from .planes_shard import make_row_mesh
+            from .planes_shard import make_row_mesh, uses_cluster
             self.row_mesh = make_row_mesh(self.opts.mesh_shards, "ppermute",
                                           self.device)
+            # one mesh per form of the ladder's "mesh" levels: the
+            # cluster kernel engages only where it runs (a card holding
+            # every shard), as JAX's pallas_halo only on a TPU
+            per_sweep = dataclasses.replace(self.row_mesh, per_sweep=True)
+            self._row_meshes = {"ppermute": per_sweep}
+            # the tensors' device (a card's carries its index)
+            if uses_cluster(self.row_mesh, self.pg.device):
+                self._row_meshes["pallas_halo"] = self.row_mesh
 
-    def _book_halo(self, scal, batch: int, plane_dtype: str) -> None:
+    def _mesh_label(self, rm) -> str:
+        """The ladder's name of mesh form ``rm``."""
+        return ("pallas_halo" if self._row_meshes.get("pallas_halo") is rm
+                else "ppermute")
+
+    def _active_row_mesh(self, lad):
+        """The RowMesh the next window relaxes under (JAX router.py
+        :817-832), per the resil ladder's "mesh" dimension; None is the
+        one-device floor.  Level 0 is the cluster kernel where it runs
+        (a card holding every shard); elsewhere, and without a ladder on
+        such a card, the level-0 form is the Router's row mesh, whose
+        own path planes_shard picks."""
+        if self._row_meshes is None or self._mesh_lost:
+            return None
+        if lad is None:
+            return self.row_mesh
+        lvl = lad.level("mesh")
+        if lvl >= 2:
+            return None
+        if lvl == 0 and "pallas_halo" in self._row_meshes:
+            return self._row_meshes["pallas_halo"]
+        return self._row_meshes["ppermute"]
+
+    def _check_mesh_member(self, resil_rt, rm):
+        """backend.loss injection point for the sharded rungs (JAX
+        router.py:834-853): fires BEFORE the call and is STICKY — a
+        lost device stays lost, so the watchdog's same-rung retry fails
+        too and the chain descends to the one-device rung."""
+        from ..resil.faults import BackendLostError, Fault
+
+        if self._mesh_lost:
+            raise BackendLostError(Fault(
+                "backend.loss", -1,
+                f"mesh member lost earlier (n_shards={rm.n_shards})"))
+        plan = getattr(resil_rt, "plan", None)
+        if plan is not None:
+            try:
+                plan.raise_if("backend.loss",
+                              detail=f"shard of row mesh n={rm.n_shards}")
+            except BackendLostError:
+                self._mesh_lost = True
+                raise
+
+    def _mesh_demote(self, resil_rt, reason: str) -> None:
+        """Quarantine hook of a sharded rung (JAX router.py:855-873): a
+        lost mesh member lands the ladder straight on the one-device
+        floor; any other cause steps one level."""
+        from ..resil.ladder import DIMS
+
+        lad = getattr(resil_rt, "ladder", None)
+        moved = False
+        if lad is not None:
+            floor = len(DIMS["mesh"]) - 1
+            if self._mesh_lost:
+                while lad.level("mesh") < floor:
+                    lad.step("mesh", reason)
+                    moved = True
+            else:
+                moved = lad.step("mesh", reason)
+        if moved or lad is None:
+            get_metrics().counter("route.mesh.mesh_demotions").inc()
+
+    def _mesh_rungs(self, resil_rt, vkey, rm, call):
+        """The sharded rungs of a mesh chain: ``rm``'s form, then (from
+        the cluster kernel) the per-sweep loop, each running
+        ``call(mesh)`` after the sticky backend.loss check."""
+        from ..resil.watchdog import Rung
+
+        top = self._mesh_label(rm)
+
+        def mesh_run(label, rm_):
+            def run():
+                _note_dispatch_variant(vkey if label == top
+                                       else vkey + (label,))
+                self._check_mesh_member(resil_rt, rm_)
+                return call(rm_)
+            return run
+
+        def quar(reason):
+            self._mesh_demote(resil_rt, reason)
+
+        rungs = [Rung(top, mesh_run(top, rm), quar)]
+        if top == "pallas_halo":
+            rungs.append(Rung("ppermute", mesh_run(
+                "ppermute", self._row_meshes["ppermute"]), quar))
+        return rungs
+
+    def _guarded_dispatch(self, resil_rt, vkey, wp_args, wp_kwargs):
+        """One route_window_planes call under the resilience guard (JAX
+        router.py:875-966): an ordered chain of BIT-IDENTICAL rungs,
+        fastest first, handed to DispatchGuard.run.  Unsharded: jit (the
+        auto mode), pallas_g1 (mode <= 1), xla (mode 0), the last two
+        where the Router has kernel rungs; sharded: the mesh rungs, then
+        single_chip.  Every rung notes its own variant key, and every
+        rung after the first restores the call's in-place state."""
+        from ..resil.watchdog import Rung
+        from .planes import route_window_planes
+        from .planes_kernels import kernel_mode_cap
+
+        entry = _WindowEntry(wp_args)
+        rm = wp_kwargs.get("mesh")
+        if rm is not None:
+            def sharded(rm_):
+                entry()
+                return route_window_planes(*wp_args,
+                                           **{**wp_kwargs, "mesh": rm_})
+
+            rungs = self._mesh_rungs(resil_rt, vkey, rm, sharded)
+
+            def run_single():
+                _note_dispatch_variant(vkey + ("single_chip",))
+                entry()
+                return route_window_planes(*wp_args,
+                                           **{**wp_kwargs, "mesh": None})
+
+            rungs.append(Rung("single_chip", run_single))
+            return resil_rt.guard.run(vkey, rungs)
+
+        def capped(key, cap):
+            def run():
+                _note_dispatch_variant(key)
+                entry()
+                with kernel_mode_cap(cap):
+                    return route_window_planes(*wp_args, **wp_kwargs)
+            return run
+
+        ladder = resil_rt.ladder
+        rungs = [Rung("jit", capped(vkey, None))]
+        if self._kernel_rungs and ladder.level("kernel") <= 1:
+            rungs.append(Rung("pallas_g1", capped(vkey + ("pallas_g1",), 1)))
+        if self._kernel_rungs:
+            rungs.append(Rung("xla", capped(vkey + ("xla",), 0)))
+        return resil_rt.guard.run(vkey, rungs)
+
+    def _guarded_dispatch_fused(self, resil_rt, vkey, f_args, f_kwargs,
+                                per_rung_fb):
+        """One route_window_planes_fused call under the resilience guard
+        (JAX router.py:968-1035): fused, then the per-rung loop over the
+        same planned rungs (the ladder's "dispatch" fallback); sharded:
+        the mesh rungs, the one-device fused call, then the per-rung
+        loop.  The kernel dimension is left to the per-rung chain, as in
+        JAX."""
+        from ..resil.watchdog import Rung
+        from .planes import route_window_planes_fused
+
+        entry = _WindowEntry(f_args)
+        rungs = []
+        rm = f_kwargs.get("mesh")
+        if rm is not None:
+            def sharded(rm_):
+                entry()
+                return route_window_planes_fused(
+                    *f_args, **{**f_kwargs, "mesh": rm_})
+
+            rungs = self._mesh_rungs(resil_rt, vkey, rm, sharded)
+
+            def run_single():
+                _note_dispatch_variant(vkey + ("single_chip",))
+                entry()
+                return route_window_planes_fused(
+                    *f_args, **{**f_kwargs, "mesh": None})
+
+            rungs.append(Rung("single_chip", run_single))
+        else:
+            def run_fused():
+                _note_dispatch_variant(vkey)
+                entry()
+                return route_window_planes_fused(*f_args, **f_kwargs)
+
+            rungs.append(Rung("fused", run_fused))
+
+        def run_per_rung():
+            entry()
+            return per_rung_fb()
+
+        rungs.append(Rung("per_rung", run_per_rung))
+        return resil_rt.guard.run(vkey, rungs)
+
+    def _book_halo(self, rm, scal, batch: int, plane_dtype: str) -> None:
         """The halo ledger of one window (JAX router.py:1191-1233): each
         executed sweep exchanged one halo round per internal boundary,
         at the byte volume of the window's plan width ``batch`` in the
-        committed relaxation's plane dtype."""
+        committed relaxation's plane dtype.  ``rm`` None: the window ran
+        on one device although sharding was asked (a demoted mesh),
+        booked as one shard."""
         from .planes import SCAL_S_EXEC
         from .planes_shard import halo_bytes_per_sweep, modeled_overlap_frac
 
-        rm, reg = self.row_mesh, get_metrics()
+        reg = get_metrics()
+        if rm is None:
+            reg.counter("route.mesh.halo_bytes").inc(0)
+            reg.counter("route.mesh.halo_exchanges").inc(0)
+            reg.set_gauges({"route.mesh.n_shards": 1,
+                            "route.mesh.overlap_frac": 0.0})
+            return
         sweeps = int(scal[SCAL_S_EXEC])
         reg.counter("route.mesh.halo_bytes").inc(halo_bytes_per_sweep(
             self.pg, batch, rm.n_shards, plane_dtype) * sweeps)
@@ -828,6 +1075,42 @@ class Router:
                          dmax_hist=[None if d != d else float(d)
                                     for d in bk["dmax_hist"].tolist()])
 
+    def _plan_block_nets(self, tile, nnets: int, nsw: int,
+                         plane_dtype: str = "f32", rm=None,
+                         batch: int = 1) -> dict:
+        """The route.kernel.* row of one dispatch (JAX router.py:1375
+        _plan_block_nets, with its fields), in the port's layout
+        (planes_kernels.kernel_layout): the kernel the dispatch launches
+        (K2 for a crop tile, the cluster kernel or the per-sweep step
+        under a row mesh ``rm``, K1 otherwise) in the mode it takes on
+        the card.  Under a mesh, also the halo fields of JAX's plan at
+        plan width ``batch``."""
+        from .planes_kernels import kernel_layout
+        from .planes_shard import uses_cluster
+
+        shards = 0 if rm is None else rm.n_shards
+        per_sweep = rm is not None and not uses_cluster(rm, self.pg.device)
+        lay = kernel_layout(self.pg.shape_x, self.pg.shape_y, nnets, nsw,
+                            tile=tile, shards=shards, per_sweep=per_sweep,
+                            plane_dtype=plane_dtype)
+        plan = dict(variant=lay["variant"], block_nets=lay["block_nets"],
+                    lane_occupancy=lay["lane_occupancy"],
+                    bytes_per_sweep=lay["bytes_per_sweep"],
+                    tile=None if tile is None else list(tile),
+                    nets=max(1, int(nnets)), nsweeps=int(nsw),
+                    plane_dtype=plane_dtype)
+        if rm is not None:
+            from .planes_shard import halo_bytes_per_sweep, \
+                modeled_overlap_frac
+            plan.update(
+                mesh_shards=rm.n_shards, mesh_impl=self._mesh_label(rm),
+                halo_bytes_per_sweep=halo_bytes_per_sweep(
+                    self.pg, batch, rm.n_shards, plane_dtype),
+                mesh_overlap_frac=modeled_overlap_frac(
+                    self.pg, batch, rm.n_shards, rm.impl, rm.n_cards > 1,
+                    plane_dtype))
+        return plan
+
     @staticmethod
     def _obs_window(tw0: float, it_done: int, K: int, n_over: int,
                     over_total: int, rerouted: int, relax_steps: int,
@@ -874,6 +1157,13 @@ class Router:
             reg.histogram("route.bucket_occupancy").record(float(occ_frac))
         reg.gauge("route.compaction_ratio").set(round(float(compaction),
                                                       6))
+        if kernel_plans:
+            dom = max(kernel_plans, key=lambda kp: kp.get("nets", 0))
+            reg.set_gauges({
+                "route.kernel.packed_block_size": dom["block_nets"],
+                "route.kernel.lane_occupancy": dom["lane_occupancy"],
+                "route.kernel.bytes_per_sweep": dom["bytes_per_sweep"],
+            })
         reg.counter("route.batches").inc(batches)
         reg.gauge("route.overused_nodes").set(int(n_over))
         reg.gauge("route.overuse_total").set(int(over_total))
@@ -1076,6 +1366,14 @@ class Router:
         from ..mdclog import MdcLogger
 
         tr = get_tracer()
+        dp = get_devprof()
+        dp_was = dp.enabled
+        if opts.stats_dir:
+            # a stats_dir run is the diagnostics mode: the device profiler
+            # rides along and writes devprof.json (JAX router.py:2675);
+            # unlike JAX's it is switched back after the route, so that
+            # later routes record no events
+            dp.enabled = True
         # per-(window, category) records: a no-op without stats_dir;
         # around the yields, so a closed generator closes its files
         with MdcLogger(opts.stats_dir,
@@ -1094,14 +1392,26 @@ class Router:
             write_route_report(
                 os.path.join(opts.stats_dir, "route_report.txt"),
                 rr, result.occ, R)
+            if dp.enabled:
+                # the device-truth ledger: the CUDA events are read here,
+                # after the route (JAX router.py:2532-2538)
+                dp.capture_all()
+                dp.dump(os.path.join(opts.stats_dir, "devprof.json"))
+            dp.enabled = dp_was
         return result
 
     def _exec_window_request(self, req: WindowDispatchRequest):
-        """Issue one fused-window request (JAX router.py:1037-1055,
-        without the guarded and program-library branches, which are not
-        ported): the call runs, or raises."""
+        """Issue one fused-window request (JAX router.py:1037-1055; the
+        program library's branch is ROADMAP.md A14.3): under the
+        request's resilience runtime the guarded fused chain, else the
+        call, which runs or raises."""
         from .planes import route_window_planes_fused
 
+        resil_rt = req.resil_rt
+        if resil_rt is not None and resil_rt.guard is not None:
+            return self._guarded_dispatch_fused(
+                resil_rt, req.vkey, req.f_args, req.f_kwargs,
+                req.per_rung_fb)
         _note_dispatch_variant(req.vkey)
         return route_window_planes_fused(*req.f_args, **req.f_kwargs)
 
@@ -1373,8 +1683,8 @@ class Router:
                               full_bb, result, B, crop, mlog, resume):
         """The window driver, a generator: the JAX package's
         _route_planes_windows with its pipelined and synchronous modes,
-        checkpoints, resume, slicing and the fused dispatch, which
-        yields its request (no resilience modes)."""
+        checkpoints, resume, slicing, the resilience guard and ladder,
+        and the fused dispatch, which yields its request."""
         from .planes import (SCAL_MAX_SPAN, live_size_bits,
                              route_window_planes, route_window_planes_fused,
                              unpack_window_status)
@@ -1471,16 +1781,21 @@ class Router:
             next_ckpt = (yield_at if next_ckpt is None
                          else min(next_ckpt, yield_at))
         sliced_yield = False
-        rm = self.row_mesh
+        # the resilience runtime (JAX router.py:1619-1621): its ladder's
+        # dimensions are read at every window
+        resil_rt = getattr(opts, "resil", None)
+        lad = resil_rt.ladder if resil_rt is not None else None
+        guarded = resil_rt is not None and resil_rt.guard is not None
         # the plane dtype (JAX router.py:1609-1625, :1713-1720): guarded
         # bf16 commits f32 and shadows in bf16, "off" commits bf16
         pd_req, guard = str(opts.plane_dtype), str(opts.dtype_guard)
-        dtype_demoted = dtype_validated = False
+        dtype_demoted = lad is not None and lad.level("dtype") > 0
+        dtype_validated = False
         reg = get_metrics()
         tr = get_tracer()
-        reg.gauge("route.kernel.plane_dtype").set(pd_req)
+        reg.gauge("route.kernel.plane_dtype").set(
+            "bf16" if pd_req == "bf16" and not dtype_demoted else "f32")
         program_vk = opts.program == "planes_pallas"
-        mesh_vk = False if rm is None else (rm.n_shards, rm.impl)
         # a host callback and per-iteration stats rows serialize the loop
         # anyway (JAX router.py:1592-1598)
         pipelined = bool(opts.pipeline) and not opts.stats_dir \
@@ -1531,6 +1846,11 @@ class Router:
                     dispatch.append((dirty[assign == len(classes)], None))
             else:
                 dispatch = [(dirty, None)]
+            # the row mesh of this window at the ladder's "mesh" level,
+            # re-read every window so that a demotion takes effect at the
+            # next window boundary
+            rm = self._active_row_mesh(lad)
+            mesh_vk = False if rm is None else (rm.n_shards, rm.impl)
             if rm is not None:
                 # the sharded relaxation runs the full canvas: the row
                 # mesh splits the canvas instead of the crop ladder
@@ -1539,13 +1859,17 @@ class Router:
             stg = self._staging_prefix
             widen_d = (None if opts.sweep_budget_div <= 1
                        else self._staging.put(stg + "widen", budget_full))
+            dtype_lvl0 = lad is None or lad.level("dtype") == 0
             shadow_now = (pd_req == "bf16" and guard != "off"
-                          and not dtype_demoted and not dtype_validated)
+                          and not dtype_demoted and not dtype_validated
+                          and dtype_lvl0)
             pd_main = ("bf16" if pd_req == "bf16" and guard == "off"
-                       and not dtype_demoted else "f32")
-            # fused iff asked (JAX router.py:1721-1723; the port has no
-            # legacy GSPMD mesh and no resilience ladder)
-            fused_now = bool(opts.fused_dispatch)
+                       and not dtype_demoted and dtype_lvl0 else "f32")
+            # fused iff asked and the ladder's "dispatch" dimension is at
+            # its top (JAX router.py:1721-1723; the port has no legacy
+            # GSPMD mesh)
+            fused_now = (bool(opts.fused_dispatch)
+                         and (lad is None or lad.level("dispatch") == 0))
             shadow = []
             if shadow_now:
                 # the window-entry state, for the shadow's replay
@@ -1592,11 +1916,10 @@ class Router:
                          if doubling
                          else min(Smax, _pow2_at_least(
                              math.ceil(maxfan / grp_w) + 1)))
-                # the route.kernel span's fields (the layout gauges of
-                # JAX's _plan_block_nets are ROADMAP.md A13-rest)
-                kplan = dict(tile=None if tile is None else list(tile),
-                             nets=max(1, len(sub)), nsweeps=int(nsw),
-                             plane_dtype=pd_main)
+                # the route.kernel span's fields and the layout gauges
+                # (JAX's _plan_block_nets), in the port's layout
+                kplan = self._plan_block_nets(tile, len(sub), nsw, pd_main,
+                                              rm, sel_p.shape[1])
                 return dict(
                     tile=tile, nsw=nsw, waves=waves, grp_w=grp_w,
                     doubling=doubling, wok=wok,
@@ -1621,10 +1944,14 @@ class Router:
                         opts.acc_fac if esc else 0.0, it_done, force_until,
                         K, p["nsw"], L, p["waves"], p["grp_w"],
                         p["doubling"])
+                # the mesh re-read at call time: the per-rung fallback of
+                # a window whose mesh member died mid-chain must not
+                # dispatch onto the dead mesh
                 kw = dict(topk=min(4096, N), n_colors=5,
                           crop_tile=p["tile"], bb0_all=bb0_d,
-                          widen_ok=p["wok"], mesh=rm, plane_dtype=pd_main,
-                          **sta_kw)
+                          widen_ok=p["wok"],
+                          mesh=None if self._mesh_lost else rm,
+                          plane_dtype=pd_main, **sta_kw)
                 return args, kw
 
             def rung_vkey(p):
@@ -1687,18 +2014,25 @@ class Router:
                         tuple(p["sel_shape"] for p in plans),
                         widen_oks is None, program_vk, mesh_vk,
                         bool(sta_kw), R, Smax, N, pd_main)
+                dom = max(kplans, key=lambda kp: kp.get("nets", 0))
+                get_devprof().note_variant(("fused", rung_desc, K, L), dom)
                 if shadow_now:
                     shadow.append((route_window_planes_fused, f_args,
                                    f_kwargs, vkey))
 
                 def per_rung_fb(plans=plans, vkey=vkey):
-                    # the same planned rungs, one call each: the same
-                    # result as the fused call (resilience chain, A13-rest)
+                    # the ladder's "dispatch" fallback: the same planned
+                    # rungs, one call each, occ and acc threaded rung to
+                    # rung as the fused call threads them
                     scals = []
+                    st = None
                     for ri2, p2 in enumerate(plans):
                         _note_dispatch_variant(vkey + ("per_rung", ri2))
                         a2, kw2 = rung_call(p2, ri2 == 0)
+                        if st is not None:
+                            a2 = a2[:2] + st + a2[4:]
                         out2 = route_window_planes(*a2, **kw2)
+                        st = out2[:2]
                         scals.append(out2[3])
                     return out2[:3] + (torch.stack(scals), out2[4])
 
@@ -1712,7 +2046,7 @@ class Router:
                             rungs=len(dispatch))
                 occ, acc, status, scal_stack, dmax_hist = yield \
                     WindowDispatchRequest(vkey, f_args, f_kwargs,
-                                          per_rung_fb, None)
+                                          per_rung_fb, resil_rt)
                 tp2 = time.perf_counter()
                 call_s = tp2 - tp1
                 if not pipelined:
@@ -1725,7 +2059,12 @@ class Router:
                     p = plan_rung(sub, tile, ri)
                     args, kw = rung_call(p, ri == 0)
                     vkey = rung_vkey(p)
-                    _note_dispatch_variant(vkey)
+                    if not guarded:
+                        # a guarded dispatch notes the rung it ran
+                        _note_dispatch_variant(vkey)
+                    get_devprof().note_variant(
+                        (p["tile"], K, p["nsw"], L, p["waves"], p["grp_w"]),
+                        p["kplan"])
                     tp1 = time.perf_counter()
                     plan_s += tp1 - tp0
                     if ri == 0:
@@ -1735,8 +2074,12 @@ class Router:
                                 cat="route", stage="plan", window=widx,
                                 rung=ri, nets=len(sub),
                                 tile=None if tile is None else list(tile))
-                    occ, acc, status, scal, dmax_hist = route_window_planes(
-                        *args, **kw)
+                    if guarded:
+                        occ, acc, status, scal, dmax_hist = \
+                            self._guarded_dispatch(resil_rt, vkey, args, kw)
+                    else:
+                        occ, acc, status, scal, dmax_hist = \
+                            route_window_planes(*args, **kw)
                     tp2 = time.perf_counter()
                     call_s += tp2 - tp1
                     if shadow_now:
@@ -1794,6 +2137,9 @@ class Router:
                     dtype_demoted = True
                     reg.counter("route.kernel.dtype_demotions").inc()
                     reg.gauge("route.kernel.plane_dtype").set("f32")
+                    if lad is not None:
+                        lad.step("dtype", "bf16 window summary left the "
+                                 "declared ulp band")
 
             # pipeline accounting (JAX router.py:2232-2281)
             stall_s = (t_st1 - t_st0) + sync_block_s
@@ -1861,11 +2207,13 @@ class Router:
                 sweep_boost=sweep_boost, widened=result.widened_nets,
                 dmax_hist=dmax_np,
                 occ_ref=self._occ_snapshot(occ, pipelined, mlog),
-                # one rung under a mesh: the last plan is the window's
-                halo=(None if rm is None else
-                      (scal_np, last_plan["sel_shape"][1] if len(dirty)
-                       else 1,
-                       pd_main)))
+                # one rung under a mesh: the last plan is the window's.
+                # The mesh resolved after the dispatch, so that a window
+                # whose member died mid-chain books as one device
+                halo=(None if self.row_mesh is None else
+                      (None if rm is None or self._mesh_lost else rm,
+                       scal_np, last_plan["sel_shape"][1] if len(dirty)
+                       else 1, pd_main)))
             if analyzer is not None and cpd == cpd:
                 analyzer.crit_path_delay = cpd
             if not pipelined:

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..obs.devprof import get_devprof
 from .cuda_lib import CudaLib
 
 MAX_SHARDS = 16          # csrc/slab_permute.cu MAX_MOVES / 4 slabs
@@ -225,7 +226,13 @@ class HaloExchange(SlabMoves):
         super().__init__(halo_moves(states, kx, src))
 
     def __call__(self) -> int:
-        n = super().__call__()
+        dp = get_devprof()
+        if dp.enabled and self.groups:
+            # timed on the first sending card's stream (obs/devprof.py)
+            with dp.launch("halo_exchange_cuda", self.groups[0][4]):
+                n = super().__call__()
+        else:
+            n = super().__call__()
         _count(halo_exchange_cuda, self.dtype, n)
         return n
 

@@ -313,10 +313,17 @@ def test_route_bf16_guarded_matches_jax(guard):
 
 def test_forced_band_violation_demotes_dtype(monkeypatch):
     """A bf16 shadow summary outside the band demotes the route to f32:
-    the counter fires once, the gauge reads "f32", and the route is the
-    f32 one (the JAX package's test, without the resilience ladder)."""
+    the counter fires once, the gauge reads "f32", the route is the f32
+    one, and under a resilience runtime the ladder's "dtype" dimension
+    steps once (the JAX package's test)."""
+    from parallel_eda_tpu_torch.resil import Resilience, ResilOpts
+
     monkeypatch.setattr(TR, "_dtype_band_ok", lambda *a, **k: False)
-    m, tres = _port_route(FIXTURE, dict(batch_size=32, plane_dtype=BF))
+    rt = Resilience(ResilOpts())
+    m, tres = _port_route(FIXTURE, dict(batch_size=32, plane_dtype=BF,
+                                        resil=rt))
+    assert rt.ladder.level("dtype") == 1
+    assert m["route.resil.level.dtype"] == 1
     _, base = _port_route(FIXTURE, dict(batch_size=32))
     assert np.array_equal(tres.paths, base.paths)
     assert np.array_equal(tres.occ, base.occ)

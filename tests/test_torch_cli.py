@@ -263,23 +263,36 @@ def test_cli_stats_dir_matches_jax(jax_dir, port_dir):
     t = logs(port_dir)
     assert t == logs(jax_dir)
     assert os.path.join("window_1", "timing.log") in t
-    # the JAX package's devprof.json is not written (ROADMAP.md
-    # A13-rest)
     files = set(os.listdir(os.path.join(port_dir, "net_resume", "stats")))
     assert files == {"iter_stats.txt", "final_stats.txt",
-                     "route_report.txt", "logs", "metrics.json"}
+                     "route_report.txt", "logs", "metrics.json",
+                     "devprof.json"}
     assert set(os.listdir(os.path.join(jax_dir, "net_resume",
-                                       "stats"))) - files == {
-        "devprof.json"}
+                                       "stats"))) == files
+
+    # devprof.json is compared by its keys and its variant set, not its
+    # bytes: JAX's records hold XLA's cost analysis, the port's the
+    # card's CUDA-event times (on the CPU: "unavailable")
+    def devprof(d):
+        with open(os.path.join(d, "net_resume", "stats",
+                               "devprof.json")) as f:
+            return json.load(f)
+    tdp, jdp = devprof(port_dir), devprof(jax_dir)
+    assert set(tdp) == set(jdp) == {"delta_band_log10", "records",
+                                    "summary"}
+    assert sorted(json.dumps(r["key"]) for r in tdp["records"]) == \
+        sorted(json.dumps(r["key"]) for r in jdp["records"])
+    assert all(r["unavailable"] == "cpu tensors: no CUDA events"
+               for r in tdp["records"])
 
 
 # what the JAX CLI's trace and metrics.json hold that the port's do not:
 # XLA's compile phases (the port builds its CUDA libraries instead, as
-# "cuda.build" spans, on the card only), and the instruments of ROADMAP.md
-# A13-rest (the kernel-layout gauges and devprof's route.devcost.*)
+# "cuda.build" spans, on the card only), and the devprof gauges of XLA's
+# cost analysis (the port's route.devcost.* are CUDA-event times, which a
+# CPU run does not have)
 COMPILE_SPANS = ("jax.compile.",)
-A13_REST = ("route.kernel.bytes_per_sweep", "route.kernel.lane_occupancy",
-            "route.kernel.packed_block_size", "route.devcost.")
+A13_REST = ("route.devcost.",)
 
 
 def _trace_names(d):
@@ -303,7 +316,8 @@ def test_cli_trace_and_metrics_names_match_jax(jax_dir, port_dir):
     """--trace and --stats_dir on the .net resume: the trace's event
     names (span, counter track) and metrics.json's instrument names and
     snapshot phases are the JAX CLI's, but for XLA's compile spans and
-    the A13-rest instruments."""
+    the devprof gauges (A13_REST); the kernel-layout gauges are there in
+    both."""
     t = _trace_names(port_dir)
     assert {("route.window", "X"), ("route.pipeline.plan", "X"),
             ("route.kernel", "X"), ("place.segment", "X"),
@@ -311,7 +325,9 @@ def test_cli_trace_and_metrics_names_match_jax(jax_dir, port_dir):
     assert t == _trace_names(jax_dir)
     names, phases = _metric_names(port_dir)
     assert {"route.dispatch.compiles", "route.wirelength", "place.t",
-            "route.kernel.fused_rungs"} <= names
+            "route.kernel.fused_rungs", "route.kernel.lane_occupancy",
+            "route.kernel.bytes_per_sweep",
+            "route.kernel.packed_block_size"} <= names
     assert (names, phases) == _metric_names(jax_dir)
 
 
@@ -436,10 +452,21 @@ def test_cli_settings_file(tmp_path, monkeypatch):
     (["--trace", "t.json"], "A13"), (["--compile_cache_dir", "c"], "A14")])
 def test_cli_unported_fail_naming_roadmap(argv, item, port_dir):
     """What the port does not do fails naming its ROADMAP.md item.
-    ``--trace`` (A13) is ported: the .net resume's run wrote its trace,
-    exported after the flow, with the flow's stages in it."""
+    ``serve`` (A14.1) is ported: its help exits 0 and its --fused
+    names A14.2.  ``--trace`` (A13) is ported: the .net resume's run
+    wrote its trace, exported after the flow, with the flow's stages in
+    it."""
     from parallel_eda_tpu_torch.__main__ import main
 
+    if argv[0] == "serve":
+        # ported (tests/test_torch_serve.py): its help exits 0, and its
+        # unported flags name their items
+        with pytest.raises(SystemExit) as ei:
+            main(argv)
+        assert ei.value.code == 0
+        with pytest.raises(SystemExit, match="ROADMAP.md A14.2"):
+            main(["serve", "--fused"])
+        return
     if argv[0] == "--trace":
         assert "trace in trace.json (open in Perfetto" in _text(
             port_dir, "net_resume", "stdout.txt")

@@ -46,7 +46,8 @@ TIMED = tuple("route.pipeline." + k for k in (
     "host_plan_ms", "device_exec_ms", "stall_ms", "overlap_frac",
     "host_overlap_frac", "host_plan_ms_total", "device_exec_ms_total",
     "stall_ms_total", "host_serial_ms_total")) + ("route.window_wall_s",)
-# the JAX Router's instruments that the port sets in ROADMAP.md A13-rest
+# the kernel-layout gauges: JAX's names, the port's layout (their
+# values are pinned by tests/test_torch_obs.py)
 A13_REST = ("route.kernel.bytes_per_sweep", "route.kernel.lane_occupancy",
             "route.kernel.packed_block_size")
 # a second terminal set of the fixture's netlist on the same grid
@@ -150,25 +151,25 @@ def test_fused_route_matches_jax(jax_fused, tflow, pipeline):
 
 def test_fused_metrics_and_trace_match_jax(jax_fused, tflow):
     """On the same route, the port's instrument names are the JAX
-    Router's but for A13_REST; every counter, gauge and histogram but
-    the timings (TIMED) has JAX's value, at the end and in every
-    snapshot; the trace has JAX's span and counter-track names (XLA's
-    compile spans aside)."""
+    Router's; every counter, gauge and histogram but the timings (TIMED)
+    and the kernel-layout gauges (A13_REST, the port's layout) has JAX's
+    value, at the end and in every snapshot; the trace has JAX's span
+    and counter-track names (XLA's compile spans aside)."""
     _, jreg, jnames = jax_fused
     _, reg, names = _port_route(tflow, False, True, **FUSED)
-    want = {k: v for k, v in jreg.values().items()
-            if not k.startswith(A13_REST)}
+    want = jreg.values()
     got = reg.values()
     assert set(got) == set(want)
     for k in want:
-        if k not in TIMED:
+        if k not in TIMED and not k.startswith(A13_REST):
             assert got[k] == want[k], k
     assert got["route.dispatch.compiles"] == 5
     assert [s["labels"] for s in reg.snapshots] == \
         [s["labels"] for s in jreg.snapshots]
     for s, js in zip(reg.snapshots, jreg.snapshots):
+        assert set(s["values"]) == set(js["values"])
         for k in s["values"]:
-            if k not in TIMED:
+            if k not in TIMED and not k.startswith(A13_REST):
                 assert s["values"][k] == js["values"][k], (s["labels"], k)
     assert names == jnames
     assert {("route.window", "X"), ("route.kernel", "X"),

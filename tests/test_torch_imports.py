@@ -33,7 +33,10 @@ def test_port_imports_no_jax():
     for m in ("__main__", "arch.xml_parser", "pack.pb_pack", "pack.pb_type",
               "netlist.blif", "netlist.files", "netlist.synthesis",
               "netlist.verilog", "route.report", "power", "draw", "viewer",
-              "mdclog", "obs", "obs.metrics", "obs.trace"):
+              "mdclog", "obs", "obs.metrics", "obs.trace", "obs.devprof",
+              "obs.runstore", "resil", "resil.faults", "resil.ladder",
+              "resil.watchdog", "resil.checkpoint", "serve", "serve.queue",
+              "serve.batcher", "serve.service", "serve.cli"):
         assert f"parallel_eda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -932,3 +932,105 @@ def test_cli_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
                       for f in sorted(os.listdir(tmp_path / dev / "out"))}
     assert set(files["cuda"]) == {"synth.net", "synth.place", "synth.route"}
     assert files["cuda"] == files["cpu"]
+
+
+# ---- resilience and devprof on the card -------------------------------
+
+@pytest.mark.parametrize("cap", [1, 0])
+def test_kernel_mode_cap_descent_matches_plain(cuda, cap):
+    """The kernel ladder's forms: under kernel_mode_cap(1) and (0) K1 and
+    K2 launch in that mode (counted per mode) and stay bit-identical to
+    their plain versions; the cap leaves a forced mode= alone."""
+    arch = minimal_arch(chan_width=6)
+    pg, d0, cc, crit, w0 = _instance(arch, 6, 5, 4, 3, "jitter", cuda)
+    ref = P.planes_relax_plain(pg, d0, cc, crit, w0, 24)
+    pk.reset_launch_counts()
+    with pk.kernel_mode_cap(cap):
+        got = P.planes_relax(pg, d0, cc, crit, w0, 24)
+        assert pk.planes_relax_full_cuda.last_mode == cap
+        ox = torch.zeros(4, dtype=torch.int32, device=cuda)
+        oy = torch.ones(4, dtype=torch.int32, device=cuda)
+        got_c = P.planes_relax_cropped(pg, d0, cc, crit, w0, 24, ox, oy,
+                                       4, 3)
+        assert pk.planes_relax_cropped_cuda.last_mode == cap
+        pk.planes_relax_full_cuda(pg, d0, cc, crit, w0, 24, mode=2)
+        assert pk.planes_relax_full_cuda.last_mode == 2
+    ref_c = P.planes_relax_cropped_plain(pg, d0, cc, crit, w0, 24, ox, oy,
+                                         4, 3)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b.cpu())
+    for a, b in zip(got_c, ref_c):
+        assert torch.equal(a.cpu(), b.cpu())
+    m = pk.mode_launch_counts()
+    assert m["planes_relax_full_cuda"][cap] == 1
+    assert m["planes_relax_full_cuda"][2] == 1
+    assert m["planes_relax_cropped_cuda"][cap] == 1
+
+
+def test_devprof_events_read_only_at_capture(cuda, tmp_path):
+    """With the profiler on, every K1 launch records a CUDA-event pair on
+    its stream and nothing waits for them before capture_all, which
+    reads one time per launch; off, the wrappers record nothing."""
+    from parallel_eda_tpu_torch.obs import devprof as dp_mod
+
+    arch = minimal_arch(chan_width=6)
+    pg, d0, cc, crit, w0 = _instance(arch, 6, 5, 4, 3, "jitter", cuda)
+    p = dp_mod.DevProfiler(enabled=True)
+    old = dp_mod.get_devprof()
+    dp_mod.set_devprof(p)
+    waited = []
+    real = torch.cuda.Event.synchronize
+    try:
+        torch.cuda.Event.synchronize = lambda ev: (waited.append(ev),
+                                                   real(ev))[1]
+        p.note_variant(("k1",), {"nets": 4})
+        for _ in range(3):
+            P.planes_relax(pg, d0, cc, crit, w0, 24)
+        assert waited == [] and len(p._pending[("k1",)]["events"]) == 3
+        recs = p.capture_all()
+        assert len(waited) == 3
+        k = recs[0]["kernels"]["planes_relax_full_cuda"]
+        assert k["launches"] == 3 and k["ms"] > 0
+        p.enabled = False
+        p.note_variant(("off",), {"nets": 4})
+        P.planes_relax(pg, d0, cc, crit, w0, 24)
+        assert p.capture_all() == recs
+    finally:
+        torch.cuda.Event.synchronize = real
+        dp_mod.set_devprof(old)
+
+
+def test_resil_route_on_card_matches_cpu(cuda):
+    """The 15-LUT route under RouterOpts.resil with injected errors that
+    push its first dispatch down to xla (mode 0) on the card equals the
+    CPU route; at mesh_shards=2 on one card the mesh ladder starts at
+    the cluster kernel; a dispatch that exhausts jit, pallas_g1 and xla
+    raises DispatchPoisonedError."""
+    from parallel_eda_tpu_torch.resil import (DispatchPoisonedError,
+                                              FaultPlan, Resilience,
+                                              ResilOpts)
+
+    f = synth_flow(num_luts=15, num_inputs=6, num_outputs=6, chan_width=10,
+                   seed=3)
+    set_metrics(MetricsRegistry())
+    cpu = Router(f.rr, RouterOpts(batch_size=32), device="cpu").route(
+        f.term)
+    rt = Resilience(ResilOpts(fault_plan=FaultPlan(
+        1, {"dispatch.error": (4, 4)}), backoff_s=0.0))
+    pk.reset_launch_counts()
+    card = Router(f.rr, RouterOpts(batch_size=32, resil=rt),
+                  device="cuda").route(f.term)
+    assert np.array_equal(card.paths, cpu.paths)
+    assert card.wirelength == cpu.wirelength
+    assert pk.mode_launch_counts()["planes_relax_full_cuda"][0] > 0
+    # on one card the mesh ladder's top level is the cluster kernel
+    r = Router(f.rr, RouterOpts(batch_size=32, mesh_shards=2,
+                                resil=Resilience(ResilOpts())),
+               device="cuda")
+    assert r._active_row_mesh(r.opts.resil.ladder) is r.row_mesh
+    assert TS.uses_cluster(r.row_mesh, r.pg.device)
+    rt = Resilience(ResilOpts(fault_plan=FaultPlan(
+        1, {"dispatch.error": (6, 6)}), backoff_s=0.0))
+    with pytest.raises(DispatchPoisonedError):
+        Router(f.rr, RouterOpts(batch_size=32, resil=rt),
+               device="cuda").route(f.term)

@@ -156,3 +156,78 @@ def test_cuda_builds_are_the_compile_spans(fresh):
     assert (ev["ts"], ev["dur"]) == (1e6, 2.5e6)
     TTRACE.reset_compile_seconds()
     assert TOBS.compile_seconds() == 0.0
+
+
+def test_kernel_layout_gauges_pin_their_formulas(fresh):
+    """The route.kernel.* gauges and route.kernel span fields carry the
+    port's layout (planes_kernels.kernel_layout), pinned here on the
+    40-LUT crop fixture, whose first window dispatches K2 on 4x4 tiles
+    and K1 on the full canvas: the mode is the most shared state that
+    fits the card's limit (smem_bytes, SMEM_OPTIN), one net per thread
+    block, occupancy = canvas cells over threads_for's thread-slots, and
+    bytes per sweep = the flats' one load and one store per relaxation
+    over nsweeps (K2 reading and writing the full flats around its
+    tile); the gauges are the dominant dispatch's row."""
+    import torch
+
+    from parallel_eda_tpu_torch.flow import synth_flow
+    from parallel_eda_tpu_torch.route import planes_kernels as PK
+    from parallel_eda_tpu_torch.route import router as TR
+    from test_torch_route import CROP_FIXTURE
+
+    tf = synth_flow(**CROP_FIXTURE)
+    reg = TOBS.set_metrics(TOBS.MetricsRegistry())
+    tr = TOBS.Tracer()
+    TOBS.set_tracer(tr)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        r = TR.Router(tf.rr, TR.RouterOpts(batch_size=32, crop="4x4",
+                                           pipeline=False), device="cpu")
+        r.route(tf.term)
+    finally:
+        torch.set_num_threads(n)
+        TOBS.set_tracer(None)
+    rows = [e["args"] for e in tr.events if e["name"] == "route.kernel"]
+    W, NX, NYp1 = r.pg.shape_x
+    ncells = r.pg.ncells
+    kinds = set()
+    for kp in rows:
+        tile = kp["tile"]
+        X, Y = (tile if tile else (NX, NYp1 - 1))
+        kind = PK.TILE if tile else PK.FULL
+        kinds.add(kind)
+        mode = PK.auto_mode(kind, W, X, Y)
+        assert PK.smem_bytes(kind, mode, W, X, Y) <= PK.SMEM_OPTIN
+        assert mode == 2 or PK.smem_bytes(kind, mode + 1, W, X, Y) > \
+            PK.SMEM_OPTIN
+        name = ("planes_relax_cropped_cuda" if tile
+                else "planes_relax_full_cuda")
+        assert kp["variant"] == f"{name}/mode{mode}"
+        cells = W * X * (Y + 1) + W * (X + 1) * Y
+        th = PK.threads_for(cells)
+        assert kp["block_nets"] == 1
+        assert kp["lane_occupancy"] == round(
+            cells / (th * -(-cells // th)), 4)
+        flats = (24 * cells if not tile else 20 * ncells + 4 * cells)
+        assert kp["bytes_per_sweep"] == int(
+            flats * kp["nets"] / kp["nsweeps"])
+    assert kinds == {PK.TILE, PK.FULL}
+    # the gauges: the last window's dispatch covering the most nets
+    kev = [e for e in tr.events if e["name"] == "route.kernel"]
+    last = [e["args"] for e in kev if e["ts"] == kev[-1]["ts"]]
+    dom = max(last, key=lambda kp: kp["nets"])
+    g = reg.values("route.kernel.")
+    assert (g["route.kernel.packed_block_size"],
+            g["route.kernel.lane_occupancy"],
+            g["route.kernel.bytes_per_sweep"]) == (
+        dom["block_nets"], dom["lane_occupancy"], dom["bytes_per_sweep"])
+    # a canvas past the card's shared memory takes mode 0: one
+    # traversal of the state per sweep
+    shx, shy = (40, 30, 31), (40, 31, 30)
+    big = 2 * 40 * 30 * 31
+    assert PK.smem_bytes(PK.FULL, 1, 40, 30, 30) > PK.SMEM_OPTIN
+    for pd, isz in (("f32", 4), ("bf16", 2)):
+        lay = PK.kernel_layout(shx, shy, 8, 16, plane_dtype=pd)
+        assert lay["mode"] == 0 and lay["bytes_per_sweep"] == (
+            PK.global_sweep_bytes_per_cell(isz) * big * 8)

@@ -143,7 +143,9 @@ def test_unported_options_raise(name, value, tmp_path):
     routes the parity fixture fused, one dispatch a window, and holds it
     against the JAX route of test_router_matches_jax_parity_fixture
     (JAX's tests/test_kernel_pack.py holds JAX's fused route equal to
-    that one)."""
+    that one).  So is ``resil``: its case routes the parity fixture under
+    a resilience runtime with no fault plan, equal to that JAX route
+    (tests/test_torch_resil.py holds the routes under faults)."""
     if name == "stats_dir":
         _check_stats_dir(tmp_path / value)
         return
@@ -157,6 +159,19 @@ def test_unported_options_raise(name, value, tmp_path):
                            tres)
         assert reg.gauge("route.kernel.dispatches_per_window").value == 1
         return
+    if name == "resil":
+        from parallel_eda_tpu_torch.resil import Resilience, ResilOpts
+
+        tf = synth_flow(**FIXTURE)
+        with port_metrics() as reg:
+            rt = Resilience(ResilOpts())
+            tres = TR.Router(tf.rr, TR.RouterOpts(batch_size=32, resil=rt),
+                             device="cpu").route(tf.term)
+        _assert_same_route(_jax_route(FIXTURE, dict(batch_size=32))[1],
+                           tres)
+        assert reg.gauge("route.resil.retry_cap").value == 2
+        assert rt.ladder.snapshot()["kernel"] == "pallas_packed"
+        return
     if name == "program":
         r = TR.Router(synth_flow(**FIXTURE).rr, TR.RouterOpts(program=value),
                       device="cpu")
@@ -166,7 +181,7 @@ def test_unported_options_raise(name, value, tmp_path):
     opts = {name: value}
     if name == "mesh_shards":
         # the mesh is ported; an unported mode under it still raises
-        opts["resil"] = object()
+        opts["program_library_dir"] = "x"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu")
 
@@ -187,8 +202,10 @@ def _check_stats_dir(d):
     """The port's stats_dir files against the JAX Router's on the parity
     fixture, congestion-driven: iter_stats.txt (one row per iteration),
     final_stats.txt and route_report.txt equal but for the seconds, the
-    mdclog records equal but for their clocks, and routes_iter_N.txt
-    (``dump_routes``) equal."""
+    mdclog records equal but for their clocks, routes_iter_N.txt
+    (``dump_routes``) equal, and devprof.json compared by its keys and
+    variant set (JAX's records hold XLA's cost analysis, the port's
+    "unavailable" on CPU tensors)."""
     import json
 
     opts = dict(batch_size=32, dump_routes=True)
@@ -216,6 +233,9 @@ def _check_stats_dir(d):
                           for t in (body, want))
         elif rel.name in ("iter_stats.txt", "final_stats.txt"):
             continue
+        elif rel.name == "devprof.json":
+            body, want = ([json.dumps(r["key"]) for r in json.loads(t)[
+                "records"]] for t in (body, want))
         assert body == want, rel
 
 

@@ -494,12 +494,25 @@ def test_mesh_rejects_unported_combinations(name, value):
     """An unported option under the mesh raises naming its ROADMAP.md
     item.  ``fused_dispatch`` is ported: the fused window keeps the row
     mesh (JAX planes.py:1926), and its mesh-2 route is the per-rung
-    one."""
+    one.  So is ``resil``: its mesh-2 route with no fault plan keeps the
+    mesh at its top CPU level (ppermute) and is the unguarded one
+    (tests/test_torch_resil.py holds the backend.loss demotion)."""
     if name == "fused_dispatch":
         _, m, fused = _port_mesh_route(2, fused_dispatch=True)
         _assert_same_route(_port_mesh_route(2)[2], fused)
         assert m["route.kernel.dispatches_per_window"] == 1
         assert m["route.mesh.n_shards"] == 2
+        return
+    if name == "resil":
+        from parallel_eda_tpu_torch.resil import Resilience, ResilOpts
+
+        rt = Resilience(ResilOpts())
+        r, m, res = _port_mesh_route(2, resil=rt)
+        _assert_same_route(_port_mesh_route(2)[2], res)
+        assert rt.ladder.name("mesh") == "pallas_halo"
+        assert m["route.mesh.n_shards"] == 2
+        assert m["route.mesh.mesh_demotions"] == 0
+        assert r._active_row_mesh(rt.ladder).per_sweep
         return
     tf = synth_flow(**FIXTURE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

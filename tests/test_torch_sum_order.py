@@ -11,8 +11,9 @@ rather than at the fixtures' shapes alone:
   rejects, on the 1,200-LUT scale config's placement problem (its
   packed netlist at NN 1,107, P 10, 2F 16; no routing graph is built);
 - the same step with each block's and each net's table padded wider
-  (2F up to 96, P up to 40), and the scale config's eager costs and one
-  temperature's fused costs.
+  (2F up to 96, P up to 40; P 22 to 32, ROADMAP.md C6's former open
+  case, at 22, 24 and 32 here and at every P in the slow sweep), and
+  the scale config's eager costs and one temperature's fused costs.
 
 The JAX references run in a subprocess under
 ``XLA_FLAGS=--xla_cpu_max_isa=AVX`` (this file run as a script writes
@@ -50,10 +51,10 @@ COLS = [1, 2, 3, 4, 6, 8, 9, 10, 16, 17, 31, 32]
 # modes, the first windowed M, the default
 MOVES = [15, 16, 20, 24, 28, 31, 32, 33, 256]
 # (2F, P) of the padded-table steps, timing-driven: the bb delta past
-# the vectorized 2F, unpadded and padded [2F, P] windows, P up to 21 and
-# past 32 (P 22 to 32 is ROADMAP.md C6's open case)
+# the vectorized 2F, unpadded and padded [2F, P] windows, P up to 32 (22,
+# 24 and 32: ROADMAP.md C6's former open case) and past 32
 WIDE = [(24, 10), (40, 10), (64, 10), (80, 10), (96, 10), (16, 16),
-        (16, 21), (34, 33), (40, 40)]
+        (16, 21), (16, 22), (16, 24), (16, 32), (34, 33), (40, 40)]
 # net counts the scale problem is padded to (rows of -1): the segment's
 # fused td cost over unpadded and one-row-padded windows
 NETS = [1120, 1151]
@@ -72,7 +73,7 @@ FULL = dict(
                                 513, 1000, 1024, 2048],
     wide=[(f, 10) for f in (18, 20, 24, 30, 32, 34, 40, 48, 62, 64, 80, 94,
                              96)]
-    + [(16, p) for p in range(11, 22)] + [(16, 33), (16, 40), (34, 33),
+    + [(16, p) for p in range(11, 33)] + [(16, 33), (16, 40), (34, 33),
                                           (40, 40)],
     nets=[1119, 1120, 1121, 1151, 1152, 1184, 1200])
 T_MIX = 0.01     # a temperature that accepts some uphill moves, not all
