@@ -171,9 +171,9 @@ Phases, one line each (any failure exits non-zero with no result line):
                  route's first window in each mode by torch.profiler,
                  equal; two jobs on the
                  bench rr graph (its terminals and an initial placement
-                 from seed 5) driven in lockstep through
-                 route_window_planes_multi, each equal to its solo fused
-                 route
+                 from seed 5) driven in lockstep by serve/fused.py's
+                 FusedSliceRunner through route_window_planes_multi,
+                 each equal to its solo fused route
  19. resil     — resilience, devprof and the route service on the card:
                  the bench guarded (RouterOpts.resil) without faults =
                  the unguarded route with the same launches; the kernel
@@ -198,6 +198,25 @@ Phases, one line each (any failure exits non-zero with no result line):
                  path for path; and ``python -m parallel_eda_tpu_torch
                  serve`` as subprocesses with and without --chaos: rc 0,
                  the same jobs done
+ 20. serve     — continuous batching, the program library and the route
+                 daemon on the card: the resil phase's four jobs
+                 through RouteService(fused=True), each = its solo card
+                 route, multi calls of width >= 2 and the K1 launches
+                 inside them, fused and interleaved service seconds in
+                 turns, and under a dispatch.error at the merged site
+                 (the per-job fallback from restored window entries)
+                 the same four routes; ``serve --fused`` processes with
+                 --library and --compile_cache_dir: an exporting one, a
+                 fresh one that starts no nvcc, builds nothing and
+                 counts no new dispatch variant, and one over a library
+                 whose entry and libplanes_relax copy were truncated
+                 (both evicted before load, rebuilt from source), each
+                 with the same jobs, its wall and build seconds; ``daemon
+                 run`` (two 6-LUT jobs, slice 2) uninterrupted, then
+                 killed -9 after its first durable checkpoint and
+                 restarted: the same job states and wirelengths,
+                 route.daemon.recovered > 0, the heartbeat's max_gap
+                 cold (a fresh compile cache) and warm
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -2672,58 +2691,29 @@ def phase_ell(bench, scale, smi, warm):
     warm["scale_ell"] = (functools.partial(router.route, scale.term), dt)
 
 
-def _split_request(req):
-    """A fused-window request's arguments as route_window_planes_multi's
-    per-job (state, dynamics, statics) triple (a minimal copy of the
-    lockstep merge of the JAX package's serve/fused.py, ROADMAP.md
-    A14.2)."""
-    a, kw = req.f_args, req.f_kwargs
-    state = (a[2], a[3], a[4], a[5], a[6], a[7], a[10])
-    dyn = (a[8], a[9], tuple(a[11:22]), a[22], a[23], a[24],
-           a[25], a[26], a[27], a[28], a[29], a[30],
-           kw.get("bb0_all"), kw.get("widen_oks"))
-    return state, dyn, (a[31], a[32], kw["rung_desc"], kw["topk"])
-
-
 def _lockstep(router, jobs):
-    """Several jobs' route_gen generators on one Router, in lockstep:
-    each step's pending requests go into one route_window_planes_multi
-    call when two or more are pending, else through the Router's own
-    dispatch.  ``jobs``: [(term, opts)].  Returns (results, multi
+    """Several jobs' route_gen generators on one Router, driven to the
+    end in lockstep by serve/fused.py's FusedSliceRunner (one
+    route_window_planes_multi call a step while two or more requests are
+    pending).  ``jobs``: [(term, opts)].  Returns (results, multi
     calls)."""
-    from parallel_eda_tpu_torch.route.planes import route_window_planes_multi
+    import types
 
-    gens, pend, done = [], [], [None] * len(jobs)
+    from parallel_eda_tpu_torch.serve.fused import (FusedSliceRunner,
+                                                    SliceEntry)
 
-    def advance(j, value=None, first=False):
-        router.opts = jobs[j][1]
-        router._staging_prefix = f"job{j}/"
-        try:
-            pend[j] = next(gens[j]) if first else gens[j].send(value)
-        except StopIteration as e:
-            pend[j], done[j] = None, e.value
-
+    entries = []
     for j, (term, opts) in enumerate(jobs):
         router.opts = opts
-        gens.append(router.route_gen(term))
-        pend.append(None)
-        advance(j, first=True)
-    calls = 0
-    while any(p is not None for p in pend):
-        live = [j for j, p in enumerate(pend) if p is not None]
-        if len(live) > 1:
-            states, dyns, statics = zip(*(_split_request(pend[j])
-                                          for j in live))
-            kw0 = pend[live[0]].f_kwargs
-            outs = route_window_planes_multi(
-                router.pg, router.dev, states, dyns, job_statics=statics,
-                n_colors=kw0["n_colors"], plane_dtype=kw0["plane_dtype"])
-            calls += 1
-        else:
-            outs = [router._exec_window_request(pend[live[0]])]
-        for j, o in zip(live, outs):
-            advance(j, o)
-    return done, calls
+        entries.append(SliceEntry(types.SimpleNamespace(job_id=f"job{j}"),
+                                  router.route_gen(term), opts, f"job{j}/"))
+    reg = _fresh_metrics()
+    FusedSliceRunner(router).run_slice(entries)
+    for e in entries:
+        if e.error is not None:
+            raise e.error
+    return ([e.result for e in entries],
+            reg.counter("route.serve.fused.dispatches").value)
 
 
 def _profiled_launches(run, keys, want):
@@ -3282,6 +3272,332 @@ def phase_resil(bench, bench_res, scale, scale_res, rows, smi):
                      f"ladder {json.dumps(res_doc['ladder'])}); "
                      f"{out['free'][1]:.1f} s / {out['chaos'][1]:.1f} s "
                      f"per process")
+    return {k: sum(r[k] for r in runs) for k in runs[0]}, (terms, solo)
+
+
+# the serve phase's subprocess launcher: runs ``python -m
+# parallel_eda_tpu_torch <args>`` and writes, at exit, the kernel launch
+# counts, the seconds of CUDA library builds, the nvcc processes started
+# and the library files the compile cache refused
+_SERVE_CHILD = """\
+import atexit, json, os, runpy, subprocess, sys
+from parallel_eda_tpu_torch.obs import compile_seconds
+from parallel_eda_tpu_torch.route import cuda_lib
+from parallel_eda_tpu_torch.route import planes_kernels as pk
+out = sys.argv.pop(1)
+nvcc = []
+_popen = subprocess.Popen.__init__
+def popen(self, args, *a, **k):
+    if os.path.basename(str(args[0])) == "nvcc":
+        nvcc.append(" ".join(map(str, args[1:3])))
+    _popen(self, args, *a, **k)
+subprocess.Popen.__init__ = popen
+def report():
+    with open(out, "w") as f:
+        json.dump({"launches": pk.launch_counts(),
+                   "compile_s": compile_seconds(), "nvcc": nvcc,
+                   "evicted": [e for lib in cuda_lib.LOADED
+                               for e in lib.evicted],
+                   "loaded": [lib.loaded_path for lib in cuda_lib.LOADED]},
+                  f)
+atexit.register(report)
+runpy.run_module("parallel_eda_tpu_torch", run_name="__main__",
+                 alter_sys=True)
+"""
+SERVE_ARGS = ["serve", "--jobs", "2", "--luts", "15", "--slice", "3",
+              "--fused"]
+
+
+class _ServeChild:
+    """One ``python -m parallel_eda_tpu_torch`` process through
+    _SERVE_CHILD, started at once; ``result()`` waits and returns (its
+    last stdout line as JSON, its exit report, wall seconds from start
+    to exit, as _wait_all stamped it)."""
+
+    def __init__(self, tag, work, args, timeout=600):
+        self.tag, self.timeout = tag, timeout
+        self.counts = os.path.join(work, f"{tag}.counts.json")
+        self.out = open(os.path.join(work, f"{tag}.out"), "w+")
+        self.t0 = time.time()
+        self.t1 = None
+        self.p = subprocess.Popen(
+            [sys.executable, "-c", _SERVE_CHILD, self.counts, *args],
+            env=dict(os.environ, PYTHONPATH=os.path.abspath(".")),
+            stdout=self.out, stderr=subprocess.STDOUT, text=True)
+
+    def kill(self):
+        if self.p.poll() is None:
+            self.p.kill()
+        self.p.wait()
+        self.out.close()
+
+    def result(self):
+        _wait_all([self])
+        rc = self.p.returncode
+        self.kill()
+        dt = self.t1 - self.t0
+        with open(self.out.name) as f:
+            text = f.read()
+        if rc != 0:
+            raise AssertionError(f"serve {self.tag}: rc {rc}\n"
+                                 f"{text[-4000:]}")
+        with open(self.counts) as f:
+            c = json.load(f)
+        line = [ln for ln in text.splitlines() if ln.startswith("{")][-1]
+        return json.loads(line), c, dt
+
+
+def _wait_all(children):
+    """Wait for every child, stamping each one's exit time."""
+    while True:
+        for c in children:
+            if c.t1 is None and c.p.poll() is not None:
+                c.t1 = time.time()
+            if c.t1 is None and time.time() - c.t0 > c.timeout:
+                c.kill()
+                raise AssertionError(f"serve {c.tag}: over {c.timeout} s")
+        if all(c.t1 is not None for c in children):
+            return
+        time.sleep(0.05)
+
+
+def _job_rows(line):
+    return [{k: v for k, v in j.items() if k not in ("route_s",
+                                                      "nets_per_s")}
+            for j in line["jobs"]]
+
+
+def phase_serve(bench, serve_jobs, smi):
+    """Continuous batching, the program library and the route daemon on
+    the card (docstring, phase 20).  Returns the launch counts of its
+    in-process card work."""
+    import signal
+
+    import torch
+
+    from parallel_eda_tpu_torch.resil import FaultPlan, ResilOpts
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+    from parallel_eda_tpu_torch.serve.daemon import submit_job
+    from parallel_eda_tpu_torch.serve.service import (RouteService,
+                                                      ServeJobSpec)
+
+    t_phase = time.time()
+    work = os.path.join(BUILD_DIR, "serve")
+    subprocess.run(["rm", "-rf", work], check=True)
+    os.makedirs(work)
+    terms, solo = serve_jobs
+    opts = RouterOpts(batch_size=64)
+    runs = []
+
+    # ---- continuous batching: the resil phase's four jobs, fused
+    multi_k1 = [0, 0]
+    real_multi = P.route_window_planes_multi
+
+    def counted_multi(*a, **k):
+        n0 = pk.planes_relax_full_cuda.launches
+        out = real_multi(*a, **k)
+        multi_k1[0] += 1
+        multi_k1[1] += pk.planes_relax_full_cuda.launches - n0
+        return out
+
+    def service(fused, resil=None):
+        reg = _fresh_metrics()
+        svc = RouteService(bench.rr, opts, slice_iters=5, fused=fused,
+                           resil=resil, device="cuda")
+        for name, term, tenant in terms:
+            svc.admit(ServeJobSpec(term=term, name=name), tenant=tenant,
+                      job_id=name)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        done = svc.run()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        for j in done:
+            if j.state.value != "done":
+                raise AssertionError(f"serve_fused: {j.job_id} "
+                                     f"{j.state.value} {j.error}")
+            _same_route(f"serve_fused {j.job_id} fused={fused}",
+                        j.result["result"], solo[j.job_id], whole=False)
+        return dt, reg.values("route.serve.fused."), svc
+
+    P.route_window_planes_multi = counted_multi
+    try:
+        # in turns: fused, interleaved, interleaved, fused; the first
+        # run's multi calls and counters are the ones reported
+        secs = {False: [], True: []}
+        for k, fz in enumerate((True, False, False, True)):
+            pk.reset_launch_counts()
+            sk.reset_launch_counts()
+            dt, vals, svc = service(fz)
+            secs[fz].append(dt)
+            runs.append(_resil_counts())
+            if k == 0:
+                fv, k1 = vals, list(multi_k1)
+                rebatch = svc.rebatch_summary()["counters"]
+        if fv.get("route.serve.fused.dispatches", 0) <= 0 or \
+                fv["route.serve.fused.jobs"] < \
+                2 * fv["route.serve.fused.dispatches"]:
+            raise AssertionError(f"serve_fused: {fv}")
+        # a dispatch.error firing at its first invocation: the merged
+        # site of the first lockstep step
+        pk.reset_launch_counts()
+        sk.reset_launch_counts()
+        plan = FaultPlan.parse(7, "dispatch.error:1:1")
+        dt_f, cv, _ = service(True, ResilOpts(fault_plan=plan,
+                                              backoff_s=0.0))
+        runs.append(_resil_counts())
+    finally:
+        P.route_window_planes_multi = real_multi
+    if cv.get("route.serve.fused.fallbacks", 0) < 1 or \
+            plan.summary()["fired"] != {"dispatch.error": [0]}:
+        raise AssertionError(f"serve_fused_fallback: {cv}, fired "
+                             f"{plan.summary()['fired']}")
+    say("serve_fused", f"RouteService(fused=True), the resil phase's 4 "
+                       f"bench-graph jobs sliced every 5 iterations: each "
+                       f"= its solo card route "
+                       f"{[(n, solo[n].wirelength, solo[n].iterations) for n, _, _ in terms]}"
+                       f"; {json.dumps(fv)}; {k1[0]} multi calls, {k1[1]} "
+                       f"K1 launches inside them; service s in turns "
+                       f"fused {secs[True]}, interleaved {secs[False]}; "
+                       f"under dispatch.error at the merged site the same "
+                       f"4 routes, fallbacks "
+                       f"{cv['route.serve.fused.fallbacks']}, {dt_f:.2f} s; "
+                       f"rebatch {json.dumps(rebatch)}"
+                       f" on {smi}")
+
+    # ---- the program library and the route daemon, in fresh processes,
+    # two at a time (a library process beside a daemon process: the
+    # seconds of each are taken beside the other's)
+    lib, cc = os.path.join(work, "L"), os.path.join(work, "C")
+    ref_box, box = os.path.join(work, "ref"), os.path.join(work, "box")
+
+    def daemon(tag, inbox, extra=()):
+        return _ServeChild(tag, work, [
+            "daemon", "run", "--inbox", inbox, "--luts", "6", "--slice",
+            "2", "--heartbeat_s", "2.0", "--exit_when_idle", "2",
+            "--summary", os.path.join(inbox, "summary.json"),
+            "--library", os.path.join(work, "Ld"),
+            "--compile_cache_dir", os.path.join(work, "Cd"), *extra])
+
+    def submit(inbox):
+        # the spec and line ``daemon submit`` writes
+        for jid, seed in (("jobA", 3), ("jobB", 4)):
+            submit_job(inbox, {"luts": 6, "chan_width": 16, "seed": seed,
+                               "name": f"l6_s{seed}"}, job_id=jid)
+
+    def states(doc):
+        return {j["job_id"]: (j["state"], j.get("wirelength"),
+                              j.get("iterations")) for j in doc["jobs"]}
+
+    submit(ref_box)
+    submit(box)
+    # both cold: each builds planes_relax.cu into its own fresh cache
+    p_exp = _ServeChild("lib_export", work, SERVE_ARGS + [
+        "--library", lib, "--compile_cache_dir", cc, "--export_library"])
+    p_ref = daemon("daemon_ref", ref_box, ("--export_library",))
+    _wait_all([p_exp, p_ref])
+    first, c1, w1 = p_exp.result()
+    ref, cr, wr = p_ref.result()
+    # warm library process beside the daemon that is killed -9 after its
+    # first durable checkpoint
+    p_warm = _ServeChild("lib_warm", work, SERVE_ARGS + [
+        "--library", lib, "--compile_cache_dir", cc])
+    p_kill = daemon("daemon_kill", box)
+    ck = os.path.join(box, "ckpt")
+    try:
+        t_end = time.time() + 300
+        while not (os.path.isdir(ck) and any(
+                n.endswith(".ck") for n in os.listdir(ck))):
+            if p_kill.p.poll() is not None or time.time() > t_end:
+                raise AssertionError(f"daemon_kill: no durable checkpoint "
+                                     f"before exit ({p_kill.p.poll()})")
+            if p_warm.t1 is None and p_warm.p.poll() is not None:
+                p_warm.t1 = time.time()
+            time.sleep(0.02)
+        os.kill(p_kill.p.pid, signal.SIGKILL)
+    finally:
+        p_kill.kill()
+    if os.path.exists(os.path.join(box, "summary.json")):
+        raise AssertionError("daemon_kill: the daemon finished before the "
+                             "kill")
+    second, c2, w2 = p_warm.result()
+    if c2["compile_s"] != 0 or c2["nvcc"] or \
+            second["dispatch_compiles"] != 0 or \
+            second["serve"].get("route.serve.aot_hits", 0) <= 0 or \
+            _job_rows(second) != _job_rows(first) or \
+            first["library_exported"] <= 0:
+        raise AssertionError(f"serve_library warm: compile_s "
+                             f"{c2['compile_s']}, nvcc {c2['nvcc']}, "
+                             f"compiles {second['dispatch_compiles']}, "
+                             f"{second['serve']}, jobs {_job_rows(second)} "
+                             f"vs {_job_rows(first)}")
+    # a torn entry and a torn libplanes_relax copy, with a fresh cache,
+    # beside the daemon's warm restart
+    with open(os.path.join(lib, "library.json")) as f:
+        idx = json.load(f)
+    kid, meta = sorted(idx["entries"].items())[0]
+    so = idx["libs"]["planes_relax"]
+    for rel in (meta["file"], so["file"]):
+        path = os.path.join(lib, rel)
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+    p_torn = _ServeChild("lib_torn", work, SERVE_ARGS + [
+        "--library", lib, "--compile_cache_dir", os.path.join(work, "C3")])
+    p_restart = daemon("daemon_restart", box)
+    _wait_all([p_torn, p_restart])
+    third, c3, w3 = p_torn.result()
+    got, cg, wg = p_restart.result()
+    if _job_rows(third) != _job_rows(first) or c3["compile_s"] <= 0 or \
+            third["serve"].get("route.serve.aot_errors", 0) < 2 or \
+            any(p.startswith(lib) for p in c3["loaded"]):
+        raise AssertionError(f"serve_library torn: {third['serve']}, "
+                             f"{c3}")
+    say("serve_library", f"serve --fused (2 jobs, 15 LUTs, slice 3) with "
+                         f"--library and --compile_cache_dir: export "
+                         f"process {w1:.1f} s (compile_seconds "
+                         f"{c1['compile_s']:.1f}, nvcc {c1['nvcc']}, "
+                         f"{first['library_exported']} entries); fresh "
+                         f"process {w2:.1f} s (compile_seconds "
+                         f"{c2['compile_s']}, no nvcc, "
+                         f"dispatch_compiles 0, aot_hits "
+                         f"{second['serve']['route.serve.aot_hits']}), the "
+                         f"same jobs; entry {kid} and the library's "
+                         f"libplanes_relax copy truncated, fresh cache: "
+                         f"{w3:.1f} s, both evicted before load "
+                         f"(aot_errors "
+                         f"{third['serve']['route.serve.aot_errors']}), "
+                         f"rebuilt from source (compile_seconds "
+                         f"{c3['compile_s']:.1f}), the same jobs; K1 "
+                         f"launches {c1['launches']['planes_relax_full_cuda']}"
+                         f" / {c2['launches']['planes_relax_full_cuda']} / "
+                         f"{c3['launches']['planes_relax_full_cuda']}; each "
+                         f"beside a daemon process, on {smi}")
+    if states(got) != states(ref) or any(
+            st != "done" for st, _, _ in states(ref).values()) or \
+            got["daemon"]["metrics"].get("route.daemon.recovered", 0) <= 0:
+        raise AssertionError(f"daemon: restart {states(got)} vs "
+                             f"uninterrupted {states(ref)}, "
+                             f"{got['daemon']['metrics']}")
+    if cg["compile_s"] != 0 or cg["nvcc"]:
+        raise AssertionError(f"daemon restart built: {cg}")
+    say("serve_daemon", f"python -m parallel_eda_tpu_torch daemon run (2 "
+                        f"jobs at 6 LUTs, slice 2) on the card: "
+                        f"uninterrupted {states(ref)} in {wr:.1f} s, "
+                        f"heartbeat max_gap cold "
+                        f"{ref['daemon']['heartbeat']['max_gap_s']} s "
+                        f"(compile_seconds {cr['compile_s']:.1f}); killed "
+                        f"-9 after its first durable checkpoint and "
+                        f"restarted: the same states and wirelengths, "
+                        f"recovered "
+                        f"{got['daemon']['metrics']['route.daemon.recovered']}"
+                        f", {wg:.1f} s, max_gap warm (library + compile "
+                        f"cache) {got['daemon']['heartbeat']['max_gap_s']} "
+                        f"s, no build; each beside a library process; "
+                        f"phase {time.time() - t_phase:.1f} s on {smi}")
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
@@ -3397,10 +3713,12 @@ def main(argv) -> int:
     c_elastic = phase_elastic(bench, res, scale)
     phase_ell(bench, scale, smi, warm)
     c_fused, fused_later = phase_fused(bench, res, scale)
-    c_resil = phase_resil(bench, res, scale, scale_res, rows, smi)
+    c_resil, serve_jobs = phase_resil(bench, res, scale, scale_res, rows,
+                                      smi)
+    c_serve = phase_serve(bench, serve_jobs, smi)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place + [c_cli, c_elastic, c_fused, c_resil]
+        c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve]
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
@@ -3412,7 +3730,8 @@ def main(argv) -> int:
                     f"(the CLI runs on the card) {c_cli} elastic "
                     f"(its routes, resumes and CLI run) {c_elastic} fused "
                     f"(its card routes) {c_fused} resil (its card routes "
-                    f"and services) {c_resil}")
+                    f"and services) {c_resil} serve (its fused services; "
+                    f"its subprocesses count their own) {c_serve}")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:

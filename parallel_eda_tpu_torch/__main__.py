@@ -13,12 +13,12 @@ compares line by line, seconds aside.  The port's own flag is
 ``--device {cuda,cpu}``: placement and routing run on the CUDA card
 unless it says ``cpu`` (the plain PyTorch versions of the kernels), and
 asking for the card without one fails.  ``serve`` runs the route
-service (serve/cli.py, with its own flags).  What the port does not do
-yet fails naming its ROADMAP.md item: the ``daemon`` subcommand (A14.4,
-in ``main``) and, in ``check_options``, ``--compile_cache_dir``
-(A14.3); serve's ``--library``, ``--export_library``,
-``--compile_cache_dir`` (A14.3) and ``--fused`` (A14.2) in
-serve/cli.py.  ``--trace FILE`` writes a Chrome trace of the whole flow
+service (serve/cli.py) and ``daemon`` the route daemon
+(serve/daemon_cli.py), each with its own flags.  ``--compile_cache_dir``
+keeps the built CUDA libraries across runs (route/cuda_lib.py).  What
+the port does not do yet fails naming its ROADMAP.md item
+(``_SUBCOMMANDS``, empty now; ``daemon fleet`` names A14.5 in
+serve/daemon_cli.py).  ``--trace FILE`` writes a Chrome trace of the whole flow
 (exported even when the flow fails) and ``--stats_dir`` also gets the
 metrics registry as metrics.json and the route's devprof.json, as in
 the JAX CLI.  The route is
@@ -35,7 +35,7 @@ import sys
 import time
 
 # what the port does not do yet -> its ROADMAP.md item
-_SUBCOMMANDS = {"daemon": "A14.4, the route daemon"}
+_SUBCOMMANDS: dict = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,8 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "every window before further host work); "
                    "bit-identical results, for isolating pipeline issues")
     p.add_argument("--compile_cache_dir", default="",
-                   help="persistent compile cache: not ported "
-                   "(ROADMAP.md A14.3)")
+                   help="persistent compile cache of the built CUDA "
+                   "libraries (keyed by source, nvcc command and "
+                   "version, and the card's compute capability)")
     p.add_argument("--no_timing", action="store_true",
                    help="congestion-driven only (NO_TIMING algorithm)")
     p.add_argument("--sdc", default="",
@@ -211,9 +212,6 @@ def check_options(args) -> None:
         errs.append("--sdc needs timing analysis; drop --no_timing")
     if args.profile and not args.route:
         errs.append("--profile traces routing; drop --no_route")
-    if args.compile_cache_dir:
-        errs.append("--compile_cache_dir is not ported yet (ROADMAP.md "
-                    "A14.3, program library)")
     if errs:
         raise SystemExit("option errors:\n  " + "\n  ".join(errs))
 
@@ -225,6 +223,10 @@ def main(argv=None) -> int:
         # the route service subcommand (serve/cli.py): its own flags
         from .serve.cli import main as serve_main
         return serve_main(argv[1:])
+    if argv and argv[0] == "daemon":
+        # the route daemon subcommand (serve/daemon_cli.py)
+        from .serve.daemon_cli import main as daemon_main
+        return daemon_main(argv[1:])
     if argv and argv[0] in _SUBCOMMANDS:
         raise SystemExit(f"the '{argv[0]}' subcommand is not ported yet "
                          f"(ROADMAP.md {_SUBCOMMANDS[argv[0]]})")
@@ -242,6 +244,10 @@ def main(argv=None) -> int:
             raise SystemExit(f"--settings_file: {e}")
     args = build_parser().parse_args(argv)
     check_options(args)
+    if args.compile_cache_dir:
+        # the whole flow's CUDA libraries (placement launches K1 too)
+        from .route.cuda_lib import set_cache_dir
+        set_cache_dir(args.compile_cache_dir)
 
     # one tracer and metrics registry for the whole flow; the trace is
     # exported in a finally, so a failed run keeps its timeline
@@ -355,6 +361,7 @@ def _run_flow(args) -> int:
             batch_size=args.batch_size, sink_group=args.sink_group,
             crop=args.crop, finish_precise=not args.no_finish,
             stats_dir=args.stats_dir or None, pipeline=not args.sync,
+            compile_cache_dir=args.compile_cache_dir or None,
             mesh_shards=shards)
         import contextlib
         prof = contextlib.nullcontext()

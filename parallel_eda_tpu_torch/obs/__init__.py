@@ -1,7 +1,6 @@
 """Observability: span tracing, the metrics registry, device profiling
 and the run corpus, as in the JAX package's ``obs/`` (its metrics.py,
-trace.py, devprof.py and runstore.py; the SLO plane is not ported,
-ROADMAP.md A14.4).
+trace.py, devprof.py, runstore.py and slo.py).
 
   trace.py    — span tracer -> Chrome trace-event JSON (Perfetto);
                 the seconds spent building the CUDA libraries are its
@@ -11,6 +10,8 @@ ROADMAP.md A14.4).
   devprof.py  — CUDA-event milliseconds per kernel and dispatch variant
                 (devprof.json of a stats_dir route)
   runstore.py — the append-only, scenario-keyed run corpus
+  slo.py      — latency digests, waterfalls, error budgets and the
+                capacity forecaster of the route daemon
 
 Both are no-ops until a driver enables them (``set_tracer``,
 ``MetricsRegistry.enabled``).

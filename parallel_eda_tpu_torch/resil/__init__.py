@@ -12,9 +12,8 @@ straight-through; resil/ladder.py names the port's form of each level),
 so a run that weathers injected faults finishes with the wirelength of
 the fault-free run.
 
-``journal.py`` of the JAX package (``Heartbeat``, ``JournalStore``,
-``LeaseStore``: the daemon's and the fleet's durable state) is not
-ported yet (ROADMAP.md A14.4): this package does not export those names.
+``journal.py`` holds the daemon's and the fleet's durable state
+(``JournalStore``, ``Heartbeat``, ``LeaseStore``).
 """
 
 import time
@@ -24,6 +23,7 @@ from typing import Optional
 from .checkpoint import CheckpointStore
 from .faults import (SITES, BackendLostError, Fault, FaultInjected,
                      FaultPlan)
+from .journal import Heartbeat, JournalStore, LeaseStore
 from .ladder import DegradationLadder
 from .watchdog import DispatchGuard, DispatchPoisonedError, Rung
 
@@ -82,6 +82,9 @@ __all__ = [
     "DispatchPoisonedError",
     "Rung",
     "DegradationLadder",
+    "Heartbeat",
+    "JournalStore",
+    "LeaseStore",
     "ResilOpts",
     "Resilience",
 ]

@@ -19,10 +19,11 @@ the port's window writes its state in place, so the guarded dispatch
 also restores the window-entry state before a retry (route/router.py
 ``_WindowEntry``).
 
-Every site name is kept.  ``library.corrupt`` (the program library,
-ROADMAP.md A14.3), ``worker.kill``, ``transport.drop`` and
-``lease.steal`` (the daemon and the fleet, A14.4-5) belong to parts not
-ported yet: a plan accepts them and nothing fires them.
+Every site name is kept.  ``library.corrupt`` fires in the program
+library (serve/library.py) and ``lease.steal`` in the route daemon
+(serve/daemon.py); ``worker.kill`` and ``transport.drop`` belong to the
+fleet (ROADMAP.md A14.5), not ported yet: a plan accepts them and
+nothing fires them.
 """
 
 import hashlib

@@ -19,8 +19,11 @@ the port runs its own form of the same work:
             CPU the wrappers' plain versions take no mode, so the
             levels name the same computation there.
   pipeline: pipelined -> sync   (RouterOpts.pipeline)
-  program:  aot -> jit.  The port has no program library yet (ROADMAP.md
-            A14.3): no chain holds an "aot" rung.
+  program:  aot -> jit.  "aot" is a dispatch through the program
+            library (serve/library.py: the variant's launch plans
+            installed), "jit" the same window function planning its
+            launches at first use; a chain holds an "aot" rung only with
+            a library attached (RouterOpts.program_library_dir).
   dtype:    bf16 -> f32   (stepped when a bf16 shadow window leaves the
             band of router._dtype_band_ok)
   dispatch: fused -> per_rung   (one route_window_planes_fused call a

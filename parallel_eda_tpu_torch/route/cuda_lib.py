@@ -6,21 +6,85 @@ at first use (or by chip_smoke.py, which starts every build at once)
 and loaded with ctypes.  Nothing here runs at import.  Each build's
 seconds go to ``obs.trace.note_build`` (the tracer's "cuda.build"
 spans, ``compile_seconds()``).
+
+The compile cache (``set_cache_dir``, set by ``RouterOpts.
+compile_cache_dir`` and the CLIs' ``--compile_cache_dir``) keeps the
+built libraries across processes under a key that is a digest of the
+source text, the nvcc command (``CudaLib.command``), ``nvcc --version``
+and the card's compute capability, never a file's mtime:
+``<dir>/lib<name>-<digest>.so`` beside a ``.json`` record of its
+sha256.  A process that finds a library there whose bytes match the
+record loads it and runs no nvcc.  A build writes a temporary name and
+installs it with ``os.replace``, so a killed process, or two processes
+building at once, never leave a torn library under the final name; and
+every library's sha256 is checked against its record BEFORE
+``ctypes.CDLL`` opens it (a torn or foreign shared object can crash the
+process inside the loader, where no ``except`` reaches): a mismatch
+deletes the file and rebuilds it from the repo's source.  The program
+library (serve/library.py) offers its own copies of the libraries
+(``offer``) under the same digests.  Without a cache directory and
+without offers the default ``build/`` behaviour (rebuild when the source
+is newer) stays as it is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import json
 import os
 import shutil
 import subprocess
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
+
+# the process's compile cache directory (None: the default build/)
+_CACHE_DIR = [None]
+# libraries the program library offers: name -> {digest: (path, sha256)}
+_OFFERS: dict = {}
+# every CudaLib this process loaded, in load order
+LOADED: list = []
+# nvcc --version of this process (memoized)
+_NVCC_VERSION = [None]
+
+
+def set_cache_dir(path: Optional[str]) -> None:
+    """Use ``path`` as this process's compile cache (None: the default
+    build/ directory).  Libraries already loaded stay loaded."""
+    _CACHE_DIR[0] = os.path.abspath(path) if path else None
+
+
+def cache_dir() -> Optional[str]:
+    return _CACHE_DIR[0]
+
+
+def offer(name: str, digest: str, path: str, sha256: str) -> None:
+    """A prebuilt library for ``name`` under ``digest`` (the program
+    library's copy): used instead of a build when its digest is the
+    live one and its bytes match ``sha256``."""
+    _OFFERS.setdefault(name, {})[digest] = (path, sha256)
+
+
+def file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _atomic_json(path: str, doc: dict) -> None:
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 def nvcc_path() -> str:
@@ -28,6 +92,41 @@ def nvcc_path() -> str:
     if not os.path.exists(p):
         raise RuntimeError("nvcc not found (needs the CUDA toolkit)")
     return p
+
+
+def nvcc_version() -> str:
+    """``nvcc --version``.  With a compile cache it is kept there, keyed
+    by the nvcc binary's real path, size and mtime, so that a process on
+    a warm cache starts no nvcc at all."""
+    if _NVCC_VERSION[0] is not None:
+        return _NVCC_VERSION[0]
+    exe = os.path.realpath(nvcc_path())
+    st = os.stat(exe)
+    stamp = [exe, st.st_size, st.st_mtime_ns]
+    memo = (os.path.join(_CACHE_DIR[0], "nvcc_version.json")
+            if _CACHE_DIR[0] else None)
+    if memo is not None and os.path.exists(memo):
+        try:
+            with open(memo) as f:
+                doc = json.load(f)
+            if doc.get("stamp") == stamp:
+                _NVCC_VERSION[0] = doc["version"]
+                return _NVCC_VERSION[0]
+        except (OSError, ValueError, KeyError):
+            pass
+    out = subprocess.run([exe, "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    _NVCC_VERSION[0] = out.strip()
+    if memo is not None:
+        os.makedirs(_CACHE_DIR[0], exist_ok=True)
+        _atomic_json(memo, {"stamp": stamp, "version": _NVCC_VERSION[0]})
+    return _NVCC_VERSION[0]
+
+
+def compute_capability() -> str:
+    """The current card's compute capability, e.g. "9.0"."""
+    major, minor = torch.cuda.get_device_capability()
+    return f"{major}.{minor}"
 
 
 class CudaLib:
@@ -42,20 +141,48 @@ class CudaLib:
         # filled by finish_build(): seconds, and nvcc's -Xptxas -v
         # register / shared memory / spill report
         self.info: dict = {}
+        # the file the loaded library came from, and its cache digest
+        self.loaded_path: Optional[str] = None
+        self.loaded_digest: Optional[str] = None
+        # (path, reason) of every library file this process refused
+        self.evicted: list = []
         self._lib = None
+        self._out = None
 
-    def command(self) -> list:
+    def command(self, out: Optional[str] = None) -> list:
         """sm_90a, no FMA contraction (kernels round as their plain
         versions do), register/spill report on."""
         return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-                "-shared", "-Xcompiler", "-fPIC", "-o", self.path, self.src]
+                "-shared", "-Xcompiler", "-fPIC", "-o", out or self.path,
+                self.src]
 
-    def start_build(self) -> subprocess.Popen:
-        """Start nvcc in the background; finish with finish_build()."""
-        os.makedirs(BUILD_DIR, exist_ok=True)
+    def digest(self) -> str:
+        """The compile cache key: source text, nvcc command (its output
+        path left out), nvcc version and compute capability."""
+        cmd = self.command(out="<out>")
+        cmd[0] = os.path.basename(cmd[0])
+        cmd[-1] = os.path.basename(cmd[-1])
+        doc = json.dumps([file_sha256(self.src), cmd, nvcc_version(),
+                          compute_capability()])
+        return hashlib.sha256(doc.encode()).hexdigest()[:24]
+
+    def cache_path(self, digest: str) -> str:
+        return os.path.join(_CACHE_DIR[0], f"lib{self.name}-{digest}.so")
+
+    def start_build(self, out: Optional[str] = None) -> subprocess.Popen:
+        """Start nvcc in the background into a temporary name beside
+        ``out`` (default: the compile cache's file when a cache is set,
+        else build/lib<name>.so); finish_build() installs it."""
+        if out is None:
+            out = (self.cache_path(self.digest()) if _CACHE_DIR[0]
+                   else self.path)
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.tmp.{os.getpid()}"
+        self._out = (tmp, out)
         self.info["t0"] = time.perf_counter()
-        return subprocess.Popen(self.command(), stdout=subprocess.PIPE,
+        return subprocess.Popen(self.command(out=tmp),
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self, proc: subprocess.Popen) -> dict:
@@ -68,21 +195,88 @@ class CudaLib:
         self.info["ptxas"] = [ln.strip() for ln in out.splitlines()
                               if "ptxas" in ln or "spill" in ln
                               or "Used" in ln]
+        tmp, final = self._out
+        self._out = None
         if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
             raise RuntimeError(f"nvcc {self.name}.cu failed "
                                f"({proc.returncode}):\n{out}")
+        sha = file_sha256(tmp)
+        os.replace(tmp, final)
+        if _CACHE_DIR[0] and os.path.dirname(final) == _CACHE_DIR[0]:
+            # the record goes in after the library: a library without
+            # its record is rebuilt, never trusted
+            _atomic_json(final + ".json", {"name": self.name,
+                                           "sha256": sha,
+                                           "bytes": os.path.getsize(final)})
         return self.info
 
-    def get(self) -> ctypes.CDLL:
-        """The loaded library, built from source first if missing or
-        older than its source."""
-        if self._lib is None:
+    def _verified(self, path: str) -> bool:
+        """``path`` exists with its record's sha256; a file that does not
+        match is deleted (with its record) and booked in ``evicted``."""
+        if not os.path.exists(path):
+            return False
+        try:
+            with open(path + ".json") as f:
+                want = json.load(f)["sha256"]
+        except (OSError, ValueError, KeyError):
+            want = None
+        if want is not None and file_sha256(path) == want:
+            return True
+        self.evicted.append((path, "no record" if want is None
+                             else "sha256 mismatch"))
+        for p in (path, path + ".json"):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        return False
+
+    def _resolve(self) -> str:
+        """The verified file to load, built first if need be."""
+        offers = _OFFERS.get(self.name)
+        if _CACHE_DIR[0] is None and not offers:
             if (not os.path.exists(self.path) or os.path.getmtime(self.path)
                     < os.path.getmtime(self.src)):
                 self.finish_build(self.start_build())
-            lib = ctypes.CDLL(self.path)
+            return self.path
+        digest = self.digest()
+        self.loaded_digest = digest
+        final = self.cache_path(digest) if _CACHE_DIR[0] else None
+        if final is not None and self._verified(final):
+            return final
+        off = (offers or {}).get(digest)
+        if off is not None:
+            path, sha = off
+            if os.path.exists(path) and file_sha256(path) == sha:
+                if final is None:
+                    return path
+                tmp = f"{final}.tmp.{os.getpid()}"
+                shutil.copyfile(path, tmp)
+                if file_sha256(tmp) == sha:
+                    os.replace(tmp, final)
+                    _atomic_json(final + ".json", {
+                        "name": self.name, "sha256": sha,
+                        "bytes": os.path.getsize(final)})
+                    return final
+                os.unlink(tmp)
+            self.evicted.append((path, "offered copy sha256 mismatch"))
+        if final is None:
+            final = self.path
+        self.finish_build(self.start_build(out=final))
+        return final
+
+    def get(self) -> ctypes.CDLL:
+        """The loaded library, found in the compile cache or among the
+        offered copies, else built from source."""
+        if self._lib is None:
+            path = self._resolve()
+            lib = ctypes.CDLL(path)
             self.setup(lib)
             self._lib = lib
+            self.loaded_path = path
+            LOADED.append(self)
         return self._lib
 
 

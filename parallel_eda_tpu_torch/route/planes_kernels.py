@@ -324,6 +324,61 @@ class _FlatsPlan:
 
 
 _PLANS: dict = {}
+# the program library's plan log (serve/library.py): while a list is
+# installed here, every _plan call appends its arguments and the figures
+# of the plan it returned
+_PLAN_LOG = [None]
+
+
+@contextlib.contextmanager
+def record_plans():
+    """Collect the launch plans the block's launches use, as records of
+    ``plan_record``'s form (a library entry's blob)."""
+    log: list = []
+    _PLAN_LOG[0] = log
+    try:
+        yield log
+    finally:
+        _PLAN_LOG[0] = None
+
+
+def plan_figures(plan: _FlatsPlan) -> dict:
+    """A launch plan's kernel kind, shared-memory mode, grid, block and
+    dynamic shared bytes (the figures kernel_layout models)."""
+    v = plan.run.v
+    shards = int(v[24])
+    return dict(kind=plan.kind, mode=int(plan.mode),
+                grid=int(v[0]) * (shards if plan.kind == CLUSTER else 1),
+                block=int(v[14]),
+                smem=smem_bytes(plan.kind, int(plan.mode), int(v[1]),
+                                int(v[2]), int(v[3])))
+
+
+def plan_record(kind: int, B: int, tile, shards: int, mode, cap,
+                plane_dtype: str, plan: _FlatsPlan) -> dict:
+    """One plan log entry: ``_plan``'s arguments, the mode cap in force,
+    and ``plan_figures``."""
+    return dict(args=dict(kind=int(kind), B=int(B),
+                          tile=None if tile is None else [int(t) for t in tile],
+                          shards=int(shards),
+                          mode=None if mode is None else int(mode),
+                          cap=None if cap is None else int(cap),
+                          plane_dtype=plane_dtype),
+                figures=plan_figures(plan))
+
+
+def install_plan(rec: dict, pg) -> None:
+    """Build the launch plan a ``plan_record`` describes for the planes
+    graph ``pg`` (on its card) and check that its figures are the
+    recorded ones; raises ValueError when they differ."""
+    a = rec["args"]
+    with kernel_mode_cap(a["cap"]):
+        plan = _plan(a["kind"], pg, a["B"], pg.device, a["mode"],
+                     None if a["tile"] is None else tuple(a["tile"]),
+                     a["shards"], a["plane_dtype"])
+    got = plan_figures(plan)
+    if got != rec["figures"]:
+        raise ValueError(f"launch plan drift: {got} != {rec['figures']}")
 
 
 def _plan(kind: int, pg, B: int, device: torch.device, mode, tile=None,
@@ -335,6 +390,10 @@ def _plan(kind: int, pg, B: int, device: torch.device, mode, tile=None,
     if mode is None and cap is not None and plan.mode > cap:
         plan = _plan_exact(kind, pg, B, device, int(cap), tile, shards,
                            plane_dtype)
+    log = _PLAN_LOG[0]
+    if log is not None:
+        log.append(plan_record(kind, B, tile, shards, mode, cap,
+                               plane_dtype, plan))
     return plan
 
 

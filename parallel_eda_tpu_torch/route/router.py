@@ -44,7 +44,18 @@ to and from the JAX package's field names.  ``RouteResult.congestion``
 holds the per-window top-k overused nodes (``congestion_topk``).
 
 Options the port does not implement yet raise NotImplementedError
-naming their ROADMAP.md item when set to a non-default value.
+naming their ROADMAP.md item when set to a non-default value
+(``_NOT_PORTED``, empty now: every RouterOpts field is ported).
+
+``compile_cache_dir`` keeps the built CUDA libraries across processes
+(route/cuda_lib.py ``set_cache_dir``: keyed by source, nvcc command and
+version and compute capability), and ``program_library_dir`` attaches
+the program library (serve/library.py) on a single-device planes
+Router, as in JAX: its entries' variant keys count as seen dispatch
+variants from the start, and the dispatch sites (the per-rung call, the
+fused request, the guarded chains' "aot" rung, the multi call of
+serve/fused.py) serve through it; ``export_program_library()`` writes
+what a warm-up route noted.
 
 ``RouterOpts.resil`` (a ``resil.Resilience``) runs every window dispatch
 under the resilience guard, as in the JAX package: a chain of
@@ -171,11 +182,9 @@ class RouterOpts:
     mesh_shards: int = 1
 
 
-# option -> (default, ROADMAP.md item that ports it)
-_NOT_PORTED = {
-    "program_library_dir": (None, "A14.3 (program library)"),
-    "compile_cache_dir": (None, "A14.3 (program library)"),
-}
+# option -> (default, ROADMAP.md item that ports it); every option of
+# the JAX package's RouterOpts is ported
+_NOT_PORTED: dict = {}
 
 
 DTYPE_GUARDS = ("window", "route", "off")
@@ -524,9 +533,13 @@ class _WindowEntry:
     def __call__(self) -> None:
         """Called at the start of every attempt."""
         if self._runs:
-            for live, saved in zip(self._live, self._copy):
-                live.copy_(saved)
+            self.restore()
         self._runs += 1
+
+    def restore(self) -> None:
+        """Write the entry copies back into the live tensors."""
+        for live, saved in zip(self._live, self._copy):
+            live.copy_(saved)
 
 
 # per-route pipeline gauges (JAX router.py:2594-2604), zeroed at the
@@ -800,6 +813,40 @@ class Router:
             # the tensors' device (a card's carries its index)
             if uses_cluster(self.row_mesh, self.pg.device):
                 self._row_meshes["pallas_halo"] = self.row_mesh
+        if self.opts.compile_cache_dir:
+            from .cuda_lib import set_cache_dir
+            set_cache_dir(self.opts.compile_cache_dir)
+        # the program library (serve/library.py), single device only as
+        # in JAX: loaded keys are pre-registered as SEEN dispatch
+        # variants — a warm serve's first window is a cache hit, not a
+        # new variant — and the library serves those variants with
+        # their launch plans installed at the dispatch sites
+        self._library = None
+        if (self.opts.program_library_dir and self.opts.mesh_shards <= 1
+                and self.pg is not None):
+            from ..serve.library import ProgramLibrary
+            self._library = lib = ProgramLibrary(
+                self.opts.program_library_dir, device=self.device)
+            lib.load()
+            for key in lib.keys():
+                _DISPATCH_VARIANTS.add(key)
+            reg = get_metrics()
+            reg.gauge("route.serve.library_variants").set(
+                len(lib.keys()))
+            reg.gauge("route.serve.library_stale").set(
+                0 if lib.stale_reason is None else 1)
+
+    def export_program_library(self) -> int:
+        """Write every dispatch variant noted since the last save, and
+        the CUDA libraries this process loaded, into
+        opts.program_library_dir (serve/library.py).  Call after a
+        warm-up route(), never mid-serve.  Returns entries written."""
+        if self._library is None:
+            return 0
+        n = self._library.save()
+        get_metrics().gauge("route.serve.library_variants").set(
+            len(self._library.keys()))
+        return n
 
     def _mesh_label(self, rm) -> str:
         """The ladder's name of mesh form ``rm``."""
@@ -888,6 +935,20 @@ class Router:
                 "ppermute", self._row_meshes["ppermute"]), quar))
         return rungs
 
+    def _aot_rung(self, vkey, fn, args, kwargs, entry):
+        """The program library's rung of a guarded chain (JAX's "aot"):
+        ``fn`` through the library; its quarantine evicts the entry, so
+        that a later library process never serves it."""
+        from ..resil.watchdog import Rung
+
+        def run():
+            _note_dispatch_variant(vkey)
+            entry()
+            return self._library.dispatch(vkey, fn, args, kwargs)
+
+        return Rung("aot", run,
+                    lambda reason: self._library.evict(vkey, reason))
+
     def _guarded_dispatch(self, resil_rt, vkey, wp_args, wp_kwargs):
         """One route_window_planes call under the resilience guard (JAX
         router.py:875-966): an ordered chain of BIT-IDENTICAL rungs,
@@ -928,7 +989,11 @@ class Router:
             return run
 
         ladder = resil_rt.ladder
-        rungs = [Rung("jit", capped(vkey, None))]
+        rungs = []
+        if self._library is not None and ladder.level("program") == 0:
+            rungs.append(self._aot_rung(vkey, route_window_planes, wp_args,
+                                        wp_kwargs, entry))
+        rungs.append(Rung("jit", capped(vkey, None)))
         if self._kernel_rungs and ladder.level("kernel") <= 1:
             rungs.append(Rung("pallas_g1", capped(vkey + ("pallas_g1",), 1)))
         if self._kernel_rungs:
@@ -965,6 +1030,11 @@ class Router:
 
             rungs.append(Rung("single_chip", run_single))
         else:
+            if (self._library is not None
+                    and resil_rt.ladder.level("program") == 0):
+                rungs.append(self._aot_rung(vkey, route_window_planes_fused,
+                                            f_args, f_kwargs, entry))
+
             def run_fused():
                 _note_dispatch_variant(vkey)
                 entry()
@@ -1401,10 +1471,10 @@ class Router:
         return result
 
     def _exec_window_request(self, req: WindowDispatchRequest):
-        """Issue one fused-window request (JAX router.py:1037-1055; the
-        program library's branch is ROADMAP.md A14.3): under the
-        request's resilience runtime the guarded fused chain, else the
-        call, which runs or raises."""
+        """Issue one fused-window request (JAX router.py:1037-1055):
+        under the request's resilience runtime the guarded fused chain,
+        else the call through the program library when one is attached,
+        else the call, which runs or raises."""
         from .planes import route_window_planes_fused
 
         resil_rt = req.resil_rt
@@ -1413,6 +1483,10 @@ class Router:
                 resil_rt, req.vkey, req.f_args, req.f_kwargs,
                 req.per_rung_fb)
         _note_dispatch_variant(req.vkey)
+        if self._library is not None:
+            return self._library.dispatch(
+                req.vkey, route_window_planes_fused, req.f_args,
+                req.f_kwargs)
         return route_window_planes_fused(*req.f_args, **req.f_kwargs)
 
     def _drive_windows(self, gen) -> RouteResult:
@@ -2077,6 +2151,13 @@ class Router:
                     if guarded:
                         occ, acc, status, scal, dmax_hist = \
                             self._guarded_dispatch(resil_rt, vkey, args, kw)
+                    elif self._library is not None:
+                        # the program library: known variants run with
+                        # their launch plans installed; misses note
+                        # their plans for export_program_library()
+                        occ, acc, status, scal, dmax_hist = \
+                            self._library.dispatch(
+                                vkey, route_window_planes, args, kw)
                     else:
                         occ, acc, status, scal, dmax_hist = \
                             route_window_planes(*args, **kw)

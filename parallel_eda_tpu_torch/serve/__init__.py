@@ -1,13 +1,15 @@
-"""Multi-tenant route serving, slice A14.1 of the JAX package's serve/:
-the job queue (queue.py), cross-job net packing (batcher.py), the
+"""Multi-tenant route serving, slices A14.1-A14.4 of the JAX package's
+serve/: the job queue (queue.py), cross-job net packing (batcher.py),
+continuous batching (fused.py), the program library (library.py), the
 RouteService front end (service.py) and its command line (cli.py,
-``python -m parallel_eda_tpu_torch serve``).
+``python -m parallel_eda_tpu_torch serve``), and the long-lived route
+daemon (daemon.py, daemon_cli.py: ``python -m parallel_eda_tpu_torch
+daemon``).
 
 Everything here layers ON TOP of route/: no routing semantics live in
 this package, and per-job QoR is bit-identical to running the same job
-alone.  Not ported yet (ROADMAP.md): continuous batching (fused.py,
-A14.2), the program library (library.py, A14.3), the daemon (A14.4) and
-the fleet (A14.5).
+alone.  Not ported yet (ROADMAP.md A14.5): the fleet supervisor
+(fleet.py) and its transport (transport.py).
 """
 
 from .batcher import CrossJobPlan, RungPlan, pack_jobs

@@ -5,17 +5,24 @@ Drives the RouteService over N synthetic jobs spread across tenants on
 one shared device graph: admit everything, drain the queue, print a
 JSON summary (per-job QoR, the route.serve.* telemetry, the dispatch
 variant counts and, under --chaos / --checkpoint_dir / --diag_dir, the
-resilience section).  Routing runs on the card unless ``--device cpu``
-(the port's own flag, as in the main CLI).
+resilience section), and optionally export the program library for the
+next process.  Routing runs on the card unless ``--device cpu`` (the
+port's own flag, as in the main CLI).
 
+Typical round trip:
+
+    # warm-up process: route once, export the program library
+    python -m parallel_eda_tpu_torch serve --jobs 1 --luts 15 \
+        --library progs/ --export_library --compile_cache_dir cc/
+
+    # serving process: no nvcc build, no new dispatch variant
     python -m parallel_eda_tpu_torch serve --jobs 4 --tenants 2 \
-        --luts 15 --slice 3 \
-        --chaos 'dispatch.error:2:4,checkpoint.corrupt:1:3' \
-        --checkpoint_dir ck/ --watchdog_s 5
+        --luts 15 --library progs/ --compile_cache_dir cc/ --slice 3
 
-Not ported yet, and refused naming their ROADMAP.md item: the program
-library (``--library``, ``--export_library``, ``--compile_cache_dir``:
-A14.3) and continuous batching (``--fused``: A14.2).
+``--fused`` drains the queue through continuous batching
+(serve/fused.py); ``--chaos`` arms the fault sites, e.g.
+``'dispatch.error:2:4,checkpoint.corrupt:1:3'`` with
+``--checkpoint_dir ck/``.
 """
 
 from __future__ import annotations
@@ -50,14 +57,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--retries", type=int, default=0,
                    help="max retry attempts per job")
     p.add_argument("--library", default="",
-                   help="program library directory: not ported "
-                   "(ROADMAP.md A14.3)")
+                   help="program library directory "
+                   "(serve/library.py); empty = disabled")
     p.add_argument("--export_library", action="store_true",
-                   help="export the program library: not ported "
-                   "(ROADMAP.md A14.3)")
+                   help="export every dispatch variant seen this run "
+                   "into --library after the queue drains")
     p.add_argument("--compile_cache_dir", default="",
-                   help="persistent compile cache: not ported "
-                   "(ROADMAP.md A14.3)")
+                   help="persistent compile cache of the built CUDA "
+                   "libraries (keyed by source, nvcc command and "
+                   "version, and the card's compute capability)")
     p.add_argument("--runs_dir", default="",
                    help="append per-job corpus rows here "
                    "(obs/runstore.py; tenant-stamped)")
@@ -67,8 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sync", action="store_true",
                    help="disable the host-device pipeline")
     p.add_argument("--fused", action="store_true",
-                   help="continuous batching: not ported (ROADMAP.md "
-                   "A14.2)")
+                   help="continuous batching: co-admit every runnable "
+                   "job into one fused lockstep dispatch per slice "
+                   "round, rebatched at each join/finish/evict "
+                   "(serve/fused.py)")
     p.add_argument("--stagger", type=int, default=0,
                    help="admit jobs in waves of this many per batch "
                    "round instead of all upfront (exercises rebatch "
@@ -107,21 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flags of the JAX serve CLI the port refuses -> their ROADMAP.md item
-_REFUSED = (("library", "--library", "A14.3, program library"),
-            ("export_library", "--export_library", "A14.3, program library"),
-            ("compile_cache_dir", "--compile_cache_dir",
-             "A14.3, program library"),
-            ("fused", "--fused", "A14.2, continuous batching"))
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(
         sys.argv[1:] if argv is None else argv)
-    for attr, flag, item in _REFUSED:
-        if getattr(args, attr):
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP.md "
-                             f"{item})")
     t_start = time.perf_counter()
 
     from ..device import resolve_device
@@ -150,7 +148,9 @@ def main(argv=None) -> int:
     opts = RouterOpts(
         batch_size=args.batch_size,
         max_router_iterations=args.max_router_iterations,
-        sink_group=0, pipeline=not args.sync)
+        sink_group=0, pipeline=not args.sync,
+        compile_cache_dir=args.compile_cache_dir or None,
+        program_library_dir=args.library or None)
     resil = None
     if args.chaos or args.checkpoint_dir or args.diag_dir:
         from ..resil import FaultPlan, ResilOpts
@@ -167,7 +167,7 @@ def main(argv=None) -> int:
         cfg=dict(luts=args.luts, chan_width=args.chan_width,
                  jobs=args.jobs, batch=args.batch_size,
                  slice=args.slice_iters),
-        resil=resil, device=device)
+        resil=resil, fused=args.fused, device=device)
 
     terms = {}
     if args.profile == "small-heavy":
@@ -208,16 +208,27 @@ def main(argv=None) -> int:
                 _admit(j, f)
             del pending[:args.stagger]
 
-        inner_r = svc._runner
+        if args.fused:
+            inner_b = svc._batch_runner
 
-        def _wrapped_runner(job):
-            out = inner_r(job)
-            _admit_wave()
-            return out
-        svc._runner = _wrapped_runner
+            def _wrapped_batch(batch):
+                out = inner_b(batch)
+                _admit_wave()
+                return out
+            svc._batch_runner = _wrapped_batch
+        else:
+            inner_r = svc._runner
+
+            def _wrapped_runner(job):
+                out = inner_r(job)
+                _admit_wave()
+                return out
+            svc._runner = _wrapped_runner
 
     jobs = svc.run()
     exported = 0
+    if args.export_library and args.library:
+        exported = svc.router.export_program_library()
 
     m = get_metrics()
     serve_vals = m.values("route.serve.")

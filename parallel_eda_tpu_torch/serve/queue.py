@@ -1,7 +1,7 @@
 """Job queue for the route service (the counterpart of
-parallel_eda_tpu/serve/queue.py, the same scheduling step for step; its
-batched loop ``run_batch`` comes with continuous batching, ROADMAP.md
-A14.2, and overload eviction with the daemon, A14.4).
+parallel_eda_tpu/serve/queue.py, the same scheduling step for step,
+with the batched loop ``run_batch`` of continuous batching and the
+daemon's overload eviction ``evict``).
 
 Cooperative (single-threaded) scheduling: the routing device is one
 serially-ordered resource, so the queue time-slices it rather than
@@ -165,6 +165,28 @@ class JobQueue:
         return sum(1 for _, _, j in self._heap
                    if j.state is JobState.QUEUED)
 
+    def queued_jobs(self) -> List[RouteJob]:
+        """Jobs currently waiting in the heap (admission order not
+        guaranteed) — the shed-victim candidate set."""
+        return [j for _, _, j in self._heap
+                if j.state is JobState.QUEUED]
+
+    # ------------------------------------------------------- evict
+
+    def evict(self, job_id: str, state: JobState = JobState.SHED,
+              error: Optional[str] = None) -> Optional[RouteJob]:
+        """Remove a QUEUED job from scheduling (overload shedding).
+        The heap entry becomes a tombstone the run loop skips; jobs
+        already terminal or mid-slice are left alone (returns None)."""
+        job = self._by_id.get(job_id)
+        if job is None or job.state is not JobState.QUEUED:
+            return None
+        job.state = state
+        job.error = error
+        get_metrics().counter("route.serve.jobs_shed").inc()
+        self._depth_gauge()
+        return job
+
     # -------------------------------------------------------- run
 
     def run(self, runner: Runner,
@@ -205,8 +227,8 @@ class JobQueue:
         return list(self.jobs)
 
     def _apply(self, job: RouteJob, verdict: str, value: Any) -> None:
-        """Apply a runner verdict to a job: the queue's state
-        machine."""
+        """Apply a runner verdict to a job — the single state machine
+        shared by the one-at-a-time loop and the batched loop."""
         m = get_metrics()
         if verdict == "done":
             job.state = JobState.DONE
@@ -250,3 +272,70 @@ class JobQueue:
             raise ValueError(f"runner returned {verdict!r}")
 
     # -------------------------------------------------- batched run
+
+    def _pop_runnable(self) -> List[RouteJob]:
+        """Pop EVERY currently-runnable queued job off the heap (aged
+        priority order), skipping tombstones, timing out past-deadline
+        jobs, and re-pushing backoff-gated ones.  The batch scheduler's
+        admission step: whatever this returns is co-admitted into one
+        fused slice."""
+        m = get_metrics()
+        out: List[RouteJob] = []
+        gated: List[RouteJob] = []
+        while self._heap:
+            _, _, job = heapq.heappop(self._heap)
+            if job.state is not JobState.QUEUED:
+                continue               # shed tombstone
+            now = self._clock()
+            if job.deadline_exceeded(now):
+                job.state = JobState.TIMEOUT
+                job.error = (f"deadline {job.deadline_s}s exceeded "
+                             f"after {now - job.admitted_t:.2f}s")
+                m.counter("route.serve.jobs_timeout").inc()
+                continue
+            if now < job.not_before:
+                gated.append(job)      # backoff not elapsed
+                continue
+            out.append(job)
+        for job in gated:
+            self._push(job)
+        return out
+
+    def run_batch(self, batch_runner: Callable[
+            [List[RouteJob]], Dict[str, Outcome]],
+            max_batches: int = 100000) -> List[RouteJob]:
+        """Drain the queue through a BATCH runner: each round pops all
+        runnable jobs, hands the whole co-admitted set to
+        ``batch_runner`` (returns ``{job_id: (verdict, value)}``), and
+        applies each verdict through the same state machine as
+        ``run()``.  One round costs one slice per member job; a raised
+        batch runner counts as a failed attempt for every member."""
+        m = get_metrics()
+        rounds = 0
+        while rounds < max_batches:
+            batch = self._pop_runnable()
+            if not batch:
+                gated = self.queued_jobs()
+                if not gated:
+                    break              # drained
+                # every queued job is backoff-gated: wait out the
+                # soonest gate instead of spinning
+                self._sleep(max(0.0, min(j.not_before for j in gated)
+                                 - self._clock()))
+                continue
+            rounds += 1
+            for job in batch:
+                job.state = JobState.RUNNING
+                job.slices += 1
+            self._depth_gauge()
+            try:
+                verdicts = batch_runner(batch)
+            except Exception as e:
+                verdicts = {j.job_id: (
+                    "failed", f"{type(e).__name__}: {e}") for j in batch}
+            for job in batch:
+                verdict, value = verdicts.get(job.job_id, (
+                    "failed", "batch runner returned no verdict"))
+                self._apply(job, verdict, value)
+            self._depth_gauge()
+        return list(self.jobs)

@@ -451,21 +451,23 @@ def test_cli_settings_file(tmp_path, monkeypatch):
     (["serve", "--help"], "A14"), (["daemon", "run"], "A14"),
     (["--trace", "t.json"], "A13"), (["--compile_cache_dir", "c"], "A14")])
 def test_cli_unported_fail_naming_roadmap(argv, item, port_dir):
-    """What the port does not do fails naming its ROADMAP.md item.
-    ``serve`` (A14.1) is ported: its help exits 0 and its --fused
-    names A14.2.  ``--trace`` (A13) is ported: the .net resume's run
-    wrote its trace, exported after the flow, with the flow's stages in
-    it."""
-    from parallel_eda_tpu_torch.__main__ import main
+    """What the port does not do fails naming its ROADMAP.md item: the
+    fleet supervisor (``daemon fleet``, A14.5).  ``serve`` (A14.1-3) is
+    ported: its help exits 0.  So is ``daemon`` (A14.4): its help exits
+    0 and only ``daemon fleet`` is refused (tests/test_torch_daemon.py
+    drives run, submit and status).  So is ``--compile_cache_dir``
+    (A14.3): check_options accepts it.  ``--trace`` (A13) is ported: the
+    .net resume's run wrote its trace, exported after the flow, with the
+    flow's stages in it."""
+    from parallel_eda_tpu_torch.__main__ import (build_parser,
+                                                 check_options, main)
 
-    if argv[0] == "serve":
-        # ported (tests/test_torch_serve.py): its help exits 0, and its
-        # unported flags name their items
+    if argv[0] in ("serve", "daemon"):
         with pytest.raises(SystemExit) as ei:
-            main(argv)
+            main([argv[0], "--help"])
         assert ei.value.code == 0
-        with pytest.raises(SystemExit, match="ROADMAP.md A14.2"):
-            main(["serve", "--fused"])
+        with pytest.raises(SystemExit, match="ROADMAP.md A14.5"):
+            main(["daemon", "fleet", "--inbox", "x"])
         return
     if argv[0] == "--trace":
         assert "trace in trace.json (open in Perfetto" in _text(
@@ -476,8 +478,9 @@ def test_cli_unported_fail_naming_roadmap(argv, item, port_dir):
                   if e.get("cat") == "stage"}
         assert {"pack", "rr_graph", "place", "route"} <= stages
         return
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-        main(argv)
+    args = build_parser().parse_args(argv)
+    check_options(args)
+    assert args.compile_cache_dir == "c"
 
 
 def test_cli_runs_on_the_card_by_default(tmp_path, monkeypatch):

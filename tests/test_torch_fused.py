@@ -25,6 +25,7 @@ from parallel_eda_tpu.route import RouterOpts as JOpts
 from parallel_eda_tpu.route import planes as JP
 from parallel_eda_tpu.route import router as JR
 from parallel_eda_tpu.rr.terminals import net_terminals as jax_net_terminals
+from parallel_eda_tpu.serve import fused as JF
 from parallel_eda_tpu_torch import obs as TOBS
 from parallel_eda_tpu_torch.flow import run_route, synth_flow
 from parallel_eda_tpu_torch.place.initial import initial_placement
@@ -32,6 +33,7 @@ from parallel_eda_tpu_torch.route import planes as TP
 from parallel_eda_tpu_torch.route import router as TR
 from parallel_eda_tpu_torch.route.check import check_route
 from parallel_eda_tpu_torch.rr.terminals import net_terminals
+from parallel_eda_tpu_torch.serve import fused as TF
 from test_torch_route import (CROP_FIXTURE, FIXTURE, _assert_same_route,
                               metric_values, port_metrics)
 
@@ -274,56 +276,27 @@ def test_fused_equals_per_rung(case, tflow):
         assert mb["route.kernel.dtype_demotions"] == 1
 
 
-def split_request(req):
-    """A fused-window request's arguments as route_window_planes_multi's
-    per-job (state, dynamics, statics) triple (the lockstep merge of the
-    JAX package's serve/fused.py, ``_split_request``)."""
-    a, kw = req.f_args, req.f_kwargs
-    state = (a[2], a[3], a[4], a[5], a[6], a[7], a[10])
-    dyn = (a[8], a[9], tuple(a[11:22]), a[22], a[23], a[24],
-           a[25], a[26], a[27], a[28], a[29], a[30],
-           kw.get("bb0_all"), kw.get("widen_oks"))
-    return state, dyn, (a[31], a[32], kw["rung_desc"], kw["topk"])
+def lockstep(router, jobs):
+    """Several jobs' route_gen generators on one Router, driven to the
+    end in lockstep by serve/fused.py's FusedSliceRunner (one
+    route_window_planes_multi call a step while two or more requests are
+    pending).  ``jobs`` is a list of (term, opts); returns their
+    RouteResults and the multi calls made."""
+    import types
 
-
-def lockstep(router, jobs, multi):
-    """Drive several jobs' route_gen generators on one Router in
-    lockstep: at each step every pending request goes into one
-    ``multi`` call (route_window_planes_multi) when two or more are
-    pending, else through the Router's own dispatch; each job's opts and
-    staging prefix are set before each advance.  ``jobs`` is a list of
-    (term, opts); returns their RouteResults and the multi calls made."""
-    gens, pend, done = [], [], [None] * len(jobs)
-
-    def advance(j, value=None, first=False):
-        router.opts = jobs[j][1]
-        router._staging_prefix = f"job{j}/"
-        try:
-            pend[j] = next(gens[j]) if first else gens[j].send(value)
-        except StopIteration as e:
-            pend[j], done[j] = None, e.value
-
+    entries = []
     for j, (term, opts) in enumerate(jobs):
         router.opts = opts
-        gens.append(router.route_gen(term))
-        pend.append(None)
-        advance(j, first=True)
-    calls = 0
-    while any(p is not None for p in pend):
-        live = [j for j, p in enumerate(pend) if p is not None]
-        if len(live) > 1:
-            states, dyns, statics = zip(*(split_request(pend[j])
-                                          for j in live))
-            kw0 = pend[live[0]].f_kwargs
-            outs = multi(router.pg, router.dev, states, dyns,
-                         job_statics=statics, n_colors=kw0["n_colors"],
-                         plane_dtype=kw0["plane_dtype"])
-            calls += 1
-        else:
-            outs = [router._exec_window_request(pend[live[0]])]
-        for j, o in zip(live, outs):
-            advance(j, o)
-    return done, calls
+        entries.append(TF.SliceEntry(types.SimpleNamespace(job_id=f"job{j}"),
+                                     router.route_gen(term), opts,
+                                     f"job{j}/"))
+    with port_metrics() as reg:
+        TF.FusedSliceRunner(router).run_slice(entries)
+        calls = reg.counter("route.serve.fused.dispatches").value
+    for e in entries:
+        if e.error is not None:
+            raise e.error
+    return [e.result for e in entries], calls
 
 
 def second_terms(tf, net_terminals_fn, initial_placement_fn):
@@ -345,8 +318,7 @@ def test_multi_window_matches_solo(tflow):
         solo_b = TR.Router(tflow.rr, opts, device="cpu").route(term_b)
         router = TR.Router(tflow.rr, opts, device="cpu")
         (ra, rb), calls = lockstep(router, [(tflow.term, opts),
-                                            (term_b, opts)],
-                                   TP.route_window_planes_multi)
+                                            (term_b, opts)])
     assert calls >= 4
     assert solo_b.success and solo_b.paths.shape[0] == solo_a.paths.shape[0]
     _assert_same_route(solo_a, ra)
@@ -372,8 +344,8 @@ def test_multi_step_matches_jax():
         for j, term in enumerate(terms):
             r._staging_prefix = f"job{j}/"
             reqs[pkg].append(next(r.route_gen(term)))
-    jsplit = list(zip(*(split_request(q) for q in reqs["jax"])))
-    tsplit = list(zip(*(split_request(q) for q in reqs["port"])))
+    jsplit = list(zip(*(JF._split_request(q) for q in reqs["jax"])))
+    tsplit = list(zip(*(TF._split_request(q) for q in reqs["port"])))
     assert jsplit[2] == tsplit[2]
     jouts = JP.route_window_planes_multi(
         jr.pg, jr.dev, jsplit[0], jsplit[1], job_statics=jsplit[2],

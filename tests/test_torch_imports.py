@@ -35,8 +35,10 @@ def test_port_imports_no_jax():
               "netlist.verilog", "route.report", "power", "draw", "viewer",
               "mdclog", "obs", "obs.metrics", "obs.trace", "obs.devprof",
               "obs.runstore", "resil", "resil.faults", "resil.ladder",
-              "resil.watchdog", "resil.checkpoint", "serve", "serve.queue",
-              "serve.batcher", "serve.service", "serve.cli"):
+              "resil.watchdog", "resil.checkpoint", "resil.journal",
+              "obs.slo", "serve", "serve.queue", "serve.batcher",
+              "serve.service", "serve.cli", "serve.fused", "serve.library",
+              "serve.daemon", "serve.daemon_cli"):
         assert f"parallel_eda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

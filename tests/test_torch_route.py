@@ -145,7 +145,34 @@ def test_unported_options_raise(name, value, tmp_path):
     (JAX's tests/test_kernel_pack.py holds JAX's fused route equal to
     that one).  So is ``resil``: its case routes the parity fixture under
     a resilience runtime with no fault plan, equal to that JAX route
-    (tests/test_torch_resil.py holds the routes under faults)."""
+    (tests/test_torch_resil.py holds the routes under faults).  So are
+    ``program_library_dir`` and ``compile_cache_dir``: routed through a
+    program library (its first route notes every variant) and with a
+    compile cache set, the route is that JAX route; the library attaches
+    on one device only (tests/test_torch_library.py holds the library
+    and the cache)."""
+    if name in ("program_library_dir", "compile_cache_dir"):
+        from parallel_eda_tpu_torch.route import cuda_lib
+
+        tf = synth_flow(**FIXTURE)
+        saved = cuda_lib.cache_dir()
+        try:
+            with port_metrics() as reg:
+                r = TR.Router(tf.rr, TR.RouterOpts(
+                    batch_size=32, **{name: str(tmp_path / value)}),
+                    device="cpu")
+                tres = r.route(tf.term)
+            cached = cuda_lib.cache_dir()
+        finally:
+            cuda_lib.set_cache_dir(saved)
+        _assert_same_route(_jax_route(FIXTURE, dict(batch_size=32))[1],
+                           tres)
+        if name == "compile_cache_dir":
+            assert cached == str(tmp_path / value) and r._library is None
+        else:
+            assert reg.counter("route.serve.jit_fallbacks").value > 0
+            assert r.export_program_library() > 0
+        return
     if name == "stats_dir":
         _check_stats_dir(tmp_path / value)
         return
@@ -178,12 +205,13 @@ def test_unported_options_raise(name, value, tmp_path):
         assert r.pg is None and r.dev.max_in_degree > 0
         return
     tf = synth_flow(**FIXTURE)
-    opts = {name: value}
-    if name == "mesh_shards":
-        # the mesh is ported; an unported mode under it still raises
-        opts["program_library_dir"] = "x"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.Router(tf.rr, TR.RouterOpts(**opts), device="cpu")
+    # mesh_shards: the mesh is ported, and so is every option under it;
+    # a program library is attached on one device only, as in JAX
+    r = TR.Router(tf.rr, TR.RouterOpts(
+        **{name: value}, program_library_dir=str(tmp_path / "L")),
+        device="cpu")
+    assert r.row_mesh is not None and r._library is None
+    assert TR._NOT_PORTED == {}
 
 
 def _stats_lines(d, fname):

@@ -417,9 +417,11 @@ def test_service_two_tenants_preemption_parity(tmp_path, clis):
     assert v["route.serve.tenant.t1.wirelength"] == _solo(1).wirelength
     recs = TRS.read_runs(runs, "serve_test")
     assert sorted(r["tenant"] for r in recs) == ["t0", "t1"]
-    with pytest.raises(NotImplementedError, match="A14.2"):
-        RouteService(flows[0].rr, TR.RouterOpts(**OPTS), fused=True,
-                     device="cpu")
+    # continuous batching is ported (tests/test_torch_serve_fused.py
+    # holds its routes): the fused service is built, drained of nothing
+    fsvc = RouteService(flows[0].rr, TR.RouterOpts(**OPTS), fused=True,
+                        device="cpu")
+    assert fsvc.run() == [] and fsvc.rebatch_summary()["fused"]
 
 
 def test_crash_and_fresh_process_resume_parity(tmp_path, clis):
@@ -454,8 +456,42 @@ def test_crash_and_fresh_process_resume_parity(tmp_path, clis):
 @pytest.mark.parametrize("flag,item", [
     ("--library", "A14.3"), ("--export_library", "A14.3"),
     ("--compile_cache_dir", "A14.3"), ("--fused", "A14.2")])
-def test_serve_cli_refuses_unported_flags(flag, item):
-    argv = ["serve", flag] + ([] if flag in ("--export_library", "--fused")
-                              else ["x"])
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-        port_main(argv)
+def test_serve_cli_refuses_unported_flags(flag, item, tmp_path):
+    """The flags the port once refused (the program library, A14.3, and
+    continuous batching, A14.2) now run: each one on a small job, with
+    its effect in the summary line (tests/test_torch_library.py and
+    tests/test_torch_serve_fused.py hold them against JAX)."""
+    from parallel_eda_tpu_torch.route import cuda_lib
+
+    lib, cache = str(tmp_path / "L"), str(tmp_path / "C")
+    extra = {"--library": ["--library", lib],
+             "--export_library": ["--library", lib, "--export_library"],
+             "--compile_cache_dir": ["--compile_cache_dir", cache],
+             "--fused": ["--fused"]}[flag]
+    saved = cuda_lib.cache_dir()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = port_main(["serve", "--device", "cpu", "--jobs", "2",
+                            "--luts", "6", "--slice", "2", *extra])
+        cached = cuda_lib.cache_dir()
+    finally:
+        cuda_lib.set_cache_dir(saved)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert rc == 0 and [j["state"] for j in line["jobs"]] == ["done"] * 2
+    if flag == "--library":
+        assert line["serve"]["route.serve.library_stale"] == 1
+        assert line["serve"]["route.serve.jit_fallbacks"] > 0
+        assert line["library_exported"] == 0
+    elif flag == "--export_library":
+        # (the process's earlier cases may have seen these variants, so
+        # the dispatch counts are not read here)
+        assert line["library_exported"] == line["serve"][
+            "route.serve.library_variants"] > 0
+        assert os.path.exists(os.path.join(lib, "library.json"))
+    elif flag == "--compile_cache_dir":
+        assert cached == cache
+    else:
+        assert line["rebatch"]["fused"] and line["rebatch"]["rounds"] > 0
+        assert line["rebatch"]["counters"][
+            "route.serve.fused.dispatches"] > 0
