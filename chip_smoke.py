@@ -6,8 +6,9 @@ NVIDIA GPU.  Run from the repository root:
 Phases, one line each (any failure exits non-zero with no result line):
   1. card      — nvidia-smi name/power limit and torch's device name
   2. build     — nvcc builds csrc/planes_relax.cu and csrc/slab_permute.cu
-                 and g++ builds native/serial_sa.cc, all started together,
-                 into parallel_eda_tpu_torch/build/
+                 and g++ builds native/serial_sa.cc and
+                 native/serial_route.cc, all started together, into
+                 parallel_eda_tpu_torch/build/
   3. kernels   — each relaxation kernel against its plain PyTorch version
                  on the card at bench and scale shapes (B=64), exact,
                  jittered and crit > 0 costs, K2 with tile origins that
@@ -217,6 +218,30 @@ Phases, one line each (any failure exits non-zero with no result line):
                  restarted: the same job states and wirelengths,
                  route.daemon.recovered > 0, the heartbeat's max_gap
                  cold (a fresh compile cache) and warm
+ 21. qor       — the serial QoR oracle: route.qor_compare on the bench
+                 (the device route, timing-driven, on the card; the
+                 serial oracle's passes on the host through
+                 native/serial_route.cc) = the port's CPU row (crit path
+                 and wirelength of both, iterations), K1 launched; the
+                 native serial router = route/serial_ref.py's
+                 SerialRouter tree for tree on the bench problem, with
+                 and without criticalities, both timed
+ 22. fleet     — ``daemon fleet --workers 2 --device cuda`` over the
+                 serve phase's daemon library with a fresh --cache_base
+                 (each worker its own CUDA context on the one card): four
+                 6-LUT jobs (slice 2) submitted through the
+                 TransportClient to transport.json's URL under
+                 transport.drop:1,worker.kill:1, --expect_jobs 4,
+                 --trace, --summary; beside it a solo card ``daemon
+                 run`` over the same jobs.  Every job released once and
+                 done once with the solo run's wirelength and
+                 iterations; one worker killed (only while it holds a
+                 live lease on a job with a durable checkpoint), a job
+                 failed over; the plan's one drop and one retry;
+                 tools/flow_doctor.py --fleet-summary healthy; no nvcc
+                 in any worker (no cuda.build or cuda.nvcc span in its
+                 trace shard); each worker's max_gap, the lease_stolen
+                 sheds and the phase's seconds printed
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -561,8 +586,11 @@ def phase_card():
 
 
 def phase_build():
+    import threading
+
     from parallel_eda_tpu_torch.place import serial_sa
     from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import serial_native
     from parallel_eda_tpu_torch.route import shard_kernels as sk
     from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
 
@@ -572,12 +600,27 @@ def phase_build():
         ["g++", "-O3", "-march=native", "-shared", "-fPIC",
          serial_sa._SRC, "-o", serial_sa._SO],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # native/serial_route.cc (the serial QoR oracle's core) through its
+    # own binding, beside the other builds
+    route_err = []
+
+    def build_route():
+        try:
+            serial_native._build_lib()
+        except subprocess.CalledProcessError as e:
+            route_err.append(e.stderr)
+
+    th = threading.Thread(target=build_route)
+    th.start()
     libs = (pk.LIB, sk.LIB)
     procs = [lib.start_build() for lib in libs]
     infos = [lib.finish_build(p) for lib, p in zip(libs, procs)]
     out, _ = gxx.communicate()
     if gxx.returncode != 0:
         raise RuntimeError(f"g++ serial_sa.cc failed:\n{out}")
+    th.join()
+    if route_err:
+        raise RuntimeError(f"g++ serial_route.cc failed:\n{route_err[0]}")
     for lib, info in zip(libs, infos):
         say("build", f"nvcc {lib.name}.cu {info['seconds']:.1f}s; "
                      + " | ".join(info["ptxas"]))
@@ -3601,6 +3644,236 @@ def phase_serve(bench, serve_jobs, smi):
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+# the bench's QorRow on the port's CPU (device="cpu"), equal to the JAX
+# package's under --xla_cpu_max_isa=AVX: the device route is the timing
+# phase's (522 / 22), the serial oracle's passes end at 465 wires after
+# 13 iterations in all
+QOR_BENCH = dict(device_cpd=4.552000110180643e-09,
+                 serial_cpd=4.673999853821442e-09, device_wl=522,
+                 serial_wl=465, device_iters=22, serial_iters=13)
+
+
+def phase_qor(bench, smi):
+    """The serial QoR oracle (docstring, phase 21).  Returns the launch
+    counts of its card route."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import QorRow, qor_compare
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+    from parallel_eda_tpu_torch.route.serial_native import (
+        NativeSerialRouter, native_available)
+    from parallel_eda_tpu_torch.route.serial_ref import SerialRouter
+
+    t_phase = time.time()
+    if not native_available():
+        raise AssertionError("qor: native/serial_route.cc did not build")
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    row = qor_compare(bench, "bench", RouterOpts(batch_size=64),
+                      device="cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = _resil_counts()
+    if not isinstance(row, QorRow) or \
+            {k: getattr(row, k) for k in QOR_BENCH} != QOR_BENCH:
+        raise AssertionError(f"qor: {row} against the CPU row {QOR_BENCH}")
+    if counts["planes_relax_full_cuda"] <= 0:
+        raise AssertionError(f"qor: the device route launched no K1 "
+                             f"{counts}")
+    # the native core against the Python oracle, tree for tree: the
+    # congestion-only route and one with criticalities from a seed
+    rng = np.random.default_rng(0)
+    crit = (rng.uniform(0, 0.9, bench.term.sinks.shape)
+            * (bench.term.sinks >= 0)).astype(np.float32)
+    secs = []
+    for c in (None, crit):
+        rp = SerialRouter(bench.rr).route(bench.term, crit=c)
+        rn = NativeSerialRouter(bench.rr).route(bench.term, crit=c)
+        if not (rp.success and rn.success
+                and (rp.iterations, rp.heap_pops, rp.wirelength)
+                == (rn.iterations, rn.heap_pops, rn.wirelength)
+                and np.array_equal(rp.occ, rn.occ)
+                and [sorted(t) for t in rp.trees]
+                == [sorted(t) for t in rn.trees]):
+            raise AssertionError(f"qor: native serial route differs from "
+                                 f"SerialRouter (crit "
+                                 f"{'on' if c is not None else 'off'}): "
+                                 f"{rn.wirelength}/{rn.iterations} vs "
+                                 f"{rp.wirelength}/{rp.iterations}")
+        secs.append((rp.wirelength, rp.iterations, rp.heap_pops,
+                     round(rp.route_time_s, 4), round(rn.route_time_s, 4)))
+    say("qor", f"qor_compare(bench) with the device route on the card: "
+               f"device {row.device_wl} / {row.device_iters} crit path "
+               f"{row.device_cpd!r} s in {row.device_windows} windows, "
+               f"serial {row.serial_wl} / {row.serial_iters} crit path "
+               f"{row.serial_cpd!r} s (= the port's CPU row): crit path "
+               f"{row.cpd_delta_pct:+.3f}%, wirelength "
+               f"{row.wl_delta_pct:+.3f}%, {dt:.2f} s, K1 launches "
+               f"{counts['planes_relax_full_cuda']}; NativeSerialRouter = "
+               f"SerialRouter tree for tree on the bench problem, "
+               f"(wirelength, iterations, heap pops, SerialRouter s, "
+               f"native s) crit off {secs[0]}, crit on {secs[1]}; phase "
+               f"{time.time() - t_phase:.1f} s on {smi}")
+    return counts
+
+
+FLEET_JOBS = (("fj3", "t0", 3), ("fj4", "t1", 4), ("fj5", "t2", 5),
+              ("fj6", "t3", 6))
+
+
+def _shard_spans(path, cat):
+    """(count, seconds) of a trace shard's complete spans of ``cat``."""
+    try:
+        with open(path) as f:
+            evs = json.load(f).get("traceEvents") or []
+    except (OSError, ValueError):
+        return None
+    sp = [e for e in evs if e.get("ph") == "X" and e.get("cat") == cat]
+    return len(sp), round(sum(e.get("dur", 0.0) for e in sp) / 1e6, 3)
+
+
+def phase_fleet(smi):
+    """The fleet on one card (docstring, phase 22)."""
+    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
+    from parallel_eda_tpu_torch.serve.daemon import submit_job
+    from parallel_eda_tpu_torch.serve.transport import TransportClient
+
+    t_phase = time.time()
+    work = os.path.join(BUILD_DIR, "fleet")
+    subprocess.run(["rm", "-rf", work], check=True)
+    os.makedirs(work)
+    # the serve phase's daemon library (6-LUT variants and the .so copies)
+    lib = os.path.join(BUILD_DIR, "serve", "Ld")
+    if not os.path.exists(os.path.join(lib, "library.json")):
+        raise AssertionError(f"fleet: no exported library at {lib}")
+
+    def spec(seed):
+        return {"luts": 6, "chan_width": 16, "seed": seed,
+                "name": f"l6_s{seed}"}
+
+    solo, box = os.path.join(work, "solo"), os.path.join(work, "box")
+    for jid, tenant, seed in FLEET_JOBS:
+        submit_job(solo, spec(seed), tenant=tenant, job_id=jid)
+    summary = os.path.join(box, "fleet.json")
+    # the fleet, and beside it the solo card daemon over the same jobs;
+    # each over the library with a fresh compile cache
+    p_fleet = _ServeChild("fleet", work, [
+        "daemon", "fleet", "--inbox", box, "--workers", "2", "--luts", "6",
+        "--slice", "2", "--device", "cuda", "--library", lib,
+        "--cache_base", os.path.join(work, "cb"), "--expect_jobs",
+        str(len(FLEET_JOBS)), "--tick_s", "0.05", "--chaos",
+        "transport.drop:1,worker.kill:1", "--trace", "--timeout_s", "300",
+        "--summary", summary], timeout=420)
+    p_solo = _ServeChild("fleet_solo", work, [
+        "daemon", "run", "--inbox", solo, "--luts", "6", "--slice", "2",
+        "--heartbeat_s", "2.0", "--exit_when_idle", "2", "--summary",
+        os.path.join(solo, "summary.json"), "--library", lib,
+        "--compile_cache_dir", os.path.join(work, "Csolo")], timeout=420)
+    try:
+        url_doc = os.path.join(box, "transport.json")
+        t_end = time.time() + 120
+        while not os.path.exists(url_doc):
+            if p_fleet.p.poll() is not None or time.time() > t_end:
+                raise AssertionError(f"fleet: no transport.json "
+                                     f"({p_fleet.p.poll()})")
+            time.sleep(0.02)
+        with open(url_doc) as f:
+            client = TransportClient(json.load(f)["url"], max_attempts=4,
+                                     backoff_s=0.05)
+        for jid, tenant, seed in FLEET_JOBS:
+            if client.submit(spec(seed), tenant=tenant, job_id=jid) != jid:
+                raise AssertionError(f"fleet: submit {jid}")
+        _wait_all([p_fleet, p_solo])
+        doc, cf, wf = p_fleet.result()
+        ref, cs, ws = p_solo.result()
+    finally:
+        p_fleet.kill()
+        p_solo.kill()
+    fl = doc["fleet"]
+    done = [j for j in doc["jobs"] if j["state"] == "done"]
+
+    def rows(d):
+        return {j["job_id"]: (j["state"], j.get("wirelength"),
+                              j.get("iterations"))
+                for j in d["jobs"] if j["state"] == "done"}
+
+    m = fl["metrics"]
+    want = sorted(j for j, _, _ in FLEET_JOBS)
+    problems = []
+    if sorted(j["job_id"] for j in done) != want:
+        problems.append(f"done rows {sorted(j['job_id'] for j in done)}")
+    if sorted(fl["leases"]) != want or not all(
+            v["released"] for v in fl["leases"].values()):
+        problems.append(f"leases {fl['leases']}")
+    if rows(doc) != rows(ref) or len(rows(ref)) != len(want):
+        problems.append(f"jobs {rows(doc)} vs solo {rows(ref)}")
+    if m.get("route.fleet.workers_killed") != 1 or len(fl["killed"]) != 1 \
+            or m.get("route.fleet.jobs_failed_over", 0) < 1:
+        problems.append(f"kill/failover {fl['killed']} {m}")
+    tp = fl["transport"]
+    if (tp["drops"], tp["retries"]) != (1, 1) or client.retries != 1:
+        problems.append(f"transport {tp}, client retries {client.retries}")
+    dr = subprocess.run([sys.executable, os.path.join(
+        "tools", "flow_doctor.py"), "--fleet-summary", summary],
+        capture_output=True, text=True, timeout=120)
+    if dr.returncode != 0:
+        problems.append(f"flow_doctor: {dr.stdout[-1500:]}"
+                        f"{dr.stderr[-1500:]}")
+    # per worker: builds and nvcc runs from its trace shard, the
+    # heartbeat's max_gap from its summary (none for the killed one)
+    workers = {}
+    stolen = 0
+    for w in fl["roster"]:
+        shard = os.path.join(box, f"trace.{w}.json")
+        b, n = _shard_spans(shard, "cuda.build"), _shard_spans(
+            shard, "cuda.nvcc")
+        ws_path = os.path.join(box, f"summary.{w}.json")
+        gap = None
+        if os.path.exists(ws_path):
+            with open(ws_path) as f:
+                wdoc = json.load(f)
+            gap = wdoc["daemon"]["heartbeat"].get("max_gap_s")
+            stolen += sum(1 for j in wdoc["jobs"]
+                          if (j.get("shed_cause") or {}).get("code")
+                          == "lease_stolen")
+        workers[w] = {"killed": w in fl["killed"],
+                      "exit": fl["workers"][w]["exit_code"],
+                      "compile_s": b[1] if b else None,
+                      "builds": b[0] if b else None,
+                      "nvcc_version_runs": n[0] if n else None,
+                      "max_gap_s": gap}
+        if b is None or n is None or b[0] != 0 or n[0] != 0:
+            problems.append(f"{w}: nvcc in the worker (builds {b}, "
+                            f"--version {n})")
+    if cs["compile_s"] != 0 or cs["nvcc"]:
+        problems.append(f"solo daemon built: {cs}")
+    if problems:
+        for w in fl["roster"]:
+            with open(os.path.join(box, f"worker.{w}.log")) as f:
+                problems.append(f"worker.{w}.log: {f.read()[-2000:]}")
+        raise AssertionError("fleet: " + "; ".join(problems))
+    say("fleet", f"daemon fleet --workers 2 --device cuda (4 jobs at 6 "
+                 f"LUTs, slice 2, through the TransportClient under "
+                 f"transport.drop:1,worker.kill:1; the serve phase's "
+                 f"library, a fresh --cache_base): {rows(doc)} = the solo "
+                 f"card daemon's (beside it, {ws:.1f} s), each released "
+                 f"once; killed {fl['killed']}, failed over "
+                 f"{m['route.fleet.jobs_failed_over']}, lease steals "
+                 f"{m.get('route.fleet.lease_steals')}, leases expired "
+                 f"{m.get('route.fleet.leases_expired')}, lease_stolen "
+                 f"sheds {stolen}; transport {tp['requests']} requests, "
+                 f"{tp['drops']} drop, {tp['retries']} retry; workers "
+                 f"{json.dumps(workers)}; trace merged "
+                 f"{(fl.get('trace') or {}).get('events')} events; "
+                 f"flow_doctor --fleet-summary HEALTHY; fleet process "
+                 f"{wf:.1f} s, phase {time.time() - t_phase:.1f} s on "
+                 f"{smi}")
+
+
 def _metric_values(prefix):
     from parallel_eda_tpu_torch.obs import get_metrics
 
@@ -3716,9 +3989,11 @@ def main(argv) -> int:
     c_resil, serve_jobs = phase_resil(bench, res, scale, scale_res, rows,
                                       smi)
     c_serve = phase_serve(bench, serve_jobs, smi)
+    c_qor = phase_qor(bench, smi)
+    phase_fleet(smi)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve]
+        c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve, c_qor]
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
@@ -3731,7 +4006,9 @@ def main(argv) -> int:
                     f"(its routes, resumes and CLI run) {c_elastic} fused "
                     f"(its card routes) {c_fused} resil (its card routes "
                     f"and services) {c_resil} serve (its fused services; "
-                    f"its subprocesses count their own) {c_serve}")
+                    f"its subprocesses count their own) {c_serve} qor "
+                    f"(its card route) {c_qor}; the fleet's workers "
+                    f"launch in their own processes")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:

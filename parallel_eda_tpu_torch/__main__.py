@@ -13,12 +13,12 @@ compares line by line, seconds aside.  The port's own flag is
 ``--device {cuda,cpu}``: placement and routing run on the CUDA card
 unless it says ``cpu`` (the plain PyTorch versions of the kernels), and
 asking for the card without one fails.  ``serve`` runs the route
-service (serve/cli.py) and ``daemon`` the route daemon
+service (serve/cli.py) and ``daemon`` the route daemon and its fleet
 (serve/daemon_cli.py), each with its own flags.  ``--compile_cache_dir``
 keeps the built CUDA libraries across runs (route/cuda_lib.py).  What
 the port does not do yet fails naming its ROADMAP.md item
-(``_SUBCOMMANDS``, empty now; ``daemon fleet`` names A14.5 in
-serve/daemon_cli.py).  ``--trace FILE`` writes a Chrome trace of the whole flow
+(``_SUBCOMMANDS``, empty now).  ``--trace FILE`` writes a Chrome trace
+of the whole flow
 (exported even when the flow fails) and ``--stats_dir`` also gets the
 metrics registry as metrics.json and the route's devprof.json, as in
 the JAX CLI.  The route is

@@ -63,6 +63,14 @@ def _decode(blob: bytes):
     return obj
 
 
+def checkpoint_file(directory: str, job_id: str) -> str:
+    """The current-generation file of ``job_id``'s checkpoint under
+    ``directory`` (the job id sanitised for a file name)."""
+    safe = "".join(c if (c.isalnum() or c in "-_.") else "_"
+                   for c in str(job_id))
+    return os.path.join(directory, f"{safe}.ck")
+
+
 class CheckpointStore:
     """Atomic two-generation checkpoint files under one directory."""
 
@@ -104,9 +112,7 @@ class CheckpointStore:
         return removed
 
     def _path(self, job_id: str) -> str:
-        safe = "".join(c if (c.isalnum() or c in "-_.") else "_"
-                       for c in str(job_id))
-        return os.path.join(self.dir, f"{safe}.ck")
+        return checkpoint_file(self.dir, job_id)
 
     def save(self, job_id: str, ck) -> str:
         path = self._path(job_id)

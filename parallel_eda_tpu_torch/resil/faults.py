@@ -20,10 +20,9 @@ also restores the window-entry state before a retry (route/router.py
 ``_WindowEntry``).
 
 Every site name is kept.  ``library.corrupt`` fires in the program
-library (serve/library.py) and ``lease.steal`` in the route daemon
-(serve/daemon.py); ``worker.kill`` and ``transport.drop`` belong to the
-fleet (ROADMAP.md A14.5), not ported yet: a plan accepts them and
-nothing fires them.
+library (serve/library.py), ``lease.steal`` in the route daemon
+(serve/daemon.py), and ``worker.kill`` and ``transport.drop`` in the
+fleet supervisor and its transport (serve/fleet.py, serve/transport.py).
 """
 
 import hashlib

@@ -22,7 +22,8 @@ every library's sha256 is checked against its record BEFORE
 process inside the loader, where no ``except`` reaches): a mismatch
 deletes the file and rebuilds it from the repo's source.  The program
 library (serve/library.py) offers its own copies of the libraries
-(``offer``) under the same digests.  Without a cache directory and
+(``offer``) under the same digests, and its record of ``nvcc
+--version`` (``offer_nvcc_version``).  Without a cache directory and
 without offers the default ``build/`` behaviour (rebuild when the source
 is newer) stays as it is.
 """
@@ -94,15 +95,46 @@ def nvcc_path() -> str:
     return p
 
 
+def nvcc_stamp() -> list:
+    """The nvcc binary's real path, size and mtime (no process)."""
+    exe = os.path.realpath(nvcc_path())
+    st = os.stat(exe)
+    return [exe, st.st_size, st.st_mtime_ns]
+
+
+def nvcc_record() -> dict:
+    """``nvcc --version`` beside the stamp of the binary that gave it
+    (what the program library keeps, ``offer_nvcc_version``)."""
+    return {"stamp": nvcc_stamp(), "version": nvcc_version()}
+
+
+def offer_nvcc_version(record: Optional[dict]) -> bool:
+    """Take a recorded ``nvcc --version`` (``nvcc_record``) as this
+    process's when the live nvcc binary has the record's stamp, so that
+    a process with a fresh compile cache over a program library starts
+    no nvcc at all.  Returns whether it was taken."""
+    if _NVCC_VERSION[0] is not None or not isinstance(record, dict):
+        return False
+    try:
+        live = nvcc_stamp()
+    except (RuntimeError, OSError):
+        return False
+    if record.get("stamp") != live or \
+            not isinstance(record.get("version"), str):
+        return False
+    _NVCC_VERSION[0] = record["version"]
+    return True
+
+
 def nvcc_version() -> str:
     """``nvcc --version``.  With a compile cache it is kept there, keyed
     by the nvcc binary's real path, size and mtime, so that a process on
-    a warm cache starts no nvcc at all."""
+    a warm cache starts no nvcc at all; a run of it is a "cuda.nvcc"
+    span in the tracer."""
     if _NVCC_VERSION[0] is not None:
         return _NVCC_VERSION[0]
-    exe = os.path.realpath(nvcc_path())
-    st = os.stat(exe)
-    stamp = [exe, st.st_size, st.st_mtime_ns]
+    stamp = nvcc_stamp()
+    exe = stamp[0]
     memo = (os.path.join(_CACHE_DIR[0], "nvcc_version.json")
             if _CACHE_DIR[0] else None)
     if memo is not None and os.path.exists(memo):
@@ -114,8 +146,15 @@ def nvcc_version() -> str:
                 return _NVCC_VERSION[0]
         except (OSError, ValueError, KeyError):
             pass
+    from ..obs.trace import get_tracer
+
+    t0 = time.perf_counter()
     out = subprocess.run([exe, "--version"], capture_output=True,
                          text=True, check=True).stdout
+    tr = get_tracer()
+    if tr is not None:
+        tr.add_complete("cuda.nvcc", t0, time.perf_counter() - t0,
+                        cat="cuda.nvcc", args="--version")
     _NVCC_VERSION[0] = out.strip()
     if memo is not None:
         os.makedirs(_CACHE_DIR[0], exist_ok=True)
@@ -252,6 +291,7 @@ class CudaLib:
             if os.path.exists(path) and file_sha256(path) == sha:
                 if final is None:
                     return path
+                os.makedirs(os.path.dirname(final), exist_ok=True)
                 tmp = f"{final}.tmp.{os.getpid()}"
                 shutil.copyfile(path, tmp)
                 if file_sha256(tmp) == sha:

@@ -1,15 +1,15 @@
-"""Multi-tenant route serving, slices A14.1-A14.4 of the JAX package's
+"""Multi-tenant route serving, the counterpart of the JAX package's
 serve/: the job queue (queue.py), cross-job net packing (batcher.py),
 continuous batching (fused.py), the program library (library.py), the
 RouteService front end (service.py) and its command line (cli.py,
-``python -m parallel_eda_tpu_torch serve``), and the long-lived route
+``python -m parallel_eda_tpu_torch serve``), the long-lived route
 daemon (daemon.py, daemon_cli.py: ``python -m parallel_eda_tpu_torch
-daemon``).
+daemon``), and the fleet of daemons over one inbox (fleet.py, with
+its network transport, transport.py: ``daemon fleet``).
 
 Everything here layers ON TOP of route/: no routing semantics live in
 this package, and per-job QoR is bit-identical to running the same job
-alone.  Not ported yet (ROADMAP.md A14.5): the fleet supervisor
-(fleet.py) and its transport (transport.py).
+alone.
 """
 
 from .batcher import CrossJobPlan, RungPlan, pack_jobs

@@ -51,8 +51,8 @@ default).  Its first slice on a cold process builds the CUDA libraries
 with nvcc, which stalls the loop for as long as the build runs — the
 heartbeat's ``max_gap_s`` shows it, as JAX's shows its first compile;
 ``--compile_cache_dir`` and ``--library`` take the build out of a warm
-restart.  Fleet membership (``worker``, leases, failover) is here for
-one worker; the supervisor that spawns several is ROADMAP.md A14.5.
+restart.  Fleet membership (``worker``, leases, failover) is here;
+the supervisor that spawns several workers is serve/fleet.py.
 """
 
 from __future__ import annotations
@@ -80,6 +80,7 @@ HEARTBEAT_NAME = "heartbeat.json"
 TELEMETRY_NAME = "telemetry.json"
 DRAIN_NAME = "DRAIN"
 LEASE_DIR = "leases"
+CKPT_DIR = "ckpt"                  # durable checkpoints, shared by a fleet
 
 #: journal states that survive a restart as live work
 _IN_FLIGHT = "in_flight"
@@ -1372,7 +1373,7 @@ def build_daemon(inbox_dir: str, *, luts: int, chan_width: int = 16,
     resil = ResilOpts(
         fault_plan=fault_plan,
         checkpoint_dir=checkpoint_dir
-        or os.path.join(inbox_dir, "ckpt"))
+        or os.path.join(inbox_dir, CKPT_DIR))
     service = RouteService(
         flow.rr, ropts, slice_iters=slice_iters,
         runs_dir=runs_dir or None, scenario=scenario,

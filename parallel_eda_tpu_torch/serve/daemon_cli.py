@@ -1,7 +1,7 @@
 """`python -m parallel_eda_tpu_torch daemon`: the counterpart of the JAX
 package's serve/daemon_cli.py, with its flags, plus ``--device``.
 
-Three subcommands around one durable inbox directory:
+Four subcommands around one durable inbox directory:
 
     # start the long-lived daemon (runs until drained/idle/signaled)
     python -m parallel_eda_tpu_torch daemon run --inbox box/ --luts 10 \
@@ -14,9 +14,12 @@ Three subcommands around one durable inbox directory:
     # liveness + journal peek from outside (no daemon import of state)
     python -m parallel_eda_tpu_torch daemon status --inbox box/
 
-``run`` routes on the card unless ``--device cpu``.  The fleet
-supervisor (``daemon fleet``) is not ported yet and is refused naming
-ROADMAP.md A14.5.
+    # N replicated workers over one inbox, with the network transport
+    python -m parallel_eda_tpu_torch daemon fleet --inbox box/ \
+        --workers 2 --expect_jobs 4 --summary box/fleet.json
+
+``run`` routes on the card unless ``--device cpu``; ``fleet`` spawns
+``run`` workers with its own ``--device`` (serve/fleet.py).
 
 `run` prints (and with --summary atomically writes) the summary JSON
 that ``tools/flow_doctor.py --daemon-summary`` gates.  A SIGTERM/SIGINT
@@ -147,6 +150,68 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print the full machine-readable JSON document "
                    "instead of the human-readable report")
 
+    f = sub.add_parser(
+        "fleet", help="spawn + supervise N replicated workers over "
+        "one inbox, with the network transport and the fleet chaos "
+        "sites (worker.kill, transport.drop, lease.steal)")
+    f.add_argument("--inbox", required=True)
+    f.add_argument("--workers", type=int, default=2, dest="n_workers")
+    f.add_argument("--luts", type=int, default=10)
+    f.add_argument("--chan_width", type=int, default=16)
+    f.add_argument("--slice", type=int, default=2, dest="slice_iters")
+    f.add_argument("--max_router_iterations", type=int, default=50)
+    f.add_argument("--library", default="",
+                   help="SHARED program library (safe across workers; "
+                   "compile caches are per-worker)")
+    f.add_argument("--cache_base", default="",
+                   help="per-worker compile caches under "
+                   "<cache_base>/<worker> — never shared")
+    f.add_argument("--runs_dir", default="")
+    f.add_argument("--scenario", default="")
+    f.add_argument("--sync", action="store_true")
+    f.add_argument("--fused", action="store_true",
+                   help="every worker runs continuous batching over "
+                   "its co-admitted jobs (daemon run --fused)")
+    f.add_argument("--heartbeat_s", type=float, default=0.5)
+    f.add_argument("--poll_s", type=float, default=0.1)
+    f.add_argument("--lease_ttl_s", type=float, default=4.0)
+    f.add_argument("--foreign_grace_s", type=float, default=2.0)
+    f.add_argument("--exit_when_idle", type=int, default=0)
+    f.add_argument("--max_queue_depth", type=int, default=64,
+                   help="FLEET-total queue bound, partitioned evenly "
+                   "across workers")
+    f.add_argument("--chaos", default="",
+                   help="seeded fault spec; worker.kill and "
+                   "transport.drop run in the supervisor, the rest "
+                   "is forwarded to every worker")
+    f.add_argument("--chaos_seed", type=int, default=0)
+    f.add_argument("--no_transport", action="store_true")
+    f.add_argument("--host", default="127.0.0.1")
+    f.add_argument("--port", type=int, default=0,
+                   help="transport port (0 = ephemeral; the bound "
+                   "port is published to <inbox>/transport.json)")
+    f.add_argument("--expect_jobs", type=int, default=0,
+                   help="drain + exit once this many jobs hold "
+                   "released (terminal) leases")
+    f.add_argument("--tick_s", type=float, default=0.5)
+    f.add_argument("--timeout_s", type=float, default=600.0)
+    f.add_argument("--summary", default="",
+                   help="write the aggregated fleet summary here "
+                   "(atomic); flow_doctor --fleet-summary gates it")
+    f.add_argument("--trace", action="store_true",
+                   help="every worker writes a per-cycle trace shard "
+                   "(trace.<worker>.json); on exit the supervisor "
+                   "beacon-aligns them into <inbox>/trace.merged.json "
+                   "— one Perfetto timeline, one track per worker, "
+                   "job flows connected across failovers")
+    f.add_argument("--objectives", default="",
+                   help="per-tenant SLO objectives JSON, forwarded to "
+                   "every worker; the fleet summary carries the "
+                   "merged digests + per-tenant burn")
+    f.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="every worker routes on the CUDA card (default) "
+                   "or the CPU; a worker that cannot reach its device "
+                   "exits and is reported dead")
     return p
 
 
@@ -332,16 +397,60 @@ def _cmd_status(args) -> int:
     return 0 if out["alive"] else 1
 
 
+def _cmd_fleet(args) -> int:
+    from ..obs.metrics import get_metrics
+    from .fleet import FleetOpts, FleetSupervisor
+
+    get_metrics().enabled = True
+    opts = FleetOpts(
+        n_workers=args.n_workers, luts=args.luts,
+        chan_width=args.chan_width, slice_iters=args.slice_iters,
+        max_router_iterations=args.max_router_iterations,
+        library_dir=args.library, cache_base=args.cache_base,
+        runs_dir=args.runs_dir, scenario=args.scenario,
+        sync=args.sync, fused=args.fused,
+        heartbeat_s=args.heartbeat_s,
+        poll_s=args.poll_s, lease_ttl_s=args.lease_ttl_s,
+        foreign_grace_s=args.foreign_grace_s,
+        exit_when_idle=args.exit_when_idle,
+        max_queue_depth=args.max_queue_depth,
+        chaos_seed=args.chaos_seed, chaos=args.chaos,
+        transport=not args.no_transport,
+        host=args.host, port=args.port,
+        expect_jobs=args.expect_jobs, tick_s=args.tick_s,
+        trace=args.trace,
+        objectives_path=args.objectives,
+        device=args.device)
+    sup = FleetSupervisor(args.inbox, opts)
+    summary = sup.run(timeout_s=args.timeout_s)
+    blob = json.dumps(summary, default=str)
+    if args.summary:
+        tmp = args.summary + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(blob)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, args.summary)
+    print(blob)
+    # a worker that died on its own (not the chaos kill), e.g. one that
+    # could not reach its device at start-up, fails the fleet too
+    dead = [w for w, r in summary["fleet"]["workers"].items()
+            if not r["killed"] and r["exit_code"] not in (0, None)]
+    bad = sup.timed_out or dead or any(
+        r.get("state") in ("failed", "timeout")
+        for r in summary.get("jobs", []))
+    return 1 if bad else 0
+
+
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] == "fleet":
-        raise SystemExit("the 'daemon fleet' subcommand is not ported yet "
-                         "(ROADMAP.md A14.5, the fleet supervisor)")
-    args = build_parser().parse_args(argv)
+    args = build_parser().parse_args(
+        sys.argv[1:] if argv is None else argv)
     if args.cmd == "run":
         return _cmd_run(args)
     if args.cmd == "submit":
         return _cmd_submit(args)
+    if args.cmd == "fleet":
+        return _cmd_fleet(args)
     return _cmd_status(args)
 
 

@@ -18,7 +18,10 @@ process loaded into ``so/<digest>.so``; ``load`` offers them to
 route/cuda_lib.py under the same compile-cache digests, after checking
 each copy's sha256 — a torn copy is evicted and never reaches
 ``ctypes.CDLL``, and the library it stood for is rebuilt from the repo's
-source (into the compile cache when one is set).
+source (into the compile cache when one is set).  The index also keeps
+the ``nvcc --version`` the digests were taken with, beside the nvcc
+binary's stamp, so that a process with a fresh compile cache on the
+same toolchain starts no nvcc at all.
 
 ``load`` pre-registers every intact entry's key as a seen dispatch
 variant, so a warm process counts ``route.dispatch.compiles == 0`` for
@@ -194,6 +197,7 @@ class ProgramLibrary:
         self._index: Dict[str, Dict[str, Any]] = {}   # kid -> meta
         self._keys: Dict[str, Tuple] = {}             # kid -> key
         self._libs: Dict[str, Dict[str, Any]] = {}    # lib name -> meta
+        self._nvcc: Optional[dict] = None   # cuda_lib.nvcc_record()
         self._blobs: Dict[str, dict] = {}             # kid -> blob
         self._pending: Dict[str, Dict[str, Any]] = {} # kid -> capture
         self._dead: set = set()                       # kid evicted
@@ -249,6 +253,7 @@ class ProgramLibrary:
                     continue
             self._index[kid] = meta
             self._keys[kid] = _tupled(meta["key"])
+        self._nvcc = idx.get("nvcc")
         self._load_libs(idx.get("libs", {}))
         return len(self._index)
 
@@ -276,6 +281,10 @@ class ProgramLibrary:
                 continue
             self._libs[name] = meta
             cuda_lib.offer(name, meta["digest"], path, meta["sha256"])
+        if self._libs:
+            # the digests' nvcc --version, taken where the binary is
+            # the one that gave it: a fresh cache then starts no nvcc
+            cuda_lib.offer_nvcc_version(self._nvcc)
         if torn:
             def drop(idx):
                 for name in torn:
@@ -348,6 +357,8 @@ class ProgramLibrary:
             self._libs[lib.name] = {"digest": digest, "file": fname,
                                     "bytes": len(raw),
                                     "sha256": _sha256(raw)}
+        if cuda_lib.LOADED:
+            self._nvcc = cuda_lib.nvcc_record()
 
     def save(self) -> int:
         """Write every pending variant and the loaded CUDA libraries;
@@ -379,6 +390,7 @@ class ProgramLibrary:
             "entries": {kid: {**meta, "key": list(meta["key"])}
                         for kid, meta in self._index.items()},
             "libs": self._libs,
+            "nvcc": self._nvcc,
         }
         _atomic_write(os.path.join(self.dir, INDEX_NAME),
                       json.dumps(index, indent=1, default=str).encode())

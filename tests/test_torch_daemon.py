@@ -542,15 +542,21 @@ def port_ref(tmp_path_factory):
 def test_daemon_cli_status_and_fleet(tmp_path, port_ref):
     """``daemon status`` reads the heartbeat and journal of a finished
     daemon (stale: exit 1, the journal's job states); ``daemon fleet``
-    is refused naming ROADMAP.md A14.5."""
+    is a subcommand with JAX's flags and the port's ``--device``
+    (tests/test_torch_fleet.py runs it)."""
     r = _port_cli(["status", "--inbox", port_ref, "--json",
                    "--stale_s", "0"])
     doc = json.loads(r.stdout)
     assert r.returncode == 1 and not doc["alive"]
     assert doc["journal_jobs"] == {"done": 2}
     assert doc["heartbeat"]["cycle"] >= 1
-    r = _port_cli(["fleet", "--inbox", str(tmp_path)])
-    assert r.returncode != 0 and "ROADMAP.md A14.5" in r.stderr
+    r = _port_cli(["fleet", "--help"])
+    assert r.returncode == 0, r.stderr
+    for flag in ("--workers", "--library", "--cache_base", "--expect_jobs",
+                 "--tick_s", "--timeout_s", "--no_transport", "--host",
+                 "--port", "--summary", "--trace", "--objectives",
+                 "--chaos", "--device"):
+        assert flag in r.stdout, flag
 
 
 def test_daemon_graceful_sigterm(tmp_path):

@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
               "resil.watchdog", "resil.checkpoint", "resil.journal",
               "obs.slo", "serve", "serve.queue", "serve.batcher",
               "serve.service", "serve.cli", "serve.fused", "serve.library",
-              "serve.daemon", "serve.daemon_cli"):
+              "serve.daemon", "serve.daemon_cli", "serve.fleet",
+              "serve.transport", "route.serial_ref", "route.serial_native",
+              "route.qor"):
         assert f"parallel_eda_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

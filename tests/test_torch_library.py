@@ -353,6 +353,42 @@ def test_offered_copies(fake_nvcc, tmp_path):
     assert fake_nvcc().count("build") == n + 1
 
 
+def test_offered_nvcc_version_runs_no_nvcc(fake_nvcc, tmp_path):
+    """A process with a fresh compile cache over offered copies takes
+    the recorded ``nvcc --version`` when the live nvcc has the record's
+    stamp, and so starts no nvcc at all; a record from another binary is
+    refused and nvcc --version runs (a "cuda.nvcc" span)."""
+    cuda_lib.set_cache_dir(str(tmp_path / "cc1"))
+    lib = _lib()
+    built = lib._resolve()
+    rec = cuda_lib.nvcc_record()
+    digest, sha = lib.digest(), cuda_lib.file_sha256(built)
+    assert rec["version"].endswith("(stand-in)")
+    assert rec["stamp"][0] == os.path.realpath(
+        str(tmp_path / "bin" / "nvcc"))
+    n = len(fake_nvcc())
+    for k, (record, taken) in enumerate((
+            (rec, True),
+            (dict(rec, stamp=[rec["stamp"][0], 1, 2]), False))):
+        _fresh_process()
+        cuda_lib.set_cache_dir(str(tmp_path / f"fresh{k}"))
+        cuda_lib.offer("planes_relax", digest, built, sha)
+        assert cuda_lib.offer_nvcc_version(record) is taken
+        tracer = TT.Tracer()
+        TT.set_tracer(tracer)
+        try:
+            got = _lib()._resolve()
+        finally:
+            TT.set_tracer(None)
+        assert cuda_lib.file_sha256(got) == sha
+        spans = [e for e in tracer.events if e.get("name") == "cuda.nvcc"]
+        if taken:
+            assert len(fake_nvcc()) == n and not spans
+        else:
+            assert fake_nvcc()[n:] == ["version"] and len(spans) == 1
+            n += 1
+
+
 def test_failed_build_leaves_no_final_file(fake_nvcc, tmp_path, monkeypatch):
     cache = str(tmp_path / "cc")
     cuda_lib.set_cache_dir(cache)

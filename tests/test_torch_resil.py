@@ -86,8 +86,7 @@ def _both():
 def test_fault_plan_firings_match_jax(seed, spec):
     """For each (seed, spec): the same scheduled indices, the same
     firings along each site's invocations (past the horizon too), the
-    same summary and the same injection count.  Sites whose component is
-    not ported yet are accepted."""
+    same summary and the same injection count, every site included."""
     jp, tp = JRES.FaultPlan.parse(seed, spec), TRES.FaultPlan.parse(seed,
                                                                     spec)
     assert tp._fire_at == jp._fire_at and tp.spec == jp.spec
