@@ -19,33 +19,39 @@ Phases, one line each (any failure exits non-zero with no result line):
                  dist and wenter carried in bfloat16 between f32 sweeps)
                  against its plain version, at crit 0 and crit > 0,
                  timed beside the f32 mode on the same input
-  4. halo      — the halo kernel (K3): its one-hop shift
-                 (remote_slab_permute_cuda) and the route's in-place
-                 exchange (halo_exchange_cuda, lag 1 and lag 2) against
-                 their plain versions at the bench blocks (2-4 shards)
-                 and the scale block (4 shards): bit-identical; times per
-                 exchange beside the library copy_/fill_ loop, the
-                 buffered exchange (shifts into fresh buffers, then
-                 install copies) and the bound
-  5. step      — the one-sweep step entry against one plain sweep on the
-                 shards' bench blocks (2, 4 shards) and the scale block
-                 (4 shards), pred carried in, in every shared-memory
-                 mode that fits: bit-identical; every mode timed
+  4. halo      — the halo kernel (K3), the TPU kernel's contract: its
+                 one-hop shifts (remote_slab_permute, the kernel on CUDA
+                 slabs) against the plain version at the bench blocks
+                 (2-4 shards) and the scale block (4 shards):
+                 bit-identical; its launches through that entry point
+                 (the route's sharded relaxation moves its halos inside
+                 its own launch); times per exchange round beside the
+                 library copy_/zero_ loop and the bound
+  5. peer      — the peer kernel (one cooperative launch per card runs
+                 the whole sharded relaxation: halos stored into the
+                 neighbours' mailboxes, the fixpoint decided on the
+                 card) through planes_relax_sharded, lag 1 (the
+                 ladder's per-sweep mesh) and lag 2, on the shards'
+                 bench (2-4 shards) and scale (4) shapes: one launch per
+                 relaxation, bit-identical in every shared-memory mode
+                 to the plain loop and under lag 1 to the cluster
+                 kernel, f32 and bf16; timed beside the cluster kernel
   6. sharded   — the row-sharded relaxation on the card (both schedules,
                  2 and 4 shards) against single-device K1 (dist/wenter)
                  and against its own CPU run (every output and stats);
                  its one-card lag-1 form, the cluster kernel (one launch
-                 per relaxation), beside the per-sweep form (step and
-                 halo kernels) and the plain per-sweep loop on the card,
-                 at the bench (2, 3, 4 shards) and scale (4) shapes, every
-                 mode: bit-identical, all three timed
+                 per relaxation), beside the peer kernel (lag 1 and 2)
+                 and the plain per-sweep loop on the card, at the bench
+                 (2, 3, 4 shards) and scale (4) shapes, every mode:
+                 bit-identical, all timed
   7. bench     — route the 60-LUT/W=12 bench config end to end on the
                  card: legal, wirelength 537 in 22 iterations
   8. mesh      — the bench route at mesh_shards=2 and 4: legal, 537 / 22,
                  paths and occupancy equal to phase 7's, under the
                  Router's lag-1 schedule (on one card the cluster kernel,
-                 across cards the step and halo kernels) and, timed
-                 beside it, lag 2 (the step and halo kernels)
+                 across cards the peer kernel) and, timed beside it, lag
+                 2 (the peer kernel), each relaxation one launch per
+                 card
   9. scale     — place the 1,200-LUT/W=20 config with the native
                  annealer and route it on the card, single-device and
                  at mesh_shards=4: legal
@@ -54,8 +60,7 @@ Phases, one line each (any failure exits non-zero with no result line):
                  at the default guard "window" (537 / 22, the f32 route,
                  with its bf16 shadow windows counted), the bench at
                  mesh_shards=2 on one card (the cluster kernel) and
-                 under lag 2 (the step and halo kernels on bfloat16
-                 blocks) at "off", the scale route at "off" (legal) and
+                 under lag 2 (the peer kernel) at "off", the scale route at "off" (legal) and
                  the bench timing-driven route at "off" (each bench route
                  as the port's CPU route gives it);
                  bench and scale route seconds at f32, "off" and
@@ -86,10 +91,13 @@ Phases, one line each (any failure exits non-zero with no result line):
  11. launches  — every kernel's launch count over the route phases
                  (the lag-2 mesh routes and the place phase included;
                  with several cards also a mesh-2 route with both shards
-                 on card 0, the one-card path)
+                 on card 0, the one-card path); K3 is off the route's
+                 path (0 there, exempt from the never-launched gate) and
+                 its phase-4 calls are reported as harness_launches
  12. device    — the kernels' device time per launch (torch.profiler)
-                 for the cases phases 3-6 timed, and that K2's and the
-                 cluster kernel's wrappers launch one kernel per call
+                 for the cases phases 3-6 timed, and that K2's, the
+                 cluster kernel's and the peer kernel's wrappers launch
+                 one kernel per call (one card)
  13. profile   — a torch.profiler breakdown of a warm bench route, a
                  warm mesh_shards=2 bench route, a warm scale route and
                  warm timing-driven bench and scale routes (their
@@ -255,7 +263,17 @@ launches slower on the host (the "launch" line gives the host's cost
 per launch before and after).
 
 The shards of phases 4, 6 and 8 are placed round-robin over the visible
-cards, so on a machine with several cards their halos cross NVLink.
+cards, so on a machine with several cards their halos cross NVLink;
+phase 6 then also holds the peer kernel across the cards against its
+one-card form (f32 and bf16, one launch per card, both timed).
+
+    python3 chip_smoke.py --cards
+
+runs only what exists across cards, on a machine with two or more: the
+build, phase 4, phase 6, the bench route and its mesh routes of phase 8
+(with the mesh-2 route on card 0) and the scale route at mesh_shards=4;
+it ends with the result line (its ``cards`` key set) and no kernels
+line, and fails with fewer than two cards.
 """
 
 from __future__ import annotations
@@ -291,27 +309,26 @@ REPLACES = {
         "parallel_eda_tpu/route/planes_pallas.py:308",
     "planes_relax_cropped_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:477",
-    # K2's kernel, one sweep per launch: the per-shard sweep of
-    # parallel_eda_tpu/route/planes_shard.py:369
-    "planes_sweep_block_cuda":
-        "parallel_eda_tpu/route/planes_pallas.py:477",
-    # K3 with the install that followed it (planes_shard.py:317-355); the
-    # same kernel serves remote_slab_permute_cuda, held in the halo phase
-    "halo_exchange_cuda":
+    # K3, the one-hop halo shift
+    "remote_slab_permute_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:597",
     # the whole sharded relaxation on one card (K2's kernel per shard per
     # sweep, planes_shard.py:369, with remote_slab_permute between)
     "planes_relax_cluster_cuda":
+        "parallel_eda_tpu/route/planes_pallas.py:477",
+    # the same on every other mesh (across cards, lag 2), one launch per
+    # card
+    "planes_relax_peer_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:477",
 }
 SOURCES = {
     "planes_relax_full_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
     "planes_relax_cropped_cuda":
         "parallel_eda_tpu_torch/csrc/planes_relax.cu",
-    "planes_sweep_block_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
-    "halo_exchange_cuda": "parallel_eda_tpu_torch/csrc/slab_permute.cu",
+    "remote_slab_permute_cuda": "parallel_eda_tpu_torch/csrc/slab_permute.cu",
     "planes_relax_cluster_cuda":
         "parallel_eda_tpu_torch/csrc/planes_relax.cu",
+    "planes_relax_peer_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
 }
 # the bf16 plane mode of each kernel: the same source and TPU kernel
 # (planes_pallas.py takes plane_dtype="bf16" at each of them)
@@ -397,6 +414,51 @@ def phase_device() -> None:
     _ONE_KERNEL.clear()
 
 
+# whether device_kernels' sums from the raw records equal key_averages'
+# (checked on the first session; on a difference every later session
+# reads key_averages)
+_RAW_EQUAL = [None]
+
+
+def device_kernels(prof) -> dict:
+    """{name: [device µs, launches]} of a finished torch.profiler
+    session's device activity (kernels, memsets, copies): the per-name
+    sums that key_averages() gives, read from the session's raw records
+    without building its event tree, which takes tens of seconds for a
+    route's ~10^5 launches.  The first session is read both ways and
+    compared."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
+
+    if _RAW_EQUAL[0] is not False:
+        raw = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and not (
+                    hasattr(e, "is_hidden_event") and e.is_hidden_event()):
+                k = raw.setdefault(_rewrite_name(e.name(), True), [0.0, 0])
+                k[0] += e.duration_ns() / 1e3
+                k[1] += 1
+        if _RAW_EQUAL[0]:
+            return raw
+    avg = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            k = avg.setdefault(e.key, [0.0, 0])
+            k[0] += (getattr(e, "self_device_time_total", 0)
+                     or getattr(e, "device_time_total", 0))
+            k[1] += e.count
+    if _RAW_EQUAL[0] is None:
+        _RAW_EQUAL[0] = raw.keys() == avg.keys() and all(
+            raw[n][1] == avg[n][1]
+            and abs(raw[n][0] - avg[n][0]) <= 1e-6 * avg[n][0] + 1e-3
+            for n in avg)
+        diff = "" if _RAW_EQUAL[0] else f": raw {raw}, key_averages {avg}"
+        say("device", "the profiler's raw device records "
+                      f"{'equal' if _RAW_EQUAL[0] else 'differ from'} "
+                      f"key_averages ({len(avg)} names){diff[:4000]}")
+    return avg
+
+
 def kernels_per_call(fn, reps: int = 5) -> dict:
     """The kernels one call of ``fn`` launches on the card, by name,
     per call (memsets and copies aside), from torch.profiler.  A session
@@ -404,7 +466,6 @@ def kernels_per_call(fn, reps: int = 5) -> dict:
     calls of a wrapper whose counter read 5), so a session whose count
     of some kernel is not a whole number per call is taken again."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -415,12 +476,8 @@ def kernels_per_call(fn, reps: int = 5) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        names = {}
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) != DeviceType.CUDA or \
-                    e.key.startswith(("Memset", "Memcpy")):
-                continue
-            names[e.key] = names.get(e.key, 0) + e.count
+        names = {k: n for k, (_, n) in device_kernels(prof).items()
+                 if not k.startswith(("Memset", "Memcpy"))}
         if names and all(v % reps == 0 for v in names.values()):
             return {k: v // reps for k, v in names.items()}
         seen.append(names)
@@ -432,19 +489,15 @@ def profile_call(fn):
     """(kernels launched, device µs) of one call of ``fn`` on the card
     (torch.profiler; memsets and copies counted too)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = us = 0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) == DeviceType.CUDA:
-            n += e.count
-            us += (getattr(e, "self_device_time_total", 0)
-                   or getattr(e, "device_time_total", 0))
+    kern = device_kernels(prof).values()
+    n = sum(c for _, c in kern)
+    us = sum(u for u, _ in kern)
     if us <= 0:
         raise AssertionError("the profiler saw no device time")
     return n, us
@@ -471,7 +524,6 @@ def device_us(fn, key: str, reps: int = 20) -> float:
     ``key`` over ``reps`` calls of ``fn``, from torch.profiler: the
     kernel alone, without the wrapper's host time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -483,15 +535,10 @@ def device_us(fn, key: str, reps: int = 20) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = n = 0
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) == DeviceType.CUDA \
-                    and key in e.key:
-                us += (getattr(e, "self_device_time_total", 0)
-                       or getattr(e, "device_time_total", 0))
-                n += e.count
+        kern = [v for k, v in device_kernels(prof).items() if key in k]
+        n = sum(c for _, c in kern)
         if n:
-            return us / n
+            return sum(u for u, _ in kern) / n
     raise AssertionError(f"the profiler saw no {key} launch")
 
 
@@ -844,21 +891,20 @@ def exchange_bound_ms(moves):
 
 
 def phase_halo(shapes):
-    """K3 on the card.  (a) The TPU kernel's contract: the four one-hop
-    shifts of an exchange round (dx right/left 1 column, dy right 1 /
-    left 2 columns) from strided views of random block canvases, through
-    remote_slab_permute_cuda, against its plain version.  (b) The
-    route's exchange: halo_exchange_cuda in place on the shards' block
-    states, from the same set (lag 1) and from another (lag 2), against
-    halo_exchange_plain: bit-identical.  Shard i sits on card i mod
-    (visible cards).  Times per exchange (one sweep's halos): the
-    prebuilt exchange (HaloExchange), its plain version, the library
-    loop (one dst.copy_(src) per halo view plus fill_(INF) at the edges:
-    4 * s PyTorch calls on prebuilt views) and the buffered exchange (four
-    remote_slab_permute_cuda calls into fresh buffers, then the install
-    copies); the bound is exchange_bound_ms.  Each shape also in the
-    bf16 plane mode (bfloat16 block states: 2-byte moves), timed beside
-    the f32 exchange.  Returns the f32 and the bf16 cases."""
+    """K3 on the card, the TPU kernel's contract: the four one-hop shifts
+    of an exchange round (dx right/left 1 column, dy right 1 / left 2
+    columns) from strided views of random block canvases, through the
+    entry point remote_slab_permute (CUDA slabs: the kernel), against
+    its plain version: bit-identical.  Shard i sits on card i mod
+    (visible cards).  The route's sharded relaxation moves its halos
+    inside its own launch (phases 5-6), so no route launches K3: its
+    launch counts are set to 0 just before the four shifts and read just
+    after (``harness_launches``, reported beside the route phases'
+    ``launches`` in the kernels line).  Times per exchange round (the four shifts): the kernel, its
+    plain version, the library loop (one dst.copy_(src) per receiver
+    into preallocated buffers, zero_() at the edge) and the bound
+    (exchange_bound_ms).  Each shape also in bfloat16 (2-byte moves),
+    timed beside f32.  Returns the f32 and the bf16 cases."""
     rows = {"f32": [], "bf16": []}
     for cfg, pg, s in shapes:
         for pd in ("f32", "bf16"):
@@ -891,230 +937,176 @@ def _halo_case(cfg, pg, s, pd, f32_rows):
     W, NX, NYp1 = pg.shape_x
     NY = NYp1 - 1
     kx = row_block_cols(pg, s)
-
-    def states():
-        return [(canvas((B, W, kx + 2, NYp1), i),
-                 canvas((B, W, kx + 3, NY), i)) for i in range(s)]
-
-    sts, other = states(), states()
+    sts = [(canvas((B, W, kx + 2, NYp1), i), canvas((B, W, kx + 3, NY), i))
+           for i in range(s)]
     calls = [([st[0][:, :, kx:kx + 1] for st in sts], True),
              ([st[0][:, :, 1:2] for st in sts], False),
              ([st[1][:, :, kx:kx + 1] for st in sts], True),
              ([st[1][:, :, 1:3] for st in sts], False)]
-    err = 0.0
-    for slabs, fwd in calls:
-        got = sk.remote_slab_permute_cuda(slabs, fwd)
-        _sync_all()
-        ref = sk.slab_permute_plain(slabs, fwd)
-        err = max(err, _same(f"K3 shift {cfg} s={s} fwd={fwd}", got,
-                             ref))
-    for src in (None, other):
-        ref = [tuple(t.clone() for t in st) for st in sts]
-        sk.halo_exchange_plain(ref, kx, src)
-        n0 = _launches(sk.halo_exchange_cuda, pd)
-        sk.halo_exchange_cuda(sts, kx, src)
-        _sync_all()
-        per_sweep = _launches(sk.halo_exchange_cuda, pd) - n0
-        for k in range(s):
-            err = max(err, _same(f"K3 exchange {cfg} s={s} lag "
-                                 f"{1 if src is None else 2} shard {k}",
-                                 sts[k], ref[k]))
-    moves = sk.halo_moves(sts, kx)
+
+    def shift_all():
+        return [sk.remote_slab_permute(sl, f) for sl, f in calls]
+
+    _sync_all()
+    sk.reset_launch_counts()
+    got = shift_all()
+    _sync_all()
+    path = _launches(sk.remote_slab_permute_cuda, pd)
+    err, moves = 0.0, []
+    for (slabs, fwd), out in zip(calls, got):
+        err = max(err, _same(f"K3 shift {cfg} s={s} fwd={fwd}", out,
+                             sk.slab_permute_plain(slabs, fwd)))
+        for r in range(s):
+            snd = sk._sender(r, s, fwd)
+            moves.append((None if snd is None else slabs[snd], out[r], 0.0))
     lib_moves = [(a, b) for a, b, _ in moves]
-    inf = float("inf")
 
     def library():
         for a, b in lib_moves:
             if a is None:
-                b.fill_(inf)
+                b.zero_()
             else:
                 b.copy_(a)
 
-    def buffered():
-        got = [sk.remote_slab_permute_cuda(sl, f) for sl, f in calls]
-        for r, st in enumerate(sts):
-            lx, rx, ly, ry = (g[r] for g in got)
-            for dst, h, edge in ((st[0][:, :, 0:1], lx, r == 0),
-                                 (st[0][:, :, kx + 1:kx + 2], rx,
-                                  r == s - 1),
-                                 (st[1][:, :, 0:1], ly, r == 0),
-                                 (st[1][:, :, kx + 1:kx + 3], ry,
-                                  r == s - 1)):
-                if edge:
-                    dst.fill_(inf)
-                else:
-                    dst.copy_(h)
-
-    run = sk.HaloExchange(sts, kx)
     case = dict(
         cfg=cfg, shards=s, B=B, block=[W, kx, NY], plane_dtype=pd,
-        cards=min(s, ncard), launches_per_sweep=per_sweep,
-        max_abs_err=err,
-        ms=cuda_ms(run, 500),
-        plain_ms=cuda_ms(lambda: sk.halo_exchange_plain(sts, kx), 100),
+        cards=min(s, ncard), harness_launches=path, max_abs_err=err,
+        ms=cuda_ms(shift_all, 200),
+        plain_ms=cuda_ms(lambda: [sk.slab_permute_plain(sl, f)
+                                  for sl, f in calls], 50),
         library_ms=cuda_ms(library, 200),
         bound_ms=exchange_bound_ms(moves), bound_by="bytes")
-    if pd == "f32":
-        case.update(
-            buffered_ms=cuda_ms(buffered, 100),
-            shift_ms=cuda_ms(
-                lambda: sk.remote_slab_permute_cuda(*calls[0]), 200))
-    else:
+    if pd == "bf16":
         case["f32_ms"] = next(c["ms"] for c in f32_rows
                               if (c["cfg"], c["shards"]) == (cfg, s))
-    # the exchange writes into sts: the queued call holds them
-    device_later(f"K3 {cfg} s={s} {pd}", case, "device_us",
-                 functools.partial(lambda r, keep: r(), run, sts),
+    device_later(f"K3 {cfg} s={s} {pd}", case, "device_us", shift_all,
                  "slab_permute")
-    say("halo", f"K3 shift and exchange {pd} bit-identical, "
-                + json.dumps(case))
+    say("halo", f"K3 shifts {pd} bit-identical, launched {path} times "
+                "through remote_slab_permute, " + json.dumps(case))
     return case
 
 
-def _blocks(pg, inst, s, devices, pd="f32"):
-    """The shards' blocks of a random instance in plane dtype ``pd``
-    (bfloat16 dist, wenter and congestion in the bf16 mode): (geometry,
-    state after one plain sweep — pred carried in —, crit, ccx, ccy,
-    the plain sweep) per shard, and kx."""
-    from parallel_eda_tpu_torch.route import planes as P
-    from parallel_eda_tpu_torch.route import planes_shard as TS
-
-    d0, cc, crit, w0 = inst
-    dt = P.plane_torch_dtype(pd)
-    kx = TS.row_block_cols(pg, s)
-    gms = TS._shard_geoms(pg, TS.make_row_mesh(s, devices=devices), kx)
-    cut = []
-    for (x, y), f in zip((P._split_flat(pg, a.to(dt)) for a in (d0, cc, w0)),
-                         (np.inf, np.inf, 0.0)):
-        cut.append((TS.shard_blocks(x, f, 2, kx, devices),
-                    TS.shard_blocks(y, f, 3, kx, devices)))
-    (dx, dy), (ccx, ccy), (wx, wy) = cut
-    out = []
-    for k, g in enumerate(gms):
-        st = (dx[k], dy[k], g.idxx.expand(dx[k].shape).contiguous(),
-              g.idxy.expand(dy[k].shape).contiguous(), wx[k], wy[k])
-        cf = (ccx[k].float(), ccy[k].float())
-        costs = P._sweep_costs(g, crit, *cf)
-
-        def sweep(st, g=g, cf=cf, costs=costs):
-            return P.quantize_plane_state(P._sweep_once(
-                g, P._dequantize_plane_state(st), crit, *cf, costs), pd)
-        out.append((g, sweep(st), crit, ccx[k], ccy[k], sweep))
-    return out, kx
+def _timed(fn):
+    """(fn(), ms of that one call on the host clock between syncs)."""
+    _sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync_all()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
-def step_bound_ms(B, W, X, Y, gm, plane_bytes: int = 4):
-    """Least time of one step launch: per cell the state (dist, pred,
-    wenter) and congestion read once and the new state written once,
-    crit read and stats written once per net, the block geometry read
-    once (bytes); or one sweep of every net and its scan costs (f32
-    operations).  ``plane_bytes`` 2: dist, wenter and congestion at 2
-    bytes a cell (pred at 4), and the rounding's operations added."""
-    cells = W * X * (Y + 1) + W * (X + 1) * Y
-    geo = sum(getattr(gm, k).numel() * getattr(gm, k).element_size()
-              for k in ("brk_before_x", "brk_after_x", "brk_before_y",
-                        "brk_after_y", "first_x", "last_x", "first_y",
-                        "last_y", "delay_x", "delay_y", "delay_y_rot0",
-                        "delay_y_rot1", "idxx", "idxy", "base_par"))
-    pb = plane_bytes
-    nbytes = B * cells * (5 * pb + 2 * 4) + 4 * B + 8 * B + geo
-    ops = B * (sweep_ops(W, X, Y, gm.directional) + launch_ops(W, X, Y))
-    if pb == 2:
-        ops += round_ops(W, X, Y, B, B)
-    return bounds(nbytes, ops)
-
-
-def phase_step(shapes):
-    """The step entry against one plain sweep on each shard's block
-    (B=64), pred carried in, exact, jittered and crit > 0 costs, in every
-    shared-memory mode that fits (the route takes the most that fits);
-    the kernel's owned-changed flags against the plain
-    sweep's.  Times: the prebuilt launch (sweep_block_launcher, as the
-    route calls it) in every mode, the one-shot wrapper, and one plain
-    sweep.  Jittered and crit > 0 costs also in the bf16 plane mode
-    (bfloat16 blocks).  Returns the f32 and the bf16 cases."""
+def phase_peer(shapes):
+    """The peer kernel (planes_relax_peer_cuda: one cooperative launch per
+    card runs the whole sharded relaxation, halos stored into the
+    neighbours' mailboxes, the fixpoint decided on the card) driven
+    through planes_relax_sharded on one-card meshes — lag 1 on the
+    resilience ladder's per-sweep mesh, and lag 2 — on the shards' bench
+    (2, 3, 4 shards) and scale (4) shapes (B=64), exact, jittered and
+    crit > 0 costs, f32 and (jittered, crit > 0) bf16: exactly one
+    launch per relaxation; bit-identical in every shared-memory mode
+    that fits to the plain loop (planes_relax_sharded_plain) and, under
+    lag 1, to the cluster kernel; the per-net stats' max the batch's.
+    On jittered costs timed: ms per relaxation (CUDA events), the plain
+    loop's one call, the kernel's device time per launch and the bound
+    (bound_ms at each net's executed sweeps), the cluster kernel beside
+    it under lag 1, and a profiler check of one kernel per call.
+    Returns the f32 and the bf16 cases."""
     rng = np.random.default_rng(2)
-    B = 64
+    B, nsw = 64, 32
     rows = {"f32": [], "bf16": []}
     for cfg, rr, pg, s in shapes:
         for kind in ("exact", "jitter", "crit"):
             inst = _instance(rr, pg, B, rng, kind == "exact",
                              crit_on=kind == "crit")
             for pd in ("f32", "bf16") if kind != "exact" else ("f32",):
-                rows[pd].append(_step_case(cfg, pg, s, kind, pd, inst, B,
-                                           rows["f32"]))
+                for impl in ("ppermute", "pallas_halo"):
+                    rows[pd].append(_peer_case(cfg, pg, s, kind, pd, impl,
+                                               inst, B, nsw, rows["f32"]))
     return rows["f32"], rows["bf16"]
 
 
-def _step_case(cfg, pg, s, kind, pd, inst, B, f32_rows):
-    """phase_step's checks (and on jittered costs times) of one instance
-    in plane dtype ``pd``."""
+def _peer_case(cfg, pg, s, kind, pd, impl, inst, B, nsw, f32_rows):
+    """phase_peer's checks (and on jittered costs times) of one instance
+    under one schedule in plane dtype ``pd``."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import planes_shard as TS
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
 
     W, NX, NYp1 = pg.shape_x
-    blocks, kx = _blocks(pg, inst, s, ["cuda"] * s, pd)
-    own = slice(1, kx + 1)
-    err = 0.0
-    for k, (g, st, crit, ccx, ccy, sweep) in enumerate(blocks):
-        ref = sweep(st)
-        flag = ((ref[0][:, :, own] < st[0][:, :, own]).flatten(1).any(1)
-                | (ref[1][:, :, own] < st[1][:, :, own]).flatten(1).any(1))
-        auto = pk.sweep_block_launcher(
-            g, st, crit, ccx, ccy, (1, kx + 1),
-            tuple(torch.empty_like(t) for t in st),
-            torch.empty((B, 2), dtype=torch.int32,
-                        device=st[0].device)).mode
-        for mode in [None] + list(range(auto + 1)):
-            got, stats = pk.planes_sweep_block_cuda(
-                g, st, crit, ccx, ccy, (1, kx + 1), mode=mode)
-            torch.cuda.synchronize()
-            tag = f"step {cfg} s={s} {kind} {pd} shard {k} mode {mode}"
-            err = max(err, _same(tag, got, ref))
-            if not torch.equal(stats[:, 1].bool(), flag):
-                raise AssertionError(f"{tag}: owned-changed flags differ")
-    case = dict(cfg=cfg, shards=s, costs=kind, plane_dtype=pd, B=B,
-                block=[W, kx + 2, NYp1 - 1], max_abs_err=err)
+    card = inst[0].device
+    mesh = TS.make_row_mesh(s, impl, [card] * s)
+    # lag 1 takes the peer kernel on the ladder's per-sweep mesh
+    drive = dataclasses.replace(mesh, per_sweep=True)
+    lag2 = impl == "pallas_halo"
+    cap = TS.sweep_cap(nsw, s)
+    tag = f"peer {cfg} s={s} {kind} {pd} {impl}"
+    relax = functools.partial(TS.planes_relax_sharded, pg, *inst, nsw,
+                              drive, pd)
+    c0 = {**pk.launch_counts(), **sk.launch_counts()}
+    got = relax()
+    torch.cuda.synchronize()
+    c1 = {**pk.launch_counts(), **sk.launch_counts()}
+    dc = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    key = "planes_relax_peer_cuda" + (BF16 if pd == "bf16" else "")
+    if dc != {key: 1}:
+        raise AssertionError(f"{tag}: launches {dc}, want one {key}")
+    net_st = pk.planes_relax_peer_cuda.last_stats[:-1]
+    auto = pk.planes_relax_peer_cuda.last_mode
+    if not torch.equal(net_st.max(0).values, got[3]):
+        raise AssertionError(f"{tag}: stats are not the max over nets")
+    plain, plain_ms = _timed(functools.partial(
+        TS.planes_relax_sharded_plain, pg, *inst, nsw, mesh, pd))
+    err = _same(f"{tag} vs plain", got, plain)
+    run = functools.partial(pk.planes_relax_peer_cuda, pg, *inst, cap,
+                            mesh.devices, lag2, plane_dtype=pd)
+    for m in range(auto):
+        err = max(err, _same(f"{tag} mode {m} vs plain", run(mode=m),
+                             plain))
+    if not lag2:
+        err = max(err, _same(f"{tag} vs cluster", got,
+                             pk.planes_relax_cluster_cuda(
+                                 pg, *inst, cap, s, plane_dtype=pd)))
+    per_net = net_st.cpu().numpy()
+    case = dict(cfg=cfg, shards=s, costs=kind, impl=impl, plane_dtype=pd,
+                B=B, block=[W, TS.row_block_cols(pg, s) + 2, NYp1 - 1],
+                mode=auto, sweeps=got[3].tolist(),
+                net_sweeps_min=int(per_net[:, 0].min()), max_abs_err=err)
     if kind == "jitter":
-        g, st, crit, ccx, ccy, sweep = blocks[0]
-        out = tuple(torch.empty_like(t) for t in st)
-        stats = torch.empty((B, 2), dtype=torch.int32, device=st[0].device)
-        for j, mode in enumerate(list(range(auto + 1)) + [None]):
-            run = pk.sweep_block_launcher(g, st, crit, ccx, ccy,
-                                          (1, kx + 1), out, stats, mode)
-            # the route's mode last, under the plain keys
-            tag = "" if j > auto else f"_mode{mode}"
-            case["ms" + tag] = cuda_ms(run, 200)
-            device_later(f"step {cfg} s={s} {pd}{tag}", case,
-                         "device_us" + tag, run, "planes_relax_block")
-        case["mode"] = run.mode
+        case["ms"] = cuda_ms(relax, 20)
+        case["plain_ms"] = plain_ms
+        if not lag2:
+            case["cluster_ms"] = cuda_ms(functools.partial(
+                pk.planes_relax_cluster_cuda, pg, *inst, cap, s,
+                plane_dtype=pd), 20)
         if pd == "bf16":
             case["f32_ms"] = next(
                 c["ms"] for c in f32_rows if "ms" in c
-                and (c["cfg"], c["shards"]) == (cfg, s))
-        case["wrapper_ms"] = cuda_ms(
-            lambda: pk.planes_sweep_block_cuda(
-                g, st, crit, ccx, ccy, (1, kx + 1)), 50)
-        case["plain_ms"] = cuda_ms(lambda: sweep(st), 10)
-        case.update(step_bound_ms(B, W, kx + 2, NYp1 - 1, g,
-                                  2 if pd == "bf16" else 4))
-    say("step", f"{pd} bit-identical, " + json.dumps(case))
+                and (c["cfg"], c["shards"], c["impl"]) == (cfg, s, impl))
+        device_later(tag, case, "device_us", run, "planes_relax_peer")
+        _ONE_KERNEL.append((tag, run, "planes_relax_peer_kernel"))
+        case.update(bound_ms(pg, B, per_net[:, 0],
+                             plane_bytes=2 if pd == "bf16" else 4))
+    say("peer", f"{tag}: one launch, bit-identical to the plain loop"
+                + ("" if lag2 else " and the cluster kernel")
+                + " in every mode, " + json.dumps(case))
     return case
 
 
 def phase_sharded(shapes):
     """planes_relax_sharded on the card.  (a) Its one-card lag-1 form, one
-    cluster launch per relaxation, against the per-sweep form on the same
-    one-card mesh (the step and halo kernels) and the plain per-sweep
-    loop on the card: every output and the stats bit-identical, in every
+    cluster launch per relaxation, against the plain per-sweep loop on
+    the card: every output and the stats bit-identical, in every
     shared-memory mode; dist and wenter equal single-device K1's
-    (power-of-two costs); all three timed.  (b) At the bench shape, the
-    route's meshes (shards round-robin over the visible cards), both
-    schedules, 2 and 4 shards, against K1 and against the same call on
-    CPU tensors (everything equal).  (c) The cluster kernel in the bf16
-    plane mode (_cluster_bf16), at crit 0 and crit > 0.  Returns the f32
-    and the bf16 cases."""
+    (power-of-two costs); timed beside the peer kernel on the same
+    inputs (``per_sweep_ms``: lag 1 on the ladder's per-sweep mesh,
+    ``lag2_ms``: lag 2) and the plain loop's one call.  (b) At the bench
+    shape, the route's meshes (shards round-robin over the visible
+    cards), both schedules, 2 and 4 shards, against K1 and against the
+    same call on CPU tensors (everything equal).  (c) The cluster kernel
+    in the bf16 plane mode (_cluster_bf16), at crit 0 and crit > 0.
+    Returns the f32 and the bf16 cases."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes as P
@@ -1147,11 +1139,9 @@ def phase_sharded(shapes):
             if not torch.equal(net_st.max(0).values, got[3]):
                 raise AssertionError(f"{tag}: stats are not the max over "
                                      "nets")
-            sweeps = TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one)
-            plain = TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one,
-                                                   plain=True)
-            err = max(_same(f"{tag} vs per-sweep", got, sweeps),
-                      _same(f"{tag} vs plain", got, plain))
+            plain, plain_ms = _timed(functools.partial(
+                TS.planes_relax_sharded_plain, pg, *inst, nsw, one))
+            err = _same(f"{tag} vs plain", got, plain)
             for m in range(auto):
                 err = max(err, _same(f"{tag} mode {m} vs plain",
                                      pk.planes_relax_cluster_cuda(
@@ -1167,16 +1157,23 @@ def phase_sharded(shapes):
                         max_abs_err=err)
             case["ms"] = cuda_ms(lambda: TS.planes_relax_sharded(
                 pg, *inst, nsw, one), 20)
+            per_sweep = dataclasses.replace(one, per_sweep=True)
+            lag2 = TS.make_row_mesh(s, "pallas_halo", [card] * s)
             case["per_sweep_ms"] = cuda_ms(
-                lambda: TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one),
-                3)
-            case["plain_ms"] = cuda_ms(
-                lambda: TS.planes_relax_sharded_sweeps(pg, *inst, nsw, one,
-                                                       plain=True), 1)
+                lambda: TS.planes_relax_sharded(pg, *inst, nsw, per_sweep),
+                20)
+            lag2_out = TS.planes_relax_sharded(pg, *inst, nsw, lag2)
+            case["lag2_sweeps"] = lag2_out[3].tolist()
+            case["lag2_ms"] = cuda_ms(
+                lambda: TS.planes_relax_sharded(pg, *inst, nsw, lag2), 20)
+            case["plain_ms"] = plain_ms
             run = functools.partial(pk.planes_relax_cluster_cuda, pg,
                                     *inst, cap, s)
             device_later(tag, case, "device_us", run,
                          "planes_relax_cluster")
+            device_later(tag, case, "per_sweep_device_us", functools.partial(
+                pk.planes_relax_peer_cuda, pg, *inst, cap, per_sweep.devices),
+                "planes_relax_peer")
             by_mode = case["device_us_by_mode"] = {}
             for m in range(auto + 1):
                 device_later(f"{tag} mode {m}", by_mode, m,
@@ -1188,9 +1185,8 @@ def phase_sharded(shapes):
             # blocks' halo and pad columns
             case.update(bound_ms(pg, B, per_net[:, 0]))
             rows.append(case)
-            say("sharded", f"{tag}: one launch, bit-identical to the "
-                           "per-sweep and plain forms, dist/wenter = K1, "
-                           + json.dumps(case))
+            say("sharded", f"{tag}: one launch, bit-identical to the plain "
+                           "form, dist/wenter = K1, " + json.dumps(case))
         for kind in ("jitter", "crit"):
             rows_bf16.extend(_cluster_bf16(
                 cfg, pg, shard_counts, kind, nsw, B, _instance(
@@ -1203,9 +1199,9 @@ def phase_sharded(shapes):
             wide = pk.planes_relax_cluster_cuda(pg, *inst,
                                                 TS.sweep_cap(nsw, 9), 9)
             _same("cluster bench s=9 vs plain", wide,
-                  TS.planes_relax_sharded_sweeps(
+                  TS.planes_relax_sharded_plain(
                       pg, *inst, nsw, TS.make_row_mesh(
-                          9, "ppermute", [card] * 9), plain=True))
+                          9, "ppermute", [card] * 9)))
             say("sharded", "cluster bench s=9 (non-portable size): "
                            "bit-identical to the plain loop, mode "
                            f"{pk.planes_relax_cluster_cuda.last_mode}")
@@ -1231,20 +1227,59 @@ def phase_sharded(shapes):
                     TS.make_row_mesh(s, impl, "cpu"))
                 _same(f"sharded {impl} s={s} vs CPU", got, ref)
                 say("sharded", f"{impl} s={s} on {rm.n_cards} card(s) "
-                               f"(cluster: {TS.uses_cluster(rm, card)}): "
+                               f"({TS.relax_form(rm, card)}): "
                                "dist/wenter = K1, all = CPU; "
                                f"sweeps {got[3].tolist()} (K1 "
                                f"{k1[3].tolist()}), {dt * 1e3:.1f} ms")
+                if rm.n_cards > 1:
+                    _peer_across_cards(cfg, pg, inst, nsw, rm)
     return rows, rows_bf16
+
+
+def _peer_across_cards(cfg, pg, inst, nsw, rm):
+    """The peer kernel with the shards spread over the cards (mesh
+    ``rm``) against the same relaxation with every shard on the tensors'
+    card (the peer kernel's one-card form), f32 and bf16: one launch per
+    card, every output and the stats equal; ms per relaxation of both
+    (the input copies to the other cards and the cross-card events
+    included)."""
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import planes_shard as TS
+
+    card = inst[0].device
+    one = TS.RowMesh((card,) * rm.n_shards, rm.impl, per_sweep=True)
+    for pd in ("f32", "bf16"):
+        key = "planes_relax_peer_cuda" + (BF16 if pd == "bf16" else "")
+        _sync_all()
+        c0 = pk.launch_counts()
+        got = TS.planes_relax_sharded(pg, *inst, nsw, rm, pd)
+        _sync_all()
+        c1 = pk.launch_counts()
+        moved = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        if moved != {key: rm.n_cards}:
+            raise AssertionError(f"peer {cfg} s={rm.n_shards} {rm.impl} "
+                                 f"{pd} across cards: launches {moved}")
+        _same(f"peer {cfg} s={rm.n_shards} {rm.impl} {pd} across cards vs "
+              "one card", got, TS.planes_relax_sharded(pg, *inst, nsw, one,
+                                                       pd))
+        case = dict(cfg=cfg, shards=rm.n_shards, impl=rm.impl,
+                    plane_dtype=pd, cards=rm.n_cards,
+                    sweeps=got[3].tolist(),
+                    ms_cards=cuda_ms(lambda: TS.planes_relax_sharded(
+                        pg, *inst, nsw, rm, pd), 20),
+                    ms_one_card=cuda_ms(lambda: TS.planes_relax_sharded(
+                        pg, *inst, nsw, one, pd), 20))
+        say("sharded", f"peer {cfg} s={rm.n_shards} {rm.impl} {pd} on "
+                       f"{rm.n_cards} cards: one launch per card, equal to "
+                       "the one-card form, " + json.dumps(case))
 
 
 def _cluster_bf16(cfg, pg, shard_counts, kind, nsw, B, inst):
     """The cluster kernel in the bf16 plane mode on one instance: one
     cluster launch per relaxation (counted under its [bf16] key),
     bit-identical in every shared-memory mode to the plain bf16
-    per-sweep loop and to the step-and-halo-kernel loop on bfloat16
-    blocks; on jittered costs timed beside the f32 cluster relaxation of
-    the same input."""
+    per-sweep loop; on jittered costs timed beside the f32 cluster
+    relaxation of the same input and the bf16 peer kernel (lag 1)."""
     import torch
 
     from parallel_eda_tpu_torch.route import planes_kernels as pk
@@ -1272,11 +1307,10 @@ def _cluster_bf16(cfg, pg, shard_counts, kind, nsw, B, inst):
         auto = pk.planes_relax_cluster_cuda.last_mode
         if not torch.equal(net_st.max(0).values, got[3]):
             raise AssertionError(f"{tag}: stats are not the max over nets")
-        sweeps = functools.partial(TS.planes_relax_sharded_sweeps, pg, *inst,
-                                   nsw, one, plane_dtype="bf16")
-        plain = sweeps(plain=True)
-        err = max(_same(f"{tag} vs per-sweep", got, sweeps()),
-                  _same(f"{tag} vs plain", got, plain))
+        plain, plain_ms = _timed(functools.partial(
+            TS.planes_relax_sharded_plain, pg, *inst, nsw, one,
+            plane_dtype="bf16"))
+        err = _same(f"{tag} vs plain", got, plain)
         run = functools.partial(pk.planes_relax_cluster_cuda, pg, *inst,
                                 cap, s, plane_dtype="bf16")
         for m in range(auto):
@@ -1290,14 +1324,16 @@ def _cluster_bf16(cfg, pg, shard_counts, kind, nsw, B, inst):
             case["ms"] = cuda_ms(relax, 20)
             case["f32_ms"] = cuda_ms(functools.partial(
                 TS.planes_relax_sharded, pg, *inst, nsw, one), 20)
-            case["per_sweep_ms"] = cuda_ms(sweeps, 3)
-            case["plain_ms"] = cuda_ms(lambda: sweeps(plain=True), 1)
+            case["per_sweep_ms"] = cuda_ms(functools.partial(
+                TS.planes_relax_sharded, pg, *inst, nsw,
+                dataclasses.replace(one, per_sweep=True), "bf16"), 20)
+            case["plain_ms"] = plain_ms
             device_later(tag, case, "device_us", run, "planes_relax_cluster")
             _ONE_KERNEL.append((tag, run, "planes_relax_cluster_kernel"))
             case.update(bound_ms(pg, B, per_net[:, 0], plane_bytes=2))
         out.append(case)
-        say("sharded", f"{tag}: one launch, bit-identical to the per-sweep "
-                       "and plain forms, " + json.dumps(case))
+        say("sharded", f"{tag}: one launch, bit-identical to the plain "
+                       "form, " + json.dumps(case))
     return out
 
 
@@ -1323,6 +1359,7 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None,
     import torch
 
     from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import planes_shard
     from parallel_eda_tpu_torch.route import shard_kernels as sk
     from parallel_eda_tpu_torch.route.check import check_route
     from parallel_eda_tpu_torch.route.planes_shard import (make_row_mesh,
@@ -1338,7 +1375,8 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None,
     sk.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    res = router.route(flow.term, analyzer=analyzer)
+    with _Spy(planes_shard, "planes_relax_sharded") as relaxations:
+        res = router.route(flow.term, analyzer=analyzer)
     torch.cuda.synchronize()
     dt = time.time() - t0
     counts = {**pk.launch_counts(), **sk.launch_counts()}
@@ -1371,25 +1409,20 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None,
             raise AssertionError(f"{tag}: a kernel of the other plane mode "
                                  f"ran: {counts}")
         if uses_cluster(rm, torch.device("cuda", torch.cuda.current_device())):
-            # one launch per relaxation: neither the step nor the halo
-            # kernel runs, and no host read happens inside a relaxation
-            if c["planes_relax_cluster_cuda"] <= 0 or \
-                    c["planes_sweep_block_cuda"] or c["halo_exchange_cuda"]:
+            # one launch per relaxation, no host read inside it
+            if c["planes_relax_cluster_cuda"] != relaxations.calls or \
+                    c["planes_relax_peer_cuda"]:
                 raise AssertionError(f"{tag}: the one-card lag-1 route did "
                                      "not run as one cluster launch per "
-                                     f"relaxation: {counts}")
-        else:
-            if c["planes_sweep_block_cuda"] <= 0 \
-                    or c["halo_exchange_cuda"] <= 0 \
-                    or c["planes_relax_cluster_cuda"]:
-                raise AssertionError(f"{tag}: the sharded route did not run "
-                                     "the step and halo kernels")
-            if rm.n_cards == 1 and \
-                    c["halo_exchange_cuda"] != res.total_relax_steps:
-                raise AssertionError(
-                    f"{tag}: {c['halo_exchange_cuda']} exchange "
-                    f"launches for {res.total_relax_steps} sweeps on one "
-                    "card (want one per sweep)")
+                                     f"relaxation ({relaxations.calls} "
+                                     f"relaxations): {counts}")
+        elif c["planes_relax_peer_cuda"] != relaxations.calls * rm.n_cards \
+                or c["planes_relax_cluster_cuda"]:
+            # one peer launch per card per relaxation, no per-sweep launch
+            raise AssertionError(f"{tag}: the sharded route did not run as "
+                                 "one peer launch per card per relaxation "
+                                 f"({relaxations.calls} relaxations on "
+                                 f"{rm.n_cards} card(s)): {counts}")
         if c["remote_slab_permute_cuda"]:
             raise AssertionError(f"{tag}: the route shifted slabs into "
                                  "buffers instead of exchanging in place")
@@ -1424,7 +1457,6 @@ def phase_profile(warm, tag):
     device time per launch and their share; the busy share is device
     time over warm_route's untraced seconds."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run, route_s = warm
@@ -1433,13 +1465,7 @@ def phase_profile(warm, tag):
         run()
         torch.cuda.synchronize()
     wall_us = (time.time() - t0) * 1e6
-    kern = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = (getattr(e, "self_device_time_total", 0)
-              or getattr(e, "device_time_total", 0))
-        kern.append((us, e.count, e.key))
+    kern = [(us, n, k) for k, (us, n) in device_kernels(prof).items()]
     busy = sum(k[0] for k in kern)
     if busy <= 0:
         say("profile", "not measured: the profiler reported no device "
@@ -1564,7 +1590,7 @@ def _check_captured(rows, name, tag, spy, cfg):
         torch.cuda.synchronize()
         if pk.planes_relax_cluster_cuda.launches != n0 + 1:
             raise AssertionError(f"{tag}: not one cluster launch")
-        ref = TS.planes_relax_sharded_sweeps(*args, plain=True)
+        ref = TS.planes_relax_sharded_plain(*args)
         wrapper = pk.planes_relax_cluster_cuda
         cap = TS.sweep_cap(args[5], mesh.n_shards)
         modes = [functools.partial(wrapper, *args[:5], cap, mesh.n_shards,
@@ -1729,7 +1755,7 @@ def phase_bf16(bench, scale, bench_f32, warm):
     and flow.run_route): the bench at dtype_guard="off" and at the
     default "window" (the f32 route, its bf16 shadow windows counted),
     the bench at mesh_shards=2 with both shards on card 0 under lag 1
-    (the cluster kernel) and lag 2 (the step and halo kernels) at "off",
+    (the cluster kernel) and lag 2 (the peer kernel) at "off",
     the scale route at "off" (legal) and the bench timing route at
     "off"; then bench and scale route seconds at f32, "off" and
     "window" on warm Routers, in turns.  Returns the routes' launch
@@ -1824,7 +1850,6 @@ def phase_sta(cases):
     shapes on its final delays; times the calls the route made, for its
     device time per route."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from parallel_eda_tpu_torch.timing.sta import sta_crit
@@ -1844,12 +1869,9 @@ def phase_sta(cases):
             for _ in range(reps):
                 run()
             torch.cuda.synchronize()
-        us = n = 0
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) == DeviceType.CUDA:
-                us += (getattr(e, "self_device_time_total", 0)
-                       or getattr(e, "device_time_total", 0))
-                n += e.count
+        kern = device_kernels(prof).values()
+        us = sum(u for u, _ in kern)
+        n = sum(c for _, c in kern)
         if not n:
             say("sta", f"{cfg}: not measured (the profiler saw no kernel)")
             continue
@@ -2765,19 +2787,15 @@ def _profiled_launches(run, keys, want):
     most) while they differ from the wrappers' counts ``want`` (a trace
     now and then drops records)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
-        got = {k: 0 for k in keys}
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) == DeviceType.CUDA:
-                for k in keys:
-                    if k in e.key:
-                        got[k] += e.count
+        kern = device_kernels(prof)
+        got = {k: sum(c for name, (_, c) in kern.items() if k in name)
+               for k in keys}
         if [got[k] for k in keys] == want:
             break
     return got
@@ -3881,8 +3899,9 @@ def _metric_values(prefix):
 
 
 def main(argv) -> int:
-    if argv:
-        print("usage: python3 chip_smoke.py", file=sys.stderr)
+    cards = argv == ["--cards"]
+    if argv and not cards:
+        print("usage: python3 chip_smoke.py [--cards]", file=sys.stderr)
         return 2
     smi = phase_card()
     import torch
@@ -3892,25 +3911,29 @@ def main(argv) -> int:
     from parallel_eda_tpu_torch.route.router import RouterOpts
 
     say("card", f"{torch.cuda.device_count()} visible card(s)")
+    if cards and torch.cuda.device_count() < 2:
+        raise AssertionError("--cards needs two or more visible cards")
     phase_build()
     launch0 = launch_us()
     t0 = time.time()
     bench = synth_flow(**BENCH_CFG)
     scale = synth_flow(**SCALE_CFG)
     say("flows", f"front ends built in {time.time() - t0:.1f}s")
-    rows = phase_kernels({"bench": bench, "scale": scale})
+    rows = {} if cards else phase_kernels({"bench": bench, "scale": scale})
     pg_bench = P.build_planes(bench.rr, "cuda")
     pg_scale = P.build_planes(scale.rr, "cuda")
     for name, phase, shapes in (
-            ("halo_exchange_cuda", phase_halo,
+            ("remote_slab_permute_cuda", phase_halo,
              [("bench", pg_bench, s) for s in (2, 3, 4)]
              + [("scale", pg_scale, 4)]),
-            ("planes_sweep_block_cuda", phase_step,
-             [("bench", bench.rr, pg_bench, s) for s in (2, 4)]
+            ("planes_relax_peer_cuda", phase_peer,
+             [("bench", bench.rr, pg_bench, s) for s in (2, 3, 4)]
              + [("scale", scale.rr, pg_scale, 4)]),
             ("planes_relax_cluster_cuda", phase_sharded,
              [("bench", bench.rr, pg_bench, (2, 3, 4)),
               ("scale", scale.rr, pg_scale, (4,))])):
+        if cards and phase is phase_peer:
+            continue                # the peer kernel on each card alone
         rows[name], rows[name + BF16] = phase(shapes)
 
     res, c_bench, _, _ = _route("bench", bench, RouterOpts(batch_size=64))
@@ -3918,7 +3941,8 @@ def main(argv) -> int:
         raise AssertionError(f"bench: expected wirelength 537 in 22 "
                              f"iterations, got {res.wirelength} in "
                              f"{res.iterations}")
-    warm = {"bench": warm_route(bench, RouterOpts(batch_size=64))}
+    warm = ({} if cards
+            else {"bench": warm_route(bench, RouterOpts(batch_size=64))})
     c_mesh, c_lag2 = [], []
     for s in (2, 4):
         # the Router's lag-1 schedule, then lag 2 for comparison, timed
@@ -3964,18 +3988,31 @@ def main(argv) -> int:
             raise AssertionError("mesh2_one_card: route differs from the "
                                  "single-device bench route")
         c_mesh.append(c)
-    warm["mesh2"] = warm_route(bench,
-                               RouterOpts(batch_size=64, mesh_shards=2))
+    if not cards:
+        warm["mesh2"] = warm_route(bench,
+                                   RouterOpts(batch_size=64, mesh_shards=2))
     t0 = time.time()
     scale = run_place_native(scale)
     say("scale", f"placed {scale.pnl.num_blocks} blocks in "
                  f"{time.time() - t0:.1f}s (native SA)")
-    scale_res, c_scale, _, _ = _route("scale", scale,
-                                      RouterOpts(batch_size=64))
-    warm["scale"] = warm_route(scale, RouterOpts(batch_size=64))
+    if not cards:
+        scale_res, c_scale, _, _ = _route("scale", scale,
+                                          RouterOpts(batch_size=64))
+        warm["scale"] = warm_route(scale, RouterOpts(batch_size=64))
     _, c, _, _ = _route("scale_mesh4", scale,
                      RouterOpts(batch_size=64, mesh_shards=4))
     c_mesh.append(c)
+    if cards:
+        # the paths that exist only across cards and what they are held
+        # against; every other phase runs on one card
+        say("cards", f"mesh routes (bench 2, bench 4, bench 2 on one "
+                     f"card, scale 4) {c_mesh} lag 2 (bench 2, bench 4) "
+                     f"{c_lag2}")
+        print(smi)
+        print(json.dumps({"ok": True, "cards": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     c_timing, sta_cases = phase_timing(bench, scale, rows, warm)
     scale_native = (f"wirelength {scale.route.wirelength}, "
                     f"{scale.route.iterations} iterations, crit path "
@@ -3995,6 +4032,14 @@ def main(argv) -> int:
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
         c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve, c_qor]
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
+    # K3 is off the route's path: the sharded relaxations move their
+    # halos inside planes_relax_peer_kernel (peer_publish/peer_install)
+    # and the cluster kernel, so its route count is 0.  The halo phase's
+    # own calls of remote_slab_permute are reported apart, as
+    # harness_launches, and K3 alone is exempt from the idle gate below
+    off_path = ("remote_slab_permute_cuda", "remote_slab_permute_cuda" + BF16)
+    harness = {k: sum(c["harness_launches"] for c in rows[k])
+               for k in off_path}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
                     f"mesh lag 2 (bench 2, bench 4) {c_lag2} timing "
@@ -4013,7 +4058,7 @@ def main(argv) -> int:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:
         raise AssertionError("K2 never launched on the scale route")
-    idle = [k for k in rows if launches[k] <= 0]
+    idle = [k for k in rows if launches[k] <= 0 and k not in off_path]
     if idle:
         raise AssertionError(f"never launched on the route phases: {idle}")
     launch1 = launch_us()
@@ -4034,6 +4079,9 @@ def main(argv) -> int:
             return c["cfg"] == "bench" and c.get("tile") is None
         if name == "planes_relax_cropped_cuda":
             return c["cfg"] == "scale" and c.get("tile") == [16, 16]
+        if name == "planes_relax_peer_cuda":
+            return (c["cfg"], c["shards"], c["impl"]) == (
+                "bench", 2, "pallas_halo")
         return c["cfg"] == "bench" and c["shards"] == 2
     kernels = []
     for name, cases in rows.items():
@@ -4044,6 +4092,8 @@ def main(argv) -> int:
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m.get("library_ms"),
+            **({"harness_launches": harness[name]} if name in harness
+               else {}),
             cases=cases))
     print(json.dumps({"kernels": kernels}))
     print(smi)

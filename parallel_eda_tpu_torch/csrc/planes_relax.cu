@@ -6,28 +6,28 @@
 //                                  (planes_pallas.py:308 / :218, call :389)
 //   planes_relax_cropped_kernel <- planes_relax_cropped_pallas /
 //                                  _crop_sweep_kernel (:477 / :417, call :571)
-// and serves the row-sharded relaxation (parallel_eda_tpu/route/
-// planes_shard.py planes_relax_sharded, its sweep at :369, where the TPU
-// runs K2's kernel once per shard per sweep and remote_slab_permute,
-// planes_pallas.py:597, between sweeps) in two forms:
-//   planes_relax_block_kernel   one sweep of each shard's column block
-//                               (planes_sweep_block_launch): pred carried
-//                               in (p0x/p0y), block geometry shared across
-//                               nets (stride 0), the change flag restricted
-//                               to the owned local x columns, so that
-//                               stats[b, 1] is net b's owned-changed flag;
-//                               the per-sweep loop across cards and under
-//                               the lag-2 schedule;
-//   planes_relax_cluster_kernel the whole lag-1 relaxation of every shard
-//                               on one card in one launch: net b is a
-//                               thread-block cluster of s CTAs, CTA r holds
-//                               shard r's column block, and the dist halo
-//                               columns move between neighbouring CTAs'
-//                               shared memory every sweep.
+// and runs the row-sharded relaxation (parallel_eda_tpu/route/
+// planes_shard.py planes_relax_sharded :268, its loops :376-417, where the
+// TPU runs K2's kernel once per shard per sweep and remote_slab_permute,
+// planes_pallas.py:597, between sweeps) whole, in one launch, in two forms:
+//   planes_relax_cluster_kernel the lag-1 schedule with every shard on one
+//                               card: net b is a thread-block cluster of s
+//                               CTAs, CTA r holds shard r's column block,
+//                               and the dist halo columns move between
+//                               neighbouring CTAs' shared memory every
+//                               sweep;
+//   planes_relax_peer_kernel    every other mesh (shards across cards, the
+//                               lag-2 schedule, the resilience ladder's
+//                               per-sweep mesh): one persistent cooperative
+//                               launch per card, a block per (shard, net
+//                               slot), the halos stored straight into the
+//                               neighbours' mailboxes (through peer
+//                               pointers over NVLink on another card) and
+//                               the fixpoint decided on the card.
 //
 // What they compute: the bounded planes relaxation of one net per thread
-// block (per cluster), to the exact fixpoint or `nsweeps` sweeps.  One
-// sweep is
+// block (per cluster, per set of partner blocks), to the exact fixpoint or
+// `nsweeps` sweeps.  One sweep is
 //   x-scans forward then backward    (lines (track, row) along x)
 //   turn into y                      (one thread per target chany cell)
 //   y-scans forward then backward    (lines (track, col) along y)
@@ -49,25 +49,57 @@
 //           coordinates.  The block first writes its net's whole output
 //           row as d0 / own id / wenter0, then relaxes the tile on top:
 //           no crop, no scatter and no per-net geometry copy outside it.
-//   BLOCK   per-shard block tensors; ids and parity from the block
-//           geometry's arrays.
 //   CLUSTER the block geometry of shard r (stacked, stride g_sx per rank;
-//           ids and parity from the padded position, as _geom_blocks
+//   PEER    ids and parity from the padded position, as _geom_blocks
 //           makes them) with the FULL flats read at padded columns
 //           r*kx .. r*kx+kx+ext
 //           (pad columns: dist and congestion INF, wenter 0, as
-//           planes_shard.shard_blocks fills them); each CTA writes its
-//           owned real columns straight into the output flats.  Per
-//           sweep: cluster barrier, dist halo columns copied from the
-//           neighbours' shared memory (map_shared_rank; INF at the edge
-//           shards), cluster barrier, one sweep, then the OR of the CTAs'
-//           owned-change flags through rank-indexed shared flags.  A net
-//           stops at its first sweep with no owned change: its later
-//           sweeps in the batch-wide loop would be identities on every
-//           returned value (owned dist unchanged, halos re-copied from
-//           unchanged columns; pred and wenter move only on a strict
-//           improvement), so per-net termination is exact and the
-//           batch's counts are the max over nets, as for FULL.
+//           planes_shard.shard_blocks fills them); each block writes its
+//           owned real columns straight into the output flats.  A net
+//           stops at its own fixpoint: its later sweeps in the batch-wide
+//           loop would be identities on every returned value (owned dist
+//           unchanged, halos re-copied from unchanged columns; pred and
+//           wenter move only on a strict improvement), so per-net
+//           termination is exact and the batch's counts are the max over
+//           nets, as for FULL.
+//     CLUSTER per sweep: cluster barrier, dist halo columns copied from
+//           the neighbours' shared memory (map_shared_rank; INF at the
+//           edge shards), cluster barrier, one sweep, then the OR of the
+//           CTAs' owned-change flags through rank-indexed shared flags.
+//           Lag 1 only: a net stops at its first sweep with no owned
+//           change.
+//     PEER  block (r, j) of a card holds shard r and walks the nets j,
+//           j+G, j+2G, ... (planes_kernels.peer_launch_plan: G blocks per
+//           shard, what the card holds at once, the same on every card).
+//           A net's s partner blocks therefore always run at the same
+//           time, and the launch is cooperative, so none waits for a block
+//           that cannot be scheduled.  After sweep i-1 (i = 0: the loaded
+//           state) a block stores generation i of its owned boundary
+//           columns (dx col kx and dy col kx for the right neighbour, dx
+//           col 1 and dy cols 1..2 for the left one: JAX planes_shard.py
+//           :336-356) into the neighbours' halo mailboxes on their cards,
+//           then publishes the word (epoch, i, owned-changed) into every
+//           card's copy of the net's flag words (fence, st.release at
+//           system scope across cards).  Before sweep i it waits
+//           (ld.acquire) until every shard's word says i: the OR of
+//           their flags decides the net, the same at every partner —
+//           lag 1 stops at the first sweep with no owned change, lag 2
+//           after two consecutive stable sweeps (a net's third sweep
+//           after two stable ones would be an identity: its owned
+//           columns and the halos it would install are those of the
+//           sweep before) — and it installs the halos of generation i
+//           (lag 1) or i-1 (lag 2: halos extracted before the sweep
+//           before; generation 0 for sweeps 0 and 1), INF at the edge
+//           shards.  The mailboxes are a ring of three generations: the
+//           lag-2 read of generation i-1 can trail a neighbour's write of
+//           generation i+1, never of i+2 (that write needs this block's
+//           flag i+1, given after the read).  Two slots of flag words
+//           suffice (a word of sweep i+2 needs every shard past sweep i).
+//           The words carry a per-call epoch, so no memset runs between
+//           calls and a late reader never takes an earlier call's word.
+//           Every spin is bounded (clock64) and traps past the bound: a
+//           lost peer is a fault, not a hang.  In the bf16 plane mode the
+//           mailboxes carry the rounded values, as the cluster's halos.
 //
 // Design (what bounds the kernel, and what the design does about it).
 // A relaxation is a chain of dependent sweeps, each a chain of four
@@ -92,12 +124,16 @@
 //     lines of a warp start in different banks;
 //   * 512-1024 threads per block; the fixpoint flag is __syncthreads_or;
 //   * the work around the sweeps stays in the launch: K2 reads and writes
-//     the full flats itself, and the sharded relaxation on one card is one
-//     cluster launch (no host loop, no per-sweep launches or host reads).
+//     the full flats itself, and the sharded relaxation is one launch per
+//     card (no host loop, no per-sweep launches, exchange launches or host
+//     reads); its halos cost one store of five columns a sweep and a
+//     spin on a few flag words, against the cluster's distributed shared
+//     memory.
 // What bounds it now (PERF.md): latency.  The two scan phases take most of
 // a sweep's cycles, the turn stencils the rest; each scan step is a few
 // dependent shared-memory round trips and a __syncwarp.  One net per block
-// fills B of 132 SMs.
+// fills B of 132 SMs; the peer kernel adds a fence and a flag round trip
+// through L2 (NVLink across cards) per sweep.
 
 // Bit-exactness with the plain PyTorch version (and the JAX package):
 //   * the scan's tree is laid out in place: up level k combines positions
@@ -130,12 +166,9 @@
 // f32 ones).  Per-net termination stays exact: a sweep whose rounded dist
 // equals its entry dist makes the same f32 improvements as the next sweep
 // would (they depend on dist alone), so later sweeps are identities on
-// dist, pred and wenter.  Global I/O: K1, K2 and the cluster kernel read
-// and write the f32 [B, ncells] flats (the bf16 values as f32: 4 bytes a
-// cell, the route's tensors, no conversion launch); the step kernel
-// (BLOCK) reads and writes bfloat16 dist, wenter and congestion blocks, 2
-// bytes a cell, so that the halo exchange between its sweeps moves 2-byte
-// elements; in its mode 0 the f32 working dist is the workspace `ws`.
+// dist, pred and wenter.  Global I/O: every kernel reads and writes the
+// f32 [B, ncells] flats (the bf16 values as f32: 4 bytes a cell, the
+// route's tensors, no conversion launch).
 //
 // K2's origins: each array is cut where lax.dynamic_slice cuts it, a
 // negative origin wrapping once by THAT array's extent before the clamp,
@@ -147,6 +180,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace cg = cooperative_groups;
 
@@ -155,27 +189,28 @@ namespace cg = cooperative_groups;
 #define MAX_DEVICES 64
 #define MAX_CLUSTER 16     // the H100's non-portable cluster size
 #define PORTABLE_CLUSTER 8
+#define MAX_SHARDS 16      // PEER: shards of a mesh (route/shard_kernels.py)
+// PEER: clock64 cycles a block waits for a partner's flag before it traps
+// (about 35 s at the H100's 1.98 GHz)
+#define SPIN_LIMIT (1LL << 36)
 
 namespace {
 
-enum Kind { FULL = 0, BLOCK = 1, TILE = 2, CLUSTER = 3 };
+enum Kind { FULL = 0, PEER = 1, TILE = 2, CLUSTER = 3 };
 
 struct Args {
-  // inputs (per-net strides in_sx / in_sy, in elements); the plane arrays
-  // (dist, congestion, wenter) are float, or bfloat16 for BLOCK in the
-  // bf16 plane mode (Net::T)
-  const void* d0x; const void* d0y;
-  const void* ccx; const void* ccy;
-  const void* w0x; const void* w0y;
+  // inputs and outputs: [B, nc] f32 flats (the x plane's cells first)
+  const float* d0x; const float* d0y;
+  const float* ccx; const float* ccy;
+  const float* w0x; const float* w0y;
   const float* crit;                 // [B]
-  // state / outputs (per-net strides st_sx / st_sy)
-  void* dx; void* dy;
+  float* dx; float* dy;
   int32_t* px; int32_t* py;
-  void* wx; void* wy;
+  float* wx; float* wy;
   int32_t* stats;                    // [B, 2]
   int32_t* total;                    // [2]: max over nets (null: none)
-  // geometry (per-net, or per-rank for CLUSTER, strides g_sx / g_sy /
-  // g_sp; 0 = shared)
+  // geometry (per-rank for CLUSTER and PEER, strides g_sx / g_sy; 0 =
+  // shared)
   const uint8_t* brk_before_x; const uint8_t* brk_after_x;
   const uint8_t* first_x; const uint8_t* last_x;
   const uint8_t* brk_before_y; const uint8_t* brk_after_y;
@@ -183,23 +218,37 @@ struct Args {
   const float* delay_x; const float* delay_y;
   const float* delay_y_rot0; const float* delay_y_rot1;
   const uint8_t* inc_track;          // [W] (directional only)
-  const int32_t* idxx; const int32_t* idxy;   // BLOCK
-  const int32_t* base_par;                    // BLOCK [X+1, Y+1]
-  const int32_t* p0x; const int32_t* p0y;     // pred in (null: own ids)
   const int32_t* ox; const int32_t* oy;       // TILE: origins [B]
-  float* ws;            // mode 0, CLUSTER and bf16 BLOCK: f32 dist blocks
+  float* ws;            // mode 0 of CLUSTER and PEER: f32 dist blocks
+  int B;                             // nets
   int W, X, Y;                       // x plane [W, X, Y+1]; y plane [W, X+1, Y]
   int stride_x;                      // global NY+1
-  int NX;                            // global NX (TILE, CLUSTER)
+  int NX;                            // global NX (TILE, CLUSTER, PEER)
   int ncx;                           // global chanx cells (TILE ids)
-  int nc;                            // global cells per net (TILE row)
+  int nc;                            // global cells per net (a flats row)
   int directional;
   int nsweeps;
-  long long in_sx, in_sy, st_sx, st_sy, g_sx, g_sy, g_sp;
-  int own_lo, own_hi;                // local x columns the change flag covers
+  long long g_sx, g_sy;
   int cost_smem;                     // scan costs precomputed in shared
   int ox_hi, oy_hi;                  // TILE: largest origin
-  int shards, kx;                    // CLUSTER: CTAs per net, owned columns
+  int shards, kx;                    // CLUSTER, PEER: shards, owned columns
+};
+
+// PEER: where a net's partner blocks meet (planes_relax_peer_launch)
+struct Peer {
+  // rank r's halo mailboxes, on rank r's card: [B][3][halo_len] floats,
+  // a ring of three generations per net
+  float* mbox[MAX_SHARDS];
+  // every card's copy of the flag words [B][shards][2] (one per sweep
+  // parity): (epoch << 32) | (generation << 1) | owned-changed
+  unsigned long long* flags[MAX_SHARDS];
+  unsigned long long* mine;          // this card's copy
+  int ranks[MAX_SHARDS];             // the shards this card holds
+  int G;                             // blocks per shard (net slots)
+  int ncopies;                       // cards of the mesh (flag copies)
+  int lag2;                          // the lag-2 schedule
+  int sys;                           // the mesh spans cards: system scope
+  unsigned epoch;                    // this call's tag, from 1
 };
 
 __device__ __forceinline__ float fadd(float a, float b) {
@@ -211,20 +260,8 @@ __device__ __forceinline__ float rnd16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// plane storage: float, or bfloat16 (BLOCK in the bf16 plane mode)
-template <bool H> struct Plane { using T = float; };
-template <> struct Plane<true> { using T = __nv_bfloat16; };
-
-// read-only loads and stores of a plane element, as f32
+// a read-only load of an input plane element
 __device__ __forceinline__ float ldp(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldp(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(
-      __ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-__device__ __forceinline__ void stp(float* p, float v) { *p = v; }
-__device__ __forceinline__ void stp(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // K2: an origin placed as lax.dynamic_slice places a start into an axis of
 // `extent` cells: a negative one wraps once, then it is clamped
@@ -291,45 +328,40 @@ __host__ __device__ __forceinline__ int scratch_per_warp(int X, int Y) {
 }
 
 // Per-net views of what a sweep reads besides dist: the geometry (flags,
-// switch delays, parity, track directions) and the congestion, in global
-// memory, offset to the net's own rows.
+// switch delays, track directions) and the congestion, in global memory,
+// offset to the net's own rows.
 struct Geo {
   const uint8_t *bbx, *bax, *fsx, *lsx;      // x plane: brk before / after,
   const uint8_t *bby, *bay, *fsy, *lsy;      //   first, last; y plane
   const float *dlx, *dly, *rot0, *rot1;      // delays
-  const int32_t* par;                        // BLOCK: [X+1, Y+1]
   const uint8_t* inc;                        // [W] (directional only)
 };
 
 // One net's addressing.  A cell is named by its local coordinates (t, x,
 // y) on the net's own planes (the canvas, the tile or the shard's block);
-// lx / ly index the state in shared memory (or the block), ix / iy the
-// net's input and output rows, gx / gy the geometry.  Q: the bf16 plane
-// mode; T: the plane arrays' element type.
+// lx / ly index the state in shared memory (or the workspace), ix / iy
+// the net's input and output rows, gx / gy the geometry.  Q: the bf16
+// plane mode.
 template <int K, bool SMEM, bool Q>
 struct Net {
-  using T = typename Plane<K == BLOCK && Q>::T;
-  // the inputs and outputs are the full [B, ncells] flats
-  static constexpr bool FLATS = K == TILE || K == CLUSTER;
+  // the block is one shard of the net (its column block)
+  static constexpr bool SHARD = K == CLUSTER || K == PEER;
   const Args& a;
   int b, r;
   float crit;
-  long long ix0, iy0, sx0, sy0, gx0, gy0;
+  long long row, gx0, gy0;
   // origins of the chanx planes (ox, oy) and of the chany planes (ox2,
-  // oy2): TILE the placed origins; CLUSTER ox = ox2 = r*kx - 1, oy = 0
+  // oy2): TILE the placed origins; SHARD ox = ox2 = r*kx - 1, oy = 0
   int ox, oy, ox2, oy2;
   // the net's rows of the plane arrays: inputs, congestion, outputs
-  const T *d0x, *d0y, *w0x, *w0y, *ccxp, *ccyp;
-  T *odx, *ody, *owx, *owy;
+  const float *d0x, *d0y, *w0x, *w0y, *ccxp, *ccyp;
+  float *odx, *ody, *owx, *owy;
   Geo g;
 
   __device__ Net(const Args& a_, int b_, int r_) : a(a_), b(b_), r(r_) {
     crit = a.crit[b];
-    ix0 = (long long)b * a.in_sx;
-    iy0 = (long long)b * a.in_sy;
-    sx0 = (long long)b * a.st_sx;
-    sy0 = (long long)b * a.st_sy;
-    const long long gi = K == CLUSTER ? r : b;
+    row = (long long)b * a.nc;
+    const long long gi = SHARD ? r : b;
     gx0 = gi * a.g_sx;
     gy0 = gi * a.g_sy;
     ox = oy = 0;
@@ -339,25 +371,24 @@ struct Net {
       ox2 = place_origin(o, a.NX + 1, a.ox_hi);
       oy = place_origin(p, a.stride_x, a.oy_hi);
       oy2 = place_origin(p, a.stride_x - 1, a.oy_hi);
-    } else if (K == CLUSTER) {
+    } else if (SHARD) {
       ox = r * a.kx - 1;           // local column 0 is padded column r*kx
     }
     if (K != TILE) {
       ox2 = ox;
       oy2 = oy;
     }
-    d0x = (const T*)a.d0x + ix0; d0y = (const T*)a.d0y + iy0;
-    w0x = (const T*)a.w0x + ix0; w0y = (const T*)a.w0y + iy0;
-    ccxp = (const T*)a.ccx + ix0; ccyp = (const T*)a.ccy + iy0;
-    odx = (T*)a.dx + sx0; ody = (T*)a.dy + sy0;
-    owx = (T*)a.wx + sx0; owy = (T*)a.wy + sy0;
+    d0x = a.d0x + row; d0y = a.d0y + row;
+    w0x = a.w0x + row; w0y = a.w0y + row;
+    ccxp = a.ccx + row; ccyp = a.ccy + row;
+    odx = a.dx + row; ody = a.dy + row;
+    owx = a.wx + row; owy = a.wy + row;
     g.bbx = a.brk_before_x + gx0; g.bax = a.brk_after_x + gx0;
     g.fsx = a.first_x + gx0; g.lsx = a.last_x + gx0;
     g.bby = a.brk_before_y + gy0; g.bay = a.brk_after_y + gy0;
     g.fsy = a.first_y + gy0; g.lsy = a.last_y + gy0;
     g.dlx = a.delay_x + gx0; g.dly = a.delay_y + gy0;
     g.rot0 = a.delay_y_rot0 + gy0; g.rot1 = a.delay_y_rot1 + gy0;
-    g.par = K == BLOCK ? a.base_par + gi * a.g_sp : nullptr;
     g.inc = a.inc_track;
   }
   // a read of g, through the read-only path
@@ -374,11 +405,13 @@ struct Net {
   }
   // index in the plane of the net's input / output rows
   __device__ int ix(int t, int x, int y) const {
-    return FLATS ? (t * a.NX + ox + x) * a.stride_x + oy + y : lx(t, x, y);
+    return K != FULL ? (t * a.NX + ox + x) * a.stride_x + oy + y
+                     : lx(t, x, y);
   }
   __device__ int iy(int t, int x, int y) const {
-    return FLATS ? (t * (a.NX + 1) + ox2 + x) * (a.stride_x - 1) + oy2 + y
-                 : ly(t, x, y);
+    return K != FULL
+               ? (t * (a.NX + 1) + ox2 + x) * (a.stride_x - 1) + oy2 + y
+               : ly(t, x, y);
   }
   // index in the geometry arrays
   __device__ int gx(int t, int x, int y) const {
@@ -387,33 +420,28 @@ struct Net {
   __device__ int gy(int t, int x, int y) const {
     return K == TILE ? iy(t, x, y) : ly(t, x, y);
   }
-  // CLUSTER: local column x is a real canvas column, not padding
+  // SHARD: local column x is a real canvas column, not padding
   __device__ bool realx(int x) const {
-    return K != CLUSTER || (unsigned)(ox + x) < (unsigned)a.NX;
+    return !SHARD || (unsigned)(ox + x) < (unsigned)a.NX;
   }
   __device__ bool realy(int x) const {
-    return K != CLUSTER || (unsigned)(ox + x) <= (unsigned)a.NX;
+    return !SHARD || (unsigned)(ox + x) <= (unsigned)a.NX;
   }
-  // global flat cell ids (pred payload); CLUSTER clamps a pad column's
+  // global flat cell ids (pred payload); SHARD clamps a pad column's
   // into the canvas, as planes_shard._geom_blocks does (a pad cell stays
   // INF, so its id never surfaces)
   __device__ int idx(int t, int x, int y) const {
-    if (K == FULL || K == TILE) return ix(t, x, y);
-    if (K == CLUSTER)
-      return (t * a.NX + min(max(ox + x, 0), a.NX - 1)) * a.stride_x + y;
-    return __ldg(a.idxx + gx0 + lx(t, x, y));
+    if (!SHARD) return ix(t, x, y);
+    return (t * a.NX + min(max(ox + x, 0), a.NX - 1)) * a.stride_x + y;
   }
   __device__ int idy(int t, int x, int y) const {
-    if (K == FULL || K == TILE) return a.ncx + iy(t, x, y);
-    if (K == CLUSTER)
-      return a.ncx + (t * (a.NX + 1) + min(max(ox + x, 0), a.NX)) *
-                         (a.stride_x - 1) + y;
-    return __ldg(a.idxy + gy0 + ly(t, x, y));
+    if (!SHARD) return a.ncx + iy(t, x, y);
+    return a.ncx + (t * (a.NX + 1) + min(max(ox + x, 0), a.NX)) *
+                       (a.stride_x - 1) + y;
   }
   __device__ int par(int x, int y) const {
     if (K == FULL) return (x + y) & 1;
-    if (K == TILE || K == CLUSTER) return (ox2 + x + oy + y) & 1;
-    return rd(g.par + x * (a.Y + 1) + y);
+    return (ox2 + x + oy + y) & 1;
   }
   // where a cell's dist lives (local index l): TILE without shared state
   // relaxes in the output flats themselves
@@ -430,33 +458,32 @@ struct Net {
     return realy(x) ? q(ldp(ccyp + iy(t, x, y))) : __int_as_float(0x7f800000);
   }
   __device__ bool inc(int t) const { return rd(g.inc + t) != 0; }
-  __device__ bool own(int x) const { return x >= a.own_lo && x < a.own_hi; }
+  // the local x columns the change flag covers: SHARD the owned 1..kx
+  __device__ bool own(int x) const {
+    return !SHARD || (x >= 1 && x <= a.kx);
+  }
   __device__ float cost_x(int t, int x, int y) const {
     return fadd(__fmul_rn(crit, rd(g.dlx + gx(t, x, y))), ccx(t, x, y));
   }
   __device__ float cost_y(int t, int x, int y) const {
     return fadd(__fmul_rn(crit, rd(g.dly + gy(t, x, y))), ccy(t, x, y));
   }
-  // the cell's pred / wenter are returned (CLUSTER: owned real columns;
+  // the cell's pred / wenter are returned (SHARD: owned real columns;
   // no other cell's payload is ever read)
-  __device__ bool keeps_x(int x) const {
-    return K != CLUSTER || (own(x) && realx(x));
-  }
-  __device__ bool keeps_y(int x) const {
-    return K != CLUSTER || (own(x) && realy(x));
-  }
+  __device__ bool keeps_x(int x) const { return own(x) && realx(x); }
+  __device__ bool keeps_y(int x) const { return own(x) && realy(x); }
   __device__ void put_x(int t, int x, int y, int p, float w) const {
     if (keeps_x(x)) {
       const int i = ix(t, x, y);
-      a.px[sx0 + i] = p;
-      stp(owx + i, q(w));
+      a.px[row + i] = p;
+      owx[i] = q(w);
     }
   }
   __device__ void put_y(int t, int x, int y, int p, float w) const {
     if (keeps_y(x)) {
       const int i = iy(t, x, y);
-      a.py[sy0 + i] = p;
-      stp(owy + i, q(w));
+      a.py[row + i] = p;
+      owy[i] = q(w);
     }
   }
   // whether an improving write old -> v changes the sweep's result at a
@@ -780,28 +807,168 @@ __device__ void round_dy(const Net<K, SMEM, Q>& n, const Args& a,
   }
 }
 
+// One sweep's four phases over dist (dx, dy); cx / cy the scan costs in
+// shared memory (null: computed).  Returns "an owned cell improved" for
+// this thread; the caller holds the barrier after the turn into x.
+template <int K, bool SMEM, bool Q>
+__device__ bool sweep(const Net<K, SMEM, Q>& n, const Args& a,
+                      const Walk& walk_y, const Walk& walk_x, float* dx,
+                      float* dy, const float* cx, const float* cy,
+                      float* scr) {
+  bool mine = scan_phase<K, SMEM, Q, true>(n, a, dx, cx, scr);
+  __syncthreads();
+  mine |= turn_into_y<K, SMEM, Q>(n, a, walk_y, dx, dy);
+  __syncthreads();
+  mine |= scan_phase<K, SMEM, Q, false>(n, a, dy, cy, scr);
+  __syncthreads();
+  mine |= turn_into_x<K, SMEM, Q>(n, a, walk_x, dy, dx);
+  return mine;
+}
+
+// PEER: the flag words, read with acquire and written with release at
+// system scope across cards (GPU scope when the mesh is one card)
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p, bool sys) {
+  unsigned long long v;
+  if (sys)
+    asm volatile("ld.acquire.sys.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+  else
+    asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v, bool sys) {
+  if (sys)
+    asm volatile("st.release.sys.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+  else
+    asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
+}
+
+// PEER: floats of one net's halo mailbox generation: [left dx column |
+// left dy column | right dx column | right dy columns 1, 2], each column
+// [W, Y+1] (dx) or [W, Y] (dy)
+__device__ __forceinline__ long long halo_len(const Args& a) {
+  return 2LL * a.W * (a.Y + 1) + 3LL * a.W * a.Y;
+}
+
+// PEER: store generation `gen` of this block's owned boundary columns
+// into its neighbours' mailboxes (the right one's left part: dx and dy
+// column kx; the left one's right part: dx column 1, dy columns 1..2),
+// then publish (epoch, gen, changed) into every card's flag words.
+__device__ void peer_publish(const Args& a, const Peer& p, const float* dx,
+                             const float* dy, int b, int r, int gen,
+                             bool changed) {
+  const int W = a.W, X = a.X, Y = a.Y, kx = a.kx;
+  const int nx = W * (Y + 1), ny = W * Y;
+  const long long slot = ((long long)b * 3 + gen % 3) * halo_len(a);
+  float* L = r + 1 < a.shards ? p.mbox[r + 1] + slot : nullptr;
+  float* R = r > 0 ? p.mbox[r - 1] + slot + nx + ny : nullptr;
+  for (int k = threadIdx.x; k < 2 * nx + 3 * ny; k += blockDim.x) {
+    if (k < nx + ny) {
+      if (!L) continue;
+      if (k < nx) {
+        const int t = k / (Y + 1), y = k - t * (Y + 1);
+        L[k] = dx[(t * X + kx) * (Y + 1) + y];
+      } else {
+        const int q = k - nx, t = q / Y, y = q - t * Y;
+        L[k] = dy[(t * (X + 1) + kx) * Y + y];
+      }
+    } else {
+      if (!R) continue;
+      const int q = k - nx - ny;
+      if (q < nx) {
+        const int t = q / (Y + 1), y = q - t * (Y + 1);
+        R[q] = dx[(t * X + 1) * (Y + 1) + y];
+      } else {
+        const int q2 = q - nx, j = q2 / ny, c = q2 - j * ny;
+        const int t = c / Y, y = c - t * Y;
+        R[q] = dy[(t * (X + 1) + 1 + j) * Y + y];
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (p.sys)
+      __threadfence_system();
+    else
+      __threadfence();
+    const unsigned long long w = ((unsigned long long)p.epoch << 32) |
+                                 ((unsigned long long)gen << 1) |
+                                 (changed ? 1ULL : 0ULL);
+    const long long at = ((long long)b * a.shards + r) * 2 + (gen & 1);
+    for (int c = 0; c < p.ncopies; ++c) st_release(p.flags[c] + at, w, p.sys);
+  }
+}
+
+// PEER: wait until every shard of net b has published generation `gen`;
+// returns the OR of their owned-changed flags (of sweep gen - 1), the
+// same at every partner.  Thread k < shards spins on shard k's word.
+__device__ bool peer_wait(const Args& a, const Peer& p, int b, int gen) {
+  bool ch = false;
+  if (threadIdx.x < a.shards) {
+    const unsigned long long* w =
+        p.mine + ((long long)b * a.shards + threadIdx.x) * 2 + (gen & 1);
+    const unsigned long long want =
+        ((unsigned long long)p.epoch << 31) | (unsigned long long)gen;
+    const long long t0 = clock64();
+    unsigned long long v;
+    while (((v = ld_acquire(w, p.sys)) >> 1) != want)
+      if (clock64() - t0 > SPIN_LIMIT) __trap();
+    ch = (v & 1) != 0;
+  }
+  return __syncthreads_or(ch) != 0;
+}
+
+// PEER: write this block's dist halo columns from its mailbox generation
+// `gen` (dx col 0, dy col 0 from the left neighbour; dx col kx+1, dy cols
+// kx+1..kx+2 from the right one), INF at the edge shards.  The mailbox
+// was written by other blocks, other cards: read through L2.
+__device__ void peer_install(const Args& a, const Peer& p, float* dx,
+                             float* dy, int b, int r, int gen) {
+  const float INF = __int_as_float(0x7f800000);
+  const int W = a.W, X = a.X, Y = a.Y, kx = a.kx;
+  const int nx = W * (Y + 1), ny = W * Y;
+  const float* M = p.mbox[r] + ((long long)b * 3 + gen % 3) * halo_len(a);
+  const bool left = r > 0, right = r + 1 < a.shards;
+  for (int k = threadIdx.x; k < 2 * nx + 3 * ny; k += blockDim.x) {
+    if (k < nx) {
+      const int t = k / (Y + 1), y = k - t * (Y + 1);
+      dx[(t * X) * (Y + 1) + y] = left ? __ldcg(M + k) : INF;
+    } else if (k < nx + ny) {
+      const int q = k - nx, t = q / Y, y = q - t * Y;
+      dy[(t * (X + 1)) * Y + y] = left ? __ldcg(M + k) : INF;
+    } else if (k < 2 * nx + ny) {
+      const int q = k - nx - ny, t = q / (Y + 1), y = q - t * (Y + 1);
+      dx[(t * X + kx + 1) * (Y + 1) + y] = right ? __ldcg(M + k) : INF;
+    } else {
+      const int q = k - 2 * nx - ny, j = q / ny, c = q - j * ny;
+      const int t = c / Y, y = c - t * Y;
+      dy[(t * (X + 1) + kx + 1 + j) * Y + y] = right ? __ldcg(M + k) : INF;
+    }
+  }
+}
+
 // Shared-memory modes: 0 all state in global memory (only the scan
 // scratch in shared); 1 dist in shared; 2 dist and scan costs.  SMEM =
 // mode >= 1; a.cost_smem = mode == 2.  Layout: floats [dx | dy | cost_x |
 // cost_y | scratch], then (CLUSTER) two ints of owned-change flags.  In
-// mode 0 the f32 working dist is the output (FULL, f32 BLOCK; TILE: the
-// output flats themselves) or the workspace ws (CLUSTER, bf16 BLOCK,
-// whose output is bfloat16).
+// mode 0 the f32 working dist is the output (FULL; TILE: the output
+// flats themselves) or the block's workspace in ws (CLUSTER, PEER).
+// Net b, shard r; pp: PEER's meeting place (null for the other kinds).
 template <int K, bool SMEM, bool Q>
-__device__ void relax_net(const Args& a) {
+__device__ void relax_net(const Args& a, int b, int r, const Peer* pp) {
   extern __shared__ float smem[];
   const float INF = __int_as_float(0x7f800000);
+  constexpr bool SHARD = Net<K, SMEM, Q>::SHARD;
   const int tid = threadIdx.x, nth = blockDim.x;
-  int b = blockIdx.x, r = 0;
-  if (K == CLUSTER) {
-    b = blockIdx.x / a.shards;
-    r = blockIdx.x - b * a.shards;
-  }
   const Net<K, SMEM, Q> n(a, b, r);
   const int W = a.W, X = a.X, Y = a.Y;
   const int nxc = W * X * (Y + 1), nyc = W * (X + 1) * Y;
-  // the output planes are bfloat16 (bf16 BLOCK) and the working dist f32
-  constexpr bool WS16 = K == BLOCK && Q;
   float* f = smem;
   float *dx = nullptr, *dy = nullptr, *cx = nullptr, *cy = nullptr;
   if (SMEM) {
@@ -811,22 +978,24 @@ __device__ void relax_net(const Args& a) {
       cx = f; f += nxc;
       cy = f; f += nyc;
     }
-  } else if (K == CLUSTER || WS16) {
+  } else if (SHARD) {
     dx = a.ws + (long long)blockIdx.x * (nxc + nyc);
     dy = dx + nxc;
   } else {
-    dx = (float*)a.dx + n.sx0;
-    dy = (float*)a.dy + n.sy0;
+    dx = a.dx + n.row;
+    dy = a.dy + n.row;
   }
   float* scr = f;
   int* flag = (int*)(scr + (nth >> 5) * scratch_per_warp(X, Y));
 
+  if constexpr (K == PEER)
+    __syncthreads();                 // the block's previous net is out
   if constexpr (K == TILE) {
     // the net's whole output row: d0, the cell's own id, wenter0 (as
     // given, in either plane mode: cells outside the tile are returned
     // unchanged); the tile is relaxed on top of it.  Four cells per
     // thread per round, loads first, so the row costs a quarter of the
-    // load latencies.  TILE's input and output rows share one stride.
+    // load latencies.
     for (int l0 = tid; l0 < a.nc; l0 += 4 * nth) {
       float d[4], w[4];
 #pragma unroll
@@ -842,7 +1011,7 @@ __device__ void relax_net(const Args& a) {
         const int l = l0 + k * nth;
         if (l < a.nc) {
           n.odx[l] = d[k];
-          a.px[n.sx0 + l] = l;
+          a.px[n.row + l] = l;
           n.owx[l] = w[k];
         }
       }
@@ -858,14 +1027,14 @@ __device__ void relax_net(const Args& a) {
         dx[l] = n.realx(x) ? n.q(ldp(n.d0x + i)) : INF;
       else if (Q)
         dx[i] = n.q(ldp(n.d0x + i));   // TILE mode 0: the output row
-      if (K == FULL || K == BLOCK) {
-        stp(n.owx + l, n.q(ldp(n.w0x + l)));
-        a.px[n.sx0 + l] = a.p0x ? a.p0x[n.ix0 + l] : n.idx(t, x, y);
-      } else if (K == CLUSTER && n.keeps_x(x)) {
-        stp(n.owx + i, n.q(ldp(n.w0x + i)));
-        a.px[n.sx0 + i] = n.idx(t, x, y);
+      if (K == FULL) {
+        n.owx[l] = n.q(ldp(n.w0x + l));
+        a.px[n.row + l] = n.idx(t, x, y);
+      } else if (SHARD && n.keeps_x(x)) {
+        n.owx[i] = n.q(ldp(n.w0x + i));
+        a.px[n.row + i] = n.idx(t, x, y);
       } else if (K == TILE && Q) {
-        stp(n.owx + i, n.q(ldp(n.w0x + i)));
+        n.owx[i] = n.q(ldp(n.w0x + i));
       }
       if (cx) cx[l] = n.cost_x(t, x, y);
       walk_x.next(X, Y + 1, t, x, y);
@@ -879,14 +1048,14 @@ __device__ void relax_net(const Args& a) {
         dy[l] = n.realy(x) ? n.q(ldp(n.d0y + i)) : INF;
       else if (Q)
         dy[i] = n.q(ldp(n.d0y + i));
-      if (K == FULL || K == BLOCK) {
-        stp(n.owy + l, n.q(ldp(n.w0y + l)));
-        a.py[n.sy0 + l] = a.p0y ? a.p0y[n.iy0 + l] : n.idy(t, x, y);
-      } else if (K == CLUSTER && n.keeps_y(x)) {
-        stp(n.owy + i, n.q(ldp(n.w0y + i)));
-        a.py[n.sy0 + i] = n.idy(t, x, y);
+      if (K == FULL) {
+        n.owy[l] = n.q(ldp(n.w0y + l));
+        a.py[n.row + l] = n.idy(t, x, y);
+      } else if (SHARD && n.keeps_y(x)) {
+        n.owy[i] = n.q(ldp(n.w0y + i));
+        a.py[n.row + i] = n.idy(t, x, y);
       } else if (K == TILE && Q) {
-        stp(n.owy + i, n.q(ldp(n.w0y + i)));
+        n.owy[i] = n.q(ldp(n.w0y + i));
       }
       if (cy) cy[l] = n.cost_y(t, x, y);
       walk_y.next(X + 1, Y, t, x, y);
@@ -897,55 +1066,78 @@ __device__ void relax_net(const Args& a) {
   else
     __syncthreads();
 
-  int i = 0;
+  int i = 0, streak = 0;
   bool go = true;
-  while (go && i < a.nsweeps) {
-    if constexpr (K == CLUSTER) {
-      halo_copy<SMEM>(a, dx, dy, r, (long long)nxc + nyc);
-      cg::this_cluster().sync();     // halos in before any owned write
+  if constexpr (K == PEER) {
+    const Peer& p = *pp;
+    peer_publish(a, p, dx, dy, b, r, 0, false);
+    for (;;) {
+      // every shard's generation i is out, with its sweep i-1's flag
+      const bool any = peer_wait(a, p, b, i);
+      if (i > 0) {
+        if (p.lag2) {
+          streak = any ? 0 : streak + 1;
+          go = streak < 2;
+        } else {
+          go = any;
+        }
+      }
+      if (!go || i >= a.nsweeps) break;
+      peer_install(a, p, dx, dy, b, r, p.lag2 && i > 0 ? i - 1 : i);
+      __syncthreads();
+      const bool mine = sweep(n, a, walk_y, walk_x, dx, dy, cx, cy, scr);
+      const bool ch = __syncthreads_or(mine) != 0;
+      if (Q) {
+        round_dy(n, a, walk_y, dy);
+        __syncthreads();             // the rounded dy before its export
+      }
+      ++i;
+      peer_publish(a, p, dx, dy, b, r, i, ch);
     }
-    bool mine = scan_phase<K, SMEM, Q, true>(n, a, dx, cx, scr);
-    __syncthreads();
-    mine |= turn_into_y<K, SMEM, Q>(n, a, walk_y, dx, dy);
-    __syncthreads();
-    mine |= scan_phase<K, SMEM, Q, false>(n, a, dy, cy, scr);
-    __syncthreads();
-    mine |= turn_into_x<K, SMEM, Q>(n, a, walk_x, dy, dx);
-    if constexpr (K == CLUSTER) {
-      // slot i & 1 is rewritten two sweeps later, after every CTA has
-      // passed the next halo barrier, so no CTA can still be reading it;
-      // dy is rounded before the barrier after which the neighbours read
-      // its halo columns
-      const int any = __syncthreads_or(mine);
-      if (Q) round_dy(n, a, walk_y, dy);
-      if (tid == 0) flag[i & 1] = any;
-      cg::this_cluster().sync();
-      cg::cluster_group cl = cg::this_cluster();
-      go = __syncthreads_or(tid < a.shards &&
-                            *cl.map_shared_rank(flag + (i & 1), tid)) != 0;
-    } else {
-      go = __syncthreads_or(mine) != 0;
-      if (Q) round_dy(n, a, walk_y, dy);
+  } else {
+    while (go && i < a.nsweeps) {
+      if constexpr (K == CLUSTER) {
+        halo_copy<SMEM>(a, dx, dy, r, (long long)nxc + nyc);
+        cg::this_cluster().sync();   // halos in before any owned write
+      }
+      const bool mine = sweep(n, a, walk_y, walk_x, dx, dy, cx, cy, scr);
+      if constexpr (K == CLUSTER) {
+        // slot i & 1 is rewritten two sweeps later, after every CTA has
+        // passed the next halo barrier, so no CTA can still be reading
+        // it; dy is rounded before the barrier after which the
+        // neighbours read its halo columns
+        const int any = __syncthreads_or(mine);
+        if (Q) round_dy(n, a, walk_y, dy);
+        if (tid == 0) flag[i & 1] = any;
+        cg::this_cluster().sync();
+        cg::cluster_group cl = cg::this_cluster();
+        go = __syncthreads_or(tid < a.shards &&
+                              *cl.map_shared_rank(flag + (i & 1), tid)) != 0;
+      } else {
+        go = __syncthreads_or(mine) != 0;
+        if (Q) round_dy(n, a, walk_y, dy);
+      }
+      ++i;
     }
-    ++i;
   }
   if constexpr (K == CLUSTER)
     cg::this_cluster().sync();       // no CTA leaves while read remotely
 
-  if (SMEM || K == CLUSTER || WS16) {
+  if (SMEM || SHARD) {
     int t = walk_x.t0, x = walk_x.r0, y = walk_x.c0;
     for (int l = tid; l < nxc; l += nth) {
-      if (n.keeps_x(x)) stp(n.odx + n.ix(t, x, y), dx[l]);
+      if (n.keeps_x(x)) n.odx[n.ix(t, x, y)] = dx[l];
       walk_x.next(X, Y + 1, t, x, y);
     }
     t = walk_y.t0; x = walk_y.r0; y = walk_y.c0;
     for (int l = tid; l < nyc; l += nth) {
-      if (n.keeps_y(x)) stp(n.ody + n.iy(t, x, y), dy[l]);
+      if (n.keeps_y(x)) n.ody[n.iy(t, x, y)] = dy[l];
       walk_y.next(X + 1, Y, t, x, y);
     }
   }
   if (tid == 0 && r == 0) {
-    const int useful = i - (go ? 0 : 1) > 0 ? i - (go ? 0 : 1) : 0;
+    const int drop = K == PEER && pp->lag2 ? streak : (go ? 0 : 1);
+    const int useful = i - drop > 0 ? i - drop : 0;
     a.stats[2 * b] = i;
     a.stats[2 * b + 1] = useful;
     if (a.total) {
@@ -957,40 +1149,50 @@ __device__ void relax_net(const Args& a) {
 
 template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_full_kernel(Args a) { relax_net<FULL, SMEM, Q>(a); }
+planes_relax_full_kernel(Args a) {
+  relax_net<FULL, SMEM, Q>(a, blockIdx.x, 0, nullptr);
+}
 
 template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_block_kernel(Args a) { relax_net<BLOCK, SMEM, Q>(a); }
+planes_relax_cropped_kernel(Args a) {
+  relax_net<TILE, SMEM, Q>(a, blockIdx.x, 0, nullptr);
+}
 
 template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_cropped_kernel(Args a) { relax_net<TILE, SMEM, Q>(a); }
+planes_relax_cluster_kernel(Args a) {
+  const int b = blockIdx.x / a.shards;
+  relax_net<CLUSTER, SMEM, Q>(a, b, blockIdx.x - b * a.shards, nullptr);
+}
 
+// block k of a card: shard ranks[k / G], net slot j = k % G, the nets
+// j, j+G, j+2G, ... in order
 template <bool SMEM, bool Q>
 __global__ void __launch_bounds__(MAX_THREADS)
-planes_relax_cluster_kernel(Args a) { relax_net<CLUSTER, SMEM, Q>(a); }
+planes_relax_peer_kernel(Args a, Peer p) {
+  const int j = blockIdx.x % p.G, r = p.ranks[blockIdx.x / p.G];
+  for (int b = j; b < a.B; b += p.G) relax_net<PEER, SMEM, Q>(a, b, r, &p);
+}
 
 // the launch tables: p[NPTR] pointers, v[NINT] integers (the wrapper's
 // layout, route/planes_kernels.py)
 //   p: 0..5 d0x d0y ccx ccy w0x w0y, 6 crit, 7..12 dx dy px py wx wy,
-//      13 stats, 14..25 geometry, 26 inc_track, 27 idxx, 28 idxy,
-//      29 base_par, 30 p0x, 31 p0y, 32 total [2] (zeroed here, or 0),
-//      33 ox, 34 oy, 35 ws
+//      13 stats, 14..25 geometry, 26 inc_track, 27 total [2] (zeroed
+//      here, or 0), 28 ox, 29 oy, 30 ws
 //   v: 0 B, 1 W, 2 X, 3 Y, 4 stride_x, 5 directional, 6 nsweeps,
-//      7..10 in_sx in_sy st_sx st_sy, 11..13 g_sx g_sy g_sp, 14 threads,
-//      15 own_lo, 16 own_hi, 17 mode (-1: auto), 18 device, 19 NX,
-//      20 ncx, 21 nc, 22 ox_hi, 23 oy_hi, 24 shards, 25 kx, 26 plane
+//      7 g_sx, 8 g_sy, 9 threads, 10 mode (-1: auto), 11 device, 12 NX,
+//      13 ncx, 14 nc, 15 ox_hi, 16 oy_hi, 17 shards, 18 kx, 19 plane
 //      mode (0 f32, 1 bf16)
 Args unpack(const void* const* p, const long long* v) {
   Args a;
-  a.d0x = p[0]; a.d0y = p[1];
-  a.ccx = p[2]; a.ccy = p[3];
-  a.w0x = p[4]; a.w0y = p[5];
+  a.d0x = (const float*)p[0]; a.d0y = (const float*)p[1];
+  a.ccx = (const float*)p[2]; a.ccy = (const float*)p[3];
+  a.w0x = (const float*)p[4]; a.w0y = (const float*)p[5];
   a.crit = (const float*)p[6];
-  a.dx = (void*)p[7]; a.dy = (void*)p[8];
+  a.dx = (float*)p[7]; a.dy = (float*)p[8];
   a.px = (int32_t*)p[9]; a.py = (int32_t*)p[10];
-  a.wx = (void*)p[11]; a.wy = (void*)p[12];
+  a.wx = (float*)p[11]; a.wy = (float*)p[12];
   a.stats = (int32_t*)p[13];
   a.brk_before_x = (const uint8_t*)p[14]; a.brk_after_x = (const uint8_t*)p[15];
   a.first_x = (const uint8_t*)p[16]; a.last_x = (const uint8_t*)p[17];
@@ -999,21 +1201,17 @@ Args unpack(const void* const* p, const long long* v) {
   a.delay_x = (const float*)p[22]; a.delay_y = (const float*)p[23];
   a.delay_y_rot0 = (const float*)p[24]; a.delay_y_rot1 = (const float*)p[25];
   a.inc_track = (const uint8_t*)p[26];
-  a.idxx = (const int32_t*)p[27]; a.idxy = (const int32_t*)p[28];
-  a.base_par = (const int32_t*)p[29];
-  a.p0x = (const int32_t*)p[30]; a.p0y = (const int32_t*)p[31];
-  a.total = (int32_t*)p[32];
-  a.ox = (const int32_t*)p[33]; a.oy = (const int32_t*)p[34];
-  a.ws = (float*)p[35];
+  a.total = (int32_t*)p[27];
+  a.ox = (const int32_t*)p[28]; a.oy = (const int32_t*)p[29];
+  a.ws = (float*)p[30];
+  a.B = (int)v[0];
   a.W = (int)v[1]; a.X = (int)v[2]; a.Y = (int)v[3];
   a.stride_x = (int)v[4]; a.directional = (int)v[5]; a.nsweeps = (int)v[6];
-  a.in_sx = v[7]; a.in_sy = v[8]; a.st_sx = v[9]; a.st_sy = v[10];
-  a.g_sx = v[11]; a.g_sy = v[12]; a.g_sp = v[13];
-  a.own_lo = (int)v[15]; a.own_hi = (int)v[16];
+  a.g_sx = v[7]; a.g_sy = v[8];
   a.cost_smem = 0;
-  a.NX = (int)v[19]; a.ncx = (int)v[20]; a.nc = (int)v[21];
-  a.ox_hi = (int)v[22]; a.oy_hi = (int)v[23];
-  a.shards = (int)v[24]; a.kx = (int)v[25];
+  a.NX = (int)v[12]; a.ncx = (int)v[13]; a.nc = (int)v[14];
+  a.ox_hi = (int)v[15]; a.oy_hi = (int)v[16];
+  a.shards = (int)v[17]; a.kx = (int)v[18];
   return a;
 }
 
@@ -1030,24 +1228,24 @@ int smem_optin(int dev) {
 
 // dynamic shared bytes of a mode (relax_net's layout)
 long long smem_bytes(int kind, int mode, const long long* v) {
-  const long long W = v[1], X = v[2], Y = v[3], threads = v[14];
+  const long long W = v[1], X = v[2], Y = v[3], threads = v[9];
   const long long ncells = W * X * (Y + 1) + W * (X + 1) * Y;
   return 4 * (mode * ncells +
               threads / 32 * scratch_per_warp((int)X, (int)Y)) +
          (kind == CLUSTER ? 2 * sizeof(int) : 0);
 }
 
-// The mode the launch takes for v[17] = -1: the most shared state that
+// The mode the launch takes for v[10] = -1: the most shared state that
 // fits the card's per-block opt-in limit.
 int auto_mode(int kind, const long long* v) {
-  const long long cap = smem_optin((int)v[18]);
+  const long long cap = smem_optin((int)v[11]);
   for (int mode = 2; mode > 0; --mode)
     if (smem_bytes(kind, mode, v) <= cap) return mode;
   return 0;
 }
 
 int mode_of(int kind, const long long* v) {
-  return v[17] < 0 ? auto_mode(kind, v) : (int)v[17];
+  return v[10] < 0 ? auto_mode(kind, v) : (int)v[10];
 }
 
 #define PICK(k)                                                   \
@@ -1059,7 +1257,7 @@ const void* kernel_of(int kind, int mode, bool q) {
   const bool s = mode != 0;
   switch (kind) {
     case FULL: return PICK(planes_relax_full_kernel);
-    case BLOCK: return PICK(planes_relax_block_kernel);
+    case PEER: return PICK(planes_relax_peer_kernel);
     case TILE: return PICK(planes_relax_cropped_kernel);
     default: return PICK(planes_relax_cluster_kernel);
   }
@@ -1072,16 +1270,18 @@ const void* kernel_of(int kind, int mode, bool q) {
 // for a cluster above the portable size, the non-portable cluster size.
 cudaError_t prepare(int kind, const long long* v, int* cur, int* mode,
                     long long* bytes, const void** k) {
-  const int threads = (int)v[14], dev = (int)v[18];
+  const int threads = (int)v[9], dev = (int)v[11];
   if (v[2] > MAXL || v[3] + 1 > MAXL || v[2] < 1 || v[3] < 1)
     return cudaErrorInvalidValue;
   if (threads < 32 || threads > MAX_THREADS || threads % 32)
     return cudaErrorInvalidValue;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (kind == CLUSTER && (v[24] < 2 || v[24] > MAX_CLUSTER))
+  if (kind == CLUSTER && (v[17] < 2 || v[17] > MAX_CLUSTER))
     return cudaErrorInvalidValue;
-  if (v[26] != 0 && v[26] != 1) return cudaErrorInvalidValue;
-  const bool q = v[26] == 1;
+  if (kind == PEER && (v[17] < 2 || v[17] > MAX_SHARDS))
+    return cudaErrorInvalidValue;
+  if (v[19] != 0 && v[19] != 1) return cudaErrorInvalidValue;
+  const bool q = v[19] == 1;
   cudaError_t e = cudaGetDevice(cur);
   if (e == cudaSuccess && *cur != dev) e = cudaSetDevice(dev);
   if (e != cudaSuccess) return e;
@@ -1100,7 +1300,7 @@ cudaError_t prepare(int kind, const long long* v, int* cur, int* mode,
   }
   static bool wide[4][MAX_DEVICES] = {{false}};
   bool& wd = wide[2 * q + (*mode == 0 ? 0 : 1)][dev];
-  if (kind == CLUSTER && v[24] > PORTABLE_CLUSTER && !wd) {
+  if (kind == CLUSTER && v[17] > PORTABLE_CLUSTER && !wd) {
     e = cudaFuncSetAttribute(
         *k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
@@ -1113,12 +1313,12 @@ cudaError_t prepare(int kind, const long long* v, int* cur, int* mode,
 void cluster_config(const long long* v, long long bytes, void* stream,
                     cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3((unsigned)(v[0] * v[24]));
-  cfg->blockDim = dim3((unsigned)v[14]);
+  cfg->gridDim = dim3((unsigned)(v[0] * v[17]));
+  cfg->blockDim = dim3((unsigned)v[9]);
   cfg->dynamicSmemBytes = (size_t)bytes;
   cfg->stream = (cudaStream_t)stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = (unsigned)v[24];
+  attr->val.clusterDim.x = (unsigned)v[17];
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg->attrs = attr;
@@ -1127,7 +1327,7 @@ void cluster_config(const long long* v, long long bytes, void* stream,
 
 int launch(int kind, const void* const* p, const long long* v,
            void* stream) {
-  const int B = (int)v[0], dev = (int)v[18];
+  const int B = (int)v[0], dev = (int)v[11];
   if (B <= 0) return 0;
   int cur = dev, mode = 0;
   long long bytes = 0;
@@ -1135,8 +1335,7 @@ int launch(int kind, const void* const* p, const long long* v,
   cudaError_t e = prepare(kind, v, &cur, &mode, &bytes, &k);
   Args a = unpack(p, v);
   a.cost_smem = mode == 2;
-  const bool ws_needed = kind == CLUSTER || (kind == BLOCK && v[26] == 1);
-  if (e == cudaSuccess && ws_needed && mode == 0 && !a.ws)
+  if (e == cudaSuccess && kind == CLUSTER && mode == 0 && !a.ws)
     e = cudaErrorInvalidValue;
   if (e == cudaSuccess && kind == TILE && (!a.ox || !a.oy))
     e = cudaErrorInvalidValue;
@@ -1151,9 +1350,85 @@ int launch(int kind, const void* const* p, const long long* v,
       cluster_config(v, bytes, stream, &cfg, &attr);
       e = cudaLaunchKernelExC(&cfg, k, args);
     } else {
-      e = cudaLaunchKernel(k, dim3(B), dim3((unsigned)v[14]), args,
+      e = cudaLaunchKernel(k, dim3(B), dim3((unsigned)v[9]), args,
                            (size_t)bytes, (cudaStream_t)stream);
     }
+    if (e == cudaSuccess) e = cudaGetLastError();
+  }
+  if (cur != dev) cudaSetDevice(cur);
+  return (int)e;
+}
+
+// How many blocks of this PEER table the card holds at once (0: none, or
+// no cooperative launch), or minus the CUDA error of the query.
+int peer_fit(const long long* v) {
+  const int dev = (int)v[11];
+  int cur = dev, mode = 0, per_sm = 0, sms = 0, coop = 0;
+  long long bytes = 0;
+  const void* k = nullptr;
+  cudaError_t e = prepare(PEER, v, &cur, &mode, &bytes, &k);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k, (int)v[9], (size_t)bytes);
+  if (cur != dev) cudaSetDevice(cur);
+  if (e != cudaSuccess) return -(int)e;
+  return coop ? per_sm * sms : 0;
+}
+
+// the PEER tables beside p and v:
+//   q: 0..15 the mailboxes of ranks 0..shards-1, 16..31 the flag words'
+//      copies (one per card of the mesh), 32 this card's copy
+//   w: 0 G, 1 local shards n, 2..17 their ranks, 18 copies, 19 epoch,
+//      20 lag2, 21 system scope, 22 zero the total here before the launch
+int launch_peer(const void* const* p, const long long* v,
+                const void* const* q, const long long* w, void* stream) {
+  const int B = (int)v[0], dev = (int)v[11], s = (int)v[17];
+  const long long G = w[0], nl = w[1], nc = w[18];
+  if (B <= 0) return 0;
+  if (G < 1 || G > B || nl < 1 || nl > s || nc < 1 || nc > MAX_SHARDS ||
+      w[19] < 1 || w[19] > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  int cur = dev, mode = 0;
+  long long bytes = 0;
+  const void* k = nullptr;
+  cudaError_t e = prepare(PEER, v, &cur, &mode, &bytes, &k);
+  Args a = unpack(p, v);
+  a.cost_smem = mode == 2;
+  Peer pe;
+  memset(&pe, 0, sizeof(pe));
+  for (int r = 0; r < s && r < MAX_SHARDS; ++r) {
+    pe.mbox[r] = (float*)q[r];
+    if (!pe.mbox[r]) e = cudaErrorInvalidValue;
+  }
+  for (int c = 0; c < nc; ++c) {
+    pe.flags[c] = (unsigned long long*)q[16 + c];
+    if (!pe.flags[c]) e = cudaErrorInvalidValue;
+  }
+  pe.mine = (unsigned long long*)q[32];
+  for (int i = 0; i < nl; ++i) {
+    pe.ranks[i] = (int)w[2 + i];
+    if (pe.ranks[i] < 0 || pe.ranks[i] >= s) e = cudaErrorInvalidValue;
+  }
+  pe.G = (int)G;
+  pe.ncopies = (int)nc;
+  pe.epoch = (unsigned)w[19];
+  pe.lag2 = w[20] != 0;
+  pe.sys = w[21] != 0;
+  if (e == cudaSuccess && (!pe.mine || (mode == 0 && !a.ws)))
+    e = cudaErrorInvalidValue;
+  if (e == cudaSuccess && w[22] && a.total)
+    e = cudaMemsetAsync(a.total, 0, 2 * sizeof(int32_t),
+                        (cudaStream_t)stream);
+  if (e == cudaSuccess) {
+    void* args[] = {&a, &pe};
+    // cooperative: every block of the grid resident at once, or refused
+    e = cudaLaunchCooperativeKernel(k, dim3((unsigned)(G * nl)),
+                                    dim3((unsigned)v[9]), args,
+                                    (size_t)bytes, (cudaStream_t)stream);
     if (e == cudaSuccess) e = cudaGetLastError();
   }
   if (cur != dev) cudaSetDevice(cur);
@@ -1172,23 +1447,24 @@ extern "C" int planes_relax_cropped_launch(const void* const* p,
   return launch(TILE, p, v, stream);
 }
 
-// the one-sweep step of a shard's block: nsweeps = 1, pred in
-extern "C" int planes_sweep_block_launch(const void* const* p,
-                                         const long long* v, void* stream) {
-  if (!p[30] || !p[31] || v[6] != 1) return (int)cudaErrorInvalidValue;
-  return launch(BLOCK, p, v, stream);
-}
-
 // the whole sharded relaxation of every net, one cluster per net
 extern "C" int planes_relax_cluster_launch(const void* const* p,
                                            const long long* v, void* stream) {
   return launch(CLUSTER, p, v, stream);
 }
 
+// one card's launch of the whole sharded relaxation of every net
+extern "C" int planes_relax_peer_launch(const void* const* p,
+                                        const long long* v,
+                                        const void* const* q,
+                                        const long long* w, void* stream) {
+  return launch_peer(p, v, q, w, stream);
+}
+
 // How many clusters of this table the card can hold at once (0: it cannot
 // schedule one), or minus the CUDA error that prevented the query.
 extern "C" int planes_relax_cluster_fit(const long long* v) {
-  int cur = (int)v[18], mode = 0, n = 0;
+  int cur = (int)v[11], mode = 0, n = 0;
   long long bytes = 0;
   const void* k = nullptr;
   cudaError_t e = prepare(CLUSTER, v, &cur, &mode, &bytes, &k);
@@ -1198,14 +1474,31 @@ extern "C" int planes_relax_cluster_fit(const long long* v) {
     cluster_config(v, bytes, nullptr, &cfg, &attr);
     e = cudaOccupancyMaxActiveClusters(&n, k, &cfg);
   }
-  if (cur != (int)v[18]) cudaSetDevice(cur);
+  if (cur != (int)v[11]) cudaSetDevice(cur);
   return e == cudaSuccess ? n : -(int)e;
+}
+
+extern "C" int planes_relax_peer_fit(const long long* v) {
+  return peer_fit(v);
+}
+
+// zero a [2] int32 total on `stream` of card `device` (the peer
+// relaxation across cards, before any card's launch)
+extern "C" int planes_relax_zero_total(void* total, int device,
+                                       void* stream) {
+  int cur = device;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e == cudaSuccess && cur != device) e = cudaSetDevice(device);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(total, 0, 2 * sizeof(int32_t), (cudaStream_t)stream);
+  if (cur != device) cudaSetDevice(cur);
+  return (int)e;
 }
 
 extern "C" int planes_relax_max_line() { return MAXL; }
 
 // the shared-memory mode a launch of this kind with this table takes
-// (kind: 0 full, 1 step, 2 cropped, 3 cluster)
+// (kind: 0 full, 1 peer, 2 cropped, 3 cluster)
 extern "C" int planes_relax_mode(int kind, const long long* v) {
   return mode_of(kind, v);
 }

@@ -8,8 +8,8 @@ XLA's ``cost_analysis()`` has no counterpart on the card.  What the port
 records per variant key is what the card measures: the milliseconds of
 every kernel launch between a pair of CUDA events, per kernel (K1
 ``planes_relax_full_cuda``, K2 ``planes_relax_cropped_cuda``, the
-cluster kernel ``planes_relax_cluster_cuda``, the step
-``planes_sweep_block_cuda`` and K3 ``halo_exchange_cuda``), the number
+cluster kernel ``planes_relax_cluster_cuda`` and the peer kernel
+``planes_relax_peer_cuda``), the number
 of launches, and beside them the planner's modelled row (the
 route.kernel.* layout of route/planes_kernels.py ``kernel_layout``:
 ``bytes_per_sweep`` is modelled, the time is measured).

@@ -31,8 +31,8 @@ the port runs its own form of the same work:
   mesh:     pallas_halo -> ppermute -> single_chip.  The row-sharded
             relaxation (route/planes_shard.py): pallas_halo is the
             cluster kernel (lag 1, every shard on one card, one launch
-            a relaxation), ppermute the per-sweep loop (the step kernel
-            per shard and the halo exchange of shard_kernels.py), and
+            a relaxation), ppermute the peer kernel (one launch a
+            relaxation per card, planes_kernels.py), and
             single_chip the unsharded K1/K2 on one card, the floor a
             lost mesh member lands on (router._mesh_demote).
             pallas_halo engages only where the cluster kernel runs (a

@@ -7,37 +7,37 @@ parallel_eda_tpu/route/planes_pallas.py.
     planes_relax_cropped_cuda -> planes_relax_cropped_kernel
         replaces planes_relax_cropped_pallas / _crop_sweep_kernel
         (parallel_eda_tpu/route/planes_pallas.py:477 / :417)
-    planes_sweep_block_cuda   -> planes_relax_block_kernel, one sweep
-        the per-shard step of the row-sharded relaxation across cards and
-        under the lag-2 schedule (route/planes_shard.py; JAX
-        planes_shard.py:369); sweep_block_launcher is its form with the
-        tables built once
     planes_relax_cluster_cuda -> planes_relax_cluster_kernel
         the whole lag-1 row-sharded relaxation with every shard on one
         card: one thread-block cluster per net, one CTA per shard
+    planes_relax_peer_cuda    -> planes_relax_peer_kernel
+        the whole row-sharded relaxation on any other mesh (shards across
+        cards, the lag-2 schedule, the resilience ladder's per-sweep
+        mesh): one persistent cooperative launch per card, halos stored
+        into the neighbours' mailboxes, the fixpoint decided on the card
+        (JAX planes_shard.py planes_relax_sharded :268: K2's kernel per
+        shard per sweep, remote_slab_permute between sweeps)
 
 All are compiled from csrc/planes_relax.cu with nvcc for sm_90a into
 ``parallel_eda_tpu_torch/build/`` at first use and loaded through a
-plain C interface with ctypes.  One thread block (one cluster) relaxes
-one net for the whole bounded sweep loop, so a relaxation is one
-launch; the net's dist planes (and, where they fit beside them, its scan
-costs) live in shared memory, and its line scans run level-parallel on
-lane groups of a warp (design, exactness argument and what bounds it:
-the note at the top of the .cu file).  K1, K2 and the cluster
-relaxation read and write the [B, ncells] flats themselves and keep a
-plan per (planes graph, batch, tile or shards, card, mode): a call
-allocates its outputs, sets their pointers and makes one launch.  The
+plain C interface with ctypes.  One thread block (one cluster, one set
+of partner blocks) relaxes one net for the whole bounded sweep loop, so
+a relaxation is one launch per card; the net's dist planes (and, where
+they fit beside them, its scan costs) live in shared memory, and its
+line scans run level-parallel on lane groups of a warp (design,
+exactness argument and what bounds it: the note at the top of the .cu
+file).  Every kernel reads and writes the [B, ncells] flats itself and
+keeps a plan per (planes graph, batch, tile or shards, card, mode): a
+call allocates its outputs, sets their pointers and launches.  The
 wrappers take CUDA tensors only and raise on anything else; the CPU path
 is the plain version in planes.py / planes_shard.py.  Each wrapper
 counts its launches in ``<wrapper>.launches`` (f32 plane mode) and
 ``<wrapper>.launches_bf16`` (bf16 plane mode: ``plane_dtype="bf16"``,
 dist and wenter carried in bfloat16 between f32 sweeps), and per
 shared-memory mode in ``<wrapper>.mode_launches`` (0 global state, 1
-dist in shared memory, 2 dist and scan costs); the full, cropped and
-cluster wrappers keep the mode of their last launch in
-``<wrapper>.last_mode``.  K1, K2
-and the cluster relaxation take and return the f32 flats in both plane
-modes; the step kernel takes bfloat16 blocks in the bf16 plane mode.
+dist in shared memory, 2 dist and scan costs); each keeps the mode of
+its last launch in ``<wrapper>.last_mode``.  All take and return the
+f32 flats in both plane modes.
 
 ``kernel_mode_cap(cap)`` caps the auto mode of every launch made inside
 it (the "kernel" dimension of the resilience ladder, resil/ladder.py:
@@ -58,6 +58,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+from dataclasses import dataclass
+from types import SimpleNamespace
+from typing import Tuple
 
 import torch
 
@@ -65,12 +68,13 @@ from ..obs.devprof import get_devprof
 
 from .cuda_lib import CudaLib, Launch, check_tensor as _check
 from .planes import crop_origin_hi, plane_torch_dtype
+from .shard_kernels import MAX_SHARDS, _enable_peers
 
-OWN_ALL = (0, 2 ** 31 - 1)
 # how a launch addresses its nets (csrc/planes_relax.cu Kind)
-FULL, BLOCK, TILE, CLUSTER = 0, 1, 2, 3
-# launch table sizes (csrc/planes_relax.cu unpack)
-NPTR = 36
+FULL, PEER, TILE, CLUSTER = 0, 1, 2, 3
+# launch table sizes (csrc/planes_relax.cu unpack, launch_peer)
+NPTR, NINT = 31, 20
+NPEER_PTR, NPEER_INT = 33, 23
 
 
 def threads_for(ncells: int) -> int:
@@ -134,7 +138,7 @@ def _launch_shape(shape_x, kind: int, tile=None, shards: int = 0):
     W, NX, NYp1 = shape_x
     if kind == TILE:
         return W, int(tile[0]), int(tile[1])
-    if kind in (CLUSTER, BLOCK):
+    if kind in (CLUSTER, PEER):
         return W, max(2, -(-(NX + 2) // shards)) + 2, NYp1 - 1
     return W, NX, NYp1 - 1
 
@@ -151,35 +155,37 @@ def global_sweep_bytes_per_cell(itemsize: int) -> int:
 
 
 def kernel_layout(shape_x, shape_y, nnets: int, nsweeps: int, tile=None,
-                  shards: int = 0, per_sweep: bool = False,
+                  shards: int = 0, peer: bool = False,
                   plane_dtype: str = "f32") -> dict:
     """The route.kernel.* row of one dispatch in the port's layout:
     ``variant`` (the wrapper and the mode its launch takes, e.g.
     "planes_relax_cropped_cuda/mode2"), ``mode``, ``block_nets`` (nets
-    per thread block: 1 for K1, K2 and the step, 1 per cluster for the
-    cluster kernel), ``lane_occupancy`` (the net's canvas cells over the
-    thread-slots launched for it: threads_for threads per block, each
-    taking ceil(cells / threads) cells) and ``bytes_per_sweep`` (the
-    global-memory bytes of one sweep over ``nnets`` nets: in modes 1-2
-    the flats' one load and one store per relaxation amortised over
-    ``nsweeps``, in mode 0 and for the per-sweep step one traversal of
-    the state per sweep).  ``shape_x`` / ``shape_y``: the full canvas's
-    plane shapes (PlanesGraph.shape_x / shape_y)."""
+    per thread block: 1 for K1 and K2, 1 per cluster or set of partner
+    blocks for the sharded kernels), ``lane_occupancy`` (the net's
+    canvas cells over the thread-slots launched for it: threads_for
+    threads per block, each taking ceil(cells / threads) cells) and
+    ``bytes_per_sweep`` (the global-memory bytes of one sweep over
+    ``nnets`` nets: in modes 1-2 the flats' one load and one store per
+    relaxation amortised over ``nsweeps``, in mode 0 one traversal of
+    the state per sweep).  ``shards``: a row mesh's relaxation, the
+    cluster kernel, or with ``peer`` the peer kernel.  ``shape_x`` /
+    ``shape_y``: the full canvas's plane shapes (PlanesGraph.shape_x /
+    shape_y)."""
     from .planes import plane_itemsize
 
-    kind = (TILE if tile is not None else BLOCK if per_sweep
+    kind = (TILE if tile is not None else PEER if peer
             else CLUSTER if shards else FULL)
     W, X, Y = _launch_shape(shape_x, kind, tile, shards)
     ncanvas = (W * shape_x[1] * shape_x[2]
                + shape_y[0] * shape_y[1] * shape_y[2])
     blk = W * X * (Y + 1) + W * (X + 1) * Y
     thr = threads_for(blk)
-    slots = thr * -(-blk // thr) * (shards if kind in (CLUSTER, BLOCK)
+    slots = thr * -(-blk // thr) * (shards if kind in (CLUSTER, PEER)
                                     else 1)
     cells = blk if kind == TILE else ncanvas
     mode = auto_mode(kind, W, X, Y)
     n = max(1, int(nnets))
-    if mode == 0 or kind == BLOCK:
+    if mode == 0:
         per_sweep_bytes = (global_sweep_bytes_per_cell(
             plane_itemsize(plane_dtype)) * cells * n)
     else:
@@ -189,7 +195,7 @@ def kernel_layout(shape_x, shape_y, nnets: int, nsweeps: int, tile=None,
         per_sweep_bytes = flats * n / max(1, int(nsweeps))
     name = {FULL: "planes_relax_full_cuda", TILE: "planes_relax_cropped_cuda",
             CLUSTER: "planes_relax_cluster_cuda",
-            BLOCK: "planes_sweep_block_cuda"}[kind]
+            PEER: "planes_relax_peer_cuda"}[kind]
     return dict(variant=f"{name}/mode{mode}", mode=mode, block_nets=1,
                 lane_occupancy=round(cells / slots, 4),
                 bytes_per_sweep=int(per_sweep_bytes))
@@ -197,51 +203,52 @@ def kernel_layout(shape_x, shape_y, nnets: int, nsweeps: int, tile=None,
 
 def _setup(lib) -> None:
     for fn in (lib.planes_relax_full_launch, lib.planes_relax_cropped_launch,
-               lib.planes_sweep_block_launch,
                lib.planes_relax_cluster_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.planes_relax_peer_launch.argtypes = [ctypes.c_void_p] * 5
+    lib.planes_relax_peer_launch.restype = ctypes.c_int
     lib.planes_relax_max_line.restype = ctypes.c_int
     lib.planes_relax_mode.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.planes_relax_mode.restype = ctypes.c_int
-    lib.planes_relax_cluster_fit.argtypes = [ctypes.c_void_p]
-    lib.planes_relax_cluster_fit.restype = ctypes.c_int
+    for fn in (lib.planes_relax_cluster_fit, lib.planes_relax_peer_fit):
+        fn.argtypes = [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.planes_relax_zero_total.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_void_p]
+    lib.planes_relax_zero_total.restype = ctypes.c_int
 
 
 LIB = CudaLib("planes_relax", _setup)
 
 
-def _geom_ptrs(g, directional: bool, inc_track, ids: bool):
-    """Geometry pointers 14..29 of the launch table (``ids``: the id and
-    parity arrays of a block geometry)."""
-    names = ("brk_before_x", "brk_after_x", "first_x", "last_x",
-             "brk_before_y", "brk_after_y", "first_y", "last_y",
-             "delay_x", "delay_y", "delay_y_rot0", "delay_y_rot1")
+# the geometry arrays of the launch table, slots 14..25
+_GEOM_PTR_NAMES = ("brk_before_x", "brk_after_x", "first_x", "last_x",
+                   "brk_before_y", "brk_after_y", "first_y", "last_y",
+                   "delay_x", "delay_y", "delay_y_rot0", "delay_y_rot1")
+
+
+def _geom_ptrs(g, directional: bool, inc_track):
+    """Geometry pointers 14..26 of the launch table."""
     ptrs = []
-    for k in names:
+    for k in _GEOM_PTR_NAMES:
         t = getattr(g, k)
         if not t.is_contiguous():
             raise ValueError(f"geometry {k} must be contiguous")
         ptrs.append(t.data_ptr())
     ptrs.append(inc_track.data_ptr() if directional else 0)
-    if ids:
-        ptrs += [g.idxx.data_ptr(), g.idxy.data_ptr(), g.base_par.data_ptr()]
-    else:
-        ptrs += [0, 0, 0]
     return ptrs
 
 
-def _ints(B, W, X, Y, stride_x, directional, nsweeps, strides, own, mode,
-          device, NX=0, ncx=0, nc=0, origin_hi=(0, 0), shards=0, kx=0,
-          plane_dtype="f32"):
-    """The launch table's integers (csrc/planes_relax.cu unpack)."""
+def _ints(B, W, X, Y, stride_x, directional, gstr, mode, device, NX, ncx,
+          nc, origin_hi=(0, 0), shards=0, kx=0, plane_dtype="f32"):
+    """The launch table's integers (csrc/planes_relax.cu unpack; nsweeps,
+    slot 6, is set per call)."""
     ncells = W * X * (Y + 1) + W * (X + 1) * Y
-    return ([B, W, X, Y, stride_x, int(directional), int(nsweeps)]
-            + list(strides) + [threads_for(ncells), int(own[0]), int(own[1]),
-                               -1 if mode is None else int(mode),
-                               device.index, NX, ncx, nc, int(origin_hi[0]),
-                               int(origin_hi[1]), shards, kx,
-                               int(plane_dtype == "bf16")])
+    return ([B, W, X, Y, stride_x, int(directional), 0] + list(gstr)
+            + [threads_for(ncells), -1 if mode is None else int(mode),
+               device.index, NX, ncx, nc, int(origin_hi[0]),
+               int(origin_hi[1]), shards, kx, int(plane_dtype == "bf16")])
 
 
 def _count(wrapper, plane_dtype: str, mode: int) -> None:
@@ -286,7 +293,7 @@ class _FlatsPlan:
         self.ncx_bytes, self.plane_bytes = 4 * ncx, 4 * B * nc
         self.shapes = ((3, B, nc), (B + 1, 2))
         self.ws_numel = 0
-        geom, gstr, own, hi, kx = pg, (0, 0, 0), OWN_ALL, (0, 0), 0
+        geom, gstr, hi, kx = pg, (0, 0), (0, 0), 0
         X, Y = NX, NYp1 - 1
         if kind == FULL:
             fn, what = lib.planes_relax_full_launch, "planes relaxation"
@@ -297,16 +304,14 @@ class _FlatsPlan:
         else:
             geom, kx = cluster_geometry(pg, shards)
             X = kx + 2
-            gstr = (W * X * NYp1, W * (X + 1) * Y, (X + 1) * NYp1)
-            own = (1, kx + 1)
+            gstr = (W * X * NYp1, W * (X + 1) * Y)
             fn, what = lib.planes_relax_cluster_launch, "cluster relaxation"
         _check_line(lib, X, Y + 1, "crop tile" if kind == TILE else "grid")
-        ptrs = ([0] * 14 + _geom_ptrs(geom, pg.directional, pg.inc_track,
-                                      False) + [0] * (NPTR - 30))
+        ptrs = ([0] * 14 + _geom_ptrs(geom, pg.directional, pg.inc_track)
+                + [0] * (NPTR - 27))
         self.run = Launch(fn, ptrs, _ints(
-            B, W, X, Y, NYp1, pg.directional, 0, (nc, nc, nc, nc) + gstr,
-            own, mode, device, NX, ncx, nc, hi, shards, kx, plane_dtype),
-            device, what, keep=(pg, geom))
+            B, W, X, Y, NYp1, pg.directional, gstr, mode, device, NX, ncx,
+            nc, hi, shards, kx, plane_dtype), device, what, keep=(pg, geom))
         self.mode = lib.planes_relax_mode(kind, self.run.v)
         if kind == CLUSTER:
             if self.mode == 0:
@@ -319,7 +324,7 @@ class _FlatsPlan:
             if fit == 0:
                 raise RuntimeError(
                     f"cluster relaxation: the card cannot schedule a "
-                    f"cluster of {shards} blocks of {self.run.v[14]} "
+                    f"cluster of {shards} blocks of {self.run.v[9]} "
                     f"threads in shared-memory mode {self.mode}")
 
 
@@ -346,10 +351,10 @@ def plan_figures(plan: _FlatsPlan) -> dict:
     """A launch plan's kernel kind, shared-memory mode, grid, block and
     dynamic shared bytes (the figures kernel_layout models)."""
     v = plan.run.v
-    shards = int(v[24])
+    shards = int(v[17])
     return dict(kind=plan.kind, mode=int(plan.mode),
                 grid=int(v[0]) * (shards if plan.kind == CLUSTER else 1),
-                block=int(v[14]),
+                block=int(v[9]),
                 smem=smem_bytes(plan.kind, int(plan.mode), int(v[1]),
                                 int(v[2]), int(v[3])))
 
@@ -452,7 +457,7 @@ def _launch_flats(plan: _FlatsPlan, d0_flat, cc_flat, crit, wenter0,
     run = plan.run
     run.p[0:14] = (d, d + e, c, c + e, w, w + e, crit.data_ptr(), o, o + e,
                    o + f, o + f + e, o + 2 * f, o + 2 * f + e, st)
-    run.p[32] = st + 8 * B
+    run.p[27] = st + 8 * B
     for k, ptr in extra:
         run.p[k] = ptr
     run.v[6] = int(nsweeps)
@@ -521,7 +526,7 @@ def planes_relax_cropped_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
                  plane_dtype=plane_dtype)
     dist, pred, wenter, stats = _launch_flats(
         plan, d0_flat, cc_flat, crit, wenter0, nsweeps,
-        ((33, ox.data_ptr()), (34, oy.data_ptr())),
+        ((28, ox.data_ptr()), (29, oy.data_ptr())),
         name="planes_relax_cropped_cuda")
     _count(planes_relax_cropped_cuda, plane_dtype, plan.mode)
     planes_relax_cropped_cuda.last_mode = plan.mode
@@ -546,7 +551,7 @@ def planes_relax_cluster_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
     each net stopping at its first sweep with no owned change or at
     ``nsweeps`` (the sharded sweep cap).  Writes the full output flats;
     returns (dist, pred, wenter, stats [2]), bit-identical to the
-    per-sweep loop.  ``mode``, ``plane_dtype`` (the halos carry the
+    plain loop.  ``mode``, ``plane_dtype`` (the halos carry the
     rounded dist, and the flag compares the rounded owned cells) and
     ``last_stats`` as for planes_relax_full_cuda.  Raises if the card
     cannot schedule such a cluster."""
@@ -558,7 +563,7 @@ def planes_relax_cluster_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
     extra = ()
     if plan.ws_numel:
         ws = torch.empty(plan.ws_numel, dtype=torch.float32, device=dev)
-        extra = ((35, ws.data_ptr()),)
+        extra = ((30, ws.data_ptr()),)
     dist, pred, wenter, stats = _launch_flats(
         plan, d0_flat, cc_flat, crit, wenter0, nsweeps, extra,
         name="planes_relax_cluster_cuda")
@@ -574,104 +579,267 @@ planes_relax_cluster_cuda.last_stats = None
 planes_relax_cluster_cuda.last_mode = None
 
 
-def sweep_block_launcher(gm, state, crit_c, cc_x, cc_y, own, out, stats,
-                         mode=None):
-    """planes_sweep_block_cuda with its checks done and its launch table
-    built once: returns a callable that runs one sweep of ``state`` into
-    ``out`` and ``stats`` (contract of planes_sweep_block_cuda) and
-    counts into ``planes_sweep_block_cuda.launches`` (or
-    ``launches_bf16``).  Its ``mode`` is the shared-memory mode the
-    launch takes."""
-    dx = state[0]
-    B, W, X, Yp1 = dx.shape
-    Y = Yp1 - 1
-    shx, shy = (B, W, X, Yp1), (B, W, X + 1, Y)
-    pt, i32 = dx.dtype, torch.int32
-    if pt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"dx must be float32 or bfloat16, got {pt}")
-    plane_dtype = "bf16" if pt == torch.bfloat16 else "f32"
-    for t, dt, sh, n in zip(state + out + (cc_x, cc_y),
-                            (pt, pt, i32, i32, pt, pt) * 2 + (pt, pt),
-                            (shx, shy) * 7,
-                            ("dx", "dy", "px", "py", "wx", "wy",
-                             "out dx", "out dy", "out px", "out py",
-                             "out wx", "out wy", "cc_x", "cc_y")):
-        _check(t, dt, sh, n)
-    _check(stats, i32, (B, 2), "stats")
-    crit = crit_c.reshape(B).contiguous()
-    _check(crit, torch.float32, (B,), "crit_c")
-    for t, sh, n in ((gm.idxx, (1, W, X, Yp1), "idxx"),
-                     (gm.idxy, (1, W, X + 1, Y), "idxy"),
-                     (gm.base_par, (1, X + 1, Yp1), "base_par"),
-                     (gm.delay_x, (1, W, X, Yp1), "delay_x")):
-        if tuple(t.shape) != sh or t.device != dx.device:
-            raise ValueError(f"block geometry {n} must be {sh} on "
-                             f"{dx.device}")
-    lib = LIB.get()
-    _check_line(lib, X, Yp1, "block")
-    sx, sy = W * X * Yp1, W * (X + 1) * Y
-    ints = _ints(B, W, X, Y, gm.stride_x, gm.directional, 1,
-                 (sx, sy, sx, sy, 0, 0, 0), own, mode, dx.device,
-                 plane_dtype=plane_dtype)
-    run_mode = lib.planes_relax_mode(BLOCK, (ctypes.c_longlong * len(ints))(
-        *ints))
-    cap = _MODE_CAP[0]
-    if mode is None and cap is not None and run_mode > cap:
-        ints[17] = run_mode = int(cap)
-    # the bf16 step's f32 working dist, in mode 0
-    ws = (torch.empty(B * (sx + sy), dtype=torch.float32, device=dx.device)
-          if plane_dtype == "bf16" and run_mode == 0 else None)
-    ptrs = ([state[0].data_ptr(), state[1].data_ptr(), cc_x.data_ptr(),
-             cc_y.data_ptr(), state[4].data_ptr(), state[5].data_ptr(),
-             crit.data_ptr()] + [t.data_ptr() for t in out]
-            + [stats.data_ptr()]
-            + _geom_ptrs(gm, gm.directional, gm.inc_track, True)
-            + [state[2].data_ptr(), state[3].data_ptr()]
-            + [0] * (NPTR - 33) + [0 if ws is None else ws.data_ptr()])
-    launch = Launch(lib.planes_sweep_block_launch, ptrs, ints, dx.device,
-                    "planes sweep step",
-                    keep=(gm, state, out, stats, crit, cc_x, cc_y, ws))
+@dataclass(frozen=True)
+class PeerPlan:
+    """Where the peer relaxation's blocks go (peer_launch_plan): ``G``
+    blocks per shard (net slots), and per card of the mesh, in the order
+    the shards first name it, the ranks of the shards it holds.  Block k
+    of a card holds shard ``ranks[k // G]`` and walks the nets k % G,
+    k % G + G, ... in order, so a net's partner blocks (one per shard,
+    on every card the same slot) always run at the same time."""
+    G: int
+    cards: Tuple[Tuple[torch.device, Tuple[int, ...]], ...]
 
-    def run() -> None:
+    def grid(self, card) -> int:
+        """Blocks of ``card``'s launch."""
+        return self.G * len(dict(self.cards)[torch.device(card)])
+
+    def block(self, card, k: int):
+        """(shard rank, net slot j) of block ``k`` of ``card``'s launch."""
+        ranks = dict(self.cards)[torch.device(card)]
+        return ranks[k // self.G], k % self.G
+
+    def nets(self, j: int, B: int):
+        """The nets net slot ``j`` walks, in order."""
+        return range(j, B, self.G)
+
+
+def peer_launch_plan(devices, B: int, fit) -> PeerPlan:
+    """The peer kernel's launch plan for the shards' ``devices`` (one per
+    shard, repeats allowed) and ``B`` nets: each card's grid is split
+    evenly over the shards it holds, G = min(B, fit[card] // its shards)
+    over the cards, ``fit[card]`` being the blocks the card holds at
+    once (its occupancy at the launch's shared-memory mode).  Raises
+    RuntimeError when some card cannot hold one block per shard it
+    holds: one net's shards would not fit at once."""
+    cards: dict = {}
+    for r, d in enumerate(devices):
+        cards.setdefault(torch.device(d), []).append(r)
+    G = int(B)
+    for d, ranks in cards.items():
+        G = min(G, int(fit[d]) // len(ranks))
+    if G < 1:
+        raise RuntimeError(
+            "peer relaxation: one net's shards do not fit at once (blocks "
+            f"each card holds {dict((str(d), int(fit[d])) for d in cards)}, "
+            f"shards per card {dict((str(d), len(r)) for d, r in cards.items())})")
+    return PeerPlan(G, tuple((d, tuple(r)) for d, r in cards.items()))
+
+
+class _PeerPlan:
+    """The peer relaxation of one (planes graph, batch, shard devices,
+    mode, plane dtype), built once: per card its copy of the stacked block
+    geometry, its launch tables, its shards' halo mailboxes (a ring of
+    three generations per net), its copy of the flag words and, in
+    mode 0, its blocks' workspace; and the launch plan.  ``epoch`` tags
+    each call's flag words."""
+
+    def __init__(self, pg, B: int, devices, mode, plane_dtype: str):
+        lib = LIB.get()
+        s = len(devices)
+        if not 2 <= s <= MAX_SHARDS:
+            raise ValueError(f"peer relaxation: needs 2..{MAX_SHARDS} "
+                             f"shards, got {s}")
+        W, NX, NYp1 = pg.shape_x
+        nc, ncx = pg.ncells, W * NX * NYp1
+        geom, kx = cluster_geometry(pg, s)
+        X, Y = kx + 2, NYp1 - 1
+        _check_line(lib, X, Y + 1, "grid")
+        gstr = (W * X * NYp1, W * (X + 1) * Y)
+        cells = W * X * (Y + 1) + W * (X + 1) * Y
+        self.pg, self.B, self.nc = pg, B, nc
+        self.ncx_bytes, self.plane_bytes = 4 * ncx, 4 * B * nc
+        cards = list(dict.fromkeys(torch.device(d) for d in devices))
+
+        def ints(card, m):
+            return _ints(B, W, X, Y, NYp1, pg.directional, gstr, m, card,
+                         NX, ncx, nc, (0, 0), s, kx, plane_dtype)
+        # one mode for every card of the mesh: the first card's auto mode
+        # (under kernel_mode_cap), or the one asked for
+        if mode is None:
+            v = (ctypes.c_longlong * NINT)(*ints(cards[0], None))
+            mode = lib.planes_relax_mode(PEER, v)
+            cap = _MODE_CAP[0]
+            if cap is not None:
+                mode = min(mode, int(cap))
+        self.mode = int(mode)
+        fit = {}
+        for card in cards:
+            v = (ctypes.c_longlong * NINT)(*ints(card, self.mode))
+            n = lib.planes_relax_peer_fit(v)
+            if n < 0:
+                raise RuntimeError(f"peer relaxation: the occupancy query on "
+                                   f"{card} failed (cudaError {-n})")
+            fit[card] = n
+        self.plan = plan = peer_launch_plan(devices, B, fit)
+        self.sys = len(cards) > 1
+        halo = 2 * W * (Y + 1) + 3 * W * Y
+        mbox, flags, keep = {}, {}, [pg, geom]
+        for card, ranks in plan.cards:
+            mbox[card] = torch.empty((len(ranks), B, 3, halo),
+                                     dtype=torch.float32, device=card)
+            flags[card] = torch.zeros((B, s, 2), dtype=torch.int64,
+                                      device=card)
+        rank_box = {}
+        for card, ranks in plan.cards:
+            for i, r in enumerate(ranks):
+                rank_box[r] = mbox[card][i].data_ptr()
+        self.cards = []
+        for card, ranks in plan.cards:
+            g = geom if card == pg.device else SimpleNamespace(**{
+                k: getattr(geom, k).to(card) for k in _GEOM_PTR_NAMES})
+            inc = (pg.inc_track.to(card) if pg.directional else None)
+            ws = (torch.empty(plan.grid(card) * cells, dtype=torch.float32,
+                              device=card) if self.mode == 0 else None)
+            ptrs = ([0] * 14 + _geom_ptrs(g, pg.directional, inc)
+                    + [0] * 3 + [0 if ws is None else ws.data_ptr()])
+            q = ([rank_box[r] for r in range(s)] + [0] * (MAX_SHARDS - s)
+                 + [flags[c].data_ptr() for c, _ in plan.cards]
+                 + [0] * (MAX_SHARDS - len(plan.cards))
+                 + [flags[card].data_ptr()])
+            w = ([plan.G, len(ranks)] + list(ranks)
+                 + [0] * (MAX_SHARDS - len(ranks))
+                 + [len(plan.cards), 0, 0, int(self.sys), 0])
+            self.cards.append((
+                card, (ctypes.c_void_p * NPTR)(*ptrs),
+                (ctypes.c_longlong * NINT)(*ints(card, self.mode)),
+                (ctypes.c_void_p * NPEER_PTR)(*q),
+                (ctypes.c_longlong * NPEER_INT)(*w)))
+            keep += [g, inc, ws]
+        self.keep = (keep, mbox, flags)
+        self.epoch = 0
+
+    def __call__(self, d0_flat, cc_flat, crit, wenter0, nsweeps: int,
+                 lag2: bool, name: str):
+        """One relaxation: outputs on d0_flat's card (home); returns
+        (dist, pred, wenter, stats [B + 1, 2])."""
+        lib = LIB.get()
+        home = d0_flat.device
+        B = self.B
+        out = torch.empty((3, B, self.nc), dtype=torch.float32, device=home)
+        stats = torch.empty((B + 1, 2), dtype=torch.int32, device=home)
+        o, st = out.data_ptr(), stats.data_ptr()
+        e, f = self.ncx_bytes, self.plane_bytes
+        cross = any(card != home for card, *_ in self.cards)
+        if cross:
+            _enable_peers([card for card, *_ in self.cards] + [home])
+        self.epoch = self.epoch % 0x7fffffff + 1
+        # another card reads its own copy of the inputs, allocated on
+        # its current stream; ``held`` keeps every copy alive until all
+        # the launches are enqueued, after which the stream orders any
+        # reuse of its memory behind the launch
+        held = []
+        for card, p, v, q, w in self.cards:
+            ins = (d0_flat, cc_flat, wenter0, crit)
+            if card != home:
+                ins = tuple(t.to(card) for t in ins)
+            held.append(ins)
+            d, c, wn = (t.data_ptr() for t in ins[:3])
+            p[0:14] = (d, d + e, c, c + e, wn, wn + e, ins[3].data_ptr(),
+                       o, o + e, o + f, o + f + e, o + 2 * f, o + 2 * f + e,
+                       st)
+            p[27] = st + 8 * B
+            v[6] = int(nsweeps)
+            w[19], w[20], w[22] = self.epoch, int(lag2), int(not cross)
+        streams = {card: torch.cuda.current_stream(card)
+                   for card, *_ in self.cards}
+        home_stream = torch.cuda.current_stream(home)
         dp = get_devprof()
-        if dp.enabled:
-            with dp.launch("planes_sweep_block_cuda", dx.device):
-                launch()
-        else:
-            launch()
-        _count(planes_sweep_block_cuda, plane_dtype, run_mode)
+        with (dp.launch(name, home) if dp.enabled
+              else contextlib.nullcontext()):
+            if cross:
+                # before any launch: the total zeroed, every card after
+                # home's outputs and after the previous call's launches
+                rc = lib.planes_relax_zero_total(st + 8 * B, home.index,
+                                                 home_stream.cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"peer relaxation: zeroing the total "
+                                       f"failed (cudaError {rc})")
+                ready = torch.cuda.Event()
+                ready.record(home_stream)
+                for card, s_ in streams.items():
+                    if card != home:
+                        s_.wait_event(ready)
+            # every card launches before anything waits on any of them:
+            # the grids spin on each other's flags
+            for card, p, v, q, w in self.cards:
+                rc = lib.planes_relax_peer_launch(p, v, q, w,
+                                                  streams[card].cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"peer relaxation launch on {card} failed "
+                        f"(cudaError {rc}): refused cooperative launch or "
+                        "bad table")
+            if cross:
+                for card, s_ in streams.items():
+                    if card != home:
+                        done = torch.cuda.Event()
+                        done.record(s_)
+                        home_stream.wait_event(done)
+        del held
+        dist, pred, wenter = out.unbind(0)
+        return dist, pred.view(torch.int32), wenter, stats
 
-    run.mode = run_mode
-    return run
+
+def _peer_plan(pg, B: int, devices, mode, plane_dtype: str) -> _PeerPlan:
+    plane_torch_dtype(plane_dtype)
+    key = ("peer", id(pg), B, devices, mode, _MODE_CAP[0], plane_dtype)
+    plan = _PLANS.get(key)
+    if plan is None or plan.pg is not pg:
+        if len(_PLANS) > 64:
+            _PLANS.clear()
+        plan = _PLANS[key] = _PeerPlan(pg, B, devices, mode, plane_dtype)
+    return plan
 
 
-def planes_sweep_block_cuda(gm, state, crit_c, cc_x, cc_y, own,
-                            mode=None):
-    """One relaxation sweep of one shard's column block on the card: one
-    launch of planes_relax_block_kernel with nsweeps = 1, pred carried
-    in from ``state``, and the block geometry ``gm`` (G = 1, shared by
-    every net) read with stride 0.  ``state`` = (dx, dy, px, py, wx, wy)
-    [B, W, X, Y+1] / [B, W, X+1, Y]; ``own`` = (lo, hi), the local x
-    columns whose improvement counts as a change.  Float32 dist, wenter
-    and congestion run the f32 sweep; bfloat16 ones the bf16 plane
-    mode's (f32 inside, rounded at its end; the flag compares the
-    rounded owned cells).  Returns the new state and stats [B, 2] int32
-    (stats[:, 1] each net's owned-changed flag).  Same arithmetic as one
-    planes._sweep_once (with its rounding, as the plain sharded loop
-    does)."""
-    out = tuple(torch.empty_like(t) for t in state)
-    stats = torch.empty((state[0].shape[0], 2), dtype=torch.int32,
-                        device=state[0].device)
-    sweep_block_launcher(gm, state, crit_c, cc_x, cc_y, own, out, stats,
-                         mode)()
-    return out, stats
+def planes_relax_peer_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
+                           nsweeps: int, devices, lag2: bool = False,
+                           mode=None, plane_dtype: str = "f32"):
+    """The row-sharded relaxation (planes_shard.planes_relax_sharded) on
+    any mesh of cards ``devices`` (one per shard, repeats allowed; the
+    tensors on a card of their own or of the mesh): one cooperative
+    launch of planes_relax_peer_kernel per card of the mesh.  Each block
+    relaxes one shard's column block of one net at a time, read straight
+    from the flats; after every sweep it stores its owned boundary
+    columns into the neighbours' halo mailboxes (through peer pointers
+    on another card) and publishes its owned-changed flag; the OR of a
+    net's flags decides on the card whether the net goes on: lag 1
+    (``lag2`` False, the "ppermute" schedule) stops at the first sweep
+    with no owned change, lag 2 ("pallas_halo": halos extracted before
+    the sweep before) after two consecutive stable sweeps; ``nsweeps``
+    is the sharded sweep cap.  No host read per sweep or per relaxation.
+    Writes the full output flats on d0_flat's card; returns (dist, pred,
+    wenter, stats [2]), bit-identical to the plain loop
+    (planes_shard.planes_relax_sharded_plain).  ``mode``, ``plane_dtype``
+    and ``last_stats`` as for planes_relax_full_cuda.  Raises
+    RuntimeError when peer access cannot be enabled between two cards of
+    the mesh, when a card refuses the cooperative launch, or when one
+    net's shards do not fit on the cards at once; never runs another
+    form."""
+    crit = _check_flats(pg, d0_flat, cc_flat, crit_c, wenter0)
+    devices = tuple(torch.device(d) for d in devices)
+    for d in devices:
+        if d.type != "cuda" or d.index is None:
+            raise ValueError(f"peer relaxation: shard devices must be cards "
+                             f"with an index, got {d}")
+    B = d0_flat.shape[0]
+    plan = _peer_plan(pg, B, devices, mode, plane_dtype)
+    dist, pred, wenter, stats = plan(d0_flat, cc_flat, crit, wenter0,
+                                     nsweeps, lag2, "planes_relax_peer_cuda")
+    for _ in plan.cards:
+        _count(planes_relax_peer_cuda, plane_dtype, plan.mode)
+    planes_relax_peer_cuda.last_mode = plan.mode
+    planes_relax_peer_cuda.last_stats = stats
+    return dist, pred, wenter, stats[B]
 
 
-planes_sweep_block_cuda.launches = 0
-planes_sweep_block_cuda.launches_bf16 = 0
+planes_relax_peer_cuda.launches = 0
+planes_relax_peer_cuda.launches_bf16 = 0
+planes_relax_peer_cuda.last_stats = None
+planes_relax_peer_cuda.last_mode = None
 
 WRAPPERS = (planes_relax_full_cuda, planes_relax_cropped_cuda,
-            planes_sweep_block_cuda, planes_relax_cluster_cuda)
+            planes_relax_cluster_cuda, planes_relax_peer_cuda)
 for _w in WRAPPERS:
     _w.mode_launches = {0: 0, 1: 0, 2: 0}
 

@@ -30,34 +30,39 @@ The mesh's ``impl`` names the schedule, as in the JAX package:
   transfer could have a whole sweep to land behind; the loop exits
   after two consecutive globally stable sweeps.
 
-Which path runs is decided by the mesh and the schedule
-(``uses_cluster``), never by a failure of its own (the Router's
-resilience ladder may choose the per-sweep loop, ``RowMesh.per_sweep``):
+Which form runs is decided by the mesh, the schedule and the tensors'
+device (``relax_form``), never by a failure of its own (the Router's
+resilience ladder may choose the per-sweep mesh, ``RowMesh.per_sweep``,
+which runs the peer kernel on a card holding every shard):
 
-* lag 1 with every shard on the tensors' card: one launch of the
-  cluster kernel (planes_kernels.planes_relax_cluster_cuda) runs the
-  whole relaxation — a thread-block cluster per net, a CTA per shard,
-  the halos moving through distributed shared memory, each net stopping
-  at its first sweep with no owned change;
-* otherwise (shards across cards, lag 2, or the CPU) the per-sweep loop
-  (``planes_relax_sharded_sweeps``): the halos move first, in place (one
-  shard_kernels.halo_exchange writes every shard's halo columns from its
-  neighbours' owned columns; on the card one launch of the halo kernel
-  per sending card), then every shard runs one sweep of its block — on a
-  CUDA device the hand-written step kernel (planes_kernels.
-  sweep_block_launcher, two state sets per shard ping-ponged so the
-  launch tables are built once per relaxation), on the CPU the plain
-  planes._sweep_once — and one host read of the shards' flags decides
-  whether to go on.
+* ``"cluster"`` — lag 1 with every shard on the tensors' card and not
+  ``per_sweep``: one launch of the cluster kernel
+  (planes_kernels.planes_relax_cluster_cuda) runs the whole relaxation —
+  a thread-block cluster per net, a CTA per shard, the halos moving
+  through distributed shared memory;
+* ``"peer"`` — every other mesh of cards (shards across cards, lag 2,
+  ``per_sweep``): one persistent cooperative launch of the peer kernel
+  per card (planes_kernels.planes_relax_peer_cuda) runs the whole
+  relaxation — a block per (shard, net slot), the halos stored into
+  the neighbours' mailboxes (over NVLink on another card), the fixpoint
+  decided on the card from every shard's published flag;
+* ``"plain"`` — the CPU: the plain per-sweep loop
+  (``planes_relax_sharded_plain``, also the kernels' plain version on a
+  card): the halos move first, in place (shard_kernels.
+  halo_exchange_plain writes every shard's halo columns from its
+  neighbours' owned columns), then every shard runs one planes.
+  _sweep_once of its block, and the shards' flags decide whether to go
+  on.
 
-Both relax to the single-device fixpoint; dist and wenter are
+All relax to the single-device fixpoint; dist and wenter are
 bit-identical to it on f32-exact costs (the truncated scans regroup only
 exact sums), and the route at the bench configuration is bit-identical
 (the JAX package's tiered parity argument, its module docstring).  The
-cluster kernel's outputs and stats are bit-identical to the per-sweep
-loop's: a net's sweeps after its first stable one are identities on
-everything returned, and the batch's [executed, useful] is the max over
-nets of each net's pair.
+kernels' outputs and stats are bit-identical to the plain loop's: each
+net stops at its own fixpoint (lag 1 its first sweep with no owned
+change, lag 2 its second consecutive one), whose later sweeps are
+identities on everything returned, and the batch's [executed, useful]
+is the max over nets of each net's pair.
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ from .planes import (INF, PlanesGeom, PlanesGraph, _dequantize_plane_state,
                      _flat, _split_flat, _sweep_costs, _sweep_once,
                      plane_itemsize, plane_torch_dtype,
                      quantize_plane_state)
-from .shard_kernels import MAX_SHARDS, HaloExchange, halo_exchange_plain
+from .shard_kernels import MAX_SHARDS, halo_exchange_plain
 
 # ceiling on the inflated sweep budget: information crosses one shard
 # boundary per sweep, so a path spanning m blocks needs up to m extra
@@ -94,8 +99,8 @@ class RowMesh:
     (repeats allowed) and the exchange schedule."""
     devices: Tuple[torch.device, ...]
     impl: str = "ppermute"
-    # run lag 1 on one card as the per-sweep loop (the resilience
-    # ladder's "ppermute" mesh level) instead of the cluster kernel
+    # run lag 1 on one card as the peer kernel (the resilience ladder's
+    # "ppermute" mesh level) instead of the cluster kernel
     per_sweep: bool = False
     # per-PlanesGraph block geometry, built once per mesh
     _geom: dict = field(default_factory=dict, compare=False, repr=False)
@@ -111,8 +116,8 @@ class RowMesh:
         if len({d.type for d in self.devices}) != 1:
             raise ValueError("RowMesh devices must be of one type")
         if self.devices[0].type == "cuda" and self.n_shards > MAX_SHARDS:
-            raise ValueError(f"the halo kernel takes at most {MAX_SHARDS} "
-                             f"shards, got {self.n_shards}")
+            raise ValueError(f"the sharded kernels take at most "
+                             f"{MAX_SHARDS} shards, got {self.n_shards}")
 
     @property
     def n_shards(self) -> int:
@@ -301,8 +306,7 @@ class _PlainSweeps:
     the exchange writes the current state's halo columns in place
     (halo_exchange_plain)."""
 
-    def __init__(self, gms, states, crits, ccx, ccy, kx, home,
-                 plane_dtype="f32"):
+    def __init__(self, gms, states, crits, ccx, ccy, kx, plane_dtype="f32"):
         ccx, ccy = [c.float() for c in ccx], [c.float() for c in ccy]
         self.args = list(zip(gms, crits, ccx, ccy))
         self.costs = [_sweep_costs(*a) for a in self.args]
@@ -329,63 +333,20 @@ class _PlainSweeps:
         return bool(torch.stack(flags).any())
 
 
-class _CardSweeps:
-    """The sharded sweep loop on the card: two state sets per shard,
-    ping-ponged (a sweep reads one and writes the other), so every launch
-    table is built once per relaxation: each shard's step, and each
-    exchange into the current set (from itself, or lagged from the
-    other).  One host read per sweep: the owned-changed flags of each
-    card's shards."""
-
-    def __init__(self, gms, states, crits, ccx, ccy, kx, home,
-                 plane_dtype="f32"):
-        from .planes_kernels import sweep_block_launcher
-
-        B = states[0][0].shape[0]
-        self.sets = (states, [tuple(torch.empty_like(t) for t in st)
-                              for st in states])
-        by_card = {}
-        for k, st in enumerate(states):
-            by_card.setdefault(st[0].device, []).append(k)
-        self.stats = {d: torch.empty((len(ks), B, 2), dtype=torch.int32,
-                                     device=d) for d, ks in by_card.items()}
-        slot = {k: self.stats[d][j] for d, ks in by_card.items()
-                for j, k in enumerate(ks)}
-        self.steps = [[sweep_block_launcher(
-            gms[k], self.sets[p][k], crits[k], ccx[k], ccy[k], (1, kx + 1),
-            self.sets[1 - p][k], slot[k]) for k in range(len(states))]
-            for p in (0, 1)]
-        self.exchanges = {}
-        self.kx, self.home, self.p = kx, home, 0
-
-    @property
-    def cur(self):
-        return self.sets[self.p]
-
-    def exchange(self, lagged: bool) -> None:
-        key = (self.p, 1 - self.p if lagged else self.p)
-        run = self.exchanges.get(key)
-        if run is None:
-            run = self.exchanges[key] = HaloExchange(
-                self.sets[key[0]], self.kx, self.sets[key[1]])
-        run()
-
-    def sweep(self) -> bool:
-        """One sweep of every shard; whether an owned cell improved."""
-        for run in self.steps[self.p]:
-            run()
-        self.p = 1 - self.p
-        flags = [st[:, :, 1].any() for st in self.stats.values()]
-        if len(flags) == 1:
-            return bool(flags[0])
-        return bool(torch.stack([f.to(self.home) for f in flags]).any())
-
-
 def uses_cluster(rmesh: RowMesh, device: torch.device) -> bool:
     """Whether planes_relax_sharded runs as one cluster launch: the lag-1
     schedule with every shard on ``device``, a card."""
     return (rmesh.impl == "ppermute" and not rmesh.per_sweep
             and device.type == "cuda" and set(rmesh.devices) == {device})
+
+
+def relax_form(rmesh: RowMesh, device: torch.device) -> str:
+    """The form planes_relax_sharded takes for tensors on ``device``:
+    "cluster" (uses_cluster), "peer" (any other mesh of cards) or
+    "plain" (the CPU)."""
+    if device.type != "cuda":
+        return "plain"
+    return "cluster" if uses_cluster(rmesh, device) else "peer"
 
 
 def sweep_cap(nsweeps: int, n_shards: int) -> int:
@@ -400,32 +361,44 @@ def planes_relax_sharded(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
     """planes_relax, spatially sharded over ``rmesh``: the same contract
     — (dist_flat, pred_flat, wenter_flat, stats) on d0_flat's device —
     with every shard relaxing its own column block and the halo columns
-    exchanged every sweep: one cluster launch under lag 1 on one card,
-    the per-sweep loop otherwise (module docstring).  ``plane_dtype``
+    exchanged every sweep: on a card one launch of the cluster kernel,
+    or one launch of the peer kernel per card of the mesh; the plain
+    loop on the CPU (``relax_form``, module docstring).  ``plane_dtype``
     as for planes.planes_relax: in the bf16 plane mode the block states
     are carried in bfloat16, the halo columns carry the rounded values
     and the owned-changed flag compares the rounded state."""
     home = d0_flat.device
-    if uses_cluster(rmesh, home):
+    _check_mesh_device(rmesh, home)
+    form = relax_form(rmesh, home)
+    cap = sweep_cap(nsweeps, rmesh.n_shards)
+    if form == "cluster":
         from .planes_kernels import planes_relax_cluster_cuda
         return planes_relax_cluster_cuda(
-            pg, d0_flat, cc_flat, crit_c, wenter0,
-            sweep_cap(nsweeps, rmesh.n_shards), rmesh.n_shards,
+            pg, d0_flat, cc_flat, crit_c, wenter0, cap, rmesh.n_shards,
             plane_dtype=plane_dtype)
-    return planes_relax_sharded_sweeps(pg, d0_flat, cc_flat, crit_c,
-                                       wenter0, nsweeps, rmesh,
-                                       plane_dtype=plane_dtype)
+    if form == "peer":
+        from .planes_kernels import planes_relax_peer_cuda
+        return planes_relax_peer_cuda(
+            pg, d0_flat, cc_flat, crit_c, wenter0, cap, rmesh.devices,
+            lag2=rmesh.impl == "pallas_halo", plane_dtype=plane_dtype)
+    return planes_relax_sharded_plain(pg, d0_flat, cc_flat, crit_c,
+                                      wenter0, nsweeps, rmesh,
+                                      plane_dtype=plane_dtype)
 
 
-def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
-                                wenter0, nsweeps: int, rmesh: RowMesh,
-                                plain: bool = False,
-                                plane_dtype: str = "f32"):
-    """The per-sweep form of planes_relax_sharded, on any mesh: the card's
-    step and halo kernels on CUDA shards, the plain loop (_PlainSweeps)
-    on CPU shards or with ``plain``.  In the bf16 plane mode the blocks'
-    dist, wenter and congestion are bfloat16 tensors (the congestion
-    rounded once), which the step and halo kernels take as such."""
+def _check_mesh_device(rmesh: RowMesh, home: torch.device) -> None:
+    if rmesh.devices[0].type != home.type:
+        raise ValueError(f"the mesh's shards are on {rmesh.devices[0].type} "
+                         f"but the relaxation's tensors on {home.type}")
+
+
+def planes_relax_sharded_plain(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
+                               wenter0, nsweeps: int, rmesh: RowMesh,
+                               plane_dtype: str = "f32"):
+    """The plain per-sweep form of planes_relax_sharded on any mesh (the
+    CPU's relaxation, and the plain version of the card's kernels):
+    _PlainSweeps over the shards' blocks, which in the bf16 plane mode
+    are bfloat16 (the congestion rounded once)."""
     NX, NXp1 = pg.shape_x[1], pg.shape_y[1]
     s = rmesh.n_shards
     devs = rmesh.devices
@@ -433,9 +406,7 @@ def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
     nsw_cap = sweep_cap(nsweeps, s)
     lag2 = rmesh.impl == "pallas_halo"
     home = d0_flat.device
-    if devs[0].type != home.type:
-        raise ValueError(f"the mesh's shards are on {devs[0].type} but the "
-                         f"relaxation's tensors on {home.type}")
+    _check_mesh_device(rmesh, home)
 
     dt = plane_torch_dtype(plane_dtype)
 
@@ -451,11 +422,9 @@ def planes_relax_sharded_sweeps(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
                g.idxy.expand(dy.shape).contiguous(), wx, wy)
               for dx, dy, wx, wy, g in zip(*blocks(d0_flat, INF),
                                            *blocks(wenter0, 0.0), gms)]
-    card = devs[0].type == "cuda" and not plain
     if devs[0].type != "cuda":
         get_devprof().note_cpu_call()
-    run = (_CardSweeps if card else _PlainSweeps)(
-        gms, states, crits, ccx, ccy, kx, home, plane_dtype)
+    run = _PlainSweeps(gms, states, crits, ccx, ccy, kx, plane_dtype)
 
     # A sweep's halos come from its own input state (lag 1) or, under
     # lag 2 after the first sweep, from the input of the sweep before

@@ -772,12 +772,13 @@ class Router:
         self._cap_np = None
         # lag 1 ("ppermute") on every device.  Lag 2 ("pallas_halo")
         # pays extra sweeps for a transfer that can land behind the next
-        # sweep, and here each shard's transfer shares its sweep's
-        # stream, so nothing overlaps and lag 2 is only slower on the
+        # sweep, and here every sweep of a net waits for every shard's
+        # flag of the sweep before (the fixpoint is decided per sweep on
+        # the card), so nothing overlaps and lag 2 is only slower on the
         # card (chip_smoke.py's mesh lines time both).  Under
         # RouterOpts.resil the ladder's "mesh" dimension picks the form
-        # per window (_active_row_mesh): the cluster kernel, the
-        # per-sweep loop, or one device once a member is lost.
+        # per window (_active_row_mesh): the cluster kernel, the peer
+        # kernel, or one device once a member is lost.
         self.row_mesh = None
         self._row_meshes = None
         self._mesh_lost = False
@@ -912,7 +913,7 @@ class Router:
 
     def _mesh_rungs(self, resil_rt, vkey, rm, call):
         """The sharded rungs of a mesh chain: ``rm``'s form, then (from
-        the cluster kernel) the per-sweep loop, each running
+        the cluster kernel) the peer kernel, each running
         ``call(mesh)`` after the sticky backend.loss check."""
         from ..resil.watchdog import Rung
 
@@ -1151,17 +1152,17 @@ class Router:
         """The route.kernel.* row of one dispatch (JAX router.py:1375
         _plan_block_nets, with its fields), in the port's layout
         (planes_kernels.kernel_layout): the kernel the dispatch launches
-        (K2 for a crop tile, the cluster kernel or the per-sweep step
-        under a row mesh ``rm``, K1 otherwise) in the mode it takes on
-        the card.  Under a mesh, also the halo fields of JAX's plan at
-        plan width ``batch``."""
+        (K2 for a crop tile, the cluster kernel or the peer kernel under
+        a row mesh ``rm``, K1 otherwise) in the mode it takes on the
+        card.  Under a mesh, also the halo fields of JAX's plan at plan
+        width ``batch``."""
         from .planes_kernels import kernel_layout
         from .planes_shard import uses_cluster
 
         shards = 0 if rm is None else rm.n_shards
-        per_sweep = rm is not None and not uses_cluster(rm, self.pg.device)
+        peer = rm is not None and not uses_cluster(rm, self.pg.device)
         lay = kernel_layout(self.pg.shape_x, self.pg.shape_y, nnets, nsw,
-                            tile=tile, shards=shards, per_sweep=per_sweep,
+                            tile=tile, shards=shards, peer=peer,
                             plane_dtype=plane_dtype)
         plan = dict(variant=lay["variant"], block_nets=lay["block_nets"],
                     lane_occupancy=lay["lane_occupancy"],

@@ -1,29 +1,31 @@
 """The halo transport of the row-sharded relaxation: the counterpart of
 ``remote_slab_permute`` (parallel_eda_tpu/route/planes_pallas.py:597)
 and of the install that follows it (parallel_eda_tpu/route/
-planes_shard.py:317-355).  One CUDA kernel, ``slab_permute_kernel``
-(csrc/slab_permute.cu), executes a table of strided moves; two wrappers
-launch it:
+planes_shard.py:317-355).
 
-    halo_exchange_cuda       one in-place halo exchange of the shards'
-                             block states (the route's call);
-                             HaloExchange is its form with the tables
-                             built once, for a sweep loop
-    halo_exchange_plain      its plain PyTorch version
     remote_slab_permute_cuda the TPU kernel's contract: one slab per
-                             shard shifted one hop into fresh buffers
+                             shard shifted one hop into fresh buffers,
+                             through ``slab_permute_kernel``
+                             (csrc/slab_permute.cu), which executes a
+                             table of strided moves
     slab_permute_plain       its plain PyTorch version
+    halo_exchange_plain      the plain sharded loop's in-place exchange
 
 An exchange writes each shard's halo columns (dx local column 0 and
 kx+1, dy local column 0 and kx+1..kx+2) from its neighbours' owned
 boundary columns (dx kx / 1, dy kx / 1..2), and INF where the edge shard
 has no neighbour: the JAX package's extract + install, in place, with no
-receive buffer.  ``halo_exchange`` and ``remote_slab_permute`` dispatch
-on the tensors' device type: CUDA tensors launch the kernel or raise,
-CPU tensors take the plain version.  The kernel moves float32 (4-byte)
-or, in the bf16 plane mode, bfloat16 (2-byte) elements.  Each CUDA
-wrapper counts its kernel launches in ``<wrapper>.launches`` (float32)
-and ``<wrapper>.launches_bf16``.
+receive buffer.  On the card the route's sharded relaxation moves its
+halos inside its own launch (planes_kernels: the cluster kernel through
+distributed shared memory, the peer kernel by stores into the
+neighbours' mailboxes), so no exchange runs between its sweeps.
+``remote_slab_permute`` dispatches on the slabs' device type: CUDA
+slabs launch the kernel or raise, CPU slabs take the plain version.  The
+kernel moves float32 (4-byte) or, in the bf16 plane mode, bfloat16
+(2-byte) elements.  The CUDA wrapper counts its kernel launches in
+``remote_slab_permute_cuda.launches`` (float32) and ``.launches_bf16``.
+Peer access between the cards of a mesh is enabled here
+(``_enable_peers``), for this kernel and the peer relaxation.
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ import ctypes
 
 import torch
 
-from ..obs.devprof import get_devprof
 from .cuda_lib import CudaLib
 
-MAX_SHARDS = 16          # csrc/slab_permute.cu MAX_MOVES / 4 slabs
+# shards of a mesh on the card: csrc/slab_permute.cu MAX_MOVES / 4 slabs,
+# csrc/planes_relax.cu MAX_SHARDS (the peer kernel's rank tables)
+MAX_SHARDS = 16
 INF = float("inf")
 
 
@@ -61,6 +64,9 @@ def _sender(r: int, n: int, fwd: bool):
 
 
 def _enable_peers(devices) -> None:
+    """Enable peer access between every pair of the cards ``devices``
+    (once per process); raises RuntimeError when a pair cannot reach
+    each other."""
     key = tuple(sorted({d.index for d in devices}))
     if len(key) < 2 or key in _PEERS_ENABLED:
         return
@@ -177,7 +183,7 @@ class SlabMoves:
         return len(self.groups)
 
 
-# ---- the route's exchange ---------------------------------------------
+# ---- the plain loop's exchange ----------------------------------------
 
 def halo_moves(states, kx: int, src=None):
     """The moves of one exchange into ``states`` (per shard (dx, dy,
@@ -211,54 +217,6 @@ def halo_exchange_plain(states, kx: int, src=None) -> None:
             d.fill_(fill)
         else:
             d.copy_(s)
-
-
-class HaloExchange(SlabMoves):
-    """halo_exchange_cuda with its tables built once, for a loop that
-    exchanges between the same tensors every sweep: calling it launches
-    (one launch with every shard on one card, one per sending card
-    otherwise) and counts into ``halo_exchange_cuda.launches``."""
-
-    def __init__(self, states, kx: int, src=None):
-        if not 2 <= len(states) <= MAX_SHARDS:
-            raise ValueError(f"needs 2..{MAX_SHARDS} shards, got "
-                             f"{len(states)}")
-        super().__init__(halo_moves(states, kx, src))
-
-    def __call__(self) -> int:
-        dp = get_devprof()
-        if dp.enabled and self.groups:
-            # timed on the first sending card's stream (obs/devprof.py)
-            with dp.launch("halo_exchange_cuda", self.groups[0][4]):
-                n = super().__call__()
-        else:
-            n = super().__call__()
-        _count(halo_exchange_cuda, self.dtype, n)
-        return n
-
-
-def halo_exchange_cuda(states, kx: int, src=None) -> None:
-    """One halo exchange on the card, in place: the shards' dist halo
-    columns of ``states`` from the owned columns of ``src`` (module
-    docstring)."""
-    HaloExchange(states, kx, src)()
-
-
-halo_exchange_cuda.launches = 0
-halo_exchange_cuda.launches_bf16 = 0
-
-
-def halo_exchange(states, kx: int, src=None) -> None:
-    """The halo exchange: the kernel for CUDA states, the plain version
-    for CPU states."""
-    kinds = {st[k].device.type for st in states for k in (0, 1)}
-    if src is not None:
-        kinds |= {st[k].device.type for st in src for k in (0, 1)}
-    if kinds == {"cuda"}:
-        return halo_exchange_cuda(states, kx, src)
-    if kinds == {"cpu"}:
-        return halo_exchange_plain(states, kx, src)
-    raise ValueError(f"states on mixed device types {sorted(kinds)}")
 
 
 # ---- the TPU kernel's contract ----------------------------------------
@@ -322,7 +280,7 @@ def remote_slab_permute(slabs, fwd: bool):
     raise ValueError(f"slabs on mixed device types {sorted(kinds)}")
 
 
-WRAPPERS = (halo_exchange_cuda, remote_slab_permute_cuda)
+WRAPPERS = (remote_slab_permute_cuda,)
 
 
 def reset_launch_counts() -> None:

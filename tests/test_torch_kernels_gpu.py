@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels on the card: each against its
 plain PyTorch version on the same inputs (bit-identical), launch
-counting, the row-sharded relaxation on the card against its CPU run,
-and the Router on CUDA against the Router on the CPU.
+counting, the row-sharded relaxation on the card (the cluster and the
+peer kernel) against its plain loop and its CPU run, and the Router on
+CUDA against the Router on the CPU.
 
 Run on a machine with a CUDA device:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -276,50 +277,6 @@ def test_slab_permute_kernel_matches_plain(cuda, s, fwd, cols):
     _same(got, sk.slab_permute_plain(slabs, fwd))
 
 
-def _blocks(pg, d0, cc, w0, s, device):
-    kx = TS.row_block_cols(pg, s)
-    devs = [device] * s
-    sp = [P._split_flat(pg, a) for a in (d0, cc, w0)]
-    bl = [(TS.shard_blocks(x, f, 2, kx, devs), TS.shard_blocks(y, f, 3, kx,
-                                                              devs))
-          for (x, y), f in zip(sp, (float("inf"), float("inf"), 0.0))]
-    return kx, bl
-
-
-@pytest.mark.parametrize("mode", [None, 0, 1, 2])
-@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
-@pytest.mark.parametrize("arch_i", [0, 1])
-def test_sweep_block_kernel_matches_plain(cuda, arch_i, costs, mode):
-    """One step-kernel sweep of every shard's block, pred carried in from
-    a plain sweep, against one more plain sweep, in every shared-memory
-    mode (None: the most that fits; 0 global state, 1 dist in shared
-    memory, 2 dist and scan costs)."""
-    mk, nx, ny = ARCHS[arch_i]
-    pg, d0, cc, crit, w0 = _instance(mk(), nx, ny, 16, 5, costs, cuda)
-    s = 2
-    kx, ((dx, dy), (ccx, ccy), (wx, wy)) = _blocks(pg, d0, cc, w0, s, cuda)
-    gms = TS._shard_geoms(pg, TS.make_row_mesh(s, devices=[cuda] * s), kx)
-    own = slice(1, kx + 1)
-    for k in range(s):
-        g = gms[k]
-        st = (dx[k], dy[k], g.idxx.expand(dx[k].shape).contiguous(),
-              g.idxy.expand(dy[k].shape).contiguous(), wx[k], wy[k])
-        costs_k = P._sweep_costs(g, crit, ccx[k], ccy[k])
-        st1 = P._sweep_once(g, st, crit, ccx[k], ccy[k], costs_k)
-        n0 = pk.planes_sweep_block_cuda.launches
-        got, stats = pk.planes_sweep_block_cuda(g, st1, crit, ccx[k],
-                                                ccy[k], (1, kx + 1),
-                                                mode=mode)
-        torch.cuda.synchronize()
-        assert pk.planes_sweep_block_cuda.launches == n0 + 1
-        ref = P._sweep_once(g, st1, crit, ccx[k], ccy[k], costs_k)
-        _same(got, ref)
-        flag = ((ref[0][:, :, own] < st1[0][:, :, own]).flatten(1).any(1)
-                | (ref[1][:, :, own] < st1[1][:, :, own]).flatten(1).any(1))
-        assert torch.equal(stats[:, 1].bool().cpu(), flag.cpu())
-        assert (stats[:, 0] == 1).all()
-
-
 def _pg_to(pg, device):
     f = {k: getattr(pg, k).cpu().numpy() for k in P._PG_FIELDS}
     f.update(directional=pg.directional, max_span=pg.max_span,
@@ -339,16 +296,13 @@ def test_sharded_relax_cuda_matches_cpu(cuda, impl, s):
     got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24, mesh)
     torch.cuda.synchronize()
     sweeps = int(got[3][0])
-    if impl == "ppermute":
-        # lag 1 on one card: one cluster launch for the whole relaxation
-        assert pk.planes_relax_cluster_cuda.launches == 1
-        assert pk.planes_sweep_block_cuda.launches == 0
-        assert sk.halo_exchange_cuda.launches == 0
-    else:
-        # one step launch per shard and one exchange launch per sweep
-        assert pk.planes_sweep_block_cuda.launches == s * sweeps
-        assert sk.halo_exchange_cuda.launches == sweeps
-        assert pk.planes_relax_cluster_cuda.launches == 0
+    assert sweeps > 1
+    # one launch for the whole relaxation: lag 1 on one card the cluster
+    # kernel, lag 2 the peer kernel
+    want = ("planes_relax_cluster_cuda" if impl == "ppermute"
+            else "planes_relax_peer_cuda")
+    assert {k: v for k, v in pk.launch_counts().items() if v} == {want: 1}
+    assert sk.launch_counts()["remote_slab_permute_cuda"] == 0
     cpu = [t.cpu() for t in (d0, cc, crit, w0)]
     ref = TS.planes_relax_sharded(_pg_to(pg, "cpu"), *cpu, 24,
                                   TS.make_row_mesh(s, impl, "cpu"))
@@ -364,7 +318,7 @@ def test_sharded_relax_cuda_matches_cpu(cuda, impl, s):
 @pytest.mark.parametrize("s", [2, 3, 4])
 def test_cluster_relax_matches_plain_sweeps(cuda, s, arch_i, costs, mode):
     """The one-launch cluster relaxation against the plain per-sweep loop
-    (_PlainSweeps) on the card and the step-and-halo-kernel loop: every
+    (_PlainSweeps) on the card and the peer kernel under lag 1: every
     output and the stats bit-identical, in every shared-memory mode; on
     f32-exact costs dist and wenter equal single-device K1's."""
     mk, nx, ny = ARCHS[arch_i]
@@ -381,11 +335,10 @@ def test_cluster_relax_matches_plain_sweeps(cuda, s, arch_i, costs, mode):
     assert per_net[3].tolist() == [1, 0]
     assert torch.equal(per_net.max(0).values, got[3].cpu())
     mesh = TS.make_row_mesh(s, "ppermute", [d0.device] * s)
-    plain = TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24, mesh,
-                                           plain=True)
+    plain = TS.planes_relax_sharded_plain(pg, d0, cc, crit, w0, 24, mesh)
     _same(got, plain)
-    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24,
-                                              mesh))
+    _same(got, pk.planes_relax_peer_cuda(pg, d0, cc, crit, w0,
+                                         TS.sweep_cap(24, s), mesh.devices))
     if costs == "exact":
         single = pk.planes_relax_full_cuda(pg, d0, cc, crit, w0, 24)
         for k in (0, 2):
@@ -406,8 +359,71 @@ def test_cluster_relax_beyond_portable_size(cuda, s):
         return
     torch.cuda.synchronize()
     mesh = TS.make_row_mesh(s, "ppermute", [d0.device] * s)
-    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24,
-                                              mesh, plain=True))
+    _same(got, TS.planes_relax_sharded_plain(pg, d0, cc, crit, w0, 24,
+                                             mesh))
+
+
+def _peer_case(s, inst, mode, impl, plane_dtype="f32"):
+    """The peer kernel on one card against the plain loop (and, under lag
+    1, the cluster kernel): one launch per relaxation, every output and
+    the stats bit-identical, the per-net stats' max the batch's, the
+    empty net 3 stopped after its first (lag 1) or second (lag 2) sweep."""
+    pg, d0, cc, crit, w0 = inst
+    d0[3] = float("inf")
+    mesh = TS.make_row_mesh(s, impl, [d0.device] * s)
+    lag2 = impl == "pallas_halo"
+    cap = TS.sweep_cap(24, s)
+    c0 = pk.launch_counts()
+    got = pk.planes_relax_peer_cuda(pg, d0, cc, crit, w0, cap, mesh.devices,
+                                    lag2=lag2, mode=mode,
+                                    plane_dtype=plane_dtype)
+    torch.cuda.synchronize()
+    c1 = pk.launch_counts()
+    key = "planes_relax_peer_cuda" + ("[bf16]" if plane_dtype == BF else "")
+    assert {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]} == {key: 1}
+    if mode is not None:
+        assert pk.planes_relax_peer_cuda.last_mode == mode
+    per_net = pk.planes_relax_peer_cuda.last_stats[:-1].cpu()
+    assert per_net[3].tolist() == [2 if lag2 else 1, 0]
+    assert torch.equal(per_net.max(0).values, got[3].cpu())
+    _same(got, TS.planes_relax_sharded_plain(pg, d0, cc, crit, w0, 24, mesh,
+                                             plane_dtype))
+    if not lag2:
+        _same(got, pk.planes_relax_cluster_cuda(pg, d0, cc, crit, w0, cap, s,
+                                                mode=mode,
+                                                plane_dtype=plane_dtype))
+    return got
+
+
+@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_peer_relax_matches_plain(cuda, s, arch_i, costs, mode, impl):
+    """The peer kernel (one cooperative launch, halos through the
+    mailboxes, the fixpoint on the card) in every shared-memory mode,
+    both schedules, against the plain loop and, under lag 1, the
+    cluster kernel; on f32-exact costs dist and wenter equal K1's."""
+    mk, nx, ny = ARCHS[arch_i]
+    inst = _instance(mk(), nx, ny, 16, 70 + s, costs, cuda)
+    got = _peer_case(s, inst, mode, impl)
+    if costs == "exact":
+        single = pk.planes_relax_full_cuda(*inst, 24)
+        for k in (0, 2):
+            assert torch.equal(got[k], single[k])
+
+
+@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
+@pytest.mark.parametrize("mode", [None, 0, 1, 2])
+@pytest.mark.parametrize("costs", ["jitter", "crit"])
+@pytest.mark.parametrize("arch_i", [0, 1])
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_peer_relax_bf16_matches_plain(cuda, s, arch_i, costs, mode, impl):
+    """The peer kernel in the bf16 plane mode: the mailboxes carry the
+    rounded dist, the flags compare the rounded owned cells."""
+    _peer_case(s, _bf16_instance(arch_i, 80 + s, costs, cuda), mode, impl,
+               BF)
 
 
 def test_router_mesh_cuda_matches_cpu(cuda):
@@ -422,14 +438,15 @@ def test_router_mesh_cuda_matches_cpu(cuda):
     rg = router.route(f.term)
     if router.row_mesh.n_cards == 1:
         # lag 1 with both shards on the card: one cluster launch per
-        # relaxation, no step, no halo kernel
+        # relaxation
         assert pk.planes_relax_cluster_cuda.launches > 0
-        assert pk.planes_sweep_block_cuda.launches == 0
-        assert sk.halo_exchange_cuda.launches == 0
+        assert pk.planes_relax_peer_cuda.launches == 0
     else:
+        # across cards: one peer launch per card per relaxation
         assert pk.planes_relax_cluster_cuda.launches == 0
-        assert pk.planes_sweep_block_cuda.launches > 0
-        assert sk.halo_exchange_cuda.launches > 0
+        assert pk.planes_relax_peer_cuda.launches > 0
+        assert pk.planes_relax_peer_cuda.launches % \
+            router.row_mesh.n_cards == 0
     assert sk.remote_slab_permute_cuda.launches == 0
     assert pk.planes_relax_full_cuda.launches == 0
     assert (rg.wirelength, rg.iterations) == (rc.wirelength, rc.iterations)
@@ -449,9 +466,9 @@ def _cards(n):
 @pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
 def test_sharded_relax_across_cards_matches_cpu(cuda, impl, s):
     """The shards round-robin over the cards: both schedules take the
-    per-sweep loop (one step launch per shard and one exchange launch per
-    sending card each sweep, no cluster launch); every output and the
-    stats equal the CPU run."""
+    peer kernel (one launch per card for the whole relaxation, halos
+    over NVLink, no cluster launch); every output and the stats equal
+    the CPU run."""
     devs = _cards(s)
     pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=8), 6, 5, 16,
                                      6, "exact", cuda)
@@ -462,14 +479,25 @@ def test_sharded_relax_across_cards_matches_cpu(cuda, impl, s):
     got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24, mesh)
     for d in set(devs):
         torch.cuda.synchronize(d)
-    sweeps = int(got[3][0])
-    assert pk.planes_sweep_block_cuda.launches == s * sweeps
-    assert sk.halo_exchange_cuda.launches == len(set(devs)) * sweeps
+    assert int(got[3][0]) > 1
+    assert pk.planes_relax_peer_cuda.launches == len(set(devs))
     assert pk.planes_relax_cluster_cuda.launches == 0
     cpu = [t.cpu() for t in (d0, cc, crit, w0)]
     ref = TS.planes_relax_sharded(_pg_to(pg, "cpu"), *cpu, 24,
                                   TS.make_row_mesh(s, impl, "cpu"))
     _same(got, ref)
+    # f32 and bf16: equal to the peer kernel's one-card form (every
+    # shard on the tensors' card), one launch per card
+    one = TS.RowMesh((d0.device,) * s, impl, per_sweep=True)
+    for pd, key in (("f32", "planes_relax_peer_cuda"),
+                    ("bf16", "planes_relax_peer_cuda[bf16]")):
+        n0 = pk.launch_counts()[key]
+        got = TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24, mesh, pd)
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+        assert pk.launch_counts()[key] == n0 + len(set(devs))
+        _same(got, TS.planes_relax_sharded(pg, d0, cc, crit, w0, 24, one,
+                                           pd))
 
 
 @pytest.mark.parametrize("fwd", [True, False])
@@ -493,55 +521,6 @@ def test_slab_permute_kernel_across_cards(cuda, s, fwd):
                  else devs[r] for r in range(s)}
     assert sk.remote_slab_permute_cuda.launches == n0 + len(launchers)
     _same(got, sk.slab_permute_plain(slabs, fwd))
-
-
-def _block_states(s, kx, devs, seed, B=64, W=12, NY=6):
-    """Random (dx, dy) block canvases per shard ([B, W, kx+2, NY+1] /
-    [B, W, kx+3, NY], 20% INF) on the shards' devices."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for d in devs:
-        pair = []
-        for ext, ny in ((2, NY + 1), (3, NY)):
-            a = rng.uniform(0, 1, (B, W, kx + ext, ny)).astype(np.float32)
-            a[rng.random(a.shape) < 0.2] = np.inf
-            pair.append(torch.from_numpy(a).to(d))
-        out.append(tuple(pair))
-    return out
-
-
-def _exchange_matches_plain(s, devs, lagged):
-    kx = 3
-    states = _block_states(s, kx, devs, s + 7 * lagged)
-    src = _block_states(s, kx, devs, 99 + s) if lagged else None
-    ref = [tuple(t.cpu() for t in st) for st in states]
-    ref_src = None if src is None else [tuple(t.cpu() for t in st)
-                                        for st in src]
-    sk.halo_exchange_plain(ref, kx, ref_src)
-    n0 = sk.halo_exchange_cuda.launches
-    sk.halo_exchange(states, kx, src)
-    for d in set(devs):
-        torch.cuda.synchronize(d)
-    for got, want in zip(states, ref):
-        _same(got, want)
-    return sk.halo_exchange_cuda.launches - n0
-
-
-@pytest.mark.parametrize("lagged", [False, True])
-@pytest.mark.parametrize("s", [2, 3, 4])
-def test_halo_exchange_kernel_matches_plain(cuda, s, lagged):
-    """The fused in-place exchange on one card: one launch, every halo
-    column bit-identical to the plain version's."""
-    assert _exchange_matches_plain(s, [cuda] * s, lagged) == 1
-
-
-@pytest.mark.parametrize("lagged", [False, True])
-@pytest.mark.parametrize("s", [2, 3, 4])
-def test_halo_exchange_kernel_across_cards(cuda, s, lagged):
-    """The exchange with the shards on several cards: each card launches
-    once for what it sends, through peer pointers."""
-    devs = _cards(s)
-    assert _exchange_matches_plain(s, devs, lagged) == len(set(devs))
 
 
 def test_router_mesh_across_cards(cuda):
@@ -647,8 +626,8 @@ def test_cropped_kernel_negative_origin(cuda, ox, plane_dtype):
 def test_cluster_relax_bf16_matches_plain(cuda, s, arch_i, costs, mode):
     """The cluster kernel in the bf16 plane mode (rounded halos through
     distributed shared memory, the flag on rounded owned cells, per-net
-    termination) against the plain bf16 per-sweep loop and the step-and-
-    halo-kernel loop on bfloat16 blocks."""
+    termination) against the plain bf16 per-sweep loop and the peer
+    kernel under lag 1."""
     pg, d0, cc, crit, w0 = _bf16_instance(arch_i, 44 + s, costs, cuda)
     n0 = pk.planes_relax_cluster_cuda.launches_bf16
     got = pk.planes_relax_cluster_cuda(pg, d0, cc, crit, w0,
@@ -660,80 +639,13 @@ def test_cluster_relax_bf16_matches_plain(cuda, s, arch_i, costs, mode):
     assert per_net[3].tolist() == [1, 0]
     assert torch.equal(per_net.max(0).values, got[3].cpu())
     mesh = TS.make_row_mesh(s, "ppermute", [d0.device] * s)
-    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24, mesh,
-                                              plain=True, plane_dtype=BF))
-    b0, h0 = (pk.planes_sweep_block_cuda.launches_bf16,
-              sk.halo_exchange_cuda.launches_bf16)
-    _same(got, TS.planes_relax_sharded_sweeps(pg, d0, cc, crit, w0, 24, mesh,
-                                              plane_dtype=BF))
-    assert pk.planes_sweep_block_cuda.launches_bf16 > b0
-    assert sk.halo_exchange_cuda.launches_bf16 > h0
-
-
-@pytest.mark.parametrize("mode", [None, 0, 1, 2])
-@pytest.mark.parametrize("costs", ["jitter", "crit"])
-@pytest.mark.parametrize("arch_i", [0, 1])
-def test_sweep_block_kernel_bf16_matches_plain(cuda, arch_i, costs, mode):
-    """One step-kernel sweep on bfloat16 blocks (f32 inside, rounded at
-    its end; in mode 0 on an f32 workspace) against one plain sweep with
-    the same rounding, and the owned-changed flags on the rounded
-    state."""
-    from parallel_eda_tpu_torch.route.planes import (
-        _dequantize_plane_state, quantize_plane_state)
-
-    pg, d0, cc, crit, w0 = _bf16_instance(arch_i, 47, costs, cuda)
-    bf = torch.bfloat16
-    s = 2
-    kx, ((dx, dy), (ccx, ccy), (wx, wy)) = _blocks(
-        pg, d0.to(bf), cc.to(bf), w0.to(bf), s, cuda)
-    gms = TS._shard_geoms(pg, TS.make_row_mesh(s, devices=[cuda] * s), kx)
-    own = slice(1, kx + 1)
-    for k in range(s):
-        g = gms[k]
-        st = (dx[k], dy[k], g.idxx.expand(dx[k].shape).contiguous(),
-              g.idxy.expand(dy[k].shape).contiguous(), wx[k], wy[k])
-        cf = (ccx[k].float(), ccy[k].float())
-        costs_k = P._sweep_costs(g, crit, *cf)
-
-        def plain(st):
-            return quantize_plane_state(P._sweep_once(
-                g, _dequantize_plane_state(st), crit, *cf, costs_k), BF)
-        st1 = plain(st)
-        n0 = pk.planes_sweep_block_cuda.launches_bf16
-        got, stats = pk.planes_sweep_block_cuda(g, st1, crit, ccx[k],
-                                                ccy[k], (1, kx + 1),
-                                                mode=mode)
-        torch.cuda.synchronize()
-        assert pk.planes_sweep_block_cuda.launches_bf16 == n0 + 1
-        ref = plain(st1)
-        _same(got, ref)
-        flag = ((ref[0][:, :, own] < st1[0][:, :, own]).flatten(1).any(1)
-                | (ref[1][:, :, own] < st1[1][:, :, own]).flatten(1).any(1))
-        assert torch.equal(stats[:, 1].bool().cpu(), flag.cpu())
-
-
-@pytest.mark.parametrize("lagged", [False, True])
-@pytest.mark.parametrize("s", [2, 3, 4])
-def test_halo_exchange_kernel_bf16_matches_plain(cuda, s, lagged):
-    """K3 on bfloat16 block states: one launch moving 2-byte elements,
-    every halo column bit-identical to the plain version's."""
-    kx = 3
-    bf = torch.bfloat16
-    states = [tuple(t.to(bf) for t in st) for st in
-              _block_states(s, kx, [cuda] * s, 50 + s + 7 * lagged)]
-    src = ([tuple(t.to(bf) for t in st) for st in
-            _block_states(s, kx, [cuda] * s, 150 + s)] if lagged else None)
-    ref = [tuple(t.cpu() for t in st) for st in states]
-    sk.halo_exchange_plain(ref, kx, None if src is None else
-                           [tuple(t.cpu() for t in st) for st in src])
-    n0, f0 = (sk.halo_exchange_cuda.launches_bf16,
-              sk.halo_exchange_cuda.launches)
-    sk.halo_exchange(states, kx, src)
-    torch.cuda.synchronize()
-    assert sk.halo_exchange_cuda.launches_bf16 == n0 + 1
-    assert sk.halo_exchange_cuda.launches == f0
-    for got, want in zip(states, ref):
-        _same(got, want)
+    _same(got, TS.planes_relax_sharded_plain(pg, d0, cc, crit, w0, 24, mesh,
+                                             plane_dtype=BF))
+    b0 = pk.planes_relax_peer_cuda.launches_bf16
+    _same(got, pk.planes_relax_peer_cuda(pg, d0, cc, crit, w0,
+                                         TS.sweep_cap(24, s), mesh.devices,
+                                         plane_dtype=BF))
+    assert pk.planes_relax_peer_cuda.launches_bf16 == b0 + 1
 
 
 @pytest.mark.parametrize("fwd", [True, False])

@@ -504,7 +504,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         pk.planes_relax_full_cuda(tpg, d0, cc, crit, w0, 8,
                                   plane_dtype="bf16")
     names = ("planes_relax_full_cuda", "planes_relax_cropped_cuda",
-             "planes_sweep_block_cuda", "planes_relax_cluster_cuda")
+             "planes_relax_cluster_cuda", "planes_relax_peer_cuda")
     assert pk.launch_counts() == {
         n + m: 0 for n in names for m in ("", "[bf16]")}
 

@@ -241,7 +241,7 @@ def test_halo_exchange_plain_matches_jax(s, arch, lagged):
               for k in range(s)]
     src = ([(torch.from_numpy(sxb[k]), torch.from_numpy(syb[k]))
             for k in range(s)] if lagged else None)
-    sk.halo_exchange(states, kx, src)
+    sk.halo_exchange_plain(states, kx, src)
     for k in range(s):
         assert np.array_equal(states[k][0].numpy(), want[0][k])
         assert np.array_equal(states[k][1].numpy(), want[1][k])
@@ -253,8 +253,9 @@ def test_halo_exchange_plain_matches_jax(s, arch, lagged):
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    """The shard kernels' wrappers raise on CPU tensors (they never fall
-    back to the plain version) and count nothing."""
+    """The shard kernels' wrappers and the peer relaxation's raise on CPU
+    tensors and on shards that are not cards (they never fall back to
+    the plain version) and count nothing."""
     _, tpg, args, _ = _instance("minimal")
     sk.reset_launch_counts()
     slabs = [torch.zeros((2, 3, 1, 4)) for _ in range(3)]
@@ -264,30 +265,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         sk.remote_slab_permute_cuda(slabs[:1], True)
     with pytest.raises(ValueError, match="mixed"):
         sk.remote_slab_permute([slabs[0], slabs[1].to("meta")], True)
-    kx = TS.row_block_cols(tpg, 2)
-    m = TS.make_row_mesh(2, devices="cpu")
-    g = TS._shard_geoms(tpg, m, kx)[0]
-    B = args[0].shape[0]
-    W, _, NYp1 = tpg.shape_x
-    sx, sy = (B, W, kx + 2, NYp1), (B, W, kx + 3, NYp1 - 1)
-    st = (torch.zeros(sx), torch.zeros(sy), torch.zeros(sx, dtype=torch.int32),
-          torch.zeros(sy, dtype=torch.int32), torch.zeros(sx),
-          torch.zeros(sy))
-    n0 = pk.planes_sweep_block_cuda.launches
+    flats = [torch.from_numpy(x) for x in args]
+    n0 = dict(pk.launch_counts())
+    c0 = torch.device("cuda", 0)
     with pytest.raises(ValueError, match="CUDA"):
-        pk.planes_sweep_block_cuda(g, st, torch.zeros(B), st[0], st[1],
-                                   (1, kx + 1))
-    assert pk.planes_sweep_block_cuda.launches == n0
+        pk.planes_relax_peer_cuda(tpg, *flats, 8, (c0, c0))
     with pytest.raises(ValueError, match="CUDA"):
-        sk.halo_exchange_cuda([st, st], kx)
-    with pytest.raises(ValueError, match="mixed"):
-        sk.halo_exchange([st, tuple(t.to("meta") for t in st)], kx)
+        pk.planes_relax_peer_cuda(tpg, *flats, 8, (c0, c0), lag2=True,
+                                  plane_dtype="bf16")
+    assert pk.launch_counts() == n0
     bf16 = [torch.zeros((2, 3, 1, 4), dtype=torch.bfloat16)] * 3
     with pytest.raises(ValueError, match="CUDA"):
         sk.remote_slab_permute_cuda(bf16, True)
     assert sk.launch_counts() == {
-        n + m: 0 for n in ("halo_exchange_cuda", "remote_slab_permute_cuda")
-        for m in ("", "[bf16]")}
+        "remote_slab_permute_cuda" + m: 0 for m in ("", "[bf16]")}
 
 
 # ---- the sharded relaxation ------------------------------------------
@@ -350,36 +341,74 @@ def _costs_instance(arch, costs, B=4):
 @pytest.mark.parametrize("costs", ["exact", "jitter"])
 @pytest.mark.parametrize("arch", ["minimal", "unidir"])
 @pytest.mark.parametrize("s", [2, 3, 4])
-def test_sharded_relax_per_net_termination(s, arch, costs):
-    """The cluster kernel's termination rule: each net stops at its own
-    first sweep with no owned change.  The plain lag-1 sharded loop run
-    one net at a time, its per-net [executed, useful] max-reduced,
+@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
+def test_sharded_relax_per_net_termination(impl, s, arch, costs):
+    """The sharded kernels' termination rule: each net stops at its own
+    fixpoint — lag 1 ("ppermute", the cluster and peer kernels) at its
+    first sweep with no owned change, lag 2 ("pallas_halo", the peer
+    kernel) after its second consecutive one.  The plain sharded loop
+    run one net at a time, its per-net [executed, useful] max-reduced,
     equals the batch run (every output bit-identical, stats equal) and
     the JAX package's planes_relax_sharded."""
     pg, tpg, args = _costs_instance(arch, costs)
     B = args[0].shape[0]
-    mesh = TS.make_row_mesh(s, "ppermute", "cpu")
+    mesh = TS.make_row_mesh(s, impl, "cpu")
     batch = TS.planes_relax_sharded(tpg, *(torch.from_numpy(x)
                                            for x in args), 24, mesh)
     nets = [TS.planes_relax_sharded(
         tpg, *(torch.from_numpy(x[b:b + 1]) for x in args), 24, mesh)
         for b in range(B)]
     per_net = torch.stack([n[3] for n in nets])
-    # the nets do not all stop at the same sweep
-    assert per_net[-1].tolist() == [1, 0] < per_net[0].tolist()
+    # the nets do not all stop at the same sweep; the empty one stops
+    # at its first (lag 1) or second (lag 2) stable sweep
+    stable = 1 if impl == "ppermute" else 2
+    assert per_net[-1].tolist() == [stable, 0] < per_net[0].tolist()
     for k in range(3):
         assert torch.equal(torch.cat([n[k] for n in nets]), batch[k])
     assert torch.equal(per_net.max(0).values, batch[3])
-    jout = JS.planes_relax_sharded(pg, *(jnp.asarray(x) for x in args), 24,
-                                   JS.make_row_mesh(s, "ppermute"))
-    for a, b in zip(jout, batch):
-        assert np.array_equal(np.asarray(a), b.numpy())
+    if impl == "ppermute":
+        # lag 1: every output and the stats against the JAX package on
+        # this instance
+        jout = JS.planes_relax_sharded(pg, *(jnp.asarray(x) for x in args),
+                                       24, JS.make_row_mesh(s, impl))
+        for a, b in zip(jout, batch):
+            assert np.array_equal(np.asarray(a), b.numpy())
+        return
+    # lag 2: against the JAX package on both cost instances as one batch
+    # (one JAX compile for the exact and the jittered case): every output
+    # and the joined batch's stats equal, and this instance's rows equal
+    # its own batch's
+    both = _both_costs(arch)
+    key = ("jax sharded", arch, s, impl)
+    if key not in _CACHE:
+        _CACHE[key] = tuple(np.asarray(a) for a in JS.planes_relax_sharded(
+            pg, *(jnp.asarray(x) for x in both), 24,
+            JS.make_row_mesh(s, impl)))
+    port = TS.planes_relax_sharded(tpg, *(torch.from_numpy(x)
+                                          for x in both), 24, mesh)
+    for a, b in zip(_CACHE[key], port):
+        assert np.array_equal(a, b.numpy())
+    rows = slice(0, B) if costs == "exact" else slice(B, 2 * B)
+    for k in range(3):
+        assert torch.equal(port[k][rows], batch[k])
+
+
+def _both_costs(arch):
+    """The exact and the jittered cost instance of ``arch`` as one batch
+    (numpy arrays, exact first)."""
+    pairs = zip(_costs_instance(arch, "exact")[2],
+                _costs_instance(arch, "jitter")[2])
+    return tuple(np.ascontiguousarray(np.concatenate(p)) for p in pairs)
 
 
 def test_cluster_dispatch_rule():
     """planes_relax_sharded takes the cluster launch exactly for the
-    lag-1 schedule with every shard on the tensors' card; across cards,
-    under lag 2 and on the CPU it runs the per-sweep loop."""
+    lag-1 schedule with every shard on the tensors' card; every other
+    mesh of cards (across cards, lag 2, the ladder's per-sweep mesh)
+    takes the peer kernel, whose wrapper counts under its own launch
+    keys; the CPU runs the plain loop."""
+    import dataclasses
+
     c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
     one = TS.RowMesh((c0,) * 3)
     assert TS.uses_cluster(one, c0)
@@ -388,8 +417,63 @@ def test_cluster_dispatch_rule():
     assert not TS.uses_cluster(TS.RowMesh((c0, c1)), c0)
     cpu = TS.make_row_mesh(2, "ppermute", "cpu")
     assert not TS.uses_cluster(cpu, torch.device("cpu"))
+    assert TS.relax_form(one, c0) == "cluster"
+    for mesh, home in ((one, c1), (TS.RowMesh((c0,) * 3, "pallas_halo"), c0),
+                       (TS.RowMesh((c0, c1)), c0),
+                       (TS.RowMesh((c0, c1), "pallas_halo"), c1),
+                       (dataclasses.replace(one, per_sweep=True), c0)):
+        assert TS.relax_form(mesh, home) == "peer"
+    for impl in TS.MESH_IMPLS:
+        assert TS.relax_form(TS.make_row_mesh(3, impl, "cpu"),
+                             torch.device("cpu")) == "plain"
+    keys = pk.launch_counts()
+    assert keys["planes_relax_peer_cuda"] == 0
+    assert keys["planes_relax_peer_cuda[bf16]"] == 0
+    assert "planes_relax_peer_cuda" in pk.mode_launch_counts()
     assert TS.sweep_cap(24, 4) == 96
     assert TS.sweep_cap(300, 4) == TS.MAX_SHARD_SWEEPS
+
+
+@pytest.mark.parametrize("B", [1, 5, 64])
+@pytest.mark.parametrize("layout", [
+    ("cuda:0",) * 2, ("cuda:0",) * 4, ("cuda:0", "cuda:1"),
+    ("cuda:0", "cuda:1", "cuda:2", "cuda:3"),
+    ("cuda:0", "cuda:1", "cuda:0", "cuda:1", "cuda:0"),
+    ("cuda:2", "cuda:0", "cuda:1")])
+@pytest.mark.parametrize("occupancy", [3, 16, 132, 264])
+def test_peer_launch_plan(occupancy, layout, B):
+    """The peer kernel's launch plan: every net is visited once per
+    shard, a net's partner blocks (one per shard) walk one net sequence,
+    and no card's grid exceeds the blocks it holds at once; a card that
+    cannot hold one block per shard it holds is refused."""
+    devs = [torch.device(d) for d in layout]
+    cards = list(dict.fromkeys(devs))
+    fit = {d: occupancy + 7 * i for i, d in enumerate(cards)}
+    most = max(devs.count(d) for d in cards)
+    if any(fit[d] < devs.count(d) for d in cards):
+        with pytest.raises(RuntimeError, match="do not fit"):
+            pk.peer_launch_plan(devs, B, fit)
+        return
+    plan = pk.peer_launch_plan(devs, B, fit)
+    assert [d for d, _ in plan.cards] == cards
+    assert 1 <= plan.G <= B
+    visits = {}
+    for card, ranks in plan.cards:
+        assert list(ranks) == [r for r, d in enumerate(devs) if d == card]
+        assert plan.grid(card) == plan.G * len(ranks) <= fit[card]
+        for k in range(plan.grid(card)):
+            r, j = plan.block(card, k)
+            assert devs[r] == card
+            visits[r, j] = list(plan.nets(j, B))
+    s = len(devs)
+    for r in range(s):
+        seen = sorted(b for j in range(plan.G) for b in visits[r, j])
+        assert seen == list(range(B))
+    for j in range(plan.G):
+        assert all(visits[r, j] == visits[0, j] for r in range(s))
+    # as many net slots as the tightest card allows, up to one per net
+    assert plan.G == min(B, min(fit[d] // devs.count(d) for d in cards))
+    assert most * plan.G <= max(fit.values())
 
 
 def test_sharded_relax_sweep_ceiling():
