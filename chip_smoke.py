@@ -250,6 +250,24 @@ Phases, one line each (any failure exits non-zero with no result line):
                  in any worker (no cuda.build or cuda.nvcc span in its
                  trace shard); each worker's max_gap, the lease_stolen
                  sheds and the phase's seconds printed
+ 23. long_lines — grids with a side past the old 64-cell scan line
+                 limit (the kernels take lines up to
+                 planes_kernels.MAX_LINE): K1 on 6x63 (the thin canvas
+                 whose scan scratch once overflowed), 6x72, 72x6, 66x66
+                 (mode 0), K2 on 8x128 tiles of 10x160, the cluster and
+                 the peer kernel (2 and 4 shards, lag 1 and 2) on 6x72,
+                 f32 at crit 0 and bf16 at crit > 0,
+                 against their plain versions in every mode that fits
+                 (bit-identical, on the kernels line, the jittered f32
+                 cases timed); the 15-LUT parity netlist routed on 6x72
+                 and 72x6 and at mesh_shards=2 on 6x72 (the cluster
+                 kernel, and the peer kernel under lag 2), each = the
+                 port's CPU route of its grid (two spawned workers
+                 route on the CPU beside the kernel checks; paths,
+                 occupancy,
+                 wirelength, iterations; stats rows and sweeps too for
+                 the single-device routes); and on 66x66: legal,
+                 wirelength, iterations, seconds
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -283,12 +301,14 @@ import functools
 import gc
 import json
 import math
+import multiprocessing as mp
 import os
 import re
 import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -764,11 +784,8 @@ def phase_kernels(flows):
     return rows
 
 
-def _kernel_cases(rows, cfg, kind, pd, pg, inst, nsw, tiles, origins, B):
-    """phase_kernels' K1 and K2 cases on one instance in plane dtype
-    ``pd``: bit-identity in every shared-memory mode; on jittered costs
-    the times (the bf16 case beside the f32 case's ms on the same
-    input)."""
+def _k1_case(rows, cfg, kind, pd, pg, inst, nsw, B):
+    """_kernel_cases' K1 case (the full canvas)."""
     from parallel_eda_tpu_torch.route import planes as P
     from parallel_eda_tpu_torch.route import planes_kernels as pk
 
@@ -776,7 +793,6 @@ def _kernel_cases(rows, cfg, kind, pd, pg, inst, nsw, tiles, origins, B):
     NY = NYp1 - 1
     sfx = BF16 if pd == "bf16" else ""
     pb = 2 if pd == "bf16" else 4
-    # --- K1: full canvas ---
     k1 = functools.partial(P.planes_relax, pg, *inst, nsw, pd)
     got = k1()
     net_st = pk.planes_relax_full_cuda.last_stats[:-1].cpu().numpy()
@@ -811,6 +827,21 @@ def _kernel_cases(rows, cfg, kind, pd, pg, inst, nsw, tiles, origins, B):
     rows.setdefault("planes_relax_full_cuda" + sfx, []).append(case)
     say("kernels", f"K1 full {cfg} {kind} {pd}: bit-identical, "
                    + json.dumps(case))
+
+
+def _kernel_cases(rows, cfg, kind, pd, pg, inst, nsw, tiles, origins, B,
+                  k1_case=True):
+    """phase_kernels' K1 and K2 cases on one instance in plane dtype
+    ``pd``: bit-identity in every shared-memory mode; on jittered costs
+    the times (the bf16 case beside the f32 case's ms on the same
+    input).  ``k1_case`` False: the K2 cases alone."""
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+
+    sfx = BF16 if pd == "bf16" else ""
+    pb = 2 if pd == "bf16" else 4
+    if k1_case:
+        _k1_case(rows, cfg, kind, pd, pg, inst, nsw, B)
     # --- K2: cropped tiles ---
     for (cnx, cny) in tiles:
         ox, oy = origins[(cnx, cny)]
@@ -3892,6 +3923,177 @@ def phase_fleet(smi):
                  f"{smi}")
 
 
+# the 15-LUT parity netlist (tests/test_torch_long_lines.py) placed on
+# grids with a side past the old 64-cell scan line limit
+LONG_NETLIST = dict(num_luts=15, num_inputs=6, num_outputs=6, seed=3)
+LONG_ROUTES = ((6, 72), (72, 6), (66, 66))
+
+
+def _long_flow(nx, ny):
+    from parallel_eda_tpu_torch.arch.builtin import minimal_arch
+    from parallel_eda_tpu_torch.flow import prepare
+    from parallel_eda_tpu_torch.netlist.generate import generate_circuit
+
+    arch = minimal_arch(chan_width=10)
+    return prepare(generate_circuit(K=arch.K, **LONG_NETLIST), arch, 10,
+                   nx=nx, ny=ny)
+
+
+def _long_cpu_route(nx, ny):
+    """The port's CPU route of the long-line fixture on an nx x ny grid,
+    in a spawned worker (phase_long_lines runs two beside its kernel
+    cases, four torch threads each): the fields _same_route compares,
+    and the route's seconds."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+
+    torch.set_num_threads(4)
+    f = _long_flow(nx, ny)
+    t0 = time.time()
+    r = Router(f.rr, RouterOpts(batch_size=32), device="cpu").route(f.term)
+    stats = [SimpleNamespace(**{k: getattr(st, k) for k in (
+        "iteration", "overused_nodes", "overuse_total", "rerouted_nets",
+        "relax_steps", "batches", "overuse_pct")}) for st in r.stats]
+    return SimpleNamespace(
+        wirelength=r.wirelength, iterations=r.iterations, paths=r.paths,
+        occ=r.occ, congestion=r.congestion, stats=stats,
+        total_relax_steps=r.total_relax_steps, seconds=time.time() - t0)
+
+
+def _long_cluster_case(rows, cfg, pg, s, kind, pd, inst, B, nsw):
+    """The cluster kernel on a long-line canvas against the plain
+    per-sweep loop on the card, in every shared-memory mode that fits
+    (on jittered costs timed)."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import planes_shard as TS
+
+    W, NX, NYp1 = pg.shape_x
+    mesh = TS.make_row_mesh(s, "ppermute", [inst[0].device] * s)
+    run = functools.partial(pk.planes_relax_cluster_cuda, pg, *inst,
+                            TS.sweep_cap(nsw, s), s, plane_dtype=pd)
+    got = run()
+    torch.cuda.synchronize()
+    auto = pk.planes_relax_cluster_cuda.last_mode
+    per_net = pk.planes_relax_cluster_cuda.last_stats[:-1].cpu().numpy()
+    tag = f"cluster {cfg} s={s} {kind} {pd}"
+    plain, plain_ms = _timed(functools.partial(
+        TS.planes_relax_sharded_plain, pg, *inst, nsw, mesh, pd))
+    err = _same(f"{tag} vs plain", got, plain)
+    for m in range(auto):
+        err = max(err, _same(f"{tag} mode {m} vs plain", run(mode=m),
+                             plain))
+    case = dict(cfg=cfg, shards=s, costs=kind, plane_dtype=pd, B=B,
+                block=[W, TS.row_block_cols(pg, s) + 2, NYp1 - 1],
+                mode=auto, sweeps=got[3].tolist(), max_abs_err=err)
+    if kind == "jitter":
+        case["ms"] = cuda_ms(run, 20)
+        case["plain_ms"] = plain_ms
+        device_later(tag, case, "device_us", run, "planes_relax_cluster")
+        case.update(bound_ms(pg, B, per_net[:, 0],
+                             plane_bytes=2 if pd == "bf16" else 4))
+    rows.setdefault("planes_relax_cluster_cuda"
+                    + (BF16 if pd == "bf16" else ""), []).append(case)
+    say("long_lines", f"{tag}: bit-identical to the plain loop in every "
+                      "mode, " + json.dumps(case))
+
+
+def _long_kernel_cases(rows, graphs):
+    """phase_long_lines (a): every kernel at the long shapes against its
+    plain version, jittered costs in f32 (timed) and crit > 0 in bf16
+    (the gpu tests hold every pairing): K1 on each graph but 10x160, K2
+    on 8x128 tiles of 10x160, the cluster and the peer kernel on
+    6x72."""
+    import torch
+
+    from parallel_eda_tpu_torch.route import planes as P
+
+    rng = np.random.default_rng(16)
+    B, nsw = 32, 64
+    for cfg, rr in graphs.items():
+        pg = P.build_planes(rr, "cuda")
+        W, NX, NYp1 = pg.shape_x
+        tiles = [(8, 128)] if cfg == "10x160" else []
+        for kind, pd in (("jitter", "f32"), ("crit", "bf16")):
+            inst = _instance(rr, pg, B, rng, False, crit_on=kind == "crit")
+            origins = {t: tuple(torch.from_numpy(rng.integers(
+                -t[i] - 3, n - t[i] + 4, B).astype(np.int32)).cuda()
+                for i, n in ((0, NX), (1, NYp1 - 1))) for t in tiles}
+            _kernel_cases(rows, cfg, kind, pd, pg, inst, nsw, tiles,
+                          origins, B, k1_case=not tiles)
+            if cfg != "6x72":
+                continue
+            sfx = BF16 if pd == "bf16" else ""
+            for s in (2, 4):
+                _long_cluster_case(rows, cfg, pg, s, kind, pd, inst, B, nsw)
+                for impl in ("ppermute", "pallas_halo"):
+                    rows["planes_relax_peer_cuda" + sfx].append(_peer_case(
+                        cfg, pg, s, kind, pd, impl, inst, B, nsw,
+                        rows["planes_relax_peer_cuda"]))
+
+
+def phase_long_lines(rows, smi):
+    """Grids with a side past the old 64-cell scan line limit (docstring,
+    phase 23).  Adds its kernel cases to ``rows``; returns the launch
+    counts of its card routes."""
+    from parallel_eda_tpu_torch.arch.builtin import minimal_arch
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+    from parallel_eda_tpu_torch.rr.graph import build_rr_graph
+    from parallel_eda_tpu_torch.rr.grid import DeviceGrid
+
+    t_phase = time.time()
+    # the thin grids' CPU routes run in two spawned workers beside (a)
+    with ProcessPoolExecutor(2, mp_context=mp.get_context("spawn")) as pool:
+        cpu_runs = {f"{nx}x{ny}": pool.submit(_long_cpu_route, nx, ny)
+                    for nx, ny in LONG_ROUTES[:2]}
+        flows = {f"{nx}x{ny}": _long_flow(nx, ny) for nx, ny in LONG_ROUTES}
+        arch = minimal_arch(chan_width=10)
+        graphs = {k: f.rr for k, f in flows.items()}
+        for nx, ny in ((6, 63), (10, 160)):
+            graphs[f"{nx}x{ny}"] = build_rr_graph(
+                arch, DeviceGrid(nx, ny, arch.io_capacity))
+        _long_kernel_cases(rows, graphs)
+        say("long_lines", f"kernels at the long shapes bit-identical, "
+                          f"{time.time() - t_phase:.1f} s")
+        cpu = {cfg: run.result() for cfg, run in cpu_runs.items()}
+    # ---- (b) the thin grids routed on the card = the port's CPU route,
+    # single-device and at mesh_shards=2 (lag 1 the cluster kernel, lag
+    # 2 the peer kernel); (c) the 66 x 66 grid routed on the card
+    counts = []
+    opts = RouterOpts(batch_size=32)
+    for cfg, want in cpu.items():
+        runs = [(cfg, opts, None)]
+        if cfg == "6x72":
+            mesh = RouterOpts(batch_size=32, mesh_shards=2)
+            runs += [(f"{cfg} mesh2", mesh, None),
+                     (f"{cfg} mesh2_lag2", mesh, "pallas_halo")]
+        for tag, o, impl in runs:
+            res, c, dt, _ = _route(f"long_lines {tag}", flows[cfg], o, impl)
+            # the sharded relaxation counts sweeps of its own (stats
+            # rows and sweeps), as in the mesh phase
+            _same_route(f"long_lines {tag}", res, want,
+                        whole=o.mesh_shards <= 1)
+            counts.append(c)
+            say("long_lines", f"{tag}: = the port's CPU route "
+                              f"({want.wirelength} / {want.iterations}, "
+                              f"CPU {want.seconds:.2f} s; paths, occupancy"
+                              + (")" if o.mesh_shards > 1 else
+                                 ", stats rows, sweeps)")
+                              + f", card {dt:.2f} s")
+    res, c, dt, _ = _route("long_lines 66x66", flows["66x66"], opts)
+    counts.append(c)
+    say("long_lines", f"66x66: legal, wirelength {res.wirelength}, "
+                      f"{res.iterations} iterations, {dt:.2f} s on the "
+                      f"card (K1 mode {pk.planes_relax_full_cuda.last_mode})"
+                      f"; phase {time.time() - t_phase:.1f} s on {smi}")
+    return counts
+
+
 def _metric_values(prefix):
     from parallel_eda_tpu_torch.obs import get_metrics
 
@@ -4028,9 +4230,11 @@ def main(argv) -> int:
     c_serve = phase_serve(bench, serve_jobs, smi)
     c_qor = phase_qor(bench, smi)
     phase_fleet(smi)
+    c_long = phase_long_lines(rows, smi)
 
     runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve, c_qor]
+        c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve, c_qor] + \
+        c_long
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     # K3 is off the route's path: the sharded relaxations move their
     # halos inside planes_relax_peer_kernel (peer_publish/peer_install)
@@ -4052,8 +4256,9 @@ def main(argv) -> int:
                     f"(its card routes) {c_fused} resil (its card routes "
                     f"and services) {c_resil} serve (its fused services; "
                     f"its subprocesses count their own) {c_serve} qor "
-                    f"(its card route) {c_qor}; the fleet's workers "
-                    f"launch in their own processes")
+                    f"(its card route) {c_qor} long_lines (6x72, 72x6, "
+                    f"6x72 mesh 2 lag 1 and 2, 66x66) {c_long}; the "
+                    f"fleet's workers launch in their own processes")
     if c_bench["planes_relax_full_cuda"] <= 0:
         raise AssertionError("K1 never launched on the bench route")
     if c_scale["planes_relax_cropped_cuda"] <= 0:

@@ -110,19 +110,27 @@
 //     as much of it as fits the block's opt-in limit (the mode, picked per
 //     launch): 2 dist and the per-cell scan cost crit*delay + cc (computed
 //     once: the same f32 bits as every sweep); 1 dist; 0 nothing (a canvas
-//     whose dist does not fit; no size up to the MAXL line limit loses the
-//     kernel).  pred and wenter are only written, on a strict improvement,
-//     and stay in global memory; the geometry and congestion are read
-//     through the read-only path;
+//     whose dist does not fit).  pred and wenter are only written, on a
+//     strict improvement, and stay in global memory; the geometry and
+//     congestion are read through the read-only path;
 //   * each min-plus line scan runs in parallel on a group of G lanes of
-//     one warp (line_lanes: G = the power of two >= len / 8, at least 2;
-//     32 / G lines per warp at once), level by level through
+//     one warp (line_lanes: G = the power of two >= len / 8, at least 2,
+//     at most 32; 32 / G lines per warp at once), level by level through
 //     lax.associative_scan's odd/even tree in shared scratch, with
 //     __syncwarp between levels.  The forward and the backward scan of a
 //     line run on the same lanes, so they need no block barrier between
-//     them.  Each line's scratch is padded to an odd length so that the
-//     lines of a warp start in different banks;
-//   * 512-1024 threads per block; the fixpoint flag is __syncthreads_or;
+//     them.  Each line's scratch holds its own plane's line (2 len + 1
+//     floats, the odd length starting the lines of a warp in different
+//     banks); a warp's scratch is the larger of the two planes' 32 / G
+//     lines (scratch_per_warp), so a thin canvas pays for its long lines
+//     only at their own group count;
+//   * 512-1024 threads per block (plan_threads): 1024 above 4096 cells,
+//     and 512 where the scratch alone at 1024 would not fit (lines longer
+//     than ~900 cells, one per warp).  So mode 0 fits every shape up to
+//     the MAX_LINE scan line limit (1815 cells); a longer line or a net of
+//     more than MAX_CELLS cells is refused before any launch (the
+//     wrappers' and the Router's check_kernel_shape).  The fixpoint flag
+//     is __syncthreads_or;
 //   * the work around the sweeps stays in the launch: K2 reads and writes
 //     the full flats itself, and the sharded relaxation is one launch per
 //     card (no host loop, no per-sweep launches, exchange launches or host
@@ -184,8 +192,21 @@
 
 namespace cg = cooperative_groups;
 
-#define MAXL 64            // longest scan line (grid side) the kernels take
 #define MAX_THREADS 1024
+#define MIN_THREADS 512    // the fewest threads the planner gives a block
+// Hopper's per-block opt-in shared memory (227 KB on the H100 and H200,
+// the only cards sm_90a runs on): the limit the planner plans threads with
+#define SMEM_PLAN 232448
+// The longest scan line (canvas or block side) the kernels take: a line
+// of n > 128 cells holds a whole warp (line_lanes = 32), one line of 2n+1
+// floats of scratch a warp, so mode 0 (scratch alone, and CLUSTER's two
+// flags) fits SMEM_PLAN at MIN_THREADS up to this n (route/
+// planes_kernels.py MAX_LINE).
+#define MAX_LINE (((SMEM_PLAN - 8) / (4 * (MIN_THREADS / 32)) - 1) / 2)
+// The most cells a net's flats row may hold: cell ids (pred) are int32,
+// and the cell loops step up to four blocks of threads past the end.
+#define MAX_CELLS (0x7fffffffLL - 4LL * MAX_THREADS)
+static_assert(MAX_LINE >= 1024, "the scan line limit is at least 1024");
 #define MAX_DEVICES 64
 #define MAX_CLUSTER 16     // the H100's non-portable cluster size
 #define PORTABLE_CLUSTER 8
@@ -315,16 +336,23 @@ __host__ __device__ __forceinline__ int line_lanes(int n) {
   return G;
 }
 
-// Scan scratch of one line: (c, m) of the longest line and one float of
-// padding, so that the lines of a warp start in different banks.
-__host__ __device__ __forceinline__ int line_scratch(int X, int Y) {
-  return 2 * (X > Y ? X : Y) + 1;
+// Scan scratch of one line of n cells: (c, m) and one float of padding,
+// so that the lines of a warp start in different banks.
+__host__ __device__ __forceinline__ int line_scratch(int n) {
+  return 2 * n + 1;
 }
 
-// Scan scratch floats per warp: one line's for each of the lines a warp
-// scans at once (most on the plane of shorter lines).
+// Scan scratch floats of one plane's lines in a warp: 32 / G lines of n
+// cells at once.
+__host__ __device__ __forceinline__ int plane_scratch(int n) {
+  return line_scratch(n) * (32 / line_lanes(n));
+}
+
+// Scan scratch floats per warp: the more of the two planes' (the chanx
+// plane's lines have X cells, the chany plane's Y).
 __host__ __device__ __forceinline__ int scratch_per_warp(int X, int Y) {
-  return line_scratch(X, Y) * (32 / line_lanes(X < Y ? X : Y));
+  const int sx = plane_scratch(X), sy = plane_scratch(Y);
+  return sx > sy ? sx : sy;
 }
 
 // Per-net views of what a sweep reads besides dist: the geometry (flags,
@@ -507,11 +535,11 @@ __device__ bool scan_phase(const Net<K, SMEM, Q>& n, const Args& a, float* d,
   const int len = XAX ? a.X : a.Y;
   const int per = XAX ? a.Y + 1 : a.X + 1;     // lines per track
   const int nlines = a.W * per;
-  const int G = line_lanes(len), L = a.X > a.Y ? a.X : a.Y;
+  const int G = line_lanes(len);
   const int gpw = 32 / G, q = lane & (G - 1), grp = lane / G;
   float* c = scr + warp * scratch_per_warp(a.X, a.Y) +
-             grp * line_scratch(a.X, a.Y);
-  float* m = c + L;
+             grp * line_scratch(len);
+  float* m = c + len;
   const uint8_t* bb = XAX ? n.g.bbx : n.g.bby;
   const uint8_t* ba = XAX ? n.g.bax : n.g.bay;
   const float* dl = XAX ? n.g.dlx : n.g.dly;
@@ -570,6 +598,9 @@ __device__ bool scan_phase(const Net<K, SMEM, Q>& n, const Args& a, float* d,
 
 // A walk over the cells l = (t * R + r) * C + c of a plane in steps of
 // blockDim.x, carrying (t, r, c) along: the divisions run once per launch.
+// Any row length: dc = blockDim.x % C < C and dr < R, so a step wraps c
+// and r at most once each (a row longer than the block has dc =
+// blockDim.x, drow = 0).
 struct Walk {
   int t0, r0, c0, dt, dr, dc;
   __device__ Walk(int R, int C) {
@@ -1226,13 +1257,32 @@ int smem_optin(int dev) {
   return cache[dev];
 }
 
-// dynamic shared bytes of a mode (relax_net's layout)
-long long smem_bytes(int kind, int mode, const long long* v) {
-  const long long W = v[1], X = v[2], Y = v[3], threads = v[9];
-  const long long ncells = W * X * (Y + 1) + W * (X + 1) * Y;
-  return 4 * (mode * ncells +
-              threads / 32 * scratch_per_warp((int)X, (int)Y)) +
+long long block_cells(const long long* v) {
+  const long long W = v[1], X = v[2], Y = v[3];
+  return W * X * (Y + 1) + W * (X + 1) * Y;
+}
+
+// dynamic shared bytes of a mode at `threads` threads (relax_net's
+// layout)
+long long smem_at(int kind, int mode, const long long* v, long long threads) {
+  return 4 * (mode * block_cells(v) +
+              threads / 32 * scratch_per_warp((int)v[2], (int)v[3])) +
          (kind == CLUSTER ? 2 * sizeof(int) : 0);
+}
+
+long long smem_bytes(int kind, int mode, const long long* v) {
+  return smem_at(kind, mode, v, v[9]);
+}
+
+// The threads of a block (route/planes_kernels.py plan_threads): 1024 on
+// a block of more than 4096 cells, else 512 (fewer warps at each
+// barrier), halved while mode 0 would not fit SMEM_PLAN (lines longer
+// than ~900 cells, one line of scratch per warp), so that every shape up
+// to MAX_LINE has a mode that fits.  The table's v[9] must be this.
+int plan_threads(int kind, const long long* v) {
+  int t = block_cells(v) > 4096 ? MAX_THREADS : MIN_THREADS;
+  while (t > MIN_THREADS && smem_at(kind, 0, v, t) > SMEM_PLAN) t /= 2;
+  return t;
 }
 
 // The mode the launch takes for v[10] = -1: the most shared state that
@@ -1270,11 +1320,14 @@ const void* kernel_of(int kind, int mode, bool q) {
 // for a cluster above the portable size, the non-portable cluster size.
 cudaError_t prepare(int kind, const long long* v, int* cur, int* mode,
                     long long* bytes, const void** k) {
-  const int threads = (int)v[9], dev = (int)v[11];
-  if (v[2] > MAXL || v[3] + 1 > MAXL || v[2] < 1 || v[3] < 1)
+  const int dev = (int)v[11];
+  // the lines, the cells (route/planes_kernels.py check_kernel_shape
+  // raises first) and the planner's threads
+  if (v[2] < 1 || v[3] < 1 || v[2] > MAX_LINE || v[3] > MAX_LINE)
     return cudaErrorInvalidValue;
-  if (threads < 32 || threads > MAX_THREADS || threads % 32)
+  if (block_cells(v) > MAX_CELLS || v[14] > MAX_CELLS)
     return cudaErrorInvalidValue;
+  if (v[9] != plan_threads(kind, v)) return cudaErrorInvalidValue;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (kind == CLUSTER && (v[17] < 2 || v[17] > MAX_CLUSTER))
     return cudaErrorInvalidValue;
@@ -1495,7 +1548,21 @@ extern "C" int planes_relax_zero_total(void* total, int device,
   return (int)e;
 }
 
-extern "C" int planes_relax_max_line() { return MAXL; }
+extern "C" int planes_relax_max_line() { return MAX_LINE; }
+
+extern "C" long long planes_relax_max_cells() { return MAX_CELLS; }
+
+// the planner's threads and dynamic shared bytes of a table (the Python
+// mirror, route/planes_kernels.py plan_threads and smem_bytes, is held
+// against these on the card)
+extern "C" int planes_relax_threads(int kind, const long long* v) {
+  return plan_threads(kind, v);
+}
+
+extern "C" long long planes_relax_smem(int kind, int mode,
+                                       const long long* v) {
+  return smem_at(kind, mode, v, plan_threads(kind, v));
+}
 
 // the shared-memory mode a launch of this kind with this table takes
 // (kind: 0 full, 1 peer, 2 cropped, 3 cluster)

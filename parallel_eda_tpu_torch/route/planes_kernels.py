@@ -78,14 +78,24 @@ NPEER_PTR, NPEER_INT = 33, 23
 
 
 def threads_for(ncells: int) -> int:
-    """Threads per block: 1024 for a large canvas, 512 for a small one
-    (fewer warps at each barrier)."""
+    """Threads per block before the scratch is counted: 1024 for a large
+    canvas, 512 for a small one (fewer warps at each barrier)."""
     return 1024 if ncells > 4096 else 512
 
 
-# cudaDevAttrMaxSharedMemoryPerBlockOptin of the H100 (227 KB): the
-# limit kernel_layout models the auto mode with
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of the H100 (227 KB, the H200's
+# too): the limit the planner plans threads with (csrc/planes_relax.cu
+# SMEM_PLAN) and kernel_layout models the auto mode with
 SMEM_OPTIN = 232448
+# the fewest threads the planner gives a block (csrc MIN_THREADS)
+MIN_THREADS = 512
+# The scan line limit (csrc MAX_LINE): the longest line (X along x, Y
+# along y) for which mode 0 fits SMEM_OPTIN at MIN_THREADS, a line of
+# more than 128 cells taking one warp's scratch of 2n+1 floats alone.
+MAX_LINE = ((SMEM_OPTIN - 8) // (4 * (MIN_THREADS // 32)) - 1) // 2
+# the most cells of a net's flats row (csrc MAX_CELLS): int32 cell ids,
+# cell loops that step up to four blocks of 1024 threads past the end
+MAX_CELLS = 2 ** 31 - 1 - 4 * 1024
 
 
 def _line_lanes(n: int) -> int:
@@ -95,14 +105,79 @@ def _line_lanes(n: int) -> int:
     return g
 
 
+def warp_scratch(X: int, Y: int) -> int:
+    """Scan scratch floats of a warp (csrc scratch_per_warp): the more of
+    the two planes' 32 / G lines of 2 len + 1 floats (the chanx plane's
+    lines have X cells, the chany plane's Y)."""
+    return max((2 * n + 1) * (32 // _line_lanes(n)) for n in (X, Y))
+
+
+def _smem(kind: int, mode: int, W: int, X: int, Y: int,
+          threads: int) -> int:
+    ncells = W * X * (Y + 1) + W * (X + 1) * Y
+    return (4 * (mode * ncells + threads // 32 * warp_scratch(X, Y))
+            + (8 if kind == CLUSTER else 0))
+
+
+def plan_threads(kind: int, W: int, X: int, Y: int) -> int:
+    """Threads per block of a launch on a (W, X, Y) block (csrc
+    plan_threads): threads_for's, halved while mode 0 (the scratch
+    alone) would not fit SMEM_OPTIN, down to MIN_THREADS."""
+    t = threads_for(W * X * (Y + 1) + W * (X + 1) * Y)
+    while t > MIN_THREADS and _smem(kind, 0, W, X, Y, t) > SMEM_OPTIN:
+        t //= 2
+    return t
+
+
 def smem_bytes(kind: int, mode: int, W: int, X: int, Y: int) -> int:
     """Dynamic shared bytes of a launch in ``mode`` (csrc/planes_relax.cu
     smem_bytes): ``mode`` floats per canvas cell, the line-scan scratch
-    of every warp, and the cluster's two flags."""
-    ncells = W * X * (Y + 1) + W * (X + 1) * Y
-    scratch = (2 * max(X, Y) + 1) * (32 // _line_lanes(min(X, Y)))
-    return (4 * (mode * ncells + threads_for(ncells) // 32 * scratch)
-            + (8 if kind == CLUSTER else 0))
+    of every warp at plan_threads' threads, and the cluster's two
+    flags."""
+    return _smem(kind, mode, W, X, Y, plan_threads(kind, W, X, Y))
+
+
+KIND_NAMES = {FULL: "planes_relax_full_cuda (K1)",
+              TILE: "planes_relax_cropped_cuda (K2)",
+              CLUSTER: "planes_relax_cluster_cuda",
+              PEER: "planes_relax_peer_cuda"}
+
+
+class KernelShapeError(ValueError):
+    """A launch the relaxation kernels cannot plan: a scan line longer
+    than MAX_LINE or a net of more than MAX_CELLS cells."""
+
+
+def check_kernel_shape(kind: int, W: int, X: int, Y: int, nc: int = 0,
+                       what: str = "grid") -> None:
+    """Raise KernelShapeError unless a launch of ``kind`` on a (W, X, Y)
+    block (lines of X cells along x, Y along y) of a canvas of ``nc``
+    cells per net can be planned: every such launch has a shared-memory
+    mode that fits (mode 0 at plan_threads' threads)."""
+    cells = max(int(nc), W * X * (Y + 1) + W * (X + 1) * Y)
+    head = f"{what}, block W={W} X={X} Y={Y}: {KIND_NAMES[kind]} takes"
+    if max(X, Y) > MAX_LINE:
+        raise KernelShapeError(
+            f"{head} scan lines of at most {MAX_LINE} cells (the card's "
+            f"scan line limit), this one has {max(X, Y)}")
+    if cells > MAX_CELLS:
+        raise KernelShapeError(
+            f"{head} at most {MAX_CELLS} cells per net (int32 cell ids), "
+            f"this one has {cells}")
+
+
+def check_canvas(shape_x, shards: int = 0) -> None:
+    """The card's limit on a route's canvas of plane shape ``shape_x``
+    (W, NX, NY + 1), checked by Router.__init__ before any work: K1 on
+    the whole canvas (K2's tiles lie inside it) and, for a row mesh of
+    ``shards``, the sharded kernels on a shard's block.  The CPU route
+    has no such limit."""
+    W, NX, NYp1 = shape_x
+    nc = W * NX * NYp1 + W * (NX + 1) * (NYp1 - 1)
+    for kind in (FULL, CLUSTER) if shards > 1 else (FULL,):
+        mesh = f" at mesh_shards={shards}" if kind == CLUSTER else ""
+        check_kernel_shape(kind, *_launch_shape(shape_x, kind, None, shards),
+                           nc, f"grid {NX}x{NYp1 - 1}{mesh}")
 
 
 def auto_mode(kind: int, W: int, X: int, Y: int,
@@ -162,7 +237,7 @@ def kernel_layout(shape_x, shape_y, nnets: int, nsweeps: int, tile=None,
     "planes_relax_cropped_cuda/mode2"), ``mode``, ``block_nets`` (nets
     per thread block: 1 for K1 and K2, 1 per cluster or set of partner
     blocks for the sharded kernels), ``lane_occupancy`` (the net's
-    canvas cells over the thread-slots launched for it: threads_for
+    canvas cells over the thread-slots launched for it: plan_threads'
     threads per block, each taking ceil(cells / threads) cells) and
     ``bytes_per_sweep`` (the global-memory bytes of one sweep over
     ``nnets`` nets: in modes 1-2 the flats' one load and one store per
@@ -179,7 +254,7 @@ def kernel_layout(shape_x, shape_y, nnets: int, nsweeps: int, tile=None,
     ncanvas = (W * shape_x[1] * shape_x[2]
                + shape_y[0] * shape_y[1] * shape_y[2])
     blk = W * X * (Y + 1) + W * (X + 1) * Y
-    thr = threads_for(blk)
+    thr = plan_threads(kind, W, X, Y)
     slots = thr * -(-blk // thr) * (shards if kind in (CLUSTER, PEER)
                                     else 1)
     cells = blk if kind == TILE else ncanvas
@@ -209,6 +284,12 @@ def _setup(lib) -> None:
     lib.planes_relax_peer_launch.argtypes = [ctypes.c_void_p] * 5
     lib.planes_relax_peer_launch.restype = ctypes.c_int
     lib.planes_relax_max_line.restype = ctypes.c_int
+    lib.planes_relax_max_cells.restype = ctypes.c_longlong
+    lib.planes_relax_threads.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.planes_relax_threads.restype = ctypes.c_int
+    lib.planes_relax_smem.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+    lib.planes_relax_smem.restype = ctypes.c_longlong
     lib.planes_relax_mode.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.planes_relax_mode.restype = ctypes.c_int
     for fn in (lib.planes_relax_cluster_fit, lib.planes_relax_peer_fit):
@@ -240,13 +321,12 @@ def _geom_ptrs(g, directional: bool, inc_track):
     return ptrs
 
 
-def _ints(B, W, X, Y, stride_x, directional, gstr, mode, device, NX, ncx,
-          nc, origin_hi=(0, 0), shards=0, kx=0, plane_dtype="f32"):
+def _ints(kind, B, W, X, Y, stride_x, directional, gstr, mode, device, NX,
+          ncx, nc, origin_hi=(0, 0), shards=0, kx=0, plane_dtype="f32"):
     """The launch table's integers (csrc/planes_relax.cu unpack; nsweeps,
     slot 6, is set per call)."""
-    ncells = W * X * (Y + 1) + W * (X + 1) * Y
     return ([B, W, X, Y, stride_x, int(directional), 0] + list(gstr)
-            + [threads_for(ncells), -1 if mode is None else int(mode),
+            + [plan_threads(kind, W, X, Y), -1 if mode is None else int(mode),
                device.index, NX, ncx, nc, int(origin_hi[0]),
                int(origin_hi[1]), shards, kx, int(plane_dtype == "bf16")])
 
@@ -257,11 +337,6 @@ def _count(wrapper, plane_dtype: str, mode: int) -> None:
     else:
         wrapper.launches += 1
     wrapper.mode_launches[mode] += 1
-
-
-def _check_line(lib, X: int, Yp1: int, what: str) -> None:
-    if max(X, Yp1) > lib.planes_relax_max_line():
-        raise ValueError(f"{what} exceeds the kernel's scan line limit")
 
 
 def cluster_geometry(pg, shards: int):
@@ -306,12 +381,15 @@ class _FlatsPlan:
             X = kx + 2
             gstr = (W * X * NYp1, W * (X + 1) * Y)
             fn, what = lib.planes_relax_cluster_launch, "cluster relaxation"
-        _check_line(lib, X, Y + 1, "crop tile" if kind == TILE else "grid")
+        check_kernel_shape(kind, W, X, Y, nc,
+                           f"{'crop tile' if kind == TILE else 'canvas'} "
+                           f"of the {NX}x{NYp1 - 1} grid")
         ptrs = ([0] * 14 + _geom_ptrs(geom, pg.directional, pg.inc_track)
                 + [0] * (NPTR - 27))
         self.run = Launch(fn, ptrs, _ints(
-            B, W, X, Y, NYp1, pg.directional, gstr, mode, device, NX, ncx,
-            nc, hi, shards, kx, plane_dtype), device, what, keep=(pg, geom))
+            kind, B, W, X, Y, NYp1, pg.directional, gstr, mode, device, NX,
+            ncx, nc, hi, shards, kx, plane_dtype), device, what,
+            keep=(pg, geom))
         self.mode = lib.planes_relax_mode(kind, self.run.v)
         if kind == CLUSTER:
             if self.mode == 0:
@@ -644,7 +722,8 @@ class _PeerPlan:
         nc, ncx = pg.ncells, W * NX * NYp1
         geom, kx = cluster_geometry(pg, s)
         X, Y = kx + 2, NYp1 - 1
-        _check_line(lib, X, Y + 1, "grid")
+        check_kernel_shape(PEER, W, X, Y, nc,
+                           f"grid {NX}x{Y} at {s} shards")
         gstr = (W * X * NYp1, W * (X + 1) * Y)
         cells = W * X * (Y + 1) + W * (X + 1) * Y
         self.pg, self.B, self.nc = pg, B, nc
@@ -652,8 +731,8 @@ class _PeerPlan:
         cards = list(dict.fromkeys(torch.device(d) for d in devices))
 
         def ints(card, m):
-            return _ints(B, W, X, Y, NYp1, pg.directional, gstr, m, card,
-                         NX, ncx, nc, (0, 0), s, kx, plane_dtype)
+            return _ints(PEER, B, W, X, Y, NYp1, pg.directional, gstr, m,
+                         card, NX, ncx, nc, (0, 0), s, kx, plane_dtype)
         # one mode for every card of the mesh: the first card's auto mode
         # (under kernel_mode_cap), or the one asked for
         if mode is None:

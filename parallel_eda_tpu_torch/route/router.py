@@ -742,6 +742,13 @@ class Router:
         self.opts = opts or RouterOpts()
         _check_ported(self.opts)
         self.device = resolve_device(device)
+        if (self.device.type == "cuda"
+                and self.opts.program in ("planes", "planes_pallas")):
+            # the relaxation kernels' scan line limit, before any work
+            # (KernelShapeError); the CPU route has none, as JAX
+            from .planes_kernels import check_canvas
+            check_canvas((rr.chan_width, rr.grid.nx, rr.grid.ny + 1),
+                         self.opts.mesh_shards)
         from .lookahead import build_lookahead
         from .planes import build_planes
 

@@ -946,3 +946,174 @@ def test_resil_route_on_card_matches_cpu(cuda):
     with pytest.raises(DispatchPoisonedError):
         Router(f.rr, RouterOpts(batch_size=32, resil=rt),
                device="cuda").route(f.term)
+
+
+# ---- long scan lines (up to planes_kernels.MAX_LINE) -------------------
+
+# thin and square canvases past the old 64-cell limit: 6 x 63 overflowed
+# the parent's scan scratch; 66 x 66 at W=8 keeps its state in global
+# memory (mode 0)
+LONG_CANVASES = [(6, 63), (6, 72), (72, 6), (66, 66)]
+LONG_COSTS = [("f32", "exact"), ("f32", "jitter"), ("f32", "crit"),
+              (BF, "jitter"), (BF, "crit")]
+
+
+def _long_instance(nx, ny, seed, costs, device, W=8, B=8):
+    """_instance on an nx x ny canvas with a wenter payload at the seeds
+    and one net (3) that stops after its first sweep."""
+    pg, d0, cc, crit, w0 = _instance(minimal_arch(chan_width=W), nx, ny, B,
+                                     seed, costs, device)
+    rng = np.random.default_rng(seed + 1)
+    w0 = torch.from_numpy(rng.uniform(0, 1e-10, tuple(d0.shape)).astype(
+        np.float32)).to(device) * (d0 == 0)
+    d0[3] = float("inf")
+    return pg, d0, cc, crit, w0
+
+
+def _plan_matches_mirror(kind, v):
+    """The C planner's threads, bytes and auto mode of a launch table
+    equal the Python mirror's (route/planes_kernels.py)."""
+    lib = pk.LIB.get()
+    W, X, Y = int(v[1]), int(v[2]), int(v[3])
+    assert lib.planes_relax_max_line() == pk.MAX_LINE
+    assert lib.planes_relax_max_cells() == pk.MAX_CELLS
+    assert lib.planes_relax_threads(kind, v) == int(v[9]) == \
+        pk.plan_threads(kind, W, X, Y)
+    for m in (0, 1, 2):
+        assert lib.planes_relax_smem(kind, m, v) == \
+            pk.smem_bytes(kind, m, W, X, Y)
+    if int(v[10]) < 0:
+        assert lib.planes_relax_mode(kind, v) == pk.auto_mode(kind, W, X, Y)
+
+
+@pytest.mark.parametrize("pd,costs", LONG_COSTS)
+@pytest.mark.parametrize("nx,ny", LONG_CANVASES)
+def test_long_lines_full_kernel_matches_plain(cuda, nx, ny, pd, costs):
+    """K1 on canvases past the old scan line limit, in its auto mode and
+    every mode below it: dist, pred, wenter and stats bit-identical to
+    the plain version; the C planner equals the mirror."""
+    inst = _long_instance(nx, ny, 100 + nx + ny, costs, cuda)
+    pg = inst[0]
+    ref = P.planes_relax_plain(*inst, 48, pd)
+    got = pk.planes_relax_full_cuda(*inst, 48, plane_dtype=pd)
+    torch.cuda.synchronize()
+    auto = pk.planes_relax_full_cuda.last_mode
+    W, NX, NYp1 = pg.shape_x
+    assert auto == pk.auto_mode(pk.FULL, W, NX, NYp1 - 1)
+    assert auto == (0 if (nx, ny) == (66, 66) else 2)
+    _same(got, ref)
+    for m in range(auto):
+        _same(pk.planes_relax_full_cuda(*inst, 48, mode=m, plane_dtype=pd),
+              ref)
+    plan = pk._plan(pk.FULL, pg, 8, inst[1].device, None,
+                    plane_dtype=pd)
+    _plan_matches_mirror(pk.FULL, plan.run.v)
+
+
+@pytest.mark.parametrize("pd,costs", LONG_COSTS)
+@pytest.mark.parametrize("shape,modes", [
+    ((2, 6, 100), (0, 1, 2)),
+    # 1,000-cell lines: 512 threads, mode 2 does not fit
+    ((2, 4, 1000), (0, 1))])
+def test_long_lines_forced_modes_match_plain(cuda, shape, modes, pd,
+                                             costs):
+    """Every shared-memory mode that fits a long thin canvas at a small
+    W, forced, for K1 and the cluster kernel (2 shards): bit-identical
+    to the plain versions."""
+    W, nx, ny = shape
+    inst = _long_instance(nx, ny, 7 * nx + ny, costs, cuda, W=W)
+    pg = inst[0]
+    ref = P.planes_relax_plain(*inst, 40, pd)
+    cap = TS.sweep_cap(24, 2)
+    mesh = TS.make_row_mesh(2, "ppermute", [inst[1].device] * 2)
+    ref_s = TS.planes_relax_sharded_plain(*inst, 24, mesh, pd)
+    assert pk.auto_mode(pk.FULL, W, nx, ny) == modes[-1]
+    for m in modes:
+        got = pk.planes_relax_full_cuda(*inst, 40, mode=m, plane_dtype=pd)
+        torch.cuda.synchronize()
+        assert pk.planes_relax_full_cuda.last_mode == m
+        _same(got, ref)
+        _plan_matches_mirror(pk.FULL, pk._plan(
+            pk.FULL, pg, 8, inst[1].device, m, plane_dtype=pd).run.v)
+        got = pk.planes_relax_cluster_cuda(*inst, cap, 2, mode=m,
+                                           plane_dtype=pd)
+        torch.cuda.synchronize()
+        _same(got, ref_s)
+    assert pk.plan_threads(pk.FULL, W, nx, ny) == (512 if ny > 907 else
+                                                   pk.threads_for(
+                                                       pg.ncells))
+
+
+@pytest.mark.parametrize("pd,costs", LONG_COSTS)
+def test_long_lines_cropped_kernel_matches_plain(cuda, pd, costs):
+    """K2 on 8 x 128 tiles of a 10 x 160 canvas, origins that wrap and
+    clamp, every mode that fits: bit-identical to the plain version."""
+    inst = _long_instance(10, 160, 31, costs, cuda)
+    pg = inst[0]
+    rng = np.random.default_rng(32)
+    ox, oy = _origins(rng, 10, 8, cuda), _origins(rng, 160, 8, cuda)
+    args = (*inst, 48, ox, oy, 8, 128)
+    ref = P.planes_relax_cropped_plain(*args, plane_dtype=pd)
+    got = pk.planes_relax_cropped_cuda(*args, plane_dtype=pd)
+    torch.cuda.synchronize()
+    auto = pk.planes_relax_cropped_cuda.last_mode
+    assert auto == pk.auto_mode(pk.TILE, 8, 8, 128)
+    _same(got, ref)
+    for m in range(auto):
+        _same(pk.planes_relax_cropped_cuda(*args, mode=m, plane_dtype=pd),
+              ref)
+    _plan_matches_mirror(pk.TILE, pk._plan(
+        pk.TILE, pg, 8, inst[1].device, None, (8, 128),
+        plane_dtype=pd).run.v)
+
+
+@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("pd,costs", [("f32", "exact"), ("f32", "crit"),
+                                      (BF, "jitter"), (BF, "crit")])
+@pytest.mark.parametrize("nx,ny", LONG_CANVASES)
+def test_long_lines_sharded_kernels_match_plain(cuda, nx, ny, pd, costs, s,
+                                                impl):
+    """The peer kernel (lag 1 and 2) and, under lag 1, the cluster kernel
+    on one card on canvases past the old limit: bit-identical to the
+    plain per-sweep loop (_peer_case); the C planner equals the
+    mirror."""
+    inst = _long_instance(nx, ny, 200 + s + nx, costs, cuda)
+    _peer_case(s, inst, None, impl, pd)
+    pg = inst[0]
+    card = inst[1].device
+    plan = pk._plan(pk.CLUSTER, pg, 8, card, None, shards=s, plane_dtype=pd)
+    _plan_matches_mirror(pk.CLUSTER, plan.run.v)
+    peer = pk._peer_plan(pg, 8, (card,) * s, None, pd)
+    _plan_matches_mirror(pk.PEER, peer.cards[0][2])
+
+
+@pytest.mark.parametrize("nx,ny", [(6, 72), (72, 6), (66, 66)])
+def test_long_lines_route_cuda_matches_cpu(cuda, nx, ny):
+    """The 15-LUT parity netlist placed on a thin or a 66 x 66 grid: the
+    route on the card (K1 launched) equals the port's CPU route, path
+    for path; legal."""
+    from parallel_eda_tpu_torch.flow import prepare
+    from parallel_eda_tpu_torch.netlist.generate import generate_circuit
+
+    arch = minimal_arch(chan_width=10)
+    f = prepare(generate_circuit(num_luts=15, num_inputs=6, num_outputs=6,
+                                 K=arch.K, seed=3), arch, 10, nx=nx, ny=ny)
+    rc = Router(f.rr, RouterOpts(batch_size=32), device="cpu").route(f.term)
+    pk.reset_launch_counts()
+    rg = Router(f.rr, RouterOpts(batch_size=32), device=cuda).route(f.term)
+    assert pk.planes_relax_full_cuda.launches > 0
+    assert (rg.wirelength, rg.iterations, rg.total_relax_steps) == (
+        rc.wirelength, rc.iterations, rc.total_relax_steps)
+    assert np.array_equal(rg.paths, rc.paths)
+    assert np.array_equal(rg.occ, rc.occ)
+    check_route(f.rr, f.term, rg.paths, occ=rg.occ)
+
+
+def test_router_refuses_a_line_past_the_limit_on_card(cuda):
+    """A CUDA Router raises KernelShapeError for a grid side past the
+    limit before any work; the same shapes launch below it."""
+    rr = build_rr_graph(minimal_arch(chan_width=2),
+                        DeviceGrid(1, pk.MAX_LINE + 1, 1))
+    with pytest.raises(pk.KernelShapeError):
+        Router(rr, RouterOpts(batch_size=8), device=cuda)

@@ -108,7 +108,8 @@ def _compare(jres, tres):
         assert np.array_equal(a, b, equal_nan=True), k
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 13, 16, 26])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 7, 8, 13, 16, 26, 63, 64, 65,
+                               100, 128, 129, 256, 257, 300])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_minplus_scan_bit_identical(n, reverse):
     rng = np.random.default_rng(n + 100 * reverse)
