@@ -52,6 +52,20 @@ Phases, one line each (any failure exits non-zero with no result line):
                  across cards the peer kernel) and, timed beside it, lag
                  2 (the peer kernel), each relaxation one launch per
                  card
+  8b. netmesh  — the (net, node) mesh's net axis (Router(mesh=...),
+                 parallel/shard.py: each step's nets split into one
+                 chunk per member, each routed on its member's card, the
+                 occupancy deltas summed on the home card) on one card,
+                 members repeating cuda:0: the bench at net axis 2 and 4
+                 = phase 7's route (537 / 22; paths, occupancy, stats
+                 rows, sweeps); flow.run_route timing-driven at net 2 =
+                 the one-card run_route (522 / 22, the same crit path);
+                 the ELL program at net 2 = its one-card route; every
+                 planes relaxation K1 on a member's card at the
+                 per-member batch, as many on each member; each route's
+                 seconds, K1 launches per member and blocking syncs; K1
+                 alone at those batches (bench 30 and 15, scale 16)
+                 against its plain version, timed (on the kernels line)
   9. scale     — place the 1,200-LUT/W=20 config with the native
                  annealer and route it on the card, single-device and
                  at mesh_shards=4: legal
@@ -289,9 +303,13 @@ one-card form (f32 and bf16, one launch per card, both timed).
 
 runs only what exists across cards, on a machine with two or more: the
 build, phase 4, phase 6, the bench route and its mesh routes of phase 8
-(with the mesh-2 route on card 0) and the scale route at mesh_shards=4;
-it ends with the result line (its ``cards`` key set) and no kernels
-line, and fails with fewer than two cards.
+(with the mesh-2 route on card 0), the scale route at mesh_shards=4,
+and the net mesh across cards: the bench at net axis 2 and 4 over
+distinct cards = phase 7's route, and (four cards) the placed scale
+config at net axis 4 = its one-card route at crop="off" (paths,
+occupancy, stats rows, sweeps), both timed in turns; it ends with the
+result line (its ``cards`` key set) and no kernels line, and fails with
+fewer than two cards.
 """
 
 from __future__ import annotations
@@ -1461,6 +1479,214 @@ def _route(tag, flow, opts, impl=None, devices=None, analyzer=None,
             raise AssertionError(f"{tag}: a single-device relaxation ran "
                                  "under the mesh")
     return res, counts, dt, router
+
+
+class _CallLog:
+    """While in use, wraps ``module.name`` and logs each call's first
+    tensor argument's (device, rows): the relaxations a route ran, where
+    and at which batch.  The route code looks the function up at each
+    call."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls = []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def log(pg, d0, *args, **kw):
+            self.calls.append((str(d0.device), int(d0.shape[0])))
+            return orig(pg, d0, *args, **kw)
+
+        setattr(self.module, self.name, log)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _sync_cards():
+    import torch
+
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def _netmesh_route(tag, flow, opts, mesh, want=None, timing=False):
+    """Route ``flow`` on the card(s) over the (net, node) mesh ``mesh``
+    (its net axis: each step's nets split over the members), legal or
+    raise; equal to ``want`` (a RouteResult, route phases' _same_route)
+    when given.  Timing-driven through flow.run_route with ``timing``.
+    Every planes relaxation must be K1 on a member's card at the
+    per-member batch, as many on each member.  Returns (result,
+    launches, seconds)."""
+    import torch
+
+    from parallel_eda_tpu_torch.flow import run_route
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route import shard_kernels as sk
+    from parallel_eda_tpu_torch.route.check import check_route
+    from parallel_eda_tpu_torch.route.netsplit import net_members
+    from parallel_eda_tpu_torch.route.router import Router
+
+    members = [str(d) for d in net_members(mesh)]
+    n = len(members)
+    reg = _fresh_metrics()
+    router = None if timing else Router(flow.rr, opts, mesh=mesh)
+    pk.reset_launch_counts()
+    sk.reset_launch_counts()
+    _sync_cards()
+    t0 = time.time()
+    with _CallLog(P, "planes_relax") as log:
+        if timing:
+            run_route(flow, opts, timing_driven=True, mesh=mesh)
+            res = flow.route
+        else:
+            res = router.route(flow.term)
+    _sync_cards()
+    dt = time.time() - t0
+    counts = {**pk.launch_counts(), **sk.launch_counts()}
+    if not res.success:
+        raise AssertionError(f"{tag}: route did not converge")
+    check_route(flow.rr, flow.term, res.paths, occ=res.occ)
+    if want is not None:
+        _same_route(tag, res, want)
+    B = min(opts.batch_size, len(flow.term.source))
+    B = -(-B // n) * n
+    per = {}
+    for k, (dev, rows) in enumerate(log.calls):
+        if dev != members[k % n] or rows != B // n:
+            raise AssertionError(f"{tag}: relaxation {k} ran {rows} nets "
+                                 f"on {dev}, not {B // n} on member "
+                                 f"{k % n} ({members[k % n]})")
+        per[k % n] = per.get(k % n, 0) + 1
+    if opts.program == "ell":
+        if any(counts.values()) or log.calls:
+            raise AssertionError(f"{tag}: a planes relaxation ran on the "
+                                 f"ELL route: {counts}")
+    elif (counts["planes_relax_full_cuda"] != len(log.calls)
+          or len(set(per.values())) != 1 or len(per) != n
+          or any(v for k, v in counts.items()
+                 if k != "planes_relax_full_cuda")):
+        raise AssertionError(f"{tag}: the route did not run K1 alone, as "
+                             f"often on each member: per member {per}, "
+                             f"launches {counts}")
+    pl = reg.values("route.pipeline.")
+    say(tag, f"net axis {n} on {members}: legal, wirelength "
+             f"{res.wirelength}, {res.iterations} iterations"
+             + (f", crit path {flow.crit_path_delay!r} s" if timing else "")
+             + f", {dt:.2f} s route, per-member batch {B // n}, K1 "
+             f"launches per member {[per.get(k, 0) for k in range(n)]}, "
+             f"blocking syncs {pl.get('route.pipeline.blocking_syncs')}, "
+             f"launches {counts}")
+    return res, counts, dt
+
+
+def _wl_it(tag, res, want):
+    if (res.wirelength, res.iterations) != want:
+        raise AssertionError(f"{tag}: expected (wirelength, iterations) "
+                             f"{want}, got {(res.wirelength, res.iterations)}")
+
+
+def phase_netmesh(bench, bench_res, rows, graphs):
+    """The (net, node) mesh's net axis on one card (docstring, phase
+    8b): members repeating cuda:0.  Returns the launch counts of its
+    routes; adds K1 at the per-member batches to ``rows``."""
+    from parallel_eda_tpu_torch.flow import synth_flow
+    from parallel_eda_tpu_torch.parallel import make_mesh
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+
+    t0 = time.time()
+    out = []
+    for n in (2, 4):
+        mesh = make_mesh(n, devices=["cuda:0"] * n)
+        res, c, _ = _netmesh_route(f"netmesh{n}", bench,
+                                   RouterOpts(batch_size=64), mesh,
+                                   want=bench_res)
+        _wl_it(f"netmesh{n}", res, (537, 22))
+        out.append(c)
+    # timing-driven at net axis 2 against the one-card run_route
+    mesh = make_mesh(2, devices=["cuda:0"] * 2)
+    one = synth_flow(**BENCH_CFG)
+    _timing_run_route("netmesh_timing_ref", one, RouterOpts(batch_size=64))
+    two = synth_flow(**BENCH_CFG)
+    res, c, _ = _netmesh_route("netmesh2_timing", two,
+                               RouterOpts(batch_size=64), mesh,
+                               want=one.route, timing=True)
+    _wl_it("netmesh2_timing", res, (522, 22))
+    if two.crit_path_delay != one.crit_path_delay:
+        raise AssertionError(f"netmesh2_timing: crit path "
+                             f"{two.crit_path_delay!r}, one card "
+                             f"{one.crit_path_delay!r}")
+    out.append(c)
+    # the ELL program at net axis 2 against its one-card route
+    opts = RouterOpts(batch_size=64, program="ell")
+    ref, _, _, _ = _ell_route("netmesh_ell_ref", bench, opts, "cuda")
+    res, c, _ = _netmesh_route("netmesh2_ell", bench, opts, mesh)
+    _ell_same("netmesh2_ell", res, ref)
+    out.append(c)
+    # K1 alone at the per-member batches of these routes (bench 60 nets:
+    # 30 and 15) and of the scale route at net axis 4 (16)
+    rng = np.random.default_rng(17)
+    for cfg, rr, pg, B in (("bench", bench.rr, graphs["bench"], 30),
+                           ("bench", bench.rr, graphs["bench"], 15),
+                           ("scale", graphs["scale_rr"], graphs["scale"],
+                            16)):
+        nsw = 32 if cfg == "bench" else 64
+        _k1_case(rows, cfg, "jitter", "f32", pg,
+                 _instance(rr, pg, B, rng, False), nsw, B)
+    say("netmesh", f"bench net axis 2 and 4 = the one-card bench route "
+                   f"(537 / 22), timing-driven net 2 = the one-card "
+                   f"run_route (522 / 22), ELL net 2 = its one-card route; "
+                   f"phase {time.time() - t0:.1f}s")
+    return out
+
+
+def phase_netmesh_cards(bench, bench_res, scale, smi):
+    """The net axis across cards (--cards): the bench at net axis 2 and
+    4 on distinct cards = the one-card bench route; the placed scale
+    config at net axis 4 across four cards = its one-card route at
+    crop="off", both timed in turns.  Returns the routes' launches."""
+    import torch
+
+    from parallel_eda_tpu_torch.parallel import make_mesh
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+
+    out = []
+    ncards = torch.cuda.device_count()
+    for n in (2, 4):
+        if n > ncards:
+            continue
+        _, c, _ = _netmesh_route(f"netmesh{n}_cards", bench,
+                                 RouterOpts(batch_size=64), make_mesh(n),
+                                 want=bench_res)
+        out.append(c)
+    if ncards < 4:
+        return out
+    opts = RouterOpts(batch_size=64, crop="off")
+    secs = {"one card": [], "net 4": []}
+    one = None
+    for k in range(4):
+        if k in (0, 3):
+            res, c, dt, _ = _route("scale_crop_off", scale, opts)
+            one = res if one is None else one
+            if k == 3:
+                _same_route("scale_crop_off", res, one)
+            secs["one card"].append(dt)
+        else:
+            res, c, dt = _netmesh_route("scale_net4_cards", scale,
+                                        RouterOpts(batch_size=64),
+                                        make_mesh(4), want=one)
+            secs["net 4"].append(dt)
+        out.append(c)
+    say("netmesh_cards", f"scale at net axis 4 across cards = the "
+                         f"one-card crop=\"off\" route (wirelength "
+                         f"{one.wirelength}, {one.iterations} iterations; "
+                         f"paths, occupancy, stats rows, sweeps); route s "
+                         f"in turns (one, net 4, net 4, one): {secs} on "
+                         f"{smi}")
+    return out
 
 
 def warm_route(flow, opts, analyzer=None):
@@ -4190,9 +4416,12 @@ def main(argv) -> int:
             raise AssertionError("mesh2_one_card: route differs from the "
                                  "single-device bench route")
         c_mesh.append(c)
+    c_net = []
     if not cards:
         warm["mesh2"] = warm_route(bench,
                                    RouterOpts(batch_size=64, mesh_shards=2))
+        c_net = phase_netmesh(bench, res, rows, {
+            "bench": pg_bench, "scale": pg_scale, "scale_rr": scale.rr})
     t0 = time.time()
     scale = run_place_native(scale)
     say("scale", f"placed {scale.pnl.num_blocks} blocks in "
@@ -4205,11 +4434,13 @@ def main(argv) -> int:
                      RouterOpts(batch_size=64, mesh_shards=4))
     c_mesh.append(c)
     if cards:
+        c_net = phase_netmesh_cards(bench, res, scale, smi)
         # the paths that exist only across cards and what they are held
         # against; every other phase runs on one card
         say("cards", f"mesh routes (bench 2, bench 4, bench 2 on one "
                      f"card, scale 4) {c_mesh} lag 2 (bench 2, bench 4) "
-                     f"{c_lag2}")
+                     f"{c_lag2} net mesh (bench 2, bench 4, scale one "
+                     f"card, net 4, net 4, one card) {c_net}")
         print(smi)
         print(json.dumps({"ok": True, "cards": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4232,9 +4463,9 @@ def main(argv) -> int:
     phase_fleet(smi)
     c_long = phase_long_lines(rows, smi)
 
-    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_timing + c_bf16 + \
-        c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve, c_qor] + \
-        c_long
+    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_net + c_timing + \
+        c_bf16 + c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve,
+                            c_qor] + c_long
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     # K3 is off the route's path: the sharded relaxations move their
     # halos inside planes_relax_peer_kernel (peer_publish/peer_install)
@@ -4246,7 +4477,8 @@ def main(argv) -> int:
                for k in off_path}
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
-                    f"mesh lag 2 (bench 2, bench 4) {c_lag2} timing "
+                    f"mesh lag 2 (bench 2, bench 4) {c_lag2} net mesh "
+                    f"(bench 2, bench 4, timing 2, ell 2) {c_net} timing "
                     f"(bench, bench mesh 2, scale) {c_timing} bf16 (bench "
                     f"off, bench window, bench mesh 2, bench mesh 2 lag 2, "
                     f"scale off, bench timing off) {c_bf16} place "

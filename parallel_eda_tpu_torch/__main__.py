@@ -24,8 +24,10 @@ metrics registry as metrics.json and the route's devprof.json, as in
 the JAX CLI.  The route is
 pipelined unless ``--sync`` asks for the synchronous driver, as in the
 JAX CLI (``RouterOpts.pipeline``; both give the same route).  ``--mesh
-NETxNODE`` shards the relaxation over NET*NODE row shards
-(``RouterOpts.mesh_shards``).
+NETxNODE`` routes over a (net, node) mesh of NET*NODE devices, as the
+JAX CLI does (parallel/shard.py: each step's nets split over the NET
+devices, the visible cards, or NET copies of the CPU under ``--device
+cpu``); the node axis is not ported, so NODE > 1 fails before any work.
 """
 
 from __future__ import annotations
@@ -98,10 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "precise multi-sink reroute at convergence; only "
                    "active with --sink_group 0)")
     p.add_argument("--mesh", default="",
-                   help="route mesh 'NETxNODE' (e.g. 2x1): shards the "
-                   "planes relaxation by canvas columns over NET*NODE "
-                   "row shards (RouterOpts.mesh_shards), placed "
-                   "round-robin on the visible cards")
+                   help="multi-device route mesh 'NETxNODE' (e.g. 4x1): "
+                   "splits each step's nets over NET devices (the "
+                   "visible cards; NET copies of the CPU under --device "
+                   "cpu); NODE > 1 is not ported")
     p.add_argument("--stats_dir", default="",
                    help="write per-run iter_stats.txt / final_stats.txt "
                    "(the reference's <circuit>_stats_N/ files), "
@@ -288,6 +290,11 @@ def _run_flow(args) -> int:
 
     # the card is checked before any work: without one this raises
     device = resolve_device(args.device)
+    if args.mesh and args.route:
+        net_ax, node_ax = (int(v) for v in args.mesh.lower().split("x"))
+        if node_ax > 1:
+            from .route.netsplit import NODE_AXIS_ERROR
+            raise SystemExit(f"--mesh {args.mesh}: {NODE_AXIS_ERROR}")
     t_flow = time.time()
     if args.arch == "k6_n10":
         arch = k6_n10_arch()
@@ -346,12 +353,15 @@ def _run_flow(args) -> int:
               f"{flow.times['place']:.2f}s{extra})")
 
     if args.route:
-        shards = 1
+        mesh = None
         if args.mesh:
+            from .parallel.shard import make_mesh
             net_ax, node_ax = (int(v) for v in args.mesh.lower().split("x"))
-            shards = net_ax * node_ax
-            print(f"route mesh: {net_ax} net x {node_ax} node devices -> "
-                  f"mesh_shards={shards} (row-sharded relaxation)")
+            n = net_ax * node_ax
+            mesh = make_mesh(n, shape=(net_ax, node_ax),
+                             devices=[device] * n if device.type == "cpu"
+                             else None)
+            print(f"route mesh: {net_ax} net x {node_ax} node devices")
         ropts = RouterOpts(
             max_router_iterations=args.max_router_iterations,
             initial_pres_fac=args.initial_pres_fac,
@@ -361,8 +371,7 @@ def _run_flow(args) -> int:
             batch_size=args.batch_size, sink_group=args.sink_group,
             crop=args.crop, finish_precise=not args.no_finish,
             stats_dir=args.stats_dir or None, pipeline=not args.sync,
-            compile_cache_dir=args.compile_cache_dir or None,
-            mesh_shards=shards)
+            compile_cache_dir=args.compile_cache_dir or None)
         import contextlib
         prof = contextlib.nullcontext()
         if args.profile:
@@ -371,11 +380,11 @@ def _run_flow(args) -> int:
             if args.binary_search:
                 wmin = binary_search_route(
                     flow, ropts, timing_driven=not args.no_timing,
-                    device=device)
+                    device=device, mesh=mesh)
                 print(f"binary search: W_min = {wmin}")
             else:
                 run_route(flow, ropts, timing_driven=not args.no_timing,
-                          device=device)
+                          device=device, mesh=mesh)
         if args.profile:
             print(f"profiler trace in {args.profile}")
         r = flow.route

@@ -228,13 +228,13 @@ def save_artifacts(flow: FlowResult, out_dir: str,
 def binary_search_route(flow: FlowResult,
                         opts: Optional[RouterOpts] = None,
                         timing_driven: bool = True, max_width: int = 0,
-                        device="cuda") -> int:
+                        device=None, mesh=None) -> int:
     """Find the minimum routable channel width W_min on ``device`` (the
     reference's binary_search_place_and_route, place_and_route.c:432):
     starting from the flow's current width, halve while routable /
     double while not, then bisect the (failed, routed] bracket.  Leaves
     the flow routed at W_min and returns it.  ``opts.mesh_shards``
-    shards every attempt's route.
+    shards every attempt's route, and so does ``mesh`` (run_route).
 
     Each new width builds a new rr graph, so the relaxation kernels'
     launch plans of the old width (which hold its planes graph on the
@@ -253,7 +253,7 @@ def binary_search_route(flow: FlowResult,
         flow.tg = None          # routed-delay indices depend on term
         flow.analyzer = None
         run_route(flow, opts, timing_driven=timing_driven, verify=False,
-                  device=device)
+                  device=device, mesh=mesh)
         last_w[0] = w
         return flow.route.success
 
@@ -292,7 +292,7 @@ def binary_search_route(flow: FlowResult,
 
 def run_route(flow: FlowResult, opts: Optional[RouterOpts] = None,
               timing_driven: bool = True, verify: bool = True,
-              device="cuda") -> FlowResult:
+              device=None, mesh=None) -> FlowResult:
     """Route the flow on ``device`` (the card unless the caller asks for
     the CPU), then analyse and check it (try_route_new semantics,
     route_common.c:298; check_route, place_and_route.c:169).
@@ -301,14 +301,20 @@ def run_route(flow: FlowResult, opts: Optional[RouterOpts] = None,
     once per flow and routes with the STA between iterations inside each
     window; the final routed delays are analysed once more, so
     ``flow.crit_path_delay`` is the routed critical path.  ``verify``
-    runs the legality oracle on a successful route."""
+    runs the legality oracle on a successful route.
+
+    ``mesh`` (a parallel.shard.Mesh) runs the same negotiation over its
+    net axis (route.Router); ``device`` then defaults to the mesh's
+    first member, which holds the route state and runs the STA."""
+    if device is None:
+        device = "cuda" if mesh is None else mesh.devices[0, 0]
     if timing_driven:
         if flow.tg is None:
             flow.tg = build_timing_graph(flow.nl, flow.pnl, flow.term)
         if flow.analyzer is None:
             flow.analyzer = TimingAnalyzer(flow.tg, sdc=flow.sdc,
                                            device=device)
-    router = Router(flow.rr, opts, device=device)
+    router = Router(flow.rr, opts, device=device, mesh=mesh)
     with stage("route", flow.times, timing_driven=timing_driven):
         flow.route = router.route(
             flow.term, analyzer=flow.analyzer if timing_driven else None)

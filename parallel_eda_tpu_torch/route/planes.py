@@ -34,6 +34,8 @@ import torch
 from ..obs.devprof import get_devprof
 from ..rr.graph import CHANX, CHANY, IPIN, OPIN, RRGraph
 from .device_graph import DeviceRRGraph
+from .netsplit import (chunks, gather, member_copy, net_members,
+                       split_run, to_home)
 from .search import (_col, congestion_cost, congestion_jitter,
                      usage_from_paths)
 
@@ -967,7 +969,7 @@ def planes_relax_cropped_plain(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
 
 
 def planes_relax(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
-                 nsweeps: int, plane_dtype: str = "f32"):
+                 nsweeps: int, plane_dtype: str = "f32", *, mesh=None):
     """Full-canvas planes relaxation with predecessor tracking.
 
     d0_flat [B, Ncells] seeded distances (a seeded cell's pred is
@@ -978,7 +980,22 @@ def planes_relax(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
     (PLANE_DTYPES).  Returns (dist, pred, wenter, stats).
 
     CUDA tensors launch the hand-written kernel (planes_kernels.py) or
-    raise; CPU tensors run the plain version."""
+    raise; CPU tensors run the plain version.  ``mesh`` (a
+    parallel.shard.Mesh; JAX planes.py:907-975) relaxes the nets in
+    chunks of B / n on its net axis's devices, the results gathered on
+    d0_flat's device; the stats are the max over the chunks', as over
+    nets."""
+    if mesh is not None:
+        home = d0_flat.device
+        devs = net_members(mesh)
+        parts = [planes_relax(member_copy(pg, d), *(
+            t[sl].to(d) for t in (d0_flat, cc_flat, crit_c, wenter0)),
+            nsweeps, plane_dtype)
+            for d, sl in zip(devs, chunks(d0_flat.shape[0], len(devs)))]
+        dist, pred, wenter = (to_home([p[k] for p in parts], home)
+                              for k in range(3))
+        stats = torch.stack([p[3].to(home) for p in parts]).amax(dim=0)
+        return dist, pred, wenter, stats
     if d0_flat.is_cuda:
         from .planes_kernels import planes_relax_full_cuda
         return planes_relax_full_cuda(pg, d0_flat, cc_flat, crit_c,
@@ -1010,16 +1027,19 @@ def planes_relax_cropped(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
 
 
 def _as_row_mesh(mesh):
-    """The window programs' ``mesh`` argument: None (one device) or a
-    planes_shard.RowMesh (the row-sharded relaxation).  The JAX
-    package's legacy (net, node) GSPMD mesh is not ported and raises."""
+    """The window programs' ``mesh`` argument (JAX planes.py:1131): None
+    (one device), a planes_shard.RowMesh (the row-sharded relaxation,
+    returned) or a parallel.shard.Mesh (the (net, node) mesh: None is
+    returned and the steps split their nets over its net axis; a node
+    axis > 1 raises NotImplementedError).  Anything else raises
+    TypeError."""
     if mesh is None:
         return None
     from .planes_shard import RowMesh
-    if not isinstance(mesh, RowMesh):
-        raise TypeError(f"mesh must be a planes_shard.RowMesh or None, got "
-                        f"{type(mesh).__name__}")
-    return mesh
+    if isinstance(mesh, RowMesh):
+        return mesh
+    net_members(mesh)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -1072,49 +1092,88 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
     relaxation, commit and scatter back.  A selected net is a no-op
     unless it needs rerouting (an overused node on its tree or an
     unreached sink) or ``force`` is true.  With a RowMesh ``mesh`` (and
-    no crop tile) the relaxation is the row-sharded one; every
-    relaxation runs in the plane dtype ``plane_dtype``.
+    no crop tile) the relaxation is the row-sharded one; with a
+    parallel.shard.Mesh the B nets are split over its net axis, each
+    chunk routed on its member's device (netsplit.py; JAX
+    planes.py:1185-1200, ``P("net")``); every relaxation runs in the
+    plane dtype ``plane_dtype``.
 
     ``paths``, ``sink_delay``, ``all_reached`` and ``bb`` are updated IN
     PLACE at the rerouted rows (the JAX program donates them; here the
     caller's tensors are the window state).  Returns (occ_new, n_routed,
     sweeps_executed, sweeps_useful) — the counts as Python ints."""
     device = occ.device
-    N = dev.num_nodes
-    B = sel.shape[0]
-    S = sinks_all.shape[1]
-    ncells = pg.ncells
-    Kw = max_len - 4            # walk budget: sink+ipin+opin+source slots
     sel = sel.long()
+    row_mesh = _as_row_mesh(mesh)
+    net_mesh = mesh if mesh is not None and row_mesh is None else None
 
     b_paths = paths[sel]
-    b_src = source_all[sel]
     b_sinks = sinks_all[sel]
     b_bb = bb[sel]
-    b_crit = crit_all[sel]
-    b_opin = opin_node_all[sel]                  # [B, O]
-    b_ecell = entry_cell_all[sel].long()         # [B, Ko]
-    b_eoidx = entry_oidx_all[sel]
-    b_edelay = entry_delay_all[sel]
     b_uid = sink_uid_all[sel].long()             # [B, S]
-    b_scell = uid_cell[b_uid]                    # [B, S, K]
-    b_sipin = uid_ipin[b_uid]
-    b_swdel = uid_delay[b_uid]
-    b_doidx = direct_oidx_all[sel]               # [B, S] (-1 = none)
-    b_dipin = direct_ipin_all[sel]
-    b_ddel = direct_delay_all[sel]
-    O = b_opin.shape[1]
-    Ko = b_ecell.shape[1]
-    K = b_scell.shape[2]
-
     # device-side reroute predicate: skip clean nets unless forced
     over_now = _col(occ > dev.capacity, False)
     dirty = over_now[b_paths.long()].flatten(1).any(dim=1) | ~all_reached[sel]
     valid = valid & (dirty | force)
+    # the crop anchor: the STATIC initial bb (bb0_all), so that a net
+    # whose live bb widened keeps a tile covering its terminals
+    b_anchor = (bb0_all[sel] if crop_tile is not None and bb0_all is not None
+                else b_bb)
+    outs = split_run(
+        _step_member_co, net_mesh, device,
+        (b_paths, source_all[sel], b_sinks, b_bb, crit_all[sel],
+         opin_node_all[sel], entry_cell_all[sel].long(), entry_oidx_all[sel],
+         entry_delay_all[sel], uid_cell[b_uid], uid_ipin[b_uid],
+         uid_delay[b_uid], direct_oidx_all[sel], direct_ipin_all[sel],
+         direct_delay_all[sel], sel, valid, b_anchor),
+        (occ, acc, pres_fac), (pg, dev),
+        (nsweeps, max_len, num_waves, group, doubling, crop_tile, row_mesh,
+         plane_dtype))
+    p, delay, reached, delta, st = gather(
+        outs, device, 3, 4, torch.zeros(2, dtype=_I32, device=device))
+    occ_new = occ + delta
+
+    smask = b_sinks >= 0
+    ok = (reached | ~smask).all(dim=1)
+    # unreached-sink widening, gated per net by widen_ok (a net routed
+    # under a reduced sweep budget is promoted by the host instead)
+    may_widen = (torch.ones(sel.shape[0], dtype=torch.bool, device=device)
+                 if widen_ok is None else widen_ok[sel])
+    new_bb = torch.where((ok | ~may_widen)[:, None], b_bb, full_bb[None, :])
+
+    rows = sel[valid]
+    paths[rows] = p[valid]
+    sink_delay[rows] = delay[valid]
+    all_reached[rows] = ok[valid]
+    bb[rows] = new_bb[valid]
+    st = st.tolist()
+    return occ_new, int(valid.sum()), st[0], st[1]
+
+
+def _step_member_co(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
+                    b_paths, b_src, b_sinks, b_bb, b_crit, b_opin, b_ecell,
+                    b_eoidx, b_edelay, b_scell, b_sipin, b_swdel, b_doidx,
+                    b_dipin, b_ddel, sel, valid, b_anchor,
+                    nsweeps: int, max_len: int, num_waves: int, group: int,
+                    doubling: bool, crop_tile, row_mesh, plane_dtype: str):
+    """The per-net part of _step_core for one member's rows, as a
+    coroutine (netsplit.py), on the device of its tensors: rip-up view,
+    jittered costs, the waves (relaxation, sink extraction, traceback),
+    and the new usage.  Returns (paths [B, S, L], delay [B, S], reached
+    [B, S], int32 occupancy delta [N], the per-wave [executed, useful]
+    sweep counts)."""
+    device = occ.device
+    N = dev.num_nodes
+    B = sel.shape[0]
+    S = b_sinks.shape[1]
+    ncells = pg.ncells
+    Kw = max_len - 4            # walk budget: sink+ipin+opin+source slots
+    O = b_opin.shape[1]
+    Ko = b_ecell.shape[1]
+    K = b_scell.shape[2]
 
     # --- rip up ---
     old_usage = usage_from_paths(b_paths, N) & valid[:, None]
-    occ_rip = occ - old_usage.sum(dim=0, dtype=_I32)
     occ_view = occ[None, :] - old_usage.to(_I32)
 
     cong = congestion_cost(dev, occ_view, acc, pres_fac)      # [B, N]
@@ -1139,9 +1198,8 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
         NXg = pg.shape_x[1]
         NYg = pg.shape_y[2]
         Lm = pg.max_span
-        bb_anchor = bb0_all[sel] if bb0_all is not None else b_bb
-        crop_ox = torch.clamp(bb_anchor[:, 0] - Lm, 0, NXg - cnx_t).to(_I32)
-        crop_oy = torch.clamp(bb_anchor[:, 2] - Lm, 0, NYg - cny_t).to(_I32)
+        crop_ox = torch.clamp(b_anchor[:, 0] - Lm, 0, NXg - cnx_t).to(_I32)
+        crop_oy = torch.clamp(b_anchor[:, 2] - Lm, 0, NYg - cny_t).to(_I32)
 
     G = group
     ar_g = torch.arange(G, device=device)[None, :]
@@ -1149,7 +1207,7 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
 
     def wave_run(wave, state):
         (seed_cells, tdel_cells, opin_used, remaining, wpaths, delay,
-         reached_all, st) = state
+         reached_all) = state
         crit_w = torch.where(remaining, b_crit, 0.0).amax(dim=1)   # [B]
         cw = 1.0 - crit_w
         cc_flat = cw[:, None] * cc_flat_base
@@ -1183,16 +1241,15 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
             dist, pred, wenter, rst = planes_relax_cropped(
                 pg, d0, cc_flat, crit_c, wenter0, nsweeps,
                 crop_ox, crop_oy, cnx_t, cny_t, plane_dtype=plane_dtype)
-        elif _as_row_mesh(mesh) is not None:
+        elif row_mesh is not None:
             from .planes_shard import planes_relax_sharded
             dist, pred, wenter, rst = planes_relax_sharded(
-                pg, d0, cc_flat, crit_c, wenter0, nsweeps, mesh,
+                pg, d0, cc_flat, crit_c, wenter0, nsweeps, row_mesh,
                 plane_dtype=plane_dtype)
         else:
             dist, pred, wenter, rst = planes_relax(
                 pg, d0, cc_flat, crit_c, wenter0, nsweeps,
                 plane_dtype=plane_dtype)
-        st = st + rst.to(st.device)
 
         # --- sink extraction from the per-net candidate tables ---
         cand = (_take(_col(dist, INF), b_scell.reshape(B, -1)
@@ -1249,7 +1306,7 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
         for pos in range(Kw):
             # once every walk is done the remaining steps would write
             # the fill values and keep cur: skip them (exact)
-            if pos % 8 == 0 and bool(done.all()):
+            if pos % 8 == 0 and (yield "all", done.all()):
                 break
             nd = noc_p1[cur]
             cells_w[:, :, pos] = torch.where(done, ncells, cur)
@@ -1331,41 +1388,28 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
         ou = ou.scatter(1, torch.where(pdm, pick_doidx.long(), O), True)
         opin_used = ou[:, :O] | opin_used
         return (seed_cells, tdel_cells, opin_used, remaining, wpaths,
-                delay, reached_all, st)
+                delay, reached_all), rst
 
     state = (seed0, torch.zeros((B, ncells), dtype=_F32, device=device),
              torch.zeros((B, O), dtype=torch.bool, device=device),
              (b_sinks >= 0) & valid[:, None],
              torch.full((B, S, max_len), N, dtype=_I32, device=device),
              torch.full((B, S), INF, dtype=_F32, device=device),
-             torch.zeros((B, S), dtype=torch.bool, device=device),
-             torch.zeros(2, dtype=_I32, device=device))
+             torch.zeros((B, S), dtype=torch.bool, device=device))
+    rsts = []
     for wave in range(num_waves):
         # once every (valid) sink is reached the remaining waves are
         # identity passes: skip their relaxations entirely (exact)
-        if not bool(state[3].any()):
+        if not (yield "any", state[3].any()):
             break
-        state = wave_run(wave, state)
-    (_, _, _, _, p, delay, reached, st) = state
+        state, rst = yield from wave_run(wave, state)
+        rsts.append(rst)
+    (_, _, _, _, p, delay, reached) = state
+
 
     usage = usage_from_paths(p, N) & valid[:, None]
-    occ_new = occ_rip + usage.sum(dim=0, dtype=_I32)
-
-    smask = b_sinks >= 0
-    ok = (reached | ~smask).all(dim=1)
-    # unreached-sink widening, gated per net by widen_ok (a net routed
-    # under a reduced sweep budget is promoted by the host instead)
-    may_widen = (torch.ones(B, dtype=torch.bool, device=device)
-                 if widen_ok is None else widen_ok[sel])
-    new_bb = torch.where((ok | ~may_widen)[:, None], b_bb, full_bb[None, :])
-
-    rows = sel[valid]
-    paths[rows] = p[valid]
-    sink_delay[rows] = delay[valid]
-    all_reached[rows] = ok[valid]
-    bb[rows] = new_bb[valid]
-    st = st.tolist()
-    return occ_new, int(valid.sum()), st[0], st[1]
+    delta = usage.sum(dim=0, dtype=_I32) - old_usage.sum(dim=0, dtype=_I32)
+    return p, delay, reached, delta, rsts
 
 
 def _mis_colors(dev: DeviceRRGraph, occ, paths, all_reached,

@@ -502,7 +502,12 @@ def drop_plans() -> None:
 
 
 def _check_flats(pg, d0_flat, cc_flat, crit_c, wenter0):
-    """The flats' checks; returns crit as a contiguous [B] tensor."""
+    """The flats' checks; returns crit as a contiguous [B] tensor.  The
+    flats must lie on the planes graph's card, whose geometry the launch
+    reads (a net-mesh member relaxes on its own copy of the graph)."""
+    if d0_flat.device != pg.device:
+        raise ValueError(f"the flats are on {d0_flat.device}, the planes "
+                         f"graph on {pg.device}")
     B, nc = d0_flat.shape
     for t, n in ((d0_flat, "d0_flat"), (cc_flat, "cc_flat"),
                  (wenter0, "wenter0")):

@@ -712,6 +712,16 @@ class Router:
     (route/planes_shard.py) over that many shards placed round-robin on
     the visible devices of ``device``'s type: ``row_mesh``.
 
+    ``mesh`` (a parallel.shard.Mesh) runs the same negotiation over the
+    mesh's net axis (JAX router.py:694-803): each step's B nets (B
+    rounded up to a multiple of the net axis) are split into contiguous
+    chunks, each routed on its member's device, and the occupancy deltas
+    are summed on the home device, which holds every whole-circuit
+    array: ``device``, by default the mesh's first member.  Canvases
+    stay full (no crop ladder) and the plan width stays B, as in JAX;
+    the result is bit-identical to the one-device route at
+    ``crop="off"``.  A node axis > 1 raises NotImplementedError.
+
     The registry (``obs.get_metrics()``) gets, under the JAX package's
     names: the halo ledger (counters ``route.mesh.halo_bytes`` and
     ``route.mesh.halo_exchanges``, gauges ``route.mesh.n_shards`` and
@@ -737,15 +747,37 @@ class Router:
     _WINDOWS = (2, 2, 3, 4, 5, 6, 8, 10, 10)
 
     def __init__(self, rr: RRGraph, opts: Optional[RouterOpts] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.rr = rr
         self.opts = opts or RouterOpts()
         _check_ported(self.opts)
+        members = ()
+        if mesh is not None:
+            # the legacy (net, node) mesh's errors, before any work (JAX
+            # router.py:723-727, :743-747); a node axis > 1 raises
+            from .netsplit import net_members
+            if self.opts.program == "planes_pallas":
+                raise ValueError(
+                    "program='planes_pallas' does not support mesh sharding "
+                    "yet (the Pallas kernel is single-device VMEM-resident); "
+                    "use program='planes' for sharded runs")
+            if self.opts.mesh_shards > 1:
+                raise ValueError(
+                    "mesh_shards > 1 and a legacy (net, node) mesh are "
+                    "mutually exclusive — the halo-exchange sharding "
+                    "owns the device mesh")
+            members = net_members(mesh)
+            if device is None:
+                device = members[0]
         self.device = resolve_device(device)
+        if any(d.type != self.device.type for d in members):
+            raise ValueError(f"the mesh's devices must be of the Router's "
+                             f"device type ({self.device.type}): {mesh}")
         if (self.device.type == "cuda"
                 and self.opts.program in ("planes", "planes_pallas")):
             # the relaxation kernels' scan line limit, before any work
-            # (KernelShapeError); the CPU route has none, as JAX
+            # (KernelShapeError); the CPU route has none, as JAX.  Every
+            # mesh member's card runs K1 on the same canvas.
             from .planes_kernels import check_canvas
             check_canvas((rr.chan_width, rr.grid.nx, rr.grid.ny + 1),
                          self.opts.mesh_shards)
@@ -824,6 +856,17 @@ class Router:
         if self.opts.compile_cache_dir:
             from .cuda_lib import set_cache_dir
             set_cache_dir(self.opts.compile_cache_dir)
+        # the (net, node) mesh: the graphs placed on every net member
+        # once, as JAX's shard_graph (the copies live as long as the
+        # Router's graphs)
+        self.mesh = mesh
+        self._net_axis = len(members)
+        if mesh is not None:
+            from .netsplit import member_copy
+            for d in members:
+                member_copy(self.dev, d)
+                if self.pg is not None:
+                    member_copy(self.pg, d)
         # the program library (serve/library.py), single device only as
         # in JAX: loaded keys are pre-registered as SEEN dispatch
         # variants — a warm serve's first window is a cache hit, not a
@@ -831,7 +874,7 @@ class Router:
         # their launch plans installed at the dispatch sites
         self._library = None
         if (self.opts.program_library_dir and self.opts.mesh_shards <= 1
-                and self.pg is not None):
+                and mesh is None and self.pg is not None):
             from ..serve.library import ProgramLibrary
             self._library = lib = ProgramLibrary(
                 self.opts.program_library_dir, device=self.device)
@@ -966,11 +1009,11 @@ class Router:
         single_chip.  Every rung notes its own variant key, and every
         rung after the first restores the call's in-place state."""
         from ..resil.watchdog import Rung
-        from .planes import route_window_planes
+        from .planes import _as_row_mesh, route_window_planes
         from .planes_kernels import kernel_mode_cap
 
         entry = _WindowEntry(wp_args)
-        rm = wp_kwargs.get("mesh")
+        rm = _as_row_mesh(wp_kwargs.get("mesh"))
         if rm is not None:
             def sharded(rm_):
                 entry()
@@ -1017,11 +1060,11 @@ class Router:
         loop.  The kernel dimension is left to the per-rung chain, as in
         JAX."""
         from ..resil.watchdog import Rung
-        from .planes import route_window_planes_fused
+        from .planes import _as_row_mesh, route_window_planes_fused
 
         entry = _WindowEntry(f_args)
         rungs = []
-        rm = f_kwargs.get("mesh")
+        rm = _as_row_mesh(f_kwargs.get("mesh"))
         if rm is not None:
             def sharded(rm_):
                 entry()
@@ -1309,7 +1352,9 @@ class Router:
         """Static batch plan [G, B_g] for a window: dirty nets split by
         conflict colour, then fanout class, spatially round-robined,
         chunked to B; plan width narrowed to the largest chunk (pow-2,
-        floor 8); group count padded to a power of two."""
+        floor 8), but kept at B under a (net, node) mesh, whose net axis
+        splits it (JAX router.py:1356-1364); group count padded to a
+        power of two."""
         batches = []
         if colors is None or len(dirty) <= 1:
             groups = [dirty]
@@ -1320,7 +1365,10 @@ class Router:
             batches.extend(_order_and_chunk(g, nsinks, cx, cy, B))
         if not batches:
             batches = [np.zeros(0, dtype=np.int64)]
-        B_g = min(B, max(8, _pow2_at_least(max(len(b) for b in batches))))
+        B_g = B
+        if self.mesh is None:
+            B_g = min(B, max(8, _pow2_at_least(
+                max(len(b) for b in batches))))
         G = _pow2_at_least(len(batches))
         sel_plan = np.zeros((G, B_g), dtype=np.int32)
         valid_plan = np.zeros((G, B_g), dtype=bool)
@@ -1328,6 +1376,12 @@ class Router:
             sel_plan[i, :len(b)] = b
             valid_plan[i, :len(b)] = True
         return sel_plan, valid_plan
+
+    def _batch(self, R: int) -> int:
+        """The step width: batch_size (at most R), rounded up to a
+        multiple of the mesh's net axis (JAX router.py:2613-2616)."""
+        n = max(1, self._net_axis)
+        return -(-min(self.opts.batch_size, max(1, R)) // n) * n
 
     def _t(self, a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(
@@ -1402,7 +1456,7 @@ class Router:
         rr = self.rr
         R, Smax = term.sinks.shape
         N = rr.num_nodes
-        B = min(opts.batch_size, max(1, R))
+        B = self._batch(R)
         if analyzer is not None and \
                 analyzer.dev.device != self.dev.capacity.device:
             raise ValueError(
@@ -1556,7 +1610,7 @@ class Router:
         rr, dev = self.rr, self.dev
         R, Smax = term.sinks.shape
         N = rr.num_nodes
-        B = min(opts.batch_size, max(1, R))
+        B = self._batch(R)
         if crit is None:
             crit = np.zeros((R, Smax), dtype=np.float32)
         else:
@@ -1653,13 +1707,14 @@ class Router:
                         dev, win, occ, acc, pres_t, paths, sink_delay,
                         all_reached, source_d, sinks_d, crit_d, sel_d,
                         selw_d, valid_d, lb_scale, self.max_len, L_e, waves,
-                        grp)
+                        grp, mesh=self.mesh)
                 else:
                     (paths, sink_delay, all_reached, bb, occ,
                      steps) = route_batch_resident(
                         dev, occ, acc, pres_t, paths, sink_delay,
                         all_reached, bb, source_d, sinks_d, crit_d, sel_d,
-                        valid_d, full_bb, self.max_len, L_e, waves, grp)
+                        valid_d, full_bb, self.max_len, L_e, waves, grp,
+                        mesh=self.mesh)
                 steps_dev = steps_dev + steps
                 result.total_net_routes += nsel
 
@@ -1807,11 +1862,19 @@ class Router:
         force_all_next = False
         widx = 0
         crop_forced = None
-        if "x" in crop:
+        if "x" in crop and self.mesh is None:
             cwf, chf = (int(v) for v in crop.split("x"))
             crop_forced = (min(cwf, rr.grid.nx - 1),
                            min(chf, rr.grid.ny - 1))
-        crop_full = crop != "auto" and crop_forced is None
+        elif "x" in crop:
+            import warnings
+
+            warnings.warn("crop='WxH' is ignored under a mesh (crops "
+                          "are net-local; the spatially sharded path "
+                          "keeps full canvases)")
+        # a (net, node) mesh keeps full canvases (JAX router.py:1512-1524)
+        crop_full = (crop != "auto" and crop_forced is None) \
+            or self.mesh is not None
         # static initial bbs: the crop anchor
         bb0_d = self._t(np.stack(
             [term.bb_xmin, term.bb_xmax, term.bb_ymin, term.bb_ymax],
@@ -1932,7 +1995,11 @@ class Router:
             # re-read every window so that a demotion takes effect at the
             # next window boundary
             rm = self._active_row_mesh(lad)
-            mesh_vk = False if rm is None else (rm.n_shards, rm.impl)
+            # the window's mesh: the (net, node) mesh if the Router has
+            # one, else the row mesh (JAX router.py:1729-1733)
+            mesh_now = self.mesh if self.mesh is not None else rm
+            mesh_vk = (False if mesh_now is None else True if rm is None
+                       else (rm.n_shards, rm.impl))
             if rm is not None:
                 # the sharded relaxation runs the full canvas: the row
                 # mesh splits the canvas instead of the crop ladder
@@ -1947,10 +2014,10 @@ class Router:
                           and dtype_lvl0)
             pd_main = ("bf16" if pd_req == "bf16" and guard == "off"
                        and not dtype_demoted and dtype_lvl0 else "f32")
-            # fused iff asked and the ladder's "dispatch" dimension is at
-            # its top (JAX router.py:1721-1723; the port has no legacy
-            # GSPMD mesh)
-            fused_now = (bool(opts.fused_dispatch)
+            # fused iff asked, without a (net, node) mesh, and the
+            # ladder's "dispatch" dimension at its top (JAX router.py
+            # :1721-1723)
+            fused_now = (bool(opts.fused_dispatch) and self.mesh is None
                          and (lad is None or lad.level("dispatch") == 0))
             shadow = []
             if shadow_now:
@@ -2032,7 +2099,7 @@ class Router:
                 kw = dict(topk=min(4096, N), n_colors=5,
                           crop_tile=p["tile"], bb0_all=bb0_d,
                           widen_ok=p["wok"],
-                          mesh=None if self._mesh_lost else rm,
+                          mesh=None if self._mesh_lost else mesh_now,
                           plane_dtype=pd_main, **sta_kw)
                 return args, kw
 

@@ -22,9 +22,11 @@ computes in float32 / int32 exactly as the JAX functions do: the same
 operations in the same order (a product and the sum it feeds rounded
 separately), first-index argmin, stable sorts, and JAX's step counts.
 The JAX package runs its loops as device while_loops; here a loop
-reads its exit condition on the host every few steps (a fixpoint is
-stable, so the extra steps change nothing) while its step counter
-stops on the device at the step JAX stops at.
+yields its exit condition every few steps to the step's driver
+(netsplit.py: one device reads it on the host; the members of a net
+mesh's step are combined first), a fixpoint being stable, so the extra
+steps change nothing, while its step counter stops on the device at the
+step JAX stops at.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from dataclasses import dataclass
 import torch
 
 from .device_graph import DeviceRRGraph
+from .netsplit import gather, run1, split_run, sum_waves
 
 INF = float("inf")
 _F32, _I32 = torch.float32, torch.int32
@@ -98,13 +101,13 @@ def _fixpoint(step, state, max_steps: int, device):
     """Run ``step`` (state -> (state, improved)) until a step improves
     nothing, at most ``max_steps`` times: lax.while_loop's
     (state, steps), steps counting up to and including the first step
-    that improves nothing.  The host reads the exit condition every
-    _CHECK_EVERY steps; the steps past the fixpoint leave the state as
-    it is and are not counted."""
+    that improves nothing.  A coroutine (netsplit.py): the exit
+    condition is yielded every _CHECK_EVERY steps; the steps past the
+    fixpoint leave the state as it is and are not counted."""
     live = torch.ones((), dtype=torch.bool, device=device)
     steps = torch.zeros((), dtype=_I32, device=device)
     for it in range(max_steps):
-        if it and it % _CHECK_EVERY == 0 and not bool(live):
+        if it and it % _CHECK_EVERY == 0 and not (yield "any", live):
             break
         state, improved = step(state)
         steps = steps + live.to(_I32)
@@ -141,7 +144,15 @@ def _min_over_blocks(gather_ds, terms, cong3, shape, device, dim: int):
 
 def _relax(dev: DeviceRRGraph, cong_c, crit_c, inside, seed, seed_tdel,
            max_steps: int):
-    """One seeded Bellman-Ford solve for a batch (JAX search.py:77).
+    """One seeded Bellman-Ford solve for a batch (JAX search.py:77): the
+    coroutine _relax_co driven alone."""
+    return run1(_relax_co(dev, cong_c, crit_c, inside, seed, seed_tdel,
+                          max_steps))
+
+
+def _relax_co(dev: DeviceRRGraph, cong_c, crit_c, inside, seed, seed_tdel,
+              max_steps: int):
+    """_relax as a coroutine (netsplit.py).
 
     cong_c [B, N] congestion term (already scaled by (1-crit) and
     jitter); crit_c [B, 1] delay-term weight; inside [B, N] bb mask;
@@ -188,8 +199,8 @@ def _relax(dev: DeviceRRGraph, cong_c, crit_c, inside, seed, seed_tdel,
                  torch.where(improved, bsrc.to(_I32), prev),
                  torch.where(improved, btdel, tdel)), improved.any())
 
-    (dist, prev, tdel), steps = _fixpoint(step, (dist0, prev0, tdel0),
-                                          max_steps, device)
+    (dist, prev, tdel), steps = yield from _fixpoint(
+        step, (dist0, prev0, tdel0), max_steps, device)
     return (dist.T.contiguous(), prev.T.contiguous(), tdel.T.contiguous(),
             steps)
 
@@ -198,7 +209,8 @@ def _traceback(prev, seed, sink, max_len: int):
     """Walk prev pointers from each sink until a seed (tree) node
     (JAX search.py:152): prev [B, N], seed [B, N], sink [B, G] (-1: none).
     Returns (path [B, G, max_len] node ids, sentinel N = pad; reached
-    [B, G]).  The joining tree node is included in the path."""
+    [B, G]).  The joining tree node is included in the path.  A
+    coroutine (netsplit.py)."""
     B, N = prev.shape
     G = sink.shape[1]
     valid0 = sink >= 0
@@ -208,7 +220,7 @@ def _traceback(prev, seed, sink, max_len: int):
     path = torch.full((B, G, max_len), N, dtype=_I32, device=prev.device)
     for pos in range(max_len):
         # a finished walk emits the pad and stays put: skip the rest
-        if pos % _CHECK_EVERY == 0 and bool(done.all()):
+        if pos % _CHECK_EVERY == 0 and (yield "all", done.all()):
             break
         nc = node.clamp(min=0)
         at_tree = torch.gather(seed, 1, nc)
@@ -293,6 +305,18 @@ def route_net_batch(dev: DeviceRRGraph, cong, source, sinks, bb, crit,
     segments, reached [B, S], sink_delay [B, S], usage [B, N] tree-node
     masks, relax_steps: an int32 device scalar, the sum of every wave's
     Bellman-Ford steps)."""
+    p, reached, delay, usage, waves = run1(_route_net_batch_co(
+        dev, cong, source, sinks, bb, crit, net_key, max_steps, max_len,
+        num_waves, group))
+    return p, reached, delay, usage, sum_waves(
+        waves, torch.zeros((), dtype=_I32, device=cong.device))
+
+
+def _route_net_batch_co(dev: DeviceRRGraph, cong, source, sinks, bb, crit,
+                        net_key, max_steps: int, max_len: int,
+                        num_waves: int, group: int):
+    """route_net_batch as a coroutine (netsplit.py) whose last value is
+    the list of each wave's step count, not their sum."""
     B, S = sinks.shape
     N = dev.num_nodes
     device = cong.device
@@ -306,52 +330,85 @@ def route_net_batch(dev: DeviceRRGraph, cong, source, sinks, bb, crit,
     paths = torch.full((B, S, max_len), N, dtype=_I32, device=device)
     delay = torch.full((B, S), INF, dtype=_F32, device=device)
     reached_all = torch.zeros((B, S), dtype=torch.bool, device=device)
-    relax_steps = torch.zeros((), dtype=_I32, device=device)
+    waves = []
     sink_c = sinks.clamp(min=0).long()
 
     for _ in range(num_waves):
         # a batch whose sinks are all done ends the wave loop; a sink
         # that stays unreachable keeps it going to the cap (JAX's
         # wave_cond)
-        if not bool(remaining.any()):
+        if not (yield "any", remaining.any()):
             break
         # wave criticality: the strongest remaining sink
         crit_w = torch.where(remaining, crit, 0.0).amax(dim=1)
         cong_c = (1.0 - crit_w)[:, None] * cong * jitter
-        dist, prev, tdel, steps = _relax(dev, cong_c, crit_w[:, None],
-                                         inside, seed, tdel_tree, max_steps)
-        relax_steps = relax_steps + steps
+        dist, prev, tdel, steps = yield from _relax_co(
+            dev, cong_c, crit_w[:, None], inside, seed, tdel_tree, max_steps)
+        waves.append(steps)
 
         order, pick_valid = _pick_sinks(torch.gather(dist, 1, sink_c),
                                         remaining, crit, group)
         pick_sink = torch.where(pick_valid, torch.gather(sinks, 1, order),
                                 -1)
-        seg, seg_reached = _traceback(prev, seed, pick_sink, max_len)
+        seg, seg_reached = yield from _traceback(prev, seed, pick_sink,
+                                                 max_len)
         ok = pick_valid & seg_reached
         d_new = torch.gather(tdel, 1, pick_sink.clamp(min=0).long())
         paths, delay, reached_all, remaining = _store_wave(
             order, ok, seg, d_new, paths, delay, reached_all, remaining)
         tdel_tree, seed = _grow_tree(ok, seg, tdel, tdel_tree, seed, N)
 
-    return paths, reached_all, delay, seed, relax_steps
+    return paths, reached_all, delay, seed, waves
 
 
-def _rip_up(occ, b_paths, valid, N: int):
-    """(occ with the batch's old trees removed, each net's
-    everyone-but-itself view [B, N])."""
+def _commit_co(dev: DeviceRRGraph, occ, acc, pres_fac, b_paths, b_src,
+               b_sinks, b_bb, b_crit, net_key, valid, max_steps: int,
+               max_len: int, num_waves: int, group: int):
+    """One member's part of the global-program step (a coroutine,
+    netsplit.py): rip up its rows' old trees, route them against the
+    occupancy of everyone-but-itself and return (paths, reached, delay,
+    its int32 occupancy delta [N], per-wave steps)."""
+    N = dev.num_nodes
     old_usage = usage_from_paths(b_paths, N) & valid[:, None]
-    return (occ - old_usage.sum(dim=0, dtype=_I32),
-            occ[None, :] - old_usage.to(_I32))
+    occ_view = occ[None, :] - old_usage.to(_I32)
+    cong = congestion_cost(dev, occ_view, acc, pres_fac)
+    p, reached, delay, usage, waves = yield from _route_net_batch_co(
+        dev, cong, b_src, b_sinks, b_bb, b_crit, net_key, max_steps,
+        max_len, num_waves, group)
+    delta = occupancy_delta(usage, valid) - old_usage.sum(dim=0,
+                                                          dtype=_I32)
+    return p, reached, delay, delta, waves
 
 
-def _distinct_rows(sel, valid, sel_win=None):
+def route_and_commit(dev: DeviceRRGraph, occ, acc, pres_fac, prev_paths,
+                     source, sinks, bb, crit, net_key, valid,
+                     max_steps: int, max_len: int, num_waves: int,
+                     group: int, mesh=None):
+    """One fused batch step (JAX search.py:306): rip up the batch's
+    previous paths, route every net against the occupancy view of
+    everyone-but-itself, commit the new occupancy.  ``mesh`` (a
+    parallel.shard.Mesh) splits the B nets over its net axis
+    (netsplit.py; B divisible by its size), each chunk routed on its
+    member's device, the deltas summed on ``occ``'s device.
+
+    Returns (paths, reached, delay, occ_new, relax_steps)."""
+    home = occ.device
+    outs = split_run(_commit_co, mesh, home,
+                      (prev_paths, source, sinks, bb, crit, net_key, valid),
+                      (occ, acc, pres_fac), (dev,),
+                      (max_steps, max_len, num_waves, group))
+    p, reached, delay, delta, steps = gather(outs, home, 3, 4)
+    return p, reached, delay, occ + delta, steps
+
+
+def _distinct_keep(sel, valid, sel_win=None):
     """The rows of a batch that are computed: every valid row and, of the
     padded rows, the first for each distinct (sel, sel_win).  Padded
     rows with the same selection are the same net with nothing ripped
     up, so they compute the same values; one of them stands for the
     rest in the batch's step count (the relaxation runs until every row
     has converged), and the padded rows are dropped anyway.  Returns
-    (sel, valid, sel_win) cut to those rows."""
+    the kept positions, or None when every row is kept."""
     s, v = sel.cpu().numpy(), valid.cpu().numpy()
     w = None if sel_win is None else sel_win.cpu().numpy()
     seen, keep = set(), []
@@ -361,10 +418,7 @@ def _distinct_rows(sel, valid, sel_win=None):
             keep.append(i)
         if not v[i]:
             seen.add(key)
-    if len(keep) == len(s):
-        return sel, valid, sel_win
-    k = torch.tensor(keep, device=sel.device)
-    return sel[k], valid[k], None if sel_win is None else sel_win[k]
+    return None if len(keep) == len(s) else keep
 
 
 def _put_rows(valid, sel, dst_src):
@@ -375,38 +429,49 @@ def _put_rows(valid, sel, dst_src):
         dst[rows] = src[valid]
 
 
+def _kept(keep, home, *ts):
+    """``ts`` cut to the kept positions (all of them for None)."""
+    if keep is None:
+        return ts
+    idx = torch.tensor(keep, device=home)
+    return tuple(t[idx] for t in ts)
+
+
 def route_batch_resident(dev: DeviceRRGraph, occ, acc, pres_fac, paths,
                          sink_delay, all_reached, bb, source_all, sinks_all,
                          crit_all, sel, valid, full_bb, max_steps: int,
-                         max_len: int, num_waves: int, group: int):
+                         max_len: int, num_waves: int, group: int,
+                         mesh=None):
     """One fused batch step against the whole-circuit state (JAX
     search.py:370): gather the batch rows, rip up, route every net
     against the occupancy of everyone-but-itself, commit, scatter the
     rows back, and widen the bounding box of any net with an unreached
     sink to ``full_bb``.  ``sel`` [B] picks the nets (``valid`` [B]
     masks padding: padded rows are routed and dropped, as in JAX; of
-    identical ones only one is computed, _distinct_rows).
+    identical ones only one is computed, _distinct_keep).  ``mesh`` (a
+    parallel.shard.Mesh) routes the batch's chunks on its net axis's
+    devices (netsplit.py).
 
     ``paths``, ``sink_delay``, ``all_reached`` and ``bb`` are updated IN
     PLACE (the JAX program donates them).  Returns (paths, sink_delay,
     all_reached, bb, occ_new, relax_steps)."""
-    N = dev.num_nodes
-    sel, valid, _ = _distinct_rows(sel, valid)
+    home = occ.device
+    keep = _distinct_keep(sel, valid)
     sl = sel.long()
-    b_paths = paths[sl]
-    b_sinks = sinks_all[sl]
-    b_bb = bb[sl]
-    occ_rip, occ_view = _rip_up(occ, b_paths, valid, N)
-    cong = congestion_cost(dev, occ_view, acc, pres_fac)
-    p, reached, delay, usage, relax_steps = route_net_batch(
-        dev, cong, source_all[sl], b_sinks, b_bb, crit_all[sl],
-        sel.to(_I32), max_steps, max_len, num_waves, group)
-    occ_new = occ_rip + occupancy_delta(usage, valid)
+    b_sinks, b_bb = sinks_all[sl], bb[sl]
+    outs = split_run(
+        _commit_co, mesh, home,
+        (paths[sl], source_all[sl], b_sinks, b_bb, crit_all[sl],
+         sel.to(_I32), valid),
+        (occ, acc, pres_fac), (dev,), (max_steps, max_len, num_waves, group),
+        keep)
+    p, reached, delay, delta, relax_steps = gather(outs, home, 3, 4)
+    sel, valid, b_sinks, b_bb = _kept(keep, home, sel, valid, b_sinks, b_bb)
     ok = (reached | (b_sinks < 0)).all(dim=1)
     new_bb = torch.where(ok[:, None], b_bb, full_bb[None, :])
     _put_rows(valid, sel, ((paths, p), (sink_delay, delay),
                            (all_reached, ok), (bb, new_bb)))
-    return paths, sink_delay, all_reached, bb, occ_new, relax_steps
+    return paths, sink_delay, all_reached, bb, occ + delta, relax_steps
 
 
 def reroute_mask(dev: DeviceRRGraph, occ, paths, all_reached):
@@ -556,6 +621,13 @@ def _relax_local(lsrc, ldelay, cong_c, crit_c, lb, seed, seed_tdel,
     sink_loc [B, S] local sink indices; remaining [B, S].  A relaxation
     that cannot beat the best remaining sink's distance (cand + lb >=
     bound) is suppressed.  Returns (dist, prev, tdel, steps)."""
+    return run1(_relax_local_co(lsrc, ldelay, cong_c, crit_c, lb, seed,
+                                seed_tdel, sink_loc, remaining, max_steps))
+
+
+def _relax_local_co(lsrc, ldelay, cong_c, crit_c, lb, seed, seed_tdel,
+                    sink_loc, remaining, max_steps: int):
+    """_relax_local as a coroutine (netsplit.py)."""
     B, Nbox, D = lsrc.shape
     device = cong_c.device
     dist0 = torch.where(seed, 0.0, INF)
@@ -591,8 +663,8 @@ def _relax_local(lsrc, ldelay, cong_c, crit_c, lb, seed, seed_tdel,
                  torch.where(improved, bsrc.to(_I32), prev),
                  torch.where(improved, btdel, tdel)), improved.any())
 
-    (dist, prev, tdel), steps = _fixpoint(step, (dist0, prev0, tdel0),
-                                          max_steps, device)
+    (dist, prev, tdel), steps = yield from _fixpoint(
+        step, (dist0, prev0, tdel0), max_steps, device)
     return dist, prev, tdel, steps
 
 
@@ -644,35 +716,52 @@ def route_batch_resident_win(dev: DeviceRRGraph, win: WindowTables, occ,
                              acc, pres_fac, paths, sink_delay, all_reached,
                              source_all, sinks_all, crit_all, sel, sel_win,
                              valid, lb_scale, max_steps: int, max_len: int,
-                             num_waves: int, group: int):
+                             num_waves: int, group: int, mesh=None):
     """The windowed batch step (JAX search.py:666): the contract of
     route_batch_resident with the search in [B, Nbox] window
     coordinates.  ``sel`` holds net ids into the whole-circuit arrays,
     ``sel_win`` rows of the compacted window tables; ``lb_scale`` [4]
     f32 the A* gate's scales (Router._lb_scale).  Sinks outside their
     own window stay unreached (the Router widens the net and routes it
-    through the global program).  ``paths``, ``sink_delay`` and
-    ``all_reached`` are updated in place.  Returns (paths, sink_delay,
-    all_reached, occ_new, relax_steps)."""
-    N = dev.num_nodes
-    sel, valid, sel_win = _distinct_rows(sel, valid, sel_win)
-    B = sel.shape[0]
-    Nbox = win.nbox
-    S = sinks_all.shape[1]
-    device = occ.device
+    through the global program).  ``mesh`` as for route_batch_resident.
+    ``paths``, ``sink_delay`` and ``all_reached`` are updated in place.
+    Returns (paths, sink_delay, all_reached, occ_new, relax_steps)."""
+    home = occ.device
+    keep = _distinct_keep(sel, valid, sel_win)
     sl, sw = sel.long(), sel_win.long()
-    b_paths = paths[sl]
-    b_src = source_all[sl]
     b_sinks = sinks_all[sl]
-    b_crit = crit_all[sl]
-    wn = win.win_nodes[sw]
-    lsrc = win.lsrc[sw]
-    ldelay = win.ldelay[sw]
-    xl, xh, yl, yh = (getattr(win, f)[sw].to(_I32)
-                      for f in ("xl", "xh", "yl", "yh"))
+    outs = split_run(
+        _commit_win_co, mesh, home,
+        (paths[sl], source_all[sl], b_sinks, crit_all[sl],
+         win.win_nodes[sw], win.lsrc[sw], win.ldelay[sw],
+         *(getattr(win, f)[sw].to(_I32) for f in ("xl", "xh", "yl", "yh")),
+         sel, valid),
+        (occ, acc, pres_fac, lb_scale), (dev,),
+        (max_steps, max_len, num_waves, group), keep)
+    p, reached_all, delay, delta, relax_steps = gather(outs, home, 3, 4)
+    sel, valid, b_sinks = _kept(keep, home, sel, valid, b_sinks)
+    ok = (reached_all | (b_sinks < 0)).all(dim=1)
+    _put_rows(valid, sel, ((paths, p), (sink_delay, delay),
+                           (all_reached, ok)))
+    return paths, sink_delay, all_reached, occ + delta, relax_steps
+
+
+def _commit_win_co(dev: DeviceRRGraph, occ, acc, pres_fac, lb_scale,
+                   b_paths, b_src, b_sinks, b_crit, wn, lsrc, ldelay,
+                   xl, xh, yl, yh, sel, valid, max_steps: int,
+                   max_len: int, num_waves: int, group: int):
+    """One member's part of the windowed step (a coroutine, netsplit.py):
+    its rows' rip-up, localized search and occupancy delta.  Returns
+    (paths, reached, delay, int32 delta [N], per-wave steps)."""
+    N = dev.num_nodes
+    B = sel.shape[0]
+    Nbox = wn.shape[1]
+    S = b_sinks.shape[1]
+    device = occ.device
 
     # --- rip up in global space ---
-    occ_rip, occ_view = _rip_up(occ, b_paths, valid, N)
+    old_usage = usage_from_paths(b_paths, N) & valid[:, None]
+    occ_view = occ[None, :] - old_usage.to(_I32)
 
     # --- localize: congestion cost + terminals in window coordinates ---
     wn_c = wn.long().clamp(0, N - 1)
@@ -702,25 +791,26 @@ def route_batch_resident_win(dev: DeviceRRGraph, win: WindowTables, occ,
     lpaths = torch.full((B, S, max_len), Nbox, dtype=_I32, device=device)
     delay = torch.full((B, S), INF, dtype=_F32, device=device)
     reached_all = torch.zeros((B, S), dtype=torch.bool, device=device)
-    relax_steps = torch.zeros((), dtype=_I32, device=device)
+    waves = []
 
     for _ in range(num_waves):
-        if not bool(remaining.any()):
+        if not (yield "any", remaining.any()):
             break
         crit_w = torch.where(remaining, b_crit, 0.0).amax(dim=1)
         cong_c = (1.0 - crit_w)[:, None] * cong_l * jitter
         lb = _astar_bound(xl, xh, yl, yh, sx, sy, remaining, crit_w, la,
                           lb_scale)
-        dist, prev, tdel, steps = _relax_local(
+        dist, prev, tdel, steps = yield from _relax_local_co(
             lsrc, ldelay, cong_c, crit_w[:, None], lb, seed, tdel_tree,
             sink_loc, remaining, max_steps)
-        relax_steps = relax_steps + steps
+        waves.append(steps)
 
         sd = torch.gather(_col(dist, INF), 1, sink_loc.long())
         order, pick_valid = _pick_sinks(sd, remaining, b_crit, group)
         pick_sink = torch.where(pick_valid, torch.gather(sink_loc, 1, order),
                                 -1)
-        seg, seg_reached = _traceback(prev, seed, pick_sink, max_len)
+        seg, seg_reached = yield from _traceback(prev, seed, pick_sink,
+                                                 max_len)
         ok = pick_valid & seg_reached
         d_new = torch.gather(_col(tdel, 0.0), 1,
                              pick_sink.clamp(min=0).long())
@@ -733,8 +823,6 @@ def route_batch_resident_win(dev: DeviceRRGraph, win: WindowTables, occ,
                      ).reshape(lpaths.shape)
     usage = torch.zeros((B, N + 1), dtype=torch.bool, device=device)
     usage.scatter_(1, torch.where(seed, wn, N).long(), True)
-    occ_new = occ_rip + occupancy_delta(usage[:, :N], valid)
-    ok = (reached_all | (b_sinks < 0)).all(dim=1)
-    _put_rows(valid, sel, ((paths, p), (sink_delay, delay),
-                           (all_reached, ok)))
-    return paths, sink_delay, all_reached, occ_new, relax_steps
+    delta = occupancy_delta(usage[:, :N], valid) - old_usage.sum(
+        dim=0, dtype=_I32)
+    return p, reached_all, delay, delta, waves

@@ -11,9 +11,9 @@ still-active jobs yielded, merges them (canonically ordered, chunked)
 into ONE ``planes.route_window_planes_multi`` call, and sends each job
 its own result back.  Joiners enter at the next slice boundary,
 finishers leave mid-slice (the merge simply shrinks), and a job that
-cannot merge (a row mesh, device-resident STA, a singleton step)
-dispatches solo through ``Router._exec_window_request``, the exact solo
-code path.
+cannot merge (a row or (net, node) mesh, device-resident STA, a
+singleton step) dispatches solo through ``Router._exec_window_request``,
+the exact solo code path.
 
 Bit-identical per-job QoR is the invariant: every job keeps its own
 state tensors and its own rung ladder inside the multi call, and
@@ -79,7 +79,9 @@ class SliceEntry:
 def _mergeable(req: WindowDispatchRequest) -> bool:
     """A request can join a multi call iff its window runs the
     single-device, host-crit configuration route_window_planes_multi
-    supports (no row mesh, no device-resident STA)."""
+    supports (JAX serve/fused.py:79-81): no mesh — neither a row mesh
+    nor a (net, node) mesh, whose Router yields no fused request anyway
+    — and no device-resident STA."""
     kw = req.f_kwargs
     return kw.get("mesh") is None and kw.get("tdev") is None
 

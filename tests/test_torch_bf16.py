@@ -63,6 +63,17 @@ EXPECT = {"fixture": (66, 11), "crop": (239, 22), "f32": (71, 11),
           "timing": (69, 11), "bench": (520, 16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _timing_route(pkg):
     """run_route timing-driven on the 15-LUT fixture at bf16 "off"."""
     m = TT._mods(pkg)
@@ -125,8 +136,8 @@ def test_planes_relax_bf16_matches_jax(ref, arch, nx, ny, seed, costs):
         jres = TPL.crit_results(ref, BF, "full/" + TPL._grid_key(
             arch, nx, ny, seed))
     else:
-        jres = JP.planes_relax(pg, *(jnp.asarray(a) for a in args), 64,
-                               plane_dtype=BF)
+        jres = TPL._jitted(
+            lambda *a: JP.planes_relax(pg, *a, 64, plane_dtype=BF), *args)
     TPL._compare(jres, tres)
     # the mode is not the f32 one: the rounded state reaches another
     # fixpoint

@@ -51,6 +51,10 @@ CASES = {
                     "32", "--moves_per_step", "32", "--out_dir", "out"],
     "golden_xml": ["--luts", "40", "--arch", GOLDEN_XML, "--batch_size",
                    "32", "--moves_per_step", "32", "--out_dir", "out"],
+    # the (net, node) mesh's net axis (ROADMAP C14), and the one-device
+    # route it equals
+    "mesh": BASE + ["--no_timing", "--mesh", "2x1"],
+    "mesh_crop_off": BASE + ["--no_timing", "--crop", "off"],
 }
 TIER1 = ["timing", "no_timing", "place_resume", "net_resume"]
 SLOW = ["binary_search", "blif_k6_n10", "golden_xml"]
@@ -106,9 +110,9 @@ def write_reference(out_dir, names):
         print(f"{name}: rc {rc}, {time.time() - t0:.1f}s", file=sys.stderr)
 
 
-def _jax_reference(d, names):
+def _jax_reference(d, names, xla_flags=""):
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+               XLA_FLAGS=("--xla_cpu_max_isa=AVX " + xla_flags).strip())
     out = subprocess.run([sys.executable, os.path.abspath(__file__),
                           str(d), *names], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=1200)
@@ -365,22 +369,21 @@ def test_cli_matches_jax_slow(jax_slow_dir, port_slow_dir, name):
 
 
 @pytest.mark.slow
-def test_cli_mesh_matches_unmeshed(tmp_path, monkeypatch):
-    """--mesh 1x2 maps to mesh_shards=2 and routes as the unmeshed run."""
-    from parallel_eda_tpu_torch.__main__ import main
-
-    outs = {}
-    for tag, extra in (("plain", []), ("mesh", ["--mesh", "1x2"])):
-        (tmp_path / tag).mkdir()
-        monkeypatch.chdir(tmp_path / tag)
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            assert main(BASE + ["--no_timing", "--device", "cpu"]
-                        + extra) == 0
-        outs[tag] = (buf.getvalue(), _bytes(tmp_path, tag, "out",
-                                            "synth.route"))
-    assert "mesh_shards=2" in outs["mesh"][0]
-    assert outs["mesh"][1] == outs["plain"][1]
+def test_cli_mesh_matches_unmeshed(tmp_path):
+    """--mesh 2x1 is the JAX CLI's (net, node) mesh (ROADMAP C14): rc,
+    printed lines (the "route mesh: 2 net x 1 node devices" line
+    included) and every artifact of the JAX CLI's --mesh 2x1 run, whose
+    eight virtual CPU devices the JAX side gets from XLA_FLAGS; and the
+    .route of the unmeshed run at --crop off (a mesh keeps full
+    canvases)."""
+    jd = _jax_reference(tmp_path / "jax", ["mesh"],
+                        "--xla_force_host_platform_device_count=8")
+    td = _port_runs(tmp_path / "port", ["mesh", "mesh_crop_off"])
+    _assert_same_run(jd, td, "mesh")
+    assert "route mesh: 2 net x 1 node devices" in _text(td, "mesh",
+                                                         "stdout.txt")
+    assert _bytes(td, "mesh", "out", "synth.route") == _bytes(
+        td, "mesh_crop_off", "out", "synth.route")
 
 
 def test_cli_flags_are_the_jax_clis_plus_device():

@@ -22,6 +22,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
+import torch
 import test_torch_planes as TPL  # noqa: E402
 import test_torch_timing as TT  # noqa: E402
 
@@ -40,6 +41,17 @@ OPTS = dict(batch_size=32)
 CK = dict(checkpoint_every=2, max_router_iterations=4)
 # the timing-driven case's slice
 TIMING_SLICE = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def stats_rows(res):

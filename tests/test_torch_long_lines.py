@@ -68,6 +68,18 @@ SIDES = (1, 2, 6, 8, 25)
 WIDTHS = (1, 2, 3, 7, 10, 20, 64, 150, 300)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the route's results do not depend on the thread
+    count: its float reductions are min and max)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_max_line_is_named_and_at_least_1024():
     assert PK.MAX_LINE == 1815 >= 1024
     # mode 0 at the fewest threads fits the limit's line, not one more

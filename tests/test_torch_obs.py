@@ -47,9 +47,13 @@ def _script(mod, tmp_path, tag):
     with mod.span("route.window", cat="route", K=2):
         with tr.span("inner"):
             pass
-    tr.mark("route.pipeline.plan", tr.t0 + 0.001, tr.t0 + 0.003,
+    # scripted times far past the clock-stamped events around them, so
+    # that the export's time order does not depend on how fast the
+    # script runs (at t0 + 1 ms a loaded host stamped some counters
+    # later than the mark)
+    tr.mark("route.pipeline.plan", tr.t0 + 100.001, tr.t0 + 100.003,
             cat="route", window=1)
-    tr.add_complete("route.kernel", tr.t0 + 0.002, -1.0, cat="route",
+    tr.add_complete("route.kernel", tr.t0 + 100.002, -1.0, cat="route",
                     tile=[4, 4])
     tr.instant("route.trace.submit", cat="lifecycle", job="j")
     tr.counter("route.pres_fac", 2)

@@ -26,6 +26,17 @@ MODES = [True, False]
 CK = dict(checkpoint_every=2, max_router_iterations=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax(jf, pipeline, resume=None, **kw):
     """The JAX route in mode ``pipeline`` and its route.pipeline.*
     metrics."""

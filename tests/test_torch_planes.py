@@ -19,6 +19,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,17 @@ from parallel_eda_tpu.route import planes as JP
 from parallel_eda_tpu.rr.graph import CHANX, CHANY, build_rr_graph
 from parallel_eda_tpu.rr.grid import DeviceGrid
 from parallel_eda_tpu_torch.route import planes as TP
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _mixed_len_arch():
@@ -148,6 +160,13 @@ def _np(a):
     return tuple(np.asarray(x) for x in a)
 
 
+def _jitted(fn, *arrays):
+    """``fn(*arrays)`` through jax.jit, its array arguments traced: one
+    compile of the whole relaxation instead of the eager path's per-op
+    work (the same XLA operations)."""
+    return jax.jit(fn)(*(jnp.asarray(a) for a in arrays))
+
+
 def _jax_crit_results(plane_dtype, shard_cases=None):
     """The JAX package's results of every crit > 0 case (the sharded ones
     of ``shard_cases``, default SHARD_CRIT): key -> (dist, pred, wenter,
@@ -159,24 +178,24 @@ def _jax_crit_results(plane_dtype, shard_cases=None):
     for arch, nx, ny, seed in RELAX_GRID:
         rr, pg = _graph(arch, nx, ny)
         args = _instance(rr, pg, 4, seed, "crit")
-        out["full/" + _grid_key(arch, nx, ny, seed)] = _np(JP.planes_relax(
-            pg, *(jnp.asarray(a) for a in args), 64,
-            plane_dtype=plane_dtype))
+        out["full/" + _grid_key(arch, nx, ny, seed)] = _np(_jitted(
+            lambda *a: JP.planes_relax(pg, *a, 64, plane_dtype=plane_dtype),
+            *args))
     for arch, seed in CROP_CASES:
         rr, pg, d0, cc, crit, w0, ox, oy, cnx, cny = _crop_instance(
             arch, seed, "crit")
-        out[f"crop/{arch}-{seed}"] = _np(JP.planes_relax_cropped(
-            pg, *(jnp.asarray(a) for a in (d0, cc, crit, w0)), 64,
-            jnp.asarray(ox), jnp.asarray(oy), cnx, cny,
-            plane_dtype=plane_dtype))
+        out[f"crop/{arch}-{seed}"] = _np(_cropped_jax(
+            pg, (d0, cc, crit, w0, ox, oy, cnx, cny), plane_dtype))
     for arch, s, impl in (SHARD_CRIT if shard_cases is None
                           else shard_cases):
         nx, ny, seed = SHARD_GRAPHS[arch]
         rr, pg = _graph(arch, nx, ny)
         args = _instance(rr, pg, 4, seed, "crit")
-        out[f"shard/{arch}-{s}-{impl}"] = _np(JS.planes_relax_sharded(
-            pg, *(jnp.asarray(a) for a in args), 24,
-            JS.make_row_mesh(s, impl), plane_dtype=plane_dtype))
+        mesh = JS.make_row_mesh(s, impl)
+        out[f"shard/{arch}-{s}-{impl}"] = _np(_jitted(
+            lambda *a: JS.planes_relax_sharded(pg, *a, 24, mesh,
+                                               plane_dtype=plane_dtype),
+            *args))
     return out
 
 
@@ -236,7 +255,7 @@ def test_planes_relax_matches_jax(crit_ref, arch, nx, ny, seed, costs):
         jres = crit_results(crit_ref, "f32",
                             "full/" + _grid_key(arch, nx, ny, seed))
     else:
-        jres = JP.planes_relax(pg, *(jnp.asarray(a) for a in args), 64)
+        jres = _jitted(lambda *a: JP.planes_relax(pg, *a, 64), *args)
     _compare(jres, tres)
 
 
@@ -244,7 +263,7 @@ def test_planes_relax_ceiling_counts():
     """A sweep ceiling below the fixpoint: every executed sweep counts as
     useful, and the truncated state still matches bit for bit."""
     pg, args, tres = _relax_port("mixed", 7, 7, 1, "jitter", nsweeps=2)
-    jres = JP.planes_relax(pg, *(jnp.asarray(a) for a in args), 2)
+    jres = _jitted(lambda *a: JP.planes_relax(pg, *a, 2), *args)
     assert tres[3].tolist() == [2, 2]
     _compare(jres, tres)
 
@@ -317,10 +336,9 @@ def _cropped_port(arch, seed, costs, plane_dtype="f32"):
 
 def _cropped_jax(pg, args, plane_dtype="f32"):
     d0, cc, crit, w0, ox, oy, cnx, cny = args
-    return JP.planes_relax_cropped(
-        pg, jnp.asarray(d0), jnp.asarray(cc), jnp.asarray(crit),
-        jnp.asarray(w0), 64, jnp.asarray(ox), jnp.asarray(oy), cnx, cny,
-        plane_dtype=plane_dtype)
+    return _jitted(lambda d, c, k, w, x, y: JP.planes_relax_cropped(
+        pg, d, c, k, w, 64, x, y, cnx, cny, plane_dtype=plane_dtype),
+        d0, cc, crit, w0, ox, oy)
 
 
 @pytest.mark.parametrize("costs", ["exact", "jitter", "crit"])

@@ -38,6 +38,17 @@ CROP_FIXTURE = dict(num_luts=40, num_inputs=6, num_outputs=6,
                     chan_width=10, seed=3, bb_factor=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @contextlib.contextmanager
 def port_metrics():
     """A fresh port metrics registry for the block (the process's own

@@ -50,6 +50,17 @@ ARCHS = {"minimal": (lambda: minimal_arch(chan_width=6), 6, 5, 4, 0),
 _CACHE = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _instance(arch):
     """tests/test_planes_shard.py's instance: random wire seeds and
     power-of-two (f32-exact) congestion, crit 0; numpy arrays."""
@@ -75,6 +86,16 @@ def _instance(arch):
         _CACHE[arch] = (pg, to_port(pg), args,
                         tuple(np.asarray(r) for r in ref))
     return _CACHE[arch]
+
+
+def _jax_relax(pg, args, nsweeps, s, impl):
+    """JAX's planes_relax_sharded on ``args`` (numpy) as numpy, through
+    jax.jit (one compile instead of the eager shard_map's per-call
+    work)."""
+    mesh = JS.make_row_mesh(s, impl)
+    out = jax.jit(lambda *a: JS.planes_relax_sharded(pg, *a, nsweeps, mesh))(
+        *(jnp.asarray(x) for x in args))
+    return tuple(np.asarray(a) for a in out)
 
 
 def _port_relax(tpg, args, s, impl):
@@ -159,8 +180,9 @@ def _jax_permute(x, s, fwd):
     mesh = Mesh(np.array(jax.devices()[:s]), ("row",))
     perm = ([(i, i + 1) for i in range(s - 1)] if fwd
             else [(i, i - 1) for i in range(1, s)])
-    f = shard_map(lambda a: lax.ppermute(a, "row", perm), mesh=mesh,
-                  in_specs=P("row"), out_specs=P("row"), check_rep=False)
+    f = jax.jit(shard_map(lambda a: lax.ppermute(a, "row", perm),
+                          mesh=mesh, in_specs=P("row"), out_specs=P("row"),
+                          check_rep=False))
     return np.asarray(f(jnp.asarray(x)))
 
 
@@ -209,8 +231,8 @@ def _jax_exchange(dxb, dyb, sxb, syb, s, kx):
             jnp.where(ridx == s - 1, JP.INF, ry))
         return dx[None], dy[None]
 
-    f = shard_map(body, mesh=mesh, in_specs=(P(JS.ROW_AXIS),) * 4,
-                  out_specs=(P(JS.ROW_AXIS),) * 2, check_rep=False)
+    f = jax.jit(shard_map(body, mesh=mesh, in_specs=(P(JS.ROW_AXIS),) * 4,
+                          out_specs=(P(JS.ROW_AXIS),) * 2, check_rep=False))
     return tuple(np.asarray(a) for a in f(*(jnp.asarray(x) for x in
                                             (dxb, dyb, sxb, syb))))
 
@@ -298,107 +320,10 @@ def test_sharded_relax_matches_jax_single_device(impl, s, arch):
 @pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
 def test_sharded_relax_matches_jax_sharded(impl):
     pg, tpg, args, _ = _instance("minimal")
-    jout = JS.planes_relax_sharded(pg, *(jnp.asarray(x) for x in args), 24,
-                                   JS.make_row_mesh(4, impl))
+    jout = _jax_relax(pg, args, 24, 4, impl)
     out = _port_relax(tpg, args, 4, impl)
     for a, b in zip(jout, out):                    # dist pred wenter stats
-        assert np.array_equal(np.asarray(a), b)
-
-
-def _costs_instance(arch, costs, B=4):
-    """The shard instance with power-of-two (exact) or uniform (jittered)
-    congestion; numpy arrays."""
-    key = (arch, costs, B)
-    if key not in _CACHE:
-        mk, nx, ny, _, seed = ARCHS[arch]
-        a = mk()
-        rr = build_rr_graph(a, DeviceGrid(nx, ny, a.io_capacity))
-        pg = JP.build_planes(rr)
-        N = rr.num_nodes
-        rng = np.random.default_rng(seed + 17)
-        wires = np.where((rr.node_type == CHANX)
-                         | (rr.node_type == CHANY))[0]
-        noc = np.asarray(pg.node_of_cell)
-        seed_m = np.zeros((B, N), bool)
-        for b in range(B):
-            seed_m[b, rng.choice(wires, 1 + b % 3, replace=False)] = True
-        if costs == "exact":
-            cong = (2.0 ** rng.integers(-6, 3, (B, N))).astype(np.float32)
-        else:
-            cong = (rng.uniform(0.5, 2.0, (B, N)) * 1e-10).astype(
-                np.float32)
-        d0 = np.where(seed_m[:, noc], 0.0, np.inf).astype(np.float32)
-        # the last net is an empty slot (all-INF seeds, as the route
-        # gives a clean net): it stops after its first sweep
-        d0[-1] = np.inf
-        args = (d0, np.ascontiguousarray(cong[:, noc]),
-                np.zeros((B, 1, 1, 1), np.float32),
-                np.zeros((B, pg.ncells), np.float32))
-        _CACHE[key] = (pg, to_port(pg), args)
-    return _CACHE[key]
-
-
-@pytest.mark.parametrize("costs", ["exact", "jitter"])
-@pytest.mark.parametrize("arch", ["minimal", "unidir"])
-@pytest.mark.parametrize("s", [2, 3, 4])
-@pytest.mark.parametrize("impl", ["ppermute", "pallas_halo"])
-def test_sharded_relax_per_net_termination(impl, s, arch, costs):
-    """The sharded kernels' termination rule: each net stops at its own
-    fixpoint — lag 1 ("ppermute", the cluster and peer kernels) at its
-    first sweep with no owned change, lag 2 ("pallas_halo", the peer
-    kernel) after its second consecutive one.  The plain sharded loop
-    run one net at a time, its per-net [executed, useful] max-reduced,
-    equals the batch run (every output bit-identical, stats equal) and
-    the JAX package's planes_relax_sharded."""
-    pg, tpg, args = _costs_instance(arch, costs)
-    B = args[0].shape[0]
-    mesh = TS.make_row_mesh(s, impl, "cpu")
-    batch = TS.planes_relax_sharded(tpg, *(torch.from_numpy(x)
-                                           for x in args), 24, mesh)
-    nets = [TS.planes_relax_sharded(
-        tpg, *(torch.from_numpy(x[b:b + 1]) for x in args), 24, mesh)
-        for b in range(B)]
-    per_net = torch.stack([n[3] for n in nets])
-    # the nets do not all stop at the same sweep; the empty one stops
-    # at its first (lag 1) or second (lag 2) stable sweep
-    stable = 1 if impl == "ppermute" else 2
-    assert per_net[-1].tolist() == [stable, 0] < per_net[0].tolist()
-    for k in range(3):
-        assert torch.equal(torch.cat([n[k] for n in nets]), batch[k])
-    assert torch.equal(per_net.max(0).values, batch[3])
-    if impl == "ppermute":
-        # lag 1: every output and the stats against the JAX package on
-        # this instance
-        jout = JS.planes_relax_sharded(pg, *(jnp.asarray(x) for x in args),
-                                       24, JS.make_row_mesh(s, impl))
-        for a, b in zip(jout, batch):
-            assert np.array_equal(np.asarray(a), b.numpy())
-        return
-    # lag 2: against the JAX package on both cost instances as one batch
-    # (one JAX compile for the exact and the jittered case): every output
-    # and the joined batch's stats equal, and this instance's rows equal
-    # its own batch's
-    both = _both_costs(arch)
-    key = ("jax sharded", arch, s, impl)
-    if key not in _CACHE:
-        _CACHE[key] = tuple(np.asarray(a) for a in JS.planes_relax_sharded(
-            pg, *(jnp.asarray(x) for x in both), 24,
-            JS.make_row_mesh(s, impl)))
-    port = TS.planes_relax_sharded(tpg, *(torch.from_numpy(x)
-                                          for x in both), 24, mesh)
-    for a, b in zip(_CACHE[key], port):
-        assert np.array_equal(a, b.numpy())
-    rows = slice(0, B) if costs == "exact" else slice(B, 2 * B)
-    for k in range(3):
-        assert torch.equal(port[k][rows], batch[k])
-
-
-def _both_costs(arch):
-    """The exact and the jittered cost instance of ``arch`` as one batch
-    (numpy arrays, exact first)."""
-    pairs = zip(_costs_instance(arch, "exact")[2],
-                _costs_instance(arch, "jitter")[2])
-    return tuple(np.ascontiguousarray(np.concatenate(p)) for p in pairs)
+        assert np.array_equal(a, b)
 
 
 def test_cluster_dispatch_rule():
@@ -480,14 +405,13 @@ def test_sharded_relax_sweep_ceiling():
     """A ceiling below the fixpoint caps the sweeps at nsweeps * s."""
     pg, tpg, args, _ = _instance("unidir")
     for impl in TS.MESH_IMPLS:
-        jout = JS.planes_relax_sharded(pg, *(jnp.asarray(x) for x in args),
-                                       2, JS.make_row_mesh(2, impl))
+        jout = _jax_relax(pg, args, 2, 2, impl)
         out = TS.planes_relax_sharded(
             tpg, *(torch.from_numpy(x) for x in args), 2,
             TS.make_row_mesh(2, impl, "cpu"))
         assert out[3].tolist() == [4, 4]
         for a, b in zip(jout, out):
-            assert np.array_equal(np.asarray(a), b.numpy())
+            assert np.array_equal(a, b.numpy())
 
 
 def test_sharded_relax_refuses_mesh_of_another_device_type():

@@ -98,6 +98,17 @@ PARSE_CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU work: its many small ops
+    otherwise each wait for a pool of threads that the tier-1 run's six
+    workers share (the results do not depend on the thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mods(pkg):
     return {k: importlib.import_module(f"{pkg}.{k}") for k in (
         "flow", "route.router", "timing.graph", "timing.sta",
