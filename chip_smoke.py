@@ -66,6 +66,24 @@ Phases, one line each (any failure exits non-zero with no result line):
                  seconds, K1 launches per member and blocking syncs; K1
                  alone at those batches (bench 30 and 15, scale 16)
                  against its plain version, timed (on the kernels line)
+  8c. nodemesh — the (net, node) mesh's node axis on one card, members
+                 repeating cuda:0 (route/nodesplit.py: each net's
+                 canvases split by columns over its node row, the
+                 x-scans across the members in lax.associative_scan's
+                 grouping): the node kernel against its plain version
+                 and K1 at the bench (60 nets) and scale (64) shapes at
+                 2 and 4 members, f32 and bf16, crit 0 and > 0, every
+                 shared-memory mode, and 6x72 at 4 members:
+                 bit-identical, timed beside K1 and the plain version
+                 (on the kernels line); the bench at (1, 2), (1, 4) and
+                 (2, 2) = the one-card crop="off" route (537 / 22;
+                 paths, occupancy, stats rows, sweeps), bf16 at (1, 2) =
+                 its one-card route, flow.run_route timing-driven at
+                 (1, 2) = the one-card run_route (522 / 22, crit path
+                 4.552000110180643e-09 s), the ELL program at (1, 2) =
+                 its one-card route (624 / 9); every planes relaxation
+                 one node-kernel launch on its row's card at the per-row
+                 batch; each route's seconds beside the one-card route's
   9. scale     — place the 1,200-LUT/W=20 config with the native
                  annealer and route it on the card, single-device and
                  at mesh_shards=4: legal
@@ -136,8 +154,12 @@ Phases, one line each (any failure exits non-zero with no result line):
                  fails); the 25-LUT flow with --stats_dir on the card
                  and with --device cpu (the same artifacts, stats rows
                  and mdclog records, seconds and clocks aside, one row
-                 per iteration); each run legal with K1 launched, its
-                 stage seconds and peak memory printed.  Before them, K1
+                 per iteration); the first run once more with --sync
+                 (the synchronous window driver): the same .route
+                 bytes; each run legal with K1 launched, its
+                 stage seconds and peak memory printed (the runs go
+                 four at a time, so their seconds are taken beside
+                 each other's).  Before them, K1
                  and K2 at the first run's shapes (its rr graph, the
                  crop tiles its grid gives) against their plain
                  versions in every shared-memory mode that fits
@@ -156,8 +178,7 @@ Phases, one line each (any failure exits non-zero with no result line):
                  2 -> 1, 4 -> 1; the cluster kernel at 2 and 4): 537 /
                  22 with paths equal; the scale route's last checkpoint
                  under checkpoint_every=1 (the finishing pass's) resumed
-                 with no budget left: legal; and the cli phase's first
-                 run once more with --sync: the same .route bytes
+                 with no budget left: legal
  17. ell       — the ELL program (RouterOpts(program="ell"): the
                  gather-based Bellman-Ford search, plain PyTorch on the
                  card, no hand-written kernel): the bench routed windowed
@@ -233,13 +254,16 @@ Phases, one line each (any failure exits non-zero with no result line):
                  fresh one that starts no nvcc, builds nothing and
                  counts no new dispatch variant, and one over a library
                  whose entry and libplanes_relax copy were truncated
-                 (both evicted before load, rebuilt from source), each
+                 (both evicted before load, rebuilt from source; a
+                 copy of the library), each
                  with the same jobs, its wall and build seconds; ``daemon
                  run`` (two 6-LUT jobs, slice 2) uninterrupted, then
                  killed -9 after its first durable checkpoint and
                  restarted: the same job states and wirelengths,
                  route.daemon.recovered > 0, the heartbeat's max_gap
-                 cold (a fresh compile cache) and warm
+                 cold (a fresh compile cache) and warm.  The two cold
+                 processes (the export and the uninterrupted daemon)
+                 start, at nice 10, before phase 19 and build beside it
  21. qor       — the serial QoR oracle: route.qor_compare on the bench
                  (the device route, timing-driven, on the card; the
                  serial oracle's passes on the host through
@@ -276,14 +300,18 @@ Phases, one line each (any failure exits non-zero with no result line):
                  cases timed); the 15-LUT parity netlist routed on 6x72
                  and 72x6 and at mesh_shards=2 on 6x72 (the cluster
                  kernel, and the peer kernel under lag 2), each = the
-                 port's CPU route of its grid (two spawned workers
-                 route on the CPU beside the kernel checks; paths,
-                 occupancy,
+                 port's CPU route of its grid (from the CPU reference
+                 pool; paths, occupancy,
                  wirelength, iterations; stats rows and sweeps too for
                  the single-device routes); and on 66x66: legal,
                  wirelength, iterations, seconds
 Then a JSON line of per-kernel numbers and, last, the result line.
 It imports nothing of JAX and nothing of the JAX package.
+
+The port's CPU reference routes that phases 17, 18 and 23 hold card
+routes against (device="cpu") are made in two spawned workers (one
+torch thread each, at the lowest priority), started after phase 6,
+beside the route phases (CPU_REFS).
 
 Every route runs the Router's default, the pipelined driver
 (RouterOpts.pipeline), so each route phase's bit-identity checks hold
@@ -307,9 +335,13 @@ build, phase 4, phase 6, the bench route and its mesh routes of phase 8
 and the net mesh across cards: the bench at net axis 2 and 4 over
 distinct cards = phase 7's route, and (four cards) the placed scale
 config at net axis 4 = its one-card route at crop="off" (paths,
-occupancy, stats rows, sweeps), both timed in turns; it ends with the
-result line (its ``cards`` key set) and no kernels line, and fails with
-fewer than two cards.
+occupancy, stats rows, sweeps), both timed in turns; and the node axis
+across cards: the node kernel across the cards = its one-card form =
+K1 (scale, f32 and bf16), the bench at (1, 2) on two cards = phase 7's
+route, and (four cards) the scale config at (1, 4) and (2, 2) = its
+one-card crop="off" route, timed in turns; it ends with the result line
+(its ``cards`` key set) and no kernels line, and fails with fewer than
+two cards.
 """
 
 from __future__ import annotations
@@ -358,6 +390,10 @@ REPLACES = {
     # card
     "planes_relax_peer_cuda":
         "parallel_eda_tpu/route/planes_pallas.py:477",
+    # the (net, node) mesh's node axis: JAX's planes_relax with the
+    # canvases' X axis on the "node" axis (K1's XLA form, split by GSPMD;
+    # no pallas_call), one launch per card of a node row
+    "planes_relax_node_cuda": "parallel_eda_tpu/route/planes.py:906",
 }
 SOURCES = {
     "planes_relax_full_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
@@ -367,6 +403,7 @@ SOURCES = {
     "planes_relax_cluster_cuda":
         "parallel_eda_tpu_torch/csrc/planes_relax.cu",
     "planes_relax_peer_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
+    "planes_relax_node_cuda": "parallel_eda_tpu_torch/csrc/planes_relax.cu",
 }
 # the bf16 plane mode of each kernel: the same source and TPU kernel
 # (planes_pallas.py takes plane_dtype="bf16" at each of them)
@@ -1514,31 +1551,31 @@ def _sync_cards():
 
 def _netmesh_route(tag, flow, opts, mesh, want=None, timing=False):
     """Route ``flow`` on the card(s) over the (net, node) mesh ``mesh``
-    (its net axis: each step's nets split over the members), legal or
-    raise; equal to ``want`` (a RouteResult, route phases' _same_route)
-    when given.  Timing-driven through flow.run_route with ``timing``.
-    Every planes relaxation must be K1 on a member's card at the
-    per-member batch, as many on each member.  Returns (result,
-    launches, seconds)."""
-    import torch
-
+    (each step's nets split over its rows), legal or raise; equal to
+    ``want`` (a RouteResult, route phases' _same_route) when given.
+    Timing-driven through flow.run_route with ``timing``.  Every planes
+    relaxation must run on its row's first card at the per-row batch,
+    as many on each row: K1 where the node axis is 1, else the node
+    kernel, one launch per card of the row; nothing else may launch.
+    Returns (result, launches, seconds)."""
     from parallel_eda_tpu_torch.flow import run_route
     from parallel_eda_tpu_torch.route import planes as P
     from parallel_eda_tpu_torch.route import planes_kernels as pk
     from parallel_eda_tpu_torch.route import shard_kernels as sk
     from parallel_eda_tpu_torch.route.check import check_route
-    from parallel_eda_tpu_torch.route.netsplit import net_members
+    from parallel_eda_tpu_torch.route.netsplit import node_rows
     from parallel_eda_tpu_torch.route.router import Router
 
-    members = [str(d) for d in net_members(mesh)]
-    n = len(members)
+    rows = node_rows(mesh)
+    n, node = len(rows), len(rows[0]) > 1
+    heads = [str(r[0]) for r in rows]
     reg = _fresh_metrics()
     router = None if timing else Router(flow.rr, opts, mesh=mesh)
     pk.reset_launch_counts()
     sk.reset_launch_counts()
     _sync_cards()
     t0 = time.time()
-    with _CallLog(P, "planes_relax") as log:
+    with _CallLog(P, "planes_relax_node" if node else "planes_relax") as log:
         if timing:
             run_route(flow, opts, timing_driven=True, mesh=mesh)
             res = flow.route
@@ -1555,29 +1592,33 @@ def _netmesh_route(tag, flow, opts, mesh, want=None, timing=False):
     B = min(opts.batch_size, len(flow.term.source))
     B = -(-B // n) * n
     per = {}
-    for k, (dev, rows) in enumerate(log.calls):
-        if dev != members[k % n] or rows != B // n:
-            raise AssertionError(f"{tag}: relaxation {k} ran {rows} nets "
-                                 f"on {dev}, not {B // n} on member "
-                                 f"{k % n} ({members[k % n]})")
+    for k, (dev, nb) in enumerate(log.calls):
+        if dev != heads[k % n] or nb != B // n:
+            raise AssertionError(f"{tag}: relaxation {k} ran {nb} nets on "
+                                 f"{dev}, not {B // n} on row {k % n}'s "
+                                 f"first card {heads[k % n]}")
         per[k % n] = per.get(k % n, 0) + 1
+    key = ("planes_relax_node_cuda" if node else "planes_relax_full_cuda") \
+        + (BF16 if opts.plane_dtype == "bf16" else "")
+    cards_per_row = len(set(rows[0])) if node else 1
     if opts.program == "ell":
         if any(counts.values()) or log.calls:
             raise AssertionError(f"{tag}: a planes relaxation ran on the "
                                  f"ELL route: {counts}")
-    elif (counts["planes_relax_full_cuda"] != len(log.calls)
+    elif (counts[key] != len(log.calls) * cards_per_row
           or len(set(per.values())) != 1 or len(per) != n
-          or any(v for k, v in counts.items()
-                 if k != "planes_relax_full_cuda")):
-        raise AssertionError(f"{tag}: the route did not run K1 alone, as "
-                             f"often on each member: per member {per}, "
+          or any(v for k, v in counts.items() if k != key)):
+        raise AssertionError(f"{tag}: the route did not run {key} alone, "
+                             f"as often on each row: per row {per}, "
                              f"launches {counts}")
     pl = reg.values("route.pipeline.")
-    say(tag, f"net axis {n} on {members}: legal, wirelength "
+    say(tag, f"mesh {n} net x {len(rows[0])} node on "
+             f"{[[str(d) for d in r] for r in rows]}: legal, wirelength "
              f"{res.wirelength}, {res.iterations} iterations"
              + (f", crit path {flow.crit_path_delay!r} s" if timing else "")
-             + f", {dt:.2f} s route, per-member batch {B // n}, K1 "
-             f"launches per member {[per.get(k, 0) for k in range(n)]}, "
+             + f", {dt:.2f} s route, per-row batch {B // n}, {key} "
+             f"launches per row "
+             f"{[per.get(k, 0) * cards_per_row for k in range(n)]}, "
              f"blocking syncs {pl.get('route.pipeline.blocking_syncs')}, "
              f"launches {counts}")
     return res, counts, dt
@@ -1686,6 +1727,198 @@ def phase_netmesh_cards(bench, bench_res, scale, smi):
                          f"paths, occupancy, stats rows, sweeps); route s "
                          f"in turns (one, net 4, net 4, one): {secs} on "
                          f"{smi}")
+    return out
+
+
+def _node_case(rows, cfg, kind, pd, pg, inst, nsw, B, m, timed):
+    """The node kernel with ``m`` members repeating cuda:0 against its
+    plain version (planes_relax_node_plain on the same card tensors) and
+    against K1 on one instance: every output and the stats bit-identical,
+    in every shared-memory mode that fits.  ``timed``: its ms per call
+    beside K1's and the plain version's, its device time, and the bound
+    (the relaxation's own: K1's, bound_ms)."""
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+
+    W, NX, NYp1 = pg.shape_x
+    devs = ["cuda:0"] * m
+    sfx = BF16 if pd == "bf16" else ""
+    node = functools.partial(P.planes_relax_node, pg, *inst, nsw, devs, pd)
+    got = node()
+    net_st = pk.planes_relax_node_cuda.last_stats[:-1].cpu().numpy()
+    auto = pk.planes_relax_node_cuda.last_mode
+    tag = f"node {cfg} {kind} {pd} {m} members"
+    plain = functools.partial(P.planes_relax_node_plain, pg, *inst, nsw,
+                              devs, pd)
+    k1 = functools.partial(pk.planes_relax_full_cuda, pg, *inst, nsw,
+                           plane_dtype=pd)
+    err = max(_compare(f"{tag} vs plain", got, plain()),
+              _compare(f"{tag} vs K1", got, k1()))
+    for md in range(auto):
+        err = max(err, _compare(f"{tag} mode {md}", pk.planes_relax_node_cuda(
+            pg, *inst, nsw, devs, mode=md, plane_dtype=pd), got))
+    case = dict(cfg=cfg, costs=kind, plane_dtype=pd, shape=[W, NX, NYp1 - 1],
+                B=B, node=m, sweeps=int(got[3][0]), max_abs_err=err,
+                mode=auto)
+    if timed:
+        reps = 50 if NX < 16 else 10
+        case["ms"] = cuda_ms(node, reps)
+        case["k1_ms"] = cuda_ms(k1, reps)
+        case["plain_ms"] = cuda_ms(plain, 1)
+        device_later(tag, case, "device_us", node, "planes_relax_node")
+        case.update(bound_ms(pg, B, net_st[:, 0],
+                             plane_bytes=2 if pd == "bf16" else 4))
+    rows.setdefault("planes_relax_node_cuda" + sfx, []).append(case)
+    say("nodemesh", f"{tag}: bit-identical to its plain version and K1, "
+                    + json.dumps(case))
+
+
+def phase_nodemesh(bench, bench_res, rows, graphs, smi):
+    """The (net, node) mesh's node axis on one card (docstring, phase
+    8c): members repeating cuda:0.  Adds the node kernel's cases to
+    ``rows``; returns the launch counts of its routes."""
+    from parallel_eda_tpu_torch.arch.builtin import minimal_arch
+    from parallel_eda_tpu_torch.flow import synth_flow
+    from parallel_eda_tpu_torch.parallel import make_mesh
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+    from parallel_eda_tpu_torch.rr.graph import build_rr_graph
+    from parallel_eda_tpu_torch.rr.grid import DeviceGrid
+
+    t0 = time.time()
+    rng = np.random.default_rng(23)
+    # the node kernel at the routes' batches: bench 60 nets, scale 64
+    for cfg, rr, pg, B, nsw in (
+            ("bench", bench.rr, graphs["bench"], 60, 32),
+            ("scale", graphs["scale_rr"], graphs["scale"], 64, 64)):
+        for kind in ("jitter", "crit"):
+            inst = _instance(rr, pg, B, rng, False, crit_on=kind == "crit")
+            for pd in ("f32", "bf16"):
+                for m in (2, 4):
+                    _node_case(rows, cfg, kind, pd, pg, inst, nsw, B, m,
+                               timed=kind == "jitter")
+    a = minimal_arch(chan_width=10)
+    rr = build_rr_graph(a, DeviceGrid(6, 72, a.io_capacity))
+    pg = P.build_planes(rr, "cuda")
+    _node_case(rows, "6x72", "jitter", "f32", pg,
+               _instance(rr, pg, 16, rng, False), 64, 16, 4, timed=False)
+    t_kern = time.time() - t0
+
+    def mesh(shape):
+        n = shape[0] * shape[1]
+        return make_mesh(n, shape=shape, devices=["cuda:0"] * n)
+
+    out, secs = [], {}
+    ref, c, dt, _ = _route("nodemesh_ref", bench,
+                           RouterOpts(batch_size=64, crop="off"))
+    _same_route("nodemesh_ref", ref, bench_res)
+    secs["one card crop off"] = dt
+    for shape in ((1, 2), (1, 4), (2, 2)):
+        tag = f"nodemesh{shape[0]}x{shape[1]}"
+        res, c, dt = _netmesh_route(tag, bench, RouterOpts(batch_size=64),
+                                     mesh(shape), want=bench_res)
+        _wl_it(tag, res, (537, 22))
+        secs[f"{shape[0]}x{shape[1]}"] = dt
+        out.append(c)
+    # the bf16 plane mode at (1, 2) against its one-card crop="off" route
+    opts = RouterOpts(batch_size=64, plane_dtype="bf16", dtype_guard="off")
+    ref16, _, _, _ = _route("nodemesh_bf16_ref", bench,
+                            dataclasses.replace(opts, crop="off"))
+    res, c, _ = _netmesh_route("nodemesh1x2_bf16", bench, opts,
+                                mesh((1, 2)), want=ref16)
+    out.append(c)
+    # timing-driven at (1, 2) against the one-card run_route
+    one = synth_flow(**BENCH_CFG)
+    _timing_run_route("nodemesh_timing_ref", one, RouterOpts(batch_size=64))
+    two = synth_flow(**BENCH_CFG)
+    res, c, _ = _netmesh_route("nodemesh1x2_timing", two,
+                                RouterOpts(batch_size=64), mesh((1, 2)),
+                                want=one.route, timing=True)
+    _wl_it("nodemesh1x2_timing", res, (522, 22))
+    if not (two.crit_path_delay == one.crit_path_delay
+            == 4.552000110180643e-09):
+        raise AssertionError(f"nodemesh1x2_timing: crit path "
+                             f"{two.crit_path_delay!r}, one card "
+                             f"{one.crit_path_delay!r}")
+    out.append(c)
+    # the ELL program at (1, 2): its relaxation's rr-graph rows split
+    opts = RouterOpts(batch_size=64, program="ell")
+    eref, _, _, _ = _ell_route("nodemesh_ell_ref", bench, opts, "cuda")
+    res, c, _ = _netmesh_route("nodemesh1x2_ell", bench, opts, mesh((1, 2)))
+    _ell_same("nodemesh1x2_ell", res, eref)
+    _wl_it("nodemesh1x2_ell", res, (624, 9))
+    out.append(c)
+    say("nodemesh", f"node kernel = its plain version = K1 at bench and "
+                    f"scale (2, 4 members), 6x72 (4); bench (1, 2), (1, 4), "
+                    f"(2, 2) = the one-card crop=\"off\" route (537 / 22), "
+                    f"bf16 (1, 2) = its one-card route, timing (1, 2) 522 / "
+                    f"22, ELL (1, 2) 624 / 9; route s {secs} on {smi}; "
+                    f"kernel cases {t_kern:.1f}s, phase "
+                    f"{time.time() - t0:.1f}s")
+    return out
+
+
+def phase_nodemesh_cards(bench, bench_res, scale, smi):
+    """The node axis across cards (--cards): the node kernel across the
+    cards against its one-card form and K1; the bench at (1, 2) on two
+    cards = the one-card bench route; (four cards) the placed scale
+    config at (1, 4) and (2, 2) = its one-card crop="off" route, timed in
+    turns with it.  Returns the routes' launches."""
+    import torch
+
+    from parallel_eda_tpu_torch.parallel import make_mesh
+    from parallel_eda_tpu_torch.route import planes as P
+    from parallel_eda_tpu_torch.route import planes_kernels as pk
+    from parallel_eda_tpu_torch.route.router import RouterOpts
+
+    ncards = torch.cuda.device_count()
+    rng = np.random.default_rng(29)
+    pg = P.build_planes(scale.rr, "cuda:0")
+    inst = _instance(scale.rr, pg, 64, rng, False, crit_on=True)
+    for m in sorted({2, min(4, ncards)}):
+        devs = [f"cuda:{k}" for k in range(m)]
+        for pd in ("f32", "bf16"):
+            got = pk.planes_relax_node_cuda(pg, *inst, 64, devs,
+                                            plane_dtype=pd)
+            _compare(f"node scale {m} cards {pd} vs one card", got,
+                     pk.planes_relax_node_cuda(pg, *inst, 64,
+                                               ["cuda:0"] * m,
+                                               plane_dtype=pd))
+            _compare(f"node scale {m} cards {pd} vs K1", got,
+                     pk.planes_relax_full_cuda(pg, *inst, 64,
+                                               plane_dtype=pd))
+    say("nodemesh_cards", f"node kernel across {sorted({2, min(4, ncards)})}"
+                          f" cards = its one-card form = K1 (scale, crit > "
+                          f"0, f32 and bf16)")
+    out = []
+    _, c, _ = _netmesh_route("nodemesh1x2_cards", bench,
+                              RouterOpts(batch_size=64),
+                              make_mesh(2, shape=(1, 2)), want=bench_res)
+    out.append(c)
+    if ncards < 4:
+        return out
+    opts = RouterOpts(batch_size=64, crop="off")
+    secs = {"one card": [], "1x4": [], "2x2": []}
+    one = None
+    for k, what in enumerate(("one card", "1x4", "2x2", "2x2", "1x4",
+                              "one card")):
+        if what == "one card":
+            res, c, dt, _ = _route("scale_crop_off", scale, opts)
+            if one is not None:
+                _same_route("scale_crop_off", res, one)
+            one = res
+        else:
+            shape = tuple(int(v) for v in what.split("x"))
+            res, c, dt = _netmesh_route(
+                f"scale_node{what}_cards", scale, RouterOpts(batch_size=64),
+                make_mesh(4, shape=shape), want=one)
+        secs[what].append(round(dt, 3))
+        out.append(c)
+    say("nodemesh_cards", f"scale at (1, 4) and (2, 2) across four cards = "
+                          f"the one-card crop=\"off\" route (wirelength "
+                          f"{one.wirelength}, {one.iterations} iterations; "
+                          f"paths, occupancy, stats rows, sweeps); route s "
+                          f"in turns: {secs} on {smi}")
     return out
 
 
@@ -2186,8 +2419,7 @@ def phase_place(bench_cfg, scale_cfg, scale_native):
     opts = PlacerOpts(seed=3)
     gpu = run_place(synth_flow(**bench_cfg), opts, timing_driven=False,
                     device="cuda")
-    cpu = run_place(synth_flow(**bench_cfg), opts, timing_driven=False,
-                    device="cpu")
+    cpu = _cpu_result("place_bench")
     if not np.array_equal(gpu.pos, cpu.pos) or \
             gpu.place_stats.temps != cpu.place_stats.temps:
         raise AssertionError(
@@ -2215,11 +2447,12 @@ def phase_place(bench_cfg, scale_cfg, scale_native):
 
     # ---- bench, timing-driven at the default PlacerOpts: card against
     # CPU (ROADMAP.md C11) ----
-    tp, secs = {}, {}
-    for d in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        tp[d] = run_place(synth_flow(**bench_cfg), PlacerOpts(), device=d)
-        secs[d] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp = {"cuda": run_place(synth_flow(**bench_cfg), PlacerOpts(),
+                            device="cuda")}
+    secs = {"cuda": time.perf_counter() - t0}
+    tp["cpu"] = _cpu_result("place_bench_timing")
+    secs["cpu"] = tp["cpu"].seconds
     g, c = tp["cuda"].place_stats, tp["cpu"].place_stats
     if not np.array_equal(tp["cuda"].pos, tp["cpu"].pos) or \
             g.temps != c.temps or g.final_cost != c.final_cost or \
@@ -2352,26 +2585,62 @@ FRAC_XML = """<architecture>
 FRAC_W = 32
 
 
-def _cli(tag, work, args, want_rc=0, timeout=900):
-    """One CLI run in ``work``/``tag`` (a subprocess); returns (stdout,
-    launches and peak memory, wall seconds).  Fails unless it exits with
-    ``want_rc``."""
-    d = os.path.join(work, tag)
-    os.makedirs(d, exist_ok=True)
-    counts = os.path.join(d, "counts.json")
+def _cli_wave(work, plan, width=4, timeout=900):
+    """The CLI runs of ``plan`` as subprocesses, ``width`` at a time, each
+    in ``work``/tag: an entry (tag, args, want_rc, after) starts, in
+    plan order, once the run named ``after`` (or None) has ended; its
+    ``args`` may be a function of the runs ended so far.  Returns {tag:
+    (stdout, launches and peak memory, wall seconds)}; fails unless each
+    run exits with its ``want_rc``.  The runs share the card and the
+    host's cores, so their seconds are taken beside each other's."""
     env = dict(os.environ, PYTHONPATH=os.path.abspath("."))
-    t0 = time.time()
-    p = subprocess.run([sys.executable, "-c", _CLI_CHILD, counts, *args],
-                       cwd=d, env=env, capture_output=True, text=True,
-                       timeout=timeout)
-    dt = time.time() - t0
-    if p.returncode != want_rc:
-        raise AssertionError(f"cli {tag}: exit {p.returncode}, want "
-                             f"{want_rc}\n{p.stdout[-3000:]}\n"
-                             f"{p.stderr[-3000:]}")
-    with open(counts) as f:
-        c = json.load(f)
-    return p.stdout, c, dt
+    pending, running, done = list(plan), {}, {}
+    try:
+        while pending or running:
+            for entry in list(pending):
+                tag, args, want_rc, after = entry
+                if len(running) >= width:
+                    break
+                if after is not None and after not in done:
+                    continue
+                pending.remove(entry)
+                d = os.path.join(work, tag)
+                os.makedirs(d, exist_ok=True)
+                log = open(os.path.join(d, "stdout.txt"), "w+")
+                err = open(os.path.join(d, "stderr.txt"), "w+")
+                args = args(done) if callable(args) else args
+                p = subprocess.Popen(
+                    [sys.executable, "-c", _CLI_CHILD,
+                     os.path.join(d, "counts.json"), *args],
+                    cwd=d, env=env, stdout=log, stderr=err, text=True)
+                running[tag] = (p, log, err, want_rc, time.time())
+            for tag, (p, log, err, want_rc, t0) in list(running.items()):
+                if p.poll() is None:
+                    if time.time() - t0 > timeout:
+                        raise AssertionError(f"cli {tag}: over {timeout} s")
+                    continue
+                dt = time.time() - t0
+                del running[tag]
+                log.seek(0)
+                err.seek(0)
+                out, errs = log.read(), err.read()
+                log.close()
+                err.close()
+                if p.returncode != want_rc:
+                    raise AssertionError(
+                        f"cli {tag}: exit {p.returncode}, want {want_rc}\n"
+                        f"{out[-3000:]}\n{errs[-3000:]}")
+                with open(os.path.join(work, tag, "counts.json")) as f:
+                    done[tag] = (out, json.load(f), dt)
+            time.sleep(0.05)
+    finally:
+        for p, log, err, _, _ in running.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+            err.close()
+    return done
 
 
 def _cli_stages(tag, out, c, dt):
@@ -2549,12 +2818,56 @@ def phase_cli(rows):
                       origins, B)
     del flow, pg
 
-    runs = []
-    # ---- 1. the tseng-class BLIF on k6_n10 at the defaults
+    # ---- the runs, four at a time (their checks follow, in this order)
     a1 = ["../mult16x16.blif", "--arch", "k6_n10", "--out_dir", "out",
           "--power", "--gen_postsynthesis_netlist"]
-    out, c, dt = _cli("mult16x16", work, a1)
-    runs.append(c)
+    xml = os.path.abspath(GOLDEN_XML)
+    # the file's own width (24) leaves mult16x16 unroutable on the H100
+    # (646 overused nodes after 50 iterations; 39 at W=60); --binary_search
+    # found W_min 85 there (78 s of process), so the run routes at
+    # GOLDEN_W above it (the binary search runs at the bench size below)
+    gw = GOLDEN_W
+    # a multi-mode XML arch: frac_arch's pb tree (one 6-LUT or two 5-LUTs
+    # per BLE slot) in an XML file, so the packer takes the multi-mode
+    # path (mode choice and pb routing)
+    fxml = os.path.join(work, "frac.xml")
+    with open(fxml, "w") as f:
+        f.write(FRAC_XML.format(pb=_FRAC_PB_XML.format(I=20, O=8, N=4,
+                                                       NM1=3)))
+    farch = read_arch_xml(fxml)
+    if farch.pb_tree is None:
+        raise AssertionError("cli frac_xml: the XML's modes were not read")
+    bs = ["--luts", str(BENCH_CFG["num_luts"]), "--seed",
+          str(BENCH_CFG["seed"]), "--arch", "minimal", "--no_timing",
+          "--out_dir", "out"]
+
+    def narrow(done):
+        wmin = int(re.search(r"binary search: W_min = (\d+)",
+                             done["binary_search"][0]).group(1))
+        return bs + ["--route_chan_width", str(wmin - 1), "--place_file",
+                     "../binary_search/out/synth.place"]
+
+    flow25 = CLI_BASE + ["--out_dir", "out", "--stats_dir", "stats",
+                         "--device"]
+    ran = _cli_wave(work, [
+        ("mult16x16", a1, 0, None),
+        ("binary_search", bs + ["--binary_search"], 0, None),
+        ("golden_xml", ["../mult16x16.blif", "--arch", xml, "--out_dir",
+                        "out", "--route_chan_width", str(gw)], 0, None),
+        ("frac_xml", ["../mult16x16.blif", "--arch", "../frac.xml",
+                      "--out_dir", "out", "--route_chan_width",
+                      str(FRAC_W)], 0, None),
+        ("resume", ["../mult16x16.blif", "--arch", "k6_n10", "--out_dir",
+                    "out", "--place_file",
+                    "../mult16x16/out/mult16x16.place"], 0, "mult16x16"),
+        ("binary_search_narrow", narrow, 1, "binary_search"),
+        ("mult16x16_sync", a1 + ["--sync"], 0, None),
+        ("flow25_cuda", flow25 + ["cuda"], 0, None),
+        ("flow25_cpu", flow25 + ["cpu"], 0, None)])
+    runs = [ran[t][1] for t in ran if t != "flow25_cpu"]
+
+    # ---- 1. the tseng-class BLIF on k6_n10 at the defaults
+    out, c, dt = ran["mult16x16"]
     _cli_stages("mult16x16", out, c, dt)
     if c["planes_relax_full_cuda"] <= 0:
         raise AssertionError("cli mult16x16: K1 never launched")
@@ -2568,18 +2881,17 @@ def phase_cli(rows):
                                               "mult16x16"),
                       os.path.join(d1, "mult16x16.route"))
 
+    # ---- 1b. the same run under --sync (the synchronous window
+    # driver): the same .route bytes
+    _cli_stages("mult16x16_sync", *ran["mult16x16_sync"])
+    if _tree_bytes(d1)["mult16x16.route"] != _tree_bytes(os.path.join(
+            work, "mult16x16_sync", "out"))["mult16x16.route"]:
+        raise AssertionError("cli --sync: the .route differs from the "
+                             "default (pipelined) run's")
+    say("cli", "--sync: the .route bytes of the default run")
+
     # ---- 2. the same BLIF on the golden VTR7 XML arch
-    xml = os.path.abspath(GOLDEN_XML)
-    # the file's own width (24) leaves mult16x16 unroutable on the H100
-    # (646 overused nodes after 50 iterations; 39 at W=60); --binary_search
-    # found W_min 85 there (78 s of process), so the run routes at
-    # GOLDEN_W above it (the binary search runs at the bench size below)
-    gw = GOLDEN_W
-    out, c, dt = _cli("golden_xml", work, [
-        "../mult16x16.blif", "--arch", xml, "--out_dir", "out",
-        "--route_chan_width", str(gw)])
-    runs.append(c)
-    _cli_stages("golden_xml", out, c, dt)
+    _cli_stages("golden_xml", *ran["golden_xml"])
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         garch = read_arch_xml(xml)
@@ -2588,49 +2900,25 @@ def phase_cli(rows):
         blif, garch, gw, d2, "mult16x16"),
         os.path.join(d2, "mult16x16.route"))
 
-    # ---- 2b. the same BLIF on a multi-mode XML arch: frac_arch's pb tree
-    # (one 6-LUT or two 5-LUTs per BLE slot) in an XML file, so the
-    # packer takes the multi-mode path (mode choice and pb routing)
-    fxml = os.path.join(work, "frac.xml")
-    with open(fxml, "w") as f:
-        f.write(FRAC_XML.format(pb=_FRAC_PB_XML.format(I=20, O=8, N=4,
-                                                       NM1=3)))
-    farch = read_arch_xml(fxml)
-    if farch.pb_tree is None:
-        raise AssertionError("cli frac_xml: the XML's modes were not read")
-    out, c, dt = _cli("frac_xml", work, [
-        "../mult16x16.blif", "--arch", "../frac.xml", "--out_dir", "out",
-        "--route_chan_width", str(FRAC_W)])
-    runs.append(c)
-    _cli_stages("frac_xml", out, c, dt)
+    # ---- 2b. the same BLIF on the multi-mode XML arch
+    _cli_stages("frac_xml", *ran["frac_xml"])
     d3 = os.path.join(work, "frac_xml", "out")
     _check_route_file("frac_xml", _read_flow(blif, farch, FRAC_W, d3,
                                              "mult16x16"),
                       os.path.join(d3, "mult16x16.route"))
 
     # ---- 3. the .place resume of run 1
-    out, c, dt = _cli("resume", work, [
-        "../mult16x16.blif", "--arch", "k6_n10", "--out_dir", "out",
-        "--place_file", "../mult16x16/out/mult16x16.place"])
-    runs.append(c)
-    _cli_stages("resume", out, c, dt)
+    _cli_stages("resume", *ran["resume"])
     if _tree_bytes(d1)["mult16x16.route"] != _tree_bytes(os.path.join(
             work, "resume", "out"))["mult16x16.route"]:
         raise AssertionError("cli resume: the .route differs from run 1's")
     say("cli", "resume: the .place resume gives run 1's .route bytes")
 
     # ---- 4. --binary_search --no_timing at the bench size
-    bs = ["--luts", str(BENCH_CFG["num_luts"]), "--seed",
-          str(BENCH_CFG["seed"]), "--arch", "minimal", "--no_timing",
-          "--out_dir", "out"]
-    out, c, dt = _cli("binary_search", work, bs + ["--binary_search"])
-    runs.append(c)
-    _cli_stages("binary_search", out, c, dt)
-    wmin = int(re.search(r"binary search: W_min = (\d+)", out).group(1))
-    out, c, dt = _cli("binary_search_narrow", work, bs + [
-        "--route_chan_width", str(wmin - 1), "--place_file",
-        "../binary_search/out/synth.place"], want_rc=1)
-    runs.append(c)
+    _cli_stages("binary_search", *ran["binary_search"])
+    wmin = int(re.search(r"binary search: W_min = (\d+)",
+                         ran["binary_search"][0]).group(1))
+    out, c, dt = ran["binary_search_narrow"]
     if "ROUTING FAILED" not in out:
         raise AssertionError("cli binary_search: W_min - 1 did not fail")
     say("cli", f"binary_search: W_min = {wmin} routes legal, W_min - 1 "
@@ -2642,13 +2930,10 @@ def phase_cli(rows):
     trees = {}
     for dev in ("cuda", "cpu"):
         tag = f"flow25_{dev}"
-        out, c, dt = _cli(tag, work, CLI_BASE + [
-            "--out_dir", "out", "--stats_dir", "stats", "--device", dev])
+        out, c, dt = ran[tag]
         _cli_stages(tag, out, c, dt)
-        if dev == "cuda":
-            runs.append(c)
-            if c["planes_relax_full_cuda"] <= 0:
-                raise AssertionError(f"cli {tag}: K1 never launched")
+        if dev == "cuda" and c["planes_relax_full_cuda"] <= 0:
+            raise AssertionError(f"cli {tag}: K1 never launched")
         d = os.path.join(work, tag)
         trees[dev] = (_tree_bytes(os.path.join(d, "out")),
                       _stats_view(_tree_bytes(os.path.join(d, "stats"))))
@@ -2771,7 +3056,6 @@ def phase_elastic(bench, bench_res, scale):
     """The pipelined and elastic route driver on the card (docstring,
     phase 16).  Returns the launch counts summed over its routes."""
     from parallel_eda_tpu_torch.route.check import check_route
-    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
     from parallel_eda_tpu_torch.route.router import Router, RouterOpts
 
     runs = []
@@ -2855,22 +3139,6 @@ def phase_elastic(bench, bench_res, scale):
                    f"left: legal, wirelength {back.wirelength} in "
                    f"{back.iterations} iterations")
 
-    # ---- the CLI's --sync against the cli phase's default run
-    work = os.path.join(BUILD_DIR, "cli")
-    a1 = ["../mult16x16.blif", "--arch", "k6_n10", "--out_dir", "out",
-          "--power", "--gen_postsynthesis_netlist"]
-    out, c, dt = _cli("mult16x16_sync", work, a1 + ["--sync"])
-    runs.append(c)
-    _cli_stages("mult16x16_sync", out, c, dt)
-    with open(os.path.join(work, "mult16x16", "out", "mult16x16.route"),
-              "rb") as f:
-        want = f.read()
-    with open(os.path.join(work, "mult16x16_sync", "out",
-                           "mult16x16.route"), "rb") as f:
-        if f.read() != want:
-            raise AssertionError("cli --sync: the .route differs from the "
-                                 "default (pipelined) run's")
-    say("elastic", "cli --sync: the .route bytes of the default run")
     return {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
 
 
@@ -2937,7 +3205,8 @@ def _ell_bench(bench):
         tag = "ell_bench" if windowed else "ell_bench_global"
         opts = RouterOpts(batch_size=64, program="ell", windowed=windowed)
         card, c, dt, _ = _ell_route(tag, bench, opts, "cuda")
-        cpu, _, dt_cpu, _ = _ell_route(tag, bench, opts, "cpu")
+        cpu = _cpu_result(tag)
+        dt_cpu = cpu.seconds
         _ell_same(tag, card, cpu)
         if (card.wirelength, card.iterations) != ELL_BENCH[windowed]:
             raise AssertionError(
@@ -2953,22 +3222,21 @@ def _ell_bench(bench):
                  "CPU")
 
     # timing-driven: run_route's analyzer, the host timing_cb per iteration
-    opts = RouterOpts(batch_size=64, program="ell")
-    flows = {}
-    for d in ("cuda", "cpu"):
-        f = flows[d] = synth_flow(**BENCH_CFG)
-        run_route(f, opts, timing_driven=True, device=d)
-    _ell_same("ell_timing", flows["cuda"].route, flows["cpu"].route)
-    cpd = (flows["cuda"].crit_path_delay, flows["cpu"].crit_path_delay)
+    f = synth_flow(**BENCH_CFG)
+    run_route(f, RouterOpts(batch_size=64, program="ell"),
+              timing_driven=True, device="cuda")
+    cpu = _cpu_result("ell_timing")
+    _ell_same("ell_timing", f.route, cpu)
+    cpd = (f.crit_path_delay, cpu.crit_path_delay)
     if cpd[0] != cpd[1]:
         raise AssertionError(f"ell_timing: crit path {cpd[0]!r} on the "
                              f"card, {cpd[1]!r} on the CPU")
-    r = flows["cuda"].route
+    r = f.route
     say("ell_timing", f"run_route timing-driven: card = CPU route, "
                       f"wirelength {r.wirelength}, {r.iterations} "
                       f"iterations, crit path {cpd[0]!r} s, "
-                      f"{flows['cuda'].times['route']:.2f} s card, "
-                      f"{flows['cpu'].times['route']:.2f} s CPU")
+                      f"{f.times['route']:.2f} s card, "
+                      f"{cpu.seconds:.2f} s CPU")
 
 
 # a mid-size config whose ELL window tables fit window_max_bytes, so
@@ -2988,7 +3256,8 @@ def phase_ell(bench, scale, smi, warm):
     mid = run_place_native(synth_flow(**ELL_MID_CFG))
     opts = RouterOpts(batch_size=64, program="ell")
     card, c, dt, _ = _ell_route("ell_mid", mid, opts, "cuda")
-    cpu, _, dt_cpu, _ = _ell_route("ell_mid", mid, opts, "cpu")
+    cpu = _cpu_result("ell_mid")
+    dt_cpu = cpu.seconds
     _ell_same("ell_mid", card, cpu)
     R = len(mid.term.source)
     if card.windowed_nets * 2 <= R or any(c.values()):
@@ -3087,9 +3356,8 @@ def phase_fused(bench, bench_res, scale):
     disp = reg.series("route.kernel.dispatches_per_window", phase="route")
     _same_route("fused_bench", res, bench_res)
     _want("fused_bench", res, (537, 22, bench_res.total_relax_steps))
-    t0 = time.time()
-    cpu = Router(bench.rr, fused, device="cpu").route(bench.term)
-    dt_cpu = time.time() - t0
+    cpu = _cpu_result("fused_bench")
+    dt_cpu = cpu.seconds
     _same_route("fused_bench_cpu", cpu, res)
     if set(disp) != {1} or len(rungs) != len(res.stats):
         raise AssertionError(f"fused_bench: gauges fused_rungs {rungs}, "
@@ -3562,22 +3830,47 @@ def phase_resil(bench, bench_res, scale, scale_res, rows, smi):
         for name, fn in plain.items():
             setattr(P, name, fn)
 
-    # ---- python -m parallel_eda_tpu_torch serve, with and without chaos
-    out = {}
-    for tag, extra in (("free", []), ("chaos", ["--chaos", SERVE_CHAOS])):
-        ck = os.path.join(work, f"serve_ck_{tag}")
-        t0 = time.time()
-        p = subprocess.run(
-            [sys.executable, "-m", "parallel_eda_tpu_torch", "serve",
-             "--jobs", "2", "--luts", "15", "--slice", "3",
-             "--watchdog_s", "10", "--checkpoint_dir", ck] + extra,
-            capture_output=True, text=True, timeout=300)
-        if p.returncode != 0:
-            raise AssertionError(f"serve {tag}: rc {p.returncode}\n"
-                                 f"{p.stderr[-3000:]}")
-        doc = json.loads(p.stdout.strip().splitlines()[-1])
-        out[tag] = ([(j["state"], j["wirelength"], j["iterations"])
-                     for j in doc["jobs"]], time.time() - t0, doc)
+    # ---- python -m parallel_eda_tpu_torch serve, with and without
+    # chaos, both at once
+    out, procs = {}, {}
+    try:
+        for tag, extra in (("free", []),
+                           ("chaos", ["--chaos", SERVE_CHAOS])):
+            ck = os.path.join(work, f"serve_ck_{tag}")
+            logs = [open(os.path.join(work, f"serve_{tag}.{k}"), "w+")
+                    for k in ("out", "err")]
+            procs[tag] = (subprocess.Popen(
+                [sys.executable, "-m", "parallel_eda_tpu_torch", "serve",
+                 "--jobs", "2", "--luts", "15", "--slice", "3",
+                 "--watchdog_s", "10", "--checkpoint_dir", ck] + extra,
+                stdout=logs[0], stderr=logs[1], text=True), logs,
+                time.time())
+        t1, t_end = {}, time.time() + 300
+        while len(t1) < len(procs):
+            for tag, (p, _, _) in procs.items():
+                if tag not in t1 and p.poll() is not None:
+                    t1[tag] = time.time()
+            if time.time() > t_end:
+                raise AssertionError("resil serve: over 300 s")
+            time.sleep(0.05)
+        for tag, (p, logs, t0) in procs.items():
+            rc, dt = p.returncode, t1[tag] - t0
+            for f in logs:
+                f.seek(0)
+            stdout, stderr = (f.read() for f in logs)
+            if rc != 0:
+                raise AssertionError(f"serve {tag}: rc {rc}\n"
+                                     f"{stderr[-3000:]}")
+            doc = json.loads(stdout.strip().splitlines()[-1])
+            out[tag] = ([(j["state"], j["wirelength"], j["iterations"])
+                         for j in doc["jobs"]], dt, doc)
+    finally:
+        for p, logs, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            for f in logs:
+                f.close()
     if out["chaos"][0] != out["free"][0] or any(
             st != "done" for st, _, _ in out["free"][0]):
         raise AssertionError(f"serve: chaos {out['chaos'][0]} != "
@@ -3589,7 +3882,7 @@ def phase_resil(bench, bench_res, scale, scale_res, rows, smi):
                      f"(fired {json.dumps(res_doc['faults']['fired'])}, "
                      f"ladder {json.dumps(res_doc['ladder'])}); "
                      f"{out['free'][1]:.1f} s / {out['chaos'][1]:.1f} s "
-                     f"per process")
+                     f"per process, side by side")
     return {k: sum(r[k] for r in runs) for k in runs[0]}, (terms, solo)
 
 
@@ -3598,7 +3891,7 @@ def phase_resil(bench, bench_res, scale, scale_res, rows, smi):
 # counts, the seconds of CUDA library builds, the nvcc processes started
 # and the library files the compile cache refused
 _SERVE_CHILD = """\
-import atexit, json, os, runpy, subprocess, sys
+import atexit, json, os, runpy, subprocess, sys, time
 from parallel_eda_tpu_torch.obs import compile_seconds
 from parallel_eda_tpu_torch.route import cuda_lib
 from parallel_eda_tpu_torch.route import planes_kernels as pk
@@ -3616,8 +3909,8 @@ def report():
                    "compile_s": compile_seconds(), "nvcc": nvcc,
                    "evicted": [e for lib in cuda_lib.LOADED
                                for e in lib.evicted],
-                   "loaded": [lib.loaded_path for lib in cuda_lib.LOADED]},
-                  f)
+                   "loaded": [lib.loaded_path for lib in cuda_lib.LOADED],
+                   "t_exit": time.time()}, f)
 atexit.register(report)
 runpy.run_module("parallel_eda_tpu_torch", run_name="__main__",
                  alter_sys=True)
@@ -3626,13 +3919,17 @@ SERVE_ARGS = ["serve", "--jobs", "2", "--luts", "15", "--slice", "3",
               "--fused"]
 
 
+_CHILDREN = []          # every _ServeChild started, stopped at exit
+
+
 class _ServeChild:
     """One ``python -m parallel_eda_tpu_torch`` process through
     _SERVE_CHILD, started at once; ``result()`` waits and returns (its
     last stdout line as JSON, its exit report, wall seconds from start
     to exit, as _wait_all stamped it)."""
 
-    def __init__(self, tag, work, args, timeout=600):
+    def __init__(self, tag, work, args, timeout=600, nice=0):
+        _CHILDREN.append(self)
         self.tag, self.timeout = tag, timeout
         self.counts = os.path.join(work, f"{tag}.counts.json")
         self.out = open(os.path.join(work, f"{tag}.out"), "w+")
@@ -3640,6 +3937,7 @@ class _ServeChild:
         self.t1 = None
         self.p = subprocess.Popen(
             [sys.executable, "-c", _SERVE_CHILD, self.counts, *args],
+            preexec_fn=(lambda: os.nice(nice)) if nice else None,
             env=dict(os.environ, PYTHONPATH=os.path.abspath(".")),
             stdout=self.out, stderr=subprocess.STDOUT, text=True)
 
@@ -3661,6 +3959,8 @@ class _ServeChild:
                                  f"{text[-4000:]}")
         with open(self.counts) as f:
             c = json.load(f)
+        # the child's own exit time: its parent may look only later
+        dt = min(dt, c["t_exit"] - self.t0)
         line = [ln for ln in text.splitlines() if ln.startswith("{")][-1]
         return json.loads(line), c, dt
 
@@ -3685,10 +3985,53 @@ def _job_rows(line):
             for j in line["jobs"]]
 
 
-def phase_serve(bench, serve_jobs, smi):
+def _daemon(work, tag, inbox, extra=(), nice=0):
+    """``daemon run`` over ``inbox`` (two 6-LUT jobs, slice 2) with the
+    serve phase's daemon library and compile cache."""
+    return _ServeChild(tag, work, [
+        "daemon", "run", "--inbox", inbox, "--luts", "6", "--slice", "2",
+        "--heartbeat_s", "2.0", "--exit_when_idle", "2", "--summary",
+        os.path.join(inbox, "summary.json"), "--library",
+        os.path.join(work, "Ld"), "--compile_cache_dir",
+        os.path.join(work, "Cd"), *extra], nice=nice)
+
+
+def serve_cold_start():
+    """The serve phase's two cold processes, started before the resil
+    phase so that their nvcc builds (each into its own fresh cache) run
+    beside it, at a lower priority: the exporting ``serve --fused``
+    process and the uninterrupted daemon over two submitted jobs (the
+    same two go into the inbox of the daemon that phase 20 kills)."""
+    from types import SimpleNamespace
+
+    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
+    from parallel_eda_tpu_torch.serve.daemon import submit_job
+
+    t0 = time.time()
+    work = os.path.join(BUILD_DIR, "serve")
+    subprocess.run(["rm", "-rf", work], check=True)
+    os.makedirs(work)
+    lib, cc = os.path.join(work, "L"), os.path.join(work, "C")
+    ref_box, box = os.path.join(work, "ref"), os.path.join(work, "box")
+    for inbox in (ref_box, box):
+        # the spec and line ``daemon submit`` writes
+        for jid, seed in (("jobA", 3), ("jobB", 4)):
+            submit_job(inbox, {"luts": 6, "chan_width": 16, "seed": seed,
+                               "name": f"l6_s{seed}"}, job_id=jid)
+    p_exp = _ServeChild("lib_export", work, SERVE_ARGS + [
+        "--library", lib, "--compile_cache_dir", cc, "--export_library"],
+        nice=10)
+    p_ref = _daemon(work, "daemon_ref", ref_box, ("--export_library",),
+                    nice=10)
+    return SimpleNamespace(t0=t0, work=work, lib=lib, cc=cc, box=box,
+                           p_exp=p_exp, p_ref=p_ref)
+
+
+def phase_serve(bench, serve_jobs, smi, cold):
     """Continuous batching, the program library and the route daemon on
-    the card (docstring, phase 20).  Returns the launch counts of its
-    in-process card work."""
+    the card (docstring, phase 20); ``cold`` is serve_cold_start()'s.
+    Returns the launch counts of its in-process card work."""
+    import shutil
     import signal
 
     import torch
@@ -3697,19 +4040,44 @@ def phase_serve(bench, serve_jobs, smi):
     from parallel_eda_tpu_torch.route import planes as P
     from parallel_eda_tpu_torch.route import planes_kernels as pk
     from parallel_eda_tpu_torch.route import shard_kernels as sk
-    from parallel_eda_tpu_torch.route.cuda_lib import BUILD_DIR
     from parallel_eda_tpu_torch.route.router import RouterOpts
-    from parallel_eda_tpu_torch.serve.daemon import submit_job
     from parallel_eda_tpu_torch.serve.service import (RouteService,
                                                       ServeJobSpec)
 
     t_phase = time.time()
-    work = os.path.join(BUILD_DIR, "serve")
-    subprocess.run(["rm", "-rf", work], check=True)
-    os.makedirs(work)
+    work, lib, cc, box = cold.work, cold.lib, cold.cc, cold.box
+    p_exp, p_ref = cold.p_exp, cold.p_ref
     terms, solo = serve_jobs
     opts = RouterOpts(batch_size=64)
     runs = []
+
+    def states(doc):
+        return {j["job_id"]: (j["state"], j.get("wirelength"),
+                              j.get("iterations")) for j in doc["jobs"]}
+
+    # ---- the program library and the route daemon, in fresh processes
+    # (the library processes' seconds are taken beside a daemon
+    # process's).  The export and the uninterrupted daemon, both cold,
+    # have been building since the resil phase began
+    _wait_all([p_exp, p_ref])
+    first, c1, w1 = p_exp.result()
+    ref, cr, wr = p_ref.result()
+    # a copy of the library with an entry and its libplanes_relax copy
+    # torn, its process (a fresh cache: it builds from source) beside
+    # the in-process services
+    lib_t = os.path.join(work, "Lt")
+    shutil.copytree(lib, lib_t)
+    with open(os.path.join(lib_t, "library.json")) as f:
+        idx = json.load(f)
+    kid, meta = sorted(idx["entries"].items())[0]
+    so = idx["libs"]["planes_relax"]
+    for rel in (meta["file"], so["file"]):
+        path = os.path.join(lib_t, rel)
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+    p_torn = _ServeChild("lib_torn", work, SERVE_ARGS + [
+        "--library", lib_t, "--compile_cache_dir",
+        os.path.join(work, "C3")], nice=10)
 
     # ---- continuous batching: the resil phase's four jobs, fused
     multi_k1 = [0, 0]
@@ -3787,44 +4155,11 @@ def phase_serve(bench, serve_jobs, smi):
                        f"rebatch {json.dumps(rebatch)}"
                        f" on {smi}")
 
-    # ---- the program library and the route daemon, in fresh processes,
-    # two at a time (a library process beside a daemon process: the
-    # seconds of each are taken beside the other's)
-    lib, cc = os.path.join(work, "L"), os.path.join(work, "C")
-    ref_box, box = os.path.join(work, "ref"), os.path.join(work, "box")
-
-    def daemon(tag, inbox, extra=()):
-        return _ServeChild(tag, work, [
-            "daemon", "run", "--inbox", inbox, "--luts", "6", "--slice",
-            "2", "--heartbeat_s", "2.0", "--exit_when_idle", "2",
-            "--summary", os.path.join(inbox, "summary.json"),
-            "--library", os.path.join(work, "Ld"),
-            "--compile_cache_dir", os.path.join(work, "Cd"), *extra])
-
-    def submit(inbox):
-        # the spec and line ``daemon submit`` writes
-        for jid, seed in (("jobA", 3), ("jobB", 4)):
-            submit_job(inbox, {"luts": 6, "chan_width": 16, "seed": seed,
-                               "name": f"l6_s{seed}"}, job_id=jid)
-
-    def states(doc):
-        return {j["job_id"]: (j["state"], j.get("wirelength"),
-                              j.get("iterations")) for j in doc["jobs"]}
-
-    submit(ref_box)
-    submit(box)
-    # both cold: each builds planes_relax.cu into its own fresh cache
-    p_exp = _ServeChild("lib_export", work, SERVE_ARGS + [
-        "--library", lib, "--compile_cache_dir", cc, "--export_library"])
-    p_ref = daemon("daemon_ref", ref_box, ("--export_library",))
-    _wait_all([p_exp, p_ref])
-    first, c1, w1 = p_exp.result()
-    ref, cr, wr = p_ref.result()
-    # warm library process beside the daemon that is killed -9 after its
-    # first durable checkpoint
+    # the warm library process beside the daemon that is killed -9 after
+    # its first durable checkpoint
     p_warm = _ServeChild("lib_warm", work, SERVE_ARGS + [
         "--library", lib, "--compile_cache_dir", cc])
-    p_kill = daemon("daemon_kill", box)
+    p_kill = _daemon(work, "daemon_kill", box)
     ck = os.path.join(box, "ckpt")
     try:
         t_end = time.time() + 300
@@ -3833,8 +4168,9 @@ def phase_serve(bench, serve_jobs, smi):
             if p_kill.p.poll() is not None or time.time() > t_end:
                 raise AssertionError(f"daemon_kill: no durable checkpoint "
                                      f"before exit ({p_kill.p.poll()})")
-            if p_warm.t1 is None and p_warm.p.poll() is not None:
-                p_warm.t1 = time.time()
+            for c in (p_warm, p_torn):
+                if c.t1 is None and c.p.poll() is not None:
+                    c.t1 = time.time()
             time.sleep(0.02)
         os.kill(p_kill.p.pid, signal.SIGKILL)
     finally:
@@ -3842,6 +4178,7 @@ def phase_serve(bench, serve_jobs, smi):
     if os.path.exists(os.path.join(box, "summary.json")):
         raise AssertionError("daemon_kill: the daemon finished before the "
                              "kill")
+    p_restart = _daemon(work, "daemon_restart", box)
     second, c2, w2 = p_warm.result()
     if c2["compile_s"] != 0 or c2["nvcc"] or \
             second["dispatch_compiles"] != 0 or \
@@ -3853,25 +4190,12 @@ def phase_serve(bench, serve_jobs, smi):
                              f"compiles {second['dispatch_compiles']}, "
                              f"{second['serve']}, jobs {_job_rows(second)} "
                              f"vs {_job_rows(first)}")
-    # a torn entry and a torn libplanes_relax copy, with a fresh cache,
-    # beside the daemon's warm restart
-    with open(os.path.join(lib, "library.json")) as f:
-        idx = json.load(f)
-    kid, meta = sorted(idx["entries"].items())[0]
-    so = idx["libs"]["planes_relax"]
-    for rel in (meta["file"], so["file"]):
-        path = os.path.join(lib, rel)
-        with open(path, "r+b") as f:
-            f.truncate(os.path.getsize(path) // 2)
-    p_torn = _ServeChild("lib_torn", work, SERVE_ARGS + [
-        "--library", lib, "--compile_cache_dir", os.path.join(work, "C3")])
-    p_restart = daemon("daemon_restart", box)
     _wait_all([p_torn, p_restart])
     third, c3, w3 = p_torn.result()
     got, cg, wg = p_restart.result()
     if _job_rows(third) != _job_rows(first) or c3["compile_s"] <= 0 or \
             third["serve"].get("route.serve.aot_errors", 0) < 2 or \
-            any(p.startswith(lib) for p in c3["loaded"]):
+            any(p.startswith(lib_t) for p in c3["loaded"]):
         raise AssertionError(f"serve_library torn: {third['serve']}, "
                              f"{c3}")
     say("serve_library", f"serve --fused (2 jobs, 15 LUTs, slice 3) with "
@@ -3884,7 +4208,8 @@ def phase_serve(bench, serve_jobs, smi):
                          f"dispatch_compiles 0, aot_hits "
                          f"{second['serve']['route.serve.aot_hits']}), the "
                          f"same jobs; entry {kid} and the library's "
-                         f"libplanes_relax copy truncated, fresh cache: "
+                         f"libplanes_relax copy truncated in a copy of "
+                         f"the library, fresh cache: "
                          f"{w3:.1f} s, both evicted before load "
                          f"(aot_errors "
                          f"{third['serve']['route.serve.aot_errors']}), "
@@ -3892,8 +4217,11 @@ def phase_serve(bench, serve_jobs, smi):
                          f"{c3['compile_s']:.1f}), the same jobs; K1 "
                          f"launches {c1['launches']['planes_relax_full_cuda']}"
                          f" / {c2['launches']['planes_relax_full_cuda']} / "
-                         f"{c3['launches']['planes_relax_full_cuda']}; each "
-                         f"beside a daemon process, on {smi}")
+                         f"{c3['launches']['planes_relax_full_cuda']}; "
+                         f"the export beside the cold daemon, both at nice "
+                         f"10 during the resil phase, the torn one (nice "
+                         f"10) beside the in-process services, the fresh "
+                         f"one beside the killed daemon, on {smi}")
     if states(got) != states(ref) or any(
             st != "done" for st, _, _ in states(ref).values()) or \
             got["daemon"]["metrics"].get("route.daemon.recovered", 0) <= 0:
@@ -3914,7 +4242,7 @@ def phase_serve(bench, serve_jobs, smi):
                         f"{got['daemon']['metrics']['route.daemon.recovered']}"
                         f", {wg:.1f} s, max_gap warm (library + compile "
                         f"cache) {got['daemon']['heartbeat']['max_gap_s']} "
-                        f"s, no build; each beside a library process; "
+                        f"s, no build; "
                         f"phase {time.time() - t_phase:.1f} s on {smi}")
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
@@ -4165,28 +4493,123 @@ def _long_flow(nx, ny):
                    nx=nx, ny=ny)
 
 
-def _long_cpu_route(nx, ny):
-    """The port's CPU route of the long-line fixture on an nx x ny grid,
-    in a spawned worker (phase_long_lines runs two beside its kernel
-    cases, four torch threads each): the fields _same_route compares,
-    and the route's seconds."""
+# the port's CPU reference routes (device="cpu"), made in a pool of two
+# spawned workers that main starts before the bench route, so that they
+# run beside the card phases; each phase that holds a card route against
+# one of them waits for it.  Submitted longest first
+CPU_REFS = ("ell_mid", "long 72x6", "long 6x72", "fused_bench",
+            "ell_bench", "ell_bench_global", "ell_timing", "place_bench",
+            "place_bench_timing")
+_REFS = {}
+
+
+def _route_fields(r, seconds, **extra):
+    """What _same_route and _ell_same compare of a RouteResult ``r``,
+    with the route's seconds."""
     from types import SimpleNamespace
 
-    import torch
-
-    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
-
-    torch.set_num_threads(4)
-    f = _long_flow(nx, ny)
-    t0 = time.time()
-    r = Router(f.rr, RouterOpts(batch_size=32), device="cpu").route(f.term)
     stats = [SimpleNamespace(**{k: getattr(st, k) for k in (
         "iteration", "overused_nodes", "overuse_total", "rerouted_nets",
         "relax_steps", "batches", "overuse_pct")}) for st in r.stats]
     return SimpleNamespace(
         wirelength=r.wirelength, iterations=r.iterations, paths=r.paths,
         occ=r.occ, congestion=r.congestion, stats=stats,
-        total_relax_steps=r.total_relax_steps, seconds=time.time() - t0)
+        total_relax_steps=r.total_relax_steps, sink_delay=r.sink_delay,
+        windowed_nets=r.windowed_nets, widened_nets=r.widened_nets,
+        seconds=seconds, **extra)
+
+
+def _cpu_ref(name):
+    """One of CPU_REFS, in a worker of the reference pool (one torch
+    thread, at the lowest priority, so that the card phases' host work
+    keeps its cores): the long-line fixture on a thin grid (phase 23), the ELL
+    program's bench routes, windowed, global and timing-driven, and its
+    mid-size config (phase 17), the bench's fused route (phase 18); or
+    the bench's placement, wirelength-only and timing-driven (phase
+    10b): its positions, temperature rows, final cost and est crit
+    path, and its seconds."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from parallel_eda_tpu_torch.flow import (run_place, run_place_native,
+                                             run_route, synth_flow)
+    from parallel_eda_tpu_torch.place.sa import PlacerOpts
+    from parallel_eda_tpu_torch.route.router import Router, RouterOpts
+
+    torch.set_num_threads(1)
+    if name.startswith("place_bench"):
+        timing = name == "place_bench_timing"
+        t0 = time.perf_counter()
+        f = run_place(synth_flow(**BENCH_CFG),
+                      PlacerOpts() if timing else PlacerOpts(seed=3),
+                      timing_driven=timing, device="cpu")
+        st = f.place_stats
+        return SimpleNamespace(
+            pos=f.pos, place_stats=SimpleNamespace(
+                temps=st.temps, final_cost=st.final_cost,
+                est_crit_path=st.est_crit_path),
+            seconds=time.perf_counter() - t0)
+    if name == "ell_timing":
+        f = synth_flow(**BENCH_CFG)
+        run_route(f, RouterOpts(batch_size=64, program="ell"),
+                  timing_driven=True, device="cpu")
+        return _route_fields(f.route, f.times["route"],
+                             crit_path_delay=f.crit_path_delay)
+    if name.startswith("long "):
+        nx, ny = map(int, name[5:].split("x"))
+        f, opts = _long_flow(nx, ny), RouterOpts(batch_size=32)
+    elif name == "ell_mid":
+        f = run_place_native(synth_flow(**ELL_MID_CFG))
+        opts = RouterOpts(batch_size=64, program="ell")
+    elif name == "fused_bench":
+        f = synth_flow(**BENCH_CFG)
+        opts = RouterOpts(batch_size=64, fused_dispatch=True)
+    else:
+        f = synth_flow(**BENCH_CFG)
+        opts = RouterOpts(batch_size=64, program="ell",
+                          windowed=name == "ell_bench")
+    t0 = time.time()
+    r = Router(f.rr, opts, device="cpu").route(f.term)
+    if not r.success:
+        raise AssertionError(f"{name}: the CPU route did not converge")
+    return _route_fields(r, time.time() - t0)
+
+
+def _start_cpu_refs():
+    pool = ProcessPoolExecutor(2, mp_context=mp.get_context("spawn"),
+                               initializer=os.nice, initargs=(19,))
+    for name in CPU_REFS:
+        _REFS[name] = pool.submit(_cpu_ref, name)
+    _REFS["pool"] = pool
+
+
+def _cpu_result(name):
+    """The reference route ``name``, waiting for it if need be."""
+    t0 = time.time()
+    r = _REFS.pop(name).result()
+    if time.time() - t0 > 1:
+        say("refs", f"waited {time.time() - t0:.1f} s for the CPU "
+                    f"reference {name}")
+    return r
+
+
+def _stop_children():
+    """Stop the reference pool's workers and every serve child still
+    running (on a failure, mid-route)."""
+    for c in _CHILDREN:
+        if c.p.poll() is None:
+            c.p.kill()
+            c.p.wait()
+    pool = _REFS.pop("pool", None)
+    if pool is None:
+        return
+    procs = list((getattr(pool, "_processes", None) or {}).values())
+    pool.shutdown(wait=False, cancel_futures=True)
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+        p.join(10)
 
 
 def _long_cluster_case(rows, cfg, pg, s, kind, pd, inst, B, nsw):
@@ -4273,20 +4696,18 @@ def phase_long_lines(rows, smi):
     from parallel_eda_tpu_torch.rr.grid import DeviceGrid
 
     t_phase = time.time()
-    # the thin grids' CPU routes run in two spawned workers beside (a)
-    with ProcessPoolExecutor(2, mp_context=mp.get_context("spawn")) as pool:
-        cpu_runs = {f"{nx}x{ny}": pool.submit(_long_cpu_route, nx, ny)
-                    for nx, ny in LONG_ROUTES[:2]}
-        flows = {f"{nx}x{ny}": _long_flow(nx, ny) for nx, ny in LONG_ROUTES}
-        arch = minimal_arch(chan_width=10)
-        graphs = {k: f.rr for k, f in flows.items()}
-        for nx, ny in ((6, 63), (10, 160)):
-            graphs[f"{nx}x{ny}"] = build_rr_graph(
-                arch, DeviceGrid(nx, ny, arch.io_capacity))
-        _long_kernel_cases(rows, graphs)
-        say("long_lines", f"kernels at the long shapes bit-identical, "
-                          f"{time.time() - t_phase:.1f} s")
-        cpu = {cfg: run.result() for cfg, run in cpu_runs.items()}
+    flows = {f"{nx}x{ny}": _long_flow(nx, ny) for nx, ny in LONG_ROUTES}
+    arch = minimal_arch(chan_width=10)
+    graphs = {k: f.rr for k, f in flows.items()}
+    for nx, ny in ((6, 63), (10, 160)):
+        graphs[f"{nx}x{ny}"] = build_rr_graph(
+            arch, DeviceGrid(nx, ny, arch.io_capacity))
+    _long_kernel_cases(rows, graphs)
+    say("long_lines", f"kernels at the long shapes bit-identical, "
+                      f"{time.time() - t_phase:.1f} s")
+    # the thin grids' CPU routes, from the reference pool
+    cpu = {f"{nx}x{ny}": _cpu_result(f"long {nx}x{ny}")
+           for nx, ny in LONG_ROUTES[:2]}
     # ---- (b) the thin grids routed on the card = the port's CPU route,
     # single-device and at mesh_shards=2 (lag 1 the cluster kernel, lag
     # 2 the peer kernel); (c) the 66 x 66 grid routed on the card
@@ -4363,6 +4784,10 @@ def main(argv) -> int:
         if cards and phase is phase_peer:
             continue                # the peer kernel on each card alone
         rows[name], rows[name + BF16] = phase(shapes)
+    if not cards:
+        # after the kernels' own timings: the CPU reference routes run
+        # beside the route phases
+        _start_cpu_refs()
 
     res, c_bench, _, _ = _route("bench", bench, RouterOpts(batch_size=64))
     if (res.wirelength, res.iterations) != (537, 22):
@@ -4416,12 +4841,14 @@ def main(argv) -> int:
             raise AssertionError("mesh2_one_card: route differs from the "
                                  "single-device bench route")
         c_mesh.append(c)
-    c_net = []
+    c_net = c_node = []
     if not cards:
         warm["mesh2"] = warm_route(bench,
                                    RouterOpts(batch_size=64, mesh_shards=2))
-        c_net = phase_netmesh(bench, res, rows, {
-            "bench": pg_bench, "scale": pg_scale, "scale_rr": scale.rr})
+        graphs = {"bench": pg_bench, "scale": pg_scale,
+                  "scale_rr": scale.rr}
+        c_net = phase_netmesh(bench, res, rows, graphs)
+        c_node = phase_nodemesh(bench, res, rows, graphs, smi)
     t0 = time.time()
     scale = run_place_native(scale)
     say("scale", f"placed {scale.pnl.num_blocks} blocks in "
@@ -4435,12 +4862,15 @@ def main(argv) -> int:
     c_mesh.append(c)
     if cards:
         c_net = phase_netmesh_cards(bench, res, scale, smi)
+        c_node = phase_nodemesh_cards(bench, res, scale, smi)
         # the paths that exist only across cards and what they are held
         # against; every other phase runs on one card
         say("cards", f"mesh routes (bench 2, bench 4, bench 2 on one "
                      f"card, scale 4) {c_mesh} lag 2 (bench 2, bench 4) "
                      f"{c_lag2} net mesh (bench 2, bench 4, scale one "
-                     f"card, net 4, net 4, one card) {c_net}")
+                     f"card, net 4, net 4, one card) {c_net} node mesh "
+                     f"(bench 1x2, scale one card, 1x4, 2x2, 2x2, 1x4, "
+                     f"one card) {c_node}")
         print(smi)
         print(json.dumps({"ok": True, "cards": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4456,16 +4886,17 @@ def main(argv) -> int:
     c_elastic = phase_elastic(bench, res, scale)
     phase_ell(bench, scale, smi, warm)
     c_fused, fused_later = phase_fused(bench, res, scale)
+    cold = serve_cold_start()
     c_resil, serve_jobs = phase_resil(bench, res, scale, scale_res, rows,
                                       smi)
-    c_serve = phase_serve(bench, serve_jobs, smi)
+    c_serve = phase_serve(bench, serve_jobs, smi, cold)
     c_qor = phase_qor(bench, smi)
     phase_fleet(smi)
     c_long = phase_long_lines(rows, smi)
 
-    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_net + c_timing + \
-        c_bf16 + c_place + [c_cli, c_elastic, c_fused, c_resil, c_serve,
-                            c_qor] + c_long
+    runs = [c_bench, c_scale] + c_mesh + c_lag2 + c_net + c_node + \
+        c_timing + c_bf16 + c_place + [c_cli, c_elastic, c_fused, c_resil,
+                                       c_serve, c_qor] + c_long
     launches = {k: sum(r[k] for r in runs) for k in c_bench}
     # K3 is off the route's path: the sharded relaxations move their
     # halos inside planes_relax_peer_kernel (peer_publish/peer_install)
@@ -4478,7 +4909,9 @@ def main(argv) -> int:
     say("launches", f"bench {c_bench} scale {c_scale} mesh (bench 2, "
                     f"bench 4, [bench 2 on one card,] scale 4) {c_mesh} "
                     f"mesh lag 2 (bench 2, bench 4) {c_lag2} net mesh "
-                    f"(bench 2, bench 4, timing 2, ell 2) {c_net} timing "
+                    f"(bench 2, bench 4, timing 2, ell 2) {c_net} node "
+                    f"mesh (bench 1x2, 1x4, 2x2, bf16 1x2, timing 1x2, ell "
+                    f"1x2) {c_node} timing "
                     f"(bench, bench mesh 2, scale) {c_timing} bf16 (bench "
                     f"off, bench window, bench mesh 2, bench mesh 2 lag 2, "
                     f"scale off, bench timing off) {c_bf16} place "
@@ -4519,6 +4952,8 @@ def main(argv) -> int:
         if name == "planes_relax_peer_cuda":
             return (c["cfg"], c["shards"], c["impl"]) == (
                 "bench", 2, "pallas_halo")
+        if name == "planes_relax_node_cuda":
+            return (c["cfg"], c["node"]) == ("bench", 2)
         return c["cfg"] == "bench" and c["shards"] == 2
     kernels = []
     for name, cases in rows.items():
@@ -4549,3 +4984,5 @@ if __name__ == "__main__":
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         sys.exit(1)
+    finally:
+        _stop_children()

@@ -26,8 +26,9 @@ pipelined unless ``--sync`` asks for the synchronous driver, as in the
 JAX CLI (``RouterOpts.pipeline``; both give the same route).  ``--mesh
 NETxNODE`` routes over a (net, node) mesh of NET*NODE devices, as the
 JAX CLI does (parallel/shard.py: each step's nets split over the NET
-devices, the visible cards, or NET copies of the CPU under ``--device
-cpu``); the node axis is not ported, so NODE > 1 fails before any work.
+rows of the visible cards, or of NET*NODE copies of the CPU under
+``--device cpu``, and each row's canvases by columns over its NODE
+devices).
 """
 
 from __future__ import annotations
@@ -101,9 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "active with --sink_group 0)")
     p.add_argument("--mesh", default="",
                    help="multi-device route mesh 'NETxNODE' (e.g. 4x1): "
-                   "splits each step's nets over NET devices (the "
-                   "visible cards; NET copies of the CPU under --device "
-                   "cpu); NODE > 1 is not ported")
+                   "splits each step's nets over NET rows and each "
+                   "row's canvases by columns over its NODE devices (the "
+                   "visible cards; copies of the CPU under --device cpu)")
     p.add_argument("--stats_dir", default="",
                    help="write per-run iter_stats.txt / final_stats.txt "
                    "(the reference's <circuit>_stats_N/ files), "
@@ -290,11 +291,6 @@ def _run_flow(args) -> int:
 
     # the card is checked before any work: without one this raises
     device = resolve_device(args.device)
-    if args.mesh and args.route:
-        net_ax, node_ax = (int(v) for v in args.mesh.lower().split("x"))
-        if node_ax > 1:
-            from .route.netsplit import NODE_AXIS_ERROR
-            raise SystemExit(f"--mesh {args.mesh}: {NODE_AXIS_ERROR}")
     t_flow = time.time()
     if args.arch == "k6_n10":
         arch = k6_n10_arch()

@@ -24,6 +24,17 @@
 //                               neighbours' mailboxes (through peer
 //                               pointers over NVLink on another card) and
 //                               the fixpoint decided on the card.
+// and the node axis of the (net, node) mesh (the JAX package's planes_relax
+// with the canvases' X axis on the mesh's "node" axis, parallel_eda_tpu/
+// route/planes.py:906-975, which GSPMD splits; no pallas_call), exact:
+//   planes_relax_node_kernel    each net's canvases split by columns over
+//                               the members of a node row
+//                               (route/nodesplit.py), one persistent
+//                               cooperative launch per card as the peer
+//                               kernel's, the x-scans run across the
+//                               members in lax.associative_scan's grouping
+//                               and the halos of the same sweep: the
+//                               result is bit-identical to one device.
 //
 // What they compute: the bounded planes relaxation of one net per thread
 // block (per cluster, per set of partner blocks), to the exact fixpoint or
@@ -68,6 +79,23 @@
 //           CTAs' owned-change flags through rank-indexed shared flags.
 //           Lag 1 only: a net stops at its first sweep with no owned
 //           change.
+//     NODE  the PEER layout and launch plan, with per sweep, exact (lag 0):
+//           x-scans forward then backward, each member's phase 1 of the
+//           cross-segment scan (nodesplit.py: a serial pass per line, one
+//           thread a line, in a global workspace), its published values
+//           stored into the readers' inboxes, one flag round, phase 2
+//           (the crossing combines it needs, then its own cells); the dx
+//           halo (its column kx, after the x-scans, into the right
+//           member's column 0); the turn into y and the y-scans; the dy
+//           halo (its column 1 into the left member's column kx+1); the
+//           turn into x.  Four flag rounds a sweep; the first carries the
+//           owned-changed flag of the sweep before, whose OR decides the
+//           net, so [executed, useful] is K1's.  Generation g's inbox
+//           slot and flag slot are g & 1: a member writes generation g+2
+//           only after every member has published g+1, which each does
+//           after reading g.  The inboxes carry f32 working values (in the
+//           bf16 plane mode too: one device rounds only at the end of a
+//           sweep).
 //     PEER  block (r, j) of a card holds shard r and walks the nets j,
 //           j+G, j+2G, ... (planes_kernels.peer_launch_plan: G blocks per
 //           shard, what the card holds at once, the same on every card).
@@ -217,7 +245,7 @@ static_assert(MAX_LINE >= 1024, "the scan line limit is at least 1024");
 
 namespace {
 
-enum Kind { FULL = 0, PEER = 1, TILE = 2, CLUSTER = 3 };
+enum Kind { FULL = 0, PEER = 1, TILE = 2, CLUSTER = 3, NODE = 4 };
 
 struct Args {
   // inputs and outputs: [B, nc] f32 flats (the x plane's cells first)
@@ -270,6 +298,30 @@ struct Peer {
   int lag2;                          // the lag-2 schedule
   int sys;                           // the mesh spans cards: system scope
   unsigned epoch;                    // this call's tag, from 1
+};
+
+// NODE: where a net's members meet (planes_relax_node_launch)
+struct Node {
+  // member r's inbox, on its card: [B][2][payload] floats, generation g
+  // in slot g & 1
+  float* inbox[MAX_SHARDS];
+  // every card's copy of the flag words [B][members][2], as Peer's
+  unsigned long long* flags[MAX_SHARDS];
+  unsigned long long* mine;          // this card's copy
+  // the cross-segment scan schedules (route/planes_kernels.py
+  // node_tables): at [2 r + dir] the offset of member r's table of
+  // direction dir (0 forward, 1 backward): nslots, len, ops1, ops2, npub,
+  // ninj, in_slot[len], out_slot[len], ops1 and ops2 (left, right, out
+  // slot triples), pub (slot, atom, reader mask), inj (slot, atom)
+  const int* sched;
+  float* xs;                         // scan workspace: [grid][2][nslots][lines]
+  int ranks[MAX_SHARDS];             // the members this card holds
+  int G;                             // blocks per member (net slots)
+  int ncopies;                       // cards of the row (flag copies)
+  int sys;                           // the row spans cards: system scope
+  unsigned epoch;                    // this call's tag, from 1
+  long long payload;                 // floats of one inbox generation
+  int nslots;                        // the most slots of a member's line
 };
 
 __device__ __forceinline__ float fadd(float a, float b) {
@@ -373,7 +425,7 @@ struct Geo {
 template <int K, bool SMEM, bool Q>
 struct Net {
   // the block is one shard of the net (its column block)
-  static constexpr bool SHARD = K == CLUSTER || K == PEER;
+  static constexpr bool SHARD = K == CLUSTER || K == PEER || K == NODE;
   const Args& a;
   int b, r;
   float crit;
@@ -880,6 +932,46 @@ __device__ __forceinline__ void st_release(unsigned long long* p,
                  : "memory");
 }
 
+// PEER, NODE: thread 0 publishes the word (epoch, gen, changed) of net
+// b's shard (member) r into every card's copy of the flag words [B][s][2],
+// after a fence at the mesh's scope (the caller's barrier first: the
+// block's stores of generation gen are out)
+__device__ void flag_publish(const Args& a, unsigned long long* const* flags,
+                             int ncopies, bool sys, unsigned epoch, int b,
+                             int r, int gen, bool changed) {
+  if (threadIdx.x != 0) return;
+  if (sys)
+    __threadfence_system();
+  else
+    __threadfence();
+  const unsigned long long w = ((unsigned long long)epoch << 32) |
+                               ((unsigned long long)gen << 1) |
+                               (changed ? 1ULL : 0ULL);
+  const long long at = ((long long)b * a.shards + r) * 2 + (gen & 1);
+  for (int c = 0; c < ncopies; ++c) st_release(flags[c] + at, w, sys);
+}
+
+// PEER, NODE: wait until every shard (member) of net b has published
+// generation gen into this card's copy ``mine``; returns the OR of their
+// flags, the same at every partner.  Thread k < shards spins on shard
+// k's word, bounded: past SPIN_LIMIT cycles it traps.
+__device__ bool flag_wait(const Args& a, const unsigned long long* mine,
+                          unsigned epoch, bool sys, int b, int gen) {
+  bool ch = false;
+  if (threadIdx.x < a.shards) {
+    const unsigned long long* w =
+        mine + ((long long)b * a.shards + threadIdx.x) * 2 + (gen & 1);
+    const unsigned long long want =
+        ((unsigned long long)epoch << 31) | (unsigned long long)gen;
+    const long long t0 = clock64();
+    unsigned long long v;
+    while (((v = ld_acquire(w, sys)) >> 1) != want)
+      if (clock64() - t0 > SPIN_LIMIT) __trap();
+    ch = (v & 1) != 0;
+  }
+  return __syncthreads_or(ch) != 0;
+}
+
 // PEER: floats of one net's halo mailbox generation: [left dx column |
 // left dy column | right dx column | right dy columns 1, 2], each column
 // [W, Y+1] (dx) or [W, Y] (dy)
@@ -923,36 +1015,13 @@ __device__ void peer_publish(const Args& a, const Peer& p, const float* dx,
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    if (p.sys)
-      __threadfence_system();
-    else
-      __threadfence();
-    const unsigned long long w = ((unsigned long long)p.epoch << 32) |
-                                 ((unsigned long long)gen << 1) |
-                                 (changed ? 1ULL : 0ULL);
-    const long long at = ((long long)b * a.shards + r) * 2 + (gen & 1);
-    for (int c = 0; c < p.ncopies; ++c) st_release(p.flags[c] + at, w, p.sys);
-  }
+  flag_publish(a, p.flags, p.ncopies, p.sys, p.epoch, b, r, gen, changed);
 }
 
 // PEER: wait until every shard of net b has published generation `gen`;
-// returns the OR of their owned-changed flags (of sweep gen - 1), the
-// same at every partner.  Thread k < shards spins on shard k's word.
+// returns the OR of their owned-changed flags (of sweep gen - 1).
 __device__ bool peer_wait(const Args& a, const Peer& p, int b, int gen) {
-  bool ch = false;
-  if (threadIdx.x < a.shards) {
-    const unsigned long long* w =
-        p.mine + ((long long)b * a.shards + threadIdx.x) * 2 + (gen & 1);
-    const unsigned long long want =
-        ((unsigned long long)p.epoch << 31) | (unsigned long long)gen;
-    const long long t0 = clock64();
-    unsigned long long v;
-    while (((v = ld_acquire(w, p.sys)) >> 1) != want)
-      if (clock64() - t0 > SPIN_LIMIT) __trap();
-    ch = (v & 1) != 0;
-  }
-  return __syncthreads_or(ch) != 0;
+  return flag_wait(a, p.mine, p.epoch, p.sys, b, gen);
 }
 
 // PEER: write this block's dist halo columns from its mailbox generation
@@ -984,15 +1053,199 @@ __device__ void peer_install(const Args& a, const Peer& p, float* dx,
   }
 }
 
+// NODE: one combine of the cross-segment scan on line ln of the slot
+// workspace (C, M: [slot][line]); op = (left slot, right slot, out slot)
+__device__ __forceinline__ void node_comb(float* C, float* M, int nl, int ln,
+                                          const int* op) {
+  const long long l = (long long)__ldg(op) * nl + ln;
+  const long long h = (long long)__ldg(op + 1) * nl + ln;
+  const long long o = (long long)__ldg(op + 2) * nl + ln;
+  const float cb = C[h];
+  C[o] = fadd(C[l], cb);
+  M[o] = fminf(fadd(M[l], cb), M[h]);
+}
+
+// NODE: member r's scan table of direction dir (Node.sched)
+__device__ __forceinline__ const int* node_table(const Node& p, int r,
+                                                 int dir) {
+  return p.sched + __ldg(p.sched + 2 * r + dir);
+}
+
+// NODE: the inbox floats of net b's generation gen
+__device__ __forceinline__ long long node_slot(const Node& p, int b,
+                                               int gen) {
+  return ((long long)b * 2 + (gen & 1)) * p.payload;
+}
+
+// NODE: phase 1 of the x-scan in direction rev over this thread's lines
+// (line ln = t * (Y+1) + y, one thread a line): the member's cells (local
+// columns 1..len) loaded as scan_phase loads them, its local combines,
+// and its published values stored into the reading members' inboxes at
+// generation gen.
+template <int K, bool SMEM, bool Q>
+__device__ void node_phase1(const Net<K, SMEM, Q>& n, const Args& a,
+                            const Node& p, const float* d, const float* cs,
+                            int rev, int gen) {
+  const float INF = __int_as_float(0x7f800000);
+  const int* T = node_table(p, n.r, rev);
+  const int len = __ldg(T + 1), n1 = __ldg(T + 2), n2 = __ldg(T + 3);
+  const int npub = __ldg(T + 4);
+  const int* in_slot = T + 6;
+  const int* ops1 = T + 6 + 2 * len;
+  const int* pub = ops1 + 3 * (n1 + n2);
+  const int nl = a.W * (a.Y + 1);
+  float* C = p.xs + (long long)blockIdx.x * 2 * p.nslots * nl;
+  float* M = C + (long long)p.nslots * nl;
+  const long long slot = node_slot(p, n.b, gen);
+  const uint8_t* brk = rev ? n.g.bax : n.g.bbx;
+  for (int ln = threadIdx.x; ln < nl; ln += blockDim.x) {
+    const int t = ln / (a.Y + 1), y = ln - t * (a.Y + 1);
+    const bool inc = a.directional ? n.inc(t) : false;
+    const bool blocked = a.directional && (rev ? inc : !inc);
+    for (int i = 0; i < len; ++i) {
+      const int x = 1 + i, l = n.lx(t, x, y);
+      float cv = 0.0f;
+      if (n.rd(brk + n.gx(t, x, y)))
+        cv = blocked ? INF : (cs ? cs[l] : n.cost_x(t, x, y));
+      const long long s = (long long)__ldg(in_slot + i) * nl + ln;
+      C[s] = cv;
+      M[s] = d[n.dxi(l, t, x, y)];
+    }
+    for (int k = 0; k < n1; ++k) node_comb(C, M, nl, ln, ops1 + 3 * k);
+    for (int k = 0; k < npub; ++k) {
+      const long long s = (long long)__ldg(pub + 3 * k) * nl + ln;
+      const int at = __ldg(pub + 3 * k + 1), mask = __ldg(pub + 3 * k + 2);
+      const long long o = slot + ((long long)at * nl + ln) * 2;
+      const float cv = C[s], mv = M[s];
+      for (int q = 0; q < a.shards; ++q)
+        if ((mask >> q) & 1) {
+          p.inbox[q][o] = cv;
+          p.inbox[q][o + 1] = mv;
+        }
+    }
+  }
+}
+
+// NODE: phase 2 of the x-scan in direction rev: the other members' values
+// of generation gen read from this member's inbox, the crossing combines,
+// and the member's own cells updated as scan_phase updates them.  Returns
+// "an owned cell improved" for this thread.
+template <int K, bool SMEM, bool Q>
+__device__ bool node_phase2(const Net<K, SMEM, Q>& n, const Args& a,
+                            const Node& p, float* d, int rev, int gen) {
+  const int* T = node_table(p, n.r, rev);
+  const int len = __ldg(T + 1), n1 = __ldg(T + 2), n2 = __ldg(T + 3);
+  const int npub = __ldg(T + 4), ninj = __ldg(T + 5);
+  const int* out_slot = T + 6 + len;
+  const int* ops2 = T + 6 + 2 * len + 3 * n1;
+  const int* inj = ops2 + 3 * n2 + 3 * npub;
+  const int nl = a.W * (a.Y + 1);
+  float* C = p.xs + (long long)blockIdx.x * 2 * p.nslots * nl;
+  float* M = C + (long long)p.nslots * nl;
+  const float* box = p.inbox[n.r] + node_slot(p, n.b, gen);
+  const uint8_t* brk = rev ? n.g.bax : n.g.bbx;
+  const int step = a.stride_x;
+  bool mine = false;
+  for (int ln = threadIdx.x; ln < nl; ln += blockDim.x) {
+    const int t = ln / (a.Y + 1), y = ln - t * (a.Y + 1);
+    for (int k = 0; k < ninj; ++k) {
+      const long long s = (long long)__ldg(inj + 2 * k) * nl + ln;
+      const long long o = ((long long)__ldg(inj + 2 * k + 1) * nl + ln) * 2;
+      C[s] = __ldcg(box + o);
+      M[s] = __ldcg(box + o + 1);
+    }
+    for (int k = 0; k < n2; ++k) node_comb(C, M, nl, ln, ops2 + 3 * k);
+    for (int i = 0; i < len; ++i) {
+      const int x = 1 + i, l = n.lx(t, x, y);
+      const int di = n.dxi(l, t, x, y);
+      const float old = d[di];
+      const float v = M[(long long)__ldg(out_slot + i) * nl + ln];
+      if (v < old) {
+        d[di] = v;
+        const int gl = n.gx(t, x, y);
+        const int id = n.idx(t, x, y) + (rev ? step : -step);
+        const float w = n.rd(brk + gl) ? n.rd(n.g.dlx + gl) : 0.0f;
+        n.put_x(t, x, y, id, w);
+        mine |= n.changes(x, v, old);
+      }
+    }
+  }
+  return mine;
+}
+
+// NODE: publish generation gen of net b's member r, after this block's
+// stores of it
+__device__ void node_signal(const Args& a, const Node& p, int b, int r,
+                            int gen, bool changed) {
+  __syncthreads();
+  flag_publish(a, p.flags, p.ncopies, p.sys, p.epoch, b, r, gen, changed);
+}
+
+// NODE: wait for generation gen of every member of net b; the OR of their
+// flags
+__device__ bool node_wait(const Args& a, const Node& p, int b, int gen) {
+  return flag_wait(a, p.mine, p.epoch, p.sys, b, gen);
+}
+
+// NODE: the dx halo.  Member r stores its column kx into member r+1's
+// inbox; member r > 0 reads its column 0 from its own.
+__device__ void node_send_dx(const Args& a, const Node& p, const float* dx,
+                             int b, int r, int gen) {
+  if (r + 1 >= a.shards) return;
+  const int X = a.X, Y = a.Y, kx = a.kx, nx = a.W * (Y + 1);
+  float* L = p.inbox[r + 1] + node_slot(p, b, gen);
+  for (int k = threadIdx.x; k < nx; k += blockDim.x) {
+    const int t = k / (Y + 1), y = k - t * (Y + 1);
+    L[k] = dx[(t * X + kx) * (Y + 1) + y];
+  }
+}
+
+__device__ void node_recv_dx(const Args& a, const Node& p, float* dx, int b,
+                             int r, int gen) {
+  if (r == 0) return;
+  const int X = a.X, Y = a.Y, nx = a.W * (Y + 1);
+  const float* M = p.inbox[r] + node_slot(p, b, gen);
+  for (int k = threadIdx.x; k < nx; k += blockDim.x) {
+    const int t = k / (Y + 1), y = k - t * (Y + 1);
+    dx[(t * X) * (Y + 1) + y] = __ldcg(M + k);
+  }
+}
+
+// NODE: the dy halo.  Member r > 0 stores its column 1 into member r-1's
+// inbox; member r reads its column kx+1 from its own.
+__device__ void node_send_dy(const Args& a, const Node& p, const float* dy,
+                             int b, int r, int gen) {
+  if (r == 0) return;
+  const int X = a.X, Y = a.Y, ny = a.W * Y;
+  float* R = p.inbox[r - 1] + node_slot(p, b, gen);
+  for (int k = threadIdx.x; k < ny; k += blockDim.x) {
+    const int t = k / Y, y = k - t * Y;
+    R[k] = dy[(t * (X + 1) + 1) * Y + y];
+  }
+}
+
+__device__ void node_recv_dy(const Args& a, const Node& p, float* dy, int b,
+                             int r, int gen) {
+  if (r + 1 >= a.shards) return;
+  const int X = a.X, Y = a.Y, kx = a.kx, ny = a.W * Y;
+  const float* M = p.inbox[r] + node_slot(p, b, gen);
+  for (int k = threadIdx.x; k < ny; k += blockDim.x) {
+    const int t = k / Y, y = k - t * Y;
+    dy[(t * (X + 1) + kx + 1) * Y + y] = __ldcg(M + k);
+  }
+}
+
 // Shared-memory modes: 0 all state in global memory (only the scan
 // scratch in shared); 1 dist in shared; 2 dist and scan costs.  SMEM =
 // mode >= 1; a.cost_smem = mode == 2.  Layout: floats [dx | dy | cost_x |
 // cost_y | scratch], then (CLUSTER) two ints of owned-change flags.  In
 // mode 0 the f32 working dist is the output (FULL; TILE: the output
 // flats themselves) or the block's workspace in ws (CLUSTER, PEER).
-// Net b, shard r; pp: PEER's meeting place (null for the other kinds).
+// Net b, shard r; pp: PEER's meeting place, np NODE's (null for the other
+// kinds).
 template <int K, bool SMEM, bool Q>
-__device__ void relax_net(const Args& a, int b, int r, const Peer* pp) {
+__device__ void relax_net(const Args& a, int b, int r, const Peer* pp,
+                          const Node* np = nullptr) {
   extern __shared__ float smem[];
   const float INF = __int_as_float(0x7f800000);
   constexpr bool SHARD = Net<K, SMEM, Q>::SHARD;
@@ -1019,7 +1272,7 @@ __device__ void relax_net(const Args& a, int b, int r, const Peer* pp) {
   float* scr = f;
   int* flag = (int*)(scr + (nth >> 5) * scratch_per_warp(X, Y));
 
-  if constexpr (K == PEER)
+  if constexpr (K == PEER || K == NODE)
     __syncthreads();                 // the block's previous net is out
   if constexpr (K == TILE) {
     // the net's whole output row: d0, the cell's own id, wenter0 (as
@@ -1099,7 +1352,47 @@ __device__ void relax_net(const Args& a, int b, int r, const Peer* pp) {
 
   int i = 0, streak = 0;
   bool go = true;
-  if constexpr (K == PEER) {
+  if constexpr (K == NODE) {
+    const Node& p = *np;
+    bool ch = true;                  // sweep -1: go
+    for (;;) {
+      // generations 4i .. 4i+3: the forward and backward x-scans' values,
+      // the dx halo, the dy halo; the first carries sweep i-1's flag
+      const int g0 = 4 * i;
+      if (i < a.nsweeps) node_phase1(n, a, p, dx, cx, 0, g0);
+      node_signal(a, p, b, r, g0, ch);
+      const bool any = node_wait(a, p, b, g0);
+      if (i > 0) go = any;
+      if (!go || i >= a.nsweeps) break;
+      bool mine = node_phase2(n, a, p, dx, 0, g0);
+      node_phase1(n, a, p, dx, cx, 1, g0 + 1);
+      node_signal(a, p, b, r, g0 + 1, false);
+      node_wait(a, p, b, g0 + 1);
+      mine |= node_phase2(n, a, p, dx, 1, g0 + 1);
+      __syncthreads();               // the x-scanned column kx is out
+      node_send_dx(a, p, dx, b, r, g0 + 2);
+      node_signal(a, p, b, r, g0 + 2, false);
+      node_wait(a, p, b, g0 + 2);
+      node_recv_dx(a, p, dx, b, r, g0 + 2);
+      __syncthreads();
+      mine |= turn_into_y<K, SMEM, Q>(n, a, walk_y, dx, dy);
+      __syncthreads();
+      mine |= scan_phase<K, SMEM, Q, false>(n, a, dy, cy, scr);
+      __syncthreads();
+      node_send_dy(a, p, dy, b, r, g0 + 3);
+      node_signal(a, p, b, r, g0 + 3, false);
+      node_wait(a, p, b, g0 + 3);
+      node_recv_dy(a, p, dy, b, r, g0 + 3);
+      __syncthreads();
+      mine |= turn_into_x<K, SMEM, Q>(n, a, walk_x, dy, dx);
+      ch = __syncthreads_or(mine) != 0;
+      if (Q) {
+        round_dy(n, a, walk_y, dy);
+        __syncthreads();
+      }
+      ++i;
+    }
+  } else if constexpr (K == PEER) {
     const Peer& p = *pp;
     peer_publish(a, p, dx, dy, b, r, 0, false);
     for (;;) {
@@ -1206,6 +1499,16 @@ planes_relax_peer_kernel(Args a, Peer p) {
   for (int b = j; b < a.B; b += p.G) relax_net<PEER, SMEM, Q>(a, b, r, &p);
 }
 
+// block k of a card: member ranks[k / G], net slot j = k % G (the peer
+// kernel's plan)
+template <bool SMEM, bool Q>
+__global__ void __launch_bounds__(MAX_THREADS)
+planes_relax_node_kernel(Args a, Node p) {
+  const int j = blockIdx.x % p.G, r = p.ranks[blockIdx.x / p.G];
+  for (int b = j; b < a.B; b += p.G)
+    relax_net<NODE, SMEM, Q>(a, b, r, nullptr, &p);
+}
+
 // the launch tables: p[NPTR] pointers, v[NINT] integers (the wrapper's
 // layout, route/planes_kernels.py)
 //   p: 0..5 d0x d0y ccx ccy w0x w0y, 6 crit, 7..12 dx dy px py wx wy,
@@ -1309,6 +1612,7 @@ const void* kernel_of(int kind, int mode, bool q) {
     case FULL: return PICK(planes_relax_full_kernel);
     case PEER: return PICK(planes_relax_peer_kernel);
     case TILE: return PICK(planes_relax_cropped_kernel);
+    case NODE: return PICK(planes_relax_node_kernel);
     default: return PICK(planes_relax_cluster_kernel);
   }
 }
@@ -1333,6 +1637,8 @@ cudaError_t prepare(int kind, const long long* v, int* cur, int* mode,
     return cudaErrorInvalidValue;
   if (kind == PEER && (v[17] < 2 || v[17] > MAX_SHARDS))
     return cudaErrorInvalidValue;
+  if (kind == NODE && (v[17] < 1 || v[17] > MAX_SHARDS))
+    return cudaErrorInvalidValue;
   if (v[19] != 0 && v[19] != 1) return cudaErrorInvalidValue;
   const bool q = v[19] == 1;
   cudaError_t e = cudaGetDevice(cur);
@@ -1343,7 +1649,7 @@ cudaError_t prepare(int kind, const long long* v, int* cur, int* mode,
   *k = kernel_of(kind, *mode, q);
   if (*mode < 0 || *mode > 2 || *bytes > smem_optin(dev))
     return cudaErrorInvalidValue;
-  static long long set[16][MAX_DEVICES] = {{0}};
+  static long long set[20][MAX_DEVICES] = {{0}};
   long long& done = set[4 * kind + 2 * q + (*mode == 0 ? 0 : 1)][dev];
   if (*bytes > 48 * 1024 && *bytes > done) {
     e = cudaFuncSetAttribute(*k, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1412,14 +1718,14 @@ int launch(int kind, const void* const* p, const long long* v,
   return (int)e;
 }
 
-// How many blocks of this PEER table the card holds at once (0: none, or
-// no cooperative launch), or minus the CUDA error of the query.
-int peer_fit(const long long* v) {
+// How many blocks of this PEER (or NODE) table the card holds at once (0:
+// none, or no cooperative launch), or minus the CUDA error of the query.
+int peer_fit(const long long* v, int kind = PEER) {
   const int dev = (int)v[11];
   int cur = dev, mode = 0, per_sm = 0, sms = 0, coop = 0;
   long long bytes = 0;
   const void* k = nullptr;
-  cudaError_t e = prepare(PEER, v, &cur, &mode, &bytes, &k);
+  cudaError_t e = prepare(kind, v, &cur, &mode, &bytes, &k);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess)
@@ -1488,6 +1794,67 @@ int launch_peer(const void* const* p, const long long* v,
   return (int)e;
 }
 
+// the NODE tables beside p and v:
+//   q: 0..15 the inboxes of members 0..shards-1, 16..31 the flag words'
+//      copies (one per card of the row), 32 this card's copy, 33 the
+//      schedule tables (this card's copy), 34 the scan workspace
+//   w: 0 G, 1 local members n, 2..17 their ranks, 18 copies, 19 epoch,
+//      20 unused, 21 system scope, 22 zero the total here before the
+//      launch, 23 inbox floats of a generation, 24 the most slots of a line
+int launch_node(const void* const* p, const long long* v,
+                const void* const* q, const long long* w, void* stream) {
+  const int B = (int)v[0], dev = (int)v[11], s = (int)v[17];
+  const long long G = w[0], nl = w[1], nc = w[18];
+  if (B <= 0) return 0;
+  if (G < 1 || G > B || nl < 1 || nl > s || nc < 1 || nc > MAX_SHARDS ||
+      w[19] < 1 || w[19] > 0x7fffffffLL || w[23] < 1 || w[24] < 1)
+    return (int)cudaErrorInvalidValue;
+  int cur = dev, mode = 0;
+  long long bytes = 0;
+  const void* k = nullptr;
+  cudaError_t e = prepare(NODE, v, &cur, &mode, &bytes, &k);
+  Args a = unpack(p, v);
+  a.cost_smem = mode == 2;
+  Node nd;
+  memset(&nd, 0, sizeof(nd));
+  for (int r = 0; r < s && r < MAX_SHARDS; ++r) {
+    nd.inbox[r] = (float*)q[r];
+    if (!nd.inbox[r]) e = cudaErrorInvalidValue;
+  }
+  for (int c = 0; c < nc; ++c) {
+    nd.flags[c] = (unsigned long long*)q[16 + c];
+    if (!nd.flags[c]) e = cudaErrorInvalidValue;
+  }
+  nd.mine = (unsigned long long*)q[32];
+  nd.sched = (const int*)q[33];
+  nd.xs = (float*)q[34];
+  for (int i = 0; i < nl; ++i) {
+    nd.ranks[i] = (int)w[2 + i];
+    if (nd.ranks[i] < 0 || nd.ranks[i] >= s) e = cudaErrorInvalidValue;
+  }
+  nd.G = (int)G;
+  nd.ncopies = (int)nc;
+  nd.epoch = (unsigned)w[19];
+  nd.sys = w[21] != 0;
+  nd.payload = w[23];
+  nd.nslots = (int)w[24];
+  if (e == cudaSuccess &&
+      (!nd.mine || !nd.sched || !nd.xs || (mode == 0 && !a.ws)))
+    e = cudaErrorInvalidValue;
+  if (e == cudaSuccess && w[22] && a.total)
+    e = cudaMemsetAsync(a.total, 0, 2 * sizeof(int32_t),
+                        (cudaStream_t)stream);
+  if (e == cudaSuccess) {
+    void* args[] = {&a, &nd};
+    e = cudaLaunchCooperativeKernel(k, dim3((unsigned)(G * nl)),
+                                    dim3((unsigned)v[9]), args,
+                                    (size_t)bytes, (cudaStream_t)stream);
+    if (e == cudaSuccess) e = cudaGetLastError();
+  }
+  if (cur != dev) cudaSetDevice(cur);
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" int planes_relax_full_launch(const void* const* p,
@@ -1535,6 +1902,18 @@ extern "C" int planes_relax_peer_fit(const long long* v) {
   return peer_fit(v);
 }
 
+// one card's launch of the node-axis relaxation of every net
+extern "C" int planes_relax_node_launch(const void* const* p,
+                                        const long long* v,
+                                        const void* const* q,
+                                        const long long* w, void* stream) {
+  return launch_node(p, v, q, w, stream);
+}
+
+extern "C" int planes_relax_node_fit(const long long* v) {
+  return peer_fit(v, NODE);
+}
+
 // zero a [2] int32 total on `stream` of card `device` (the peer
 // relaxation across cards, before any card's launch)
 extern "C" int planes_relax_zero_total(void* total, int device,
@@ -1565,7 +1944,7 @@ extern "C" long long planes_relax_smem(int kind, int mode,
 }
 
 // the shared-memory mode a launch of this kind with this table takes
-// (kind: 0 full, 1 peer, 2 cropped, 3 cluster)
+// (kind: 0 full, 1 peer, 2 cropped, 3 cluster, 4 node)
 extern "C" int planes_relax_mode(int kind, const long long* v) {
   return mode_of(kind, v);
 }

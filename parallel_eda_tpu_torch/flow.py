@@ -303,9 +303,10 @@ def run_route(flow: FlowResult, opts: Optional[RouterOpts] = None,
     ``flow.crit_path_delay`` is the routed critical path.  ``verify``
     runs the legality oracle on a successful route.
 
-    ``mesh`` (a parallel.shard.Mesh) runs the same negotiation over its
-    net axis (route.Router); ``device`` then defaults to the mesh's
-    first member, which holds the route state and runs the STA."""
+    ``mesh`` (a parallel.shard.Mesh) runs the same negotiation over the
+    mesh, both axes (route.Router); ``device`` then defaults to the
+    mesh's first member, which holds the route state and runs the
+    STA."""
     if device is None:
         device = "cuda" if mesh is None else mesh.devices[0, 0]
     if timing_driven:

@@ -16,13 +16,18 @@ the two axes of a jax.sharding.Mesh:
 Here a ``Mesh`` is a [net][node] grid of ``torch.device``s.  The net
 axis is ported: ``Router(rr, opts, mesh=m)``, ``run_route(...,
 mesh=m)`` and ``ShardedRouter.route_step`` cut each step's B nets into
-contiguous chunks of B / n, one per member, each routed on its member's
-device, and sum the members' int32 occupancy deltas on the home device
-in member order (route/netsplit.py).  A net's route does not depend on
-the other nets of its step, so the result is bit-identical to one
-device, as the JAX package's is.  The node axis is not ported (ROADMAP
-A16.2): a mesh with a node axis > 1 can be built, as JAX's tests build
-it, but routing over it raises NotImplementedError before any work.
+contiguous chunks of B / n, one per row of the mesh, each routed on its
+row's first device, and sum the members' int32 occupancy deltas on the
+home device in member order (route/netsplit.py).  A net's route does
+not depend on the other nets of its step, so the result is
+bit-identical to one device, as the JAX package's is.  The node axis
+splits each row's work over the row's devices: the planes relaxation's
+canvases by columns, with a line scan across the members that keeps
+``lax.associative_scan``'s grouping (route/nodesplit.py, planes.
+planes_relax_node; on a card one launch of the node kernel per card of
+the row), and the ELL relaxation's rr-graph rows (search._relax_co).
+Every split computes the same operations on the same operands, so the
+route stays bit-identical to one device at any mesh shape.
 
 A mesh may repeat a device: ``make_mesh(2, devices=["cpu"] * 2)`` is a
 virtual two-member mesh on the CPU (the tests' counterpart of JAX's
@@ -38,7 +43,7 @@ import torch
 
 from ..obs import get_metrics, span
 from ..route.device_graph import DeviceRRGraph
-from ..route.netsplit import NODE_AXIS_ERROR, member_copy, net_members
+from ..route.netsplit import member_copy
 from ..route.search import route_and_commit
 
 NET, NODE = "net", "node"
@@ -151,10 +156,10 @@ def make_multislice_mesh(num_slices: int, chips_per_slice: int,
 
 def shard_graph(dev: DeviceRRGraph, mesh: Mesh):
     """Place the rr-graph on the mesh (JAX shard.py:143): one copy per
-    net-axis member, on its device (``dev`` itself where it is there
-    already).  Returns the members' graphs, in net-axis order.  A node
-    axis > 1 raises NotImplementedError."""
-    return [member_copy(dev, d) for d in net_members(mesh)]
+    member, on its device (``dev`` itself where it is there already).
+    Returns the members' graphs row by row (the net axis's rows, each
+    its node-axis members in order), ``mesh.devices.flat``'s order."""
+    return [member_copy(dev, d) for d in mesh.devices.flat]
 
 
 class ShardedRouter:
@@ -172,11 +177,12 @@ class ShardedRouter:
                    prev_paths, source, sinks, bb, crit, net_key, valid,
                    max_steps: int, max_len: int, num_waves: int,
                    group: int = 1):
-        """One route_and_commit step over the mesh's net axis.  ``dev``
-        is the graph (or shard_graph's list, whose first member is taken);
-        the batch tensors and ``occ``/``acc`` lie on the home device, which
-        gets the results.  Batch size must be divisible by the mesh's
-        net-axis size."""
+        """One route_and_commit step over the mesh: the batch split over
+        its rows, each row's relaxations over the row's devices.  ``dev``
+        is the graph (or shard_graph's list, whose first member is
+        taken); the batch tensors and ``occ``/``acc`` lie on the home
+        device, which gets the results.  Batch size must be divisible by
+        the mesh's net-axis size."""
         if isinstance(dev, (list, tuple)):
             dev = dev[0]
         B = source.shape[0]
@@ -184,8 +190,6 @@ class ShardedRouter:
         if B % n_net:
             raise ValueError(f"batch {B} not divisible by net axis "
                              f"{n_net}")
-        if self.mesh.shape[NODE] > 1:
-            raise NotImplementedError(NODE_AXIS_ERROR)
         # per-step telemetry, under JAX's names: the span covers the
         # chunks' dispatch and the lockstep host reads
         reg = get_metrics()

@@ -28,6 +28,14 @@ two devices' current streams by events, with no host wait.
 Per-wave step counts combine by max over the members: a relaxation's
 count is the max over its nets (the loop runs until no net improves),
 so the max over members' counts is the one-device count.
+
+The node axis: each net-axis member is a row of the mesh, and its step
+runs on the row's first device.  Where the row has more than one
+device, the step's relaxations split their work over the row: the
+planes relaxation's canvases by columns (planes.planes_relax_node,
+nodesplit.py), the ELL relaxation's rr-graph rows (search._relax_co).
+``split_run`` hands each member its row in place of ``NODE_ROW`` in the
+static arguments (None for a row of one device).
 """
 
 from __future__ import annotations
@@ -37,23 +45,35 @@ import weakref
 
 import torch
 
-NODE_AXIS_ERROR = ("the mesh's node axis is not ported yet; see ROADMAP "
-                   "A16.2")
 
 
-def net_members(mesh):
-    """The devices of ``mesh``'s net axis, in order: the members a step's
-    chunks go to.  Raises NotImplementedError for a node axis > 1 (the
-    canvas X axis sharded across devices, not ported) and TypeError for
-    anything but a parallel.shard.Mesh."""
-    from ..parallel.shard import NODE, Mesh
+class _NodeRow:
+    """The static-argument placeholder split_run replaces by each
+    member's node row."""
+
+    def __repr__(self):
+        return "NODE_ROW"
+
+
+NODE_ROW = _NodeRow()
+
+
+def node_rows(mesh):
+    """The rows of ``mesh`` (one per net-axis member, in order), each the
+    tuple of its node-axis devices.  Raises TypeError for anything but a
+    parallel.shard.Mesh."""
+    from ..parallel.shard import Mesh
 
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a parallel.shard.Mesh, got "
                         f"{type(mesh).__name__}")
-    if mesh.shape[NODE] > 1:
-        raise NotImplementedError(NODE_AXIS_ERROR)
-    return tuple(mesh.devices[:, 0])
+    return tuple(tuple(row) for row in mesh.devices)
+
+
+def net_members(mesh):
+    """The devices the net axis's chunks run on, in order: each row's
+    first device."""
+    return tuple(row[0] for row in node_rows(mesh))
 
 
 def chunks(B: int, n: int):
@@ -136,19 +156,22 @@ def split_run(co, mesh, home: torch.device, rows, shared, graphs, rest,
     tensors (each member's copy, member_copy), ``shared`` tensors every
     member reads whole (copied to its device), ``rows`` the [B, ...] row
     tensors on ``home`` (each member's chunk copied to its device),
-    ``rest`` the static arguments.  ``keep`` (row positions, or None for
-    all) drops rows first; a member left with none takes no part.
-    Returns the members' values, in member order."""
+    ``rest`` the static arguments, where ``NODE_ROW`` becomes the member's
+    node row (None for a row of one device, and without a mesh).
+    ``keep`` (row positions, or None for all) drops rows first; a member
+    left with none takes no part.  Returns the members' values, in
+    member order."""
     B = rows[0].shape[0]
     keep_set = None if keep is None else set(keep)
     if mesh is None:
-        parts = [(home, range(B))]
+        parts = [(home, range(B), None)]
     else:
-        devs = net_members(mesh)
-        parts = [(d, range(sl.start, sl.stop))
-                 for d, sl in zip(devs, chunks(B, len(devs)))]
+        nrows = node_rows(mesh)
+        parts = [(row[0], range(sl.start, sl.stop),
+                  row if len(row) > 1 else None)
+                 for row, sl in zip(nrows, chunks(B, len(nrows)))]
     gens = []
-    for d, pos in parts:
+    for d, pos, node in parts:
         if keep_set is not None:
             pos = [i for i in pos if i in keep_set]
         if not len(pos):
@@ -161,7 +184,8 @@ def split_run(co, mesh, home: torch.device, rows, shared, graphs, rest,
         gens.append(co(*(member_copy(g, d) for g in graphs),
                        *(t.to(d) if isinstance(t, torch.Tensor) else t
                          for t in shared),
-                       *(r.to(d) for r in rws), *rest))
+                       *(r.to(d) for r in rws),
+                       *(node if a is NODE_ROW else a for a in rest)))
     return lockstep(gens, home)
 
 

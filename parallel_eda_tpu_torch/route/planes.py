@@ -34,7 +34,7 @@ import torch
 from ..obs.devprof import get_devprof
 from ..rr.graph import CHANX, CHANY, IPIN, OPIN, RRGraph
 from .device_graph import DeviceRRGraph
-from .netsplit import (chunks, gather, member_copy, net_members,
+from .netsplit import (NODE_ROW, chunks, gather, member_copy, node_rows,
                        split_run, to_home)
 from .search import (_col, congestion_cost, congestion_jitter,
                      usage_from_paths)
@@ -982,16 +982,21 @@ def planes_relax(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
     CUDA tensors launch the hand-written kernel (planes_kernels.py) or
     raise; CPU tensors run the plain version.  ``mesh`` (a
     parallel.shard.Mesh; JAX planes.py:907-975) relaxes the nets in
-    chunks of B / n on its net axis's devices, the results gathered on
-    d0_flat's device; the stats are the max over the chunks', as over
-    nets."""
+    chunks of B / n on its net axis's rows, each chunk's canvases split
+    by columns over its row's devices (planes_relax_node) where the node
+    axis is > 1, the results gathered on d0_flat's device; the stats are
+    the max over the chunks', as over nets."""
     if mesh is not None:
         home = d0_flat.device
-        devs = net_members(mesh)
-        parts = [planes_relax(member_copy(pg, d), *(
-            t[sl].to(d) for t in (d0_flat, cc_flat, crit_c, wenter0)),
-            nsweeps, plane_dtype)
-            for d, sl in zip(devs, chunks(d0_flat.shape[0], len(devs)))]
+        rows = node_rows(mesh)
+        parts = []
+        for row, sl in zip(rows, chunks(d0_flat.shape[0], len(rows))):
+            d = row[0]
+            args = (member_copy(pg, d), *(
+                t[sl].to(d) for t in (d0_flat, cc_flat, crit_c, wenter0)),
+                nsweeps)
+            parts.append(planes_relax(*args, plane_dtype) if len(row) == 1
+                         else planes_relax_node(*args, row, plane_dtype))
         dist, pred, wenter = (to_home([p[k] for p in parts], home)
                               for k in range(3))
         stats = torch.stack([p[3].to(home) for p in parts]).amax(dim=0)
@@ -1004,6 +1009,169 @@ def planes_relax(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
     get_devprof().note_cpu_call()
     return planes_relax_plain(pg, d0_flat, cc_flat, crit_c, wenter0,
                               nsweeps, plane_dtype)
+
+
+def planes_relax_node(pg: PlanesGraph, d0_flat, cc_flat, crit_c, wenter0,
+                      nsweeps: int, devices, plane_dtype: str = "f32"):
+    """planes_relax with every net's canvases split by columns over
+    ``devices``, a node row of the mesh (route/nodesplit.py: the
+    segments, the cross-segment scan, the halos): the same contract and
+    the same bits as the one-device relaxation, on d0_flat's device
+    (the row's first; ``pg`` on it).  CUDA tensors launch the node
+    kernel (planes_kernels.planes_relax_node_cuda), one launch per card
+    of the row, or raise; CPU tensors run planes_relax_node_plain."""
+    devices = tuple(torch.device(d) for d in devices)
+    if any(d.type != d0_flat.device.type for d in devices):
+        raise ValueError(f"the node row's devices {devices} are not of "
+                         f"the tensors' device type {d0_flat.device.type}")
+    if d0_flat.is_cuda:
+        from .planes_kernels import planes_relax_node_cuda
+        return planes_relax_node_cuda(pg, d0_flat, cc_flat, crit_c,
+                                      wenter0, nsweeps, devices,
+                                      plane_dtype=plane_dtype)
+    get_devprof().note_cpu_call()
+    return planes_relax_node_plain(pg, d0_flat, cc_flat, crit_c, wenter0,
+                                   nsweeps, devices, plane_dtype)
+
+
+# per (planes graph, members, kx): the members' block geometry
+_NODE_GEOMS: dict = {}
+
+
+def node_geoms(pg: PlanesGraph, devices, kx: int):
+    """The active members' G = 1 block geometry (planes_shard's padded
+    column blocks, kx owned columns each), each on its member's device;
+    built once per (graph, devices)."""
+    key = (id(pg), tuple(str(d) for d in devices), kx)
+    hit = _NODE_GEOMS.get(key)
+    if hit is not None and hit[0] is pg:
+        return hit[1]
+    from .planes_shard import block_geoms
+    geoms = block_geoms(pg, devices, kx)
+    if len(_NODE_GEOMS) > 16:
+        _NODE_GEOMS.clear()
+    _NODE_GEOMS[key] = (pg, geoms)
+    return geoms
+
+
+def planes_relax_node_plain(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
+                            wenter0, nsweeps: int, devices,
+                            plane_dtype: str = "f32"):
+    """The plain PyTorch form of planes_relax_node (the CPU's, and the
+    node kernel's plain version on a card): each active member relaxes
+    its column block (planes_shard's layout) on its device; per sweep
+    the x-scans run as the cross-segment scan of nodesplit.py (each
+    member's phase 1, its published values copied to the members that
+    read them, each member's phase 2), then the dx halo column moves
+    right, every member turns into y and scans its y columns, the dy
+    halo column moves left, and every member turns into x.  The
+    fixpoint test is the OR of the members' owned changes (of the
+    rounded state in the bf16 plane mode), as one device's whole-canvas
+    test.  Same returns as planes_relax_plain, bit-identical to it."""
+    from .nodesplit import (active_members, node_cols, published,
+                            run_phase1, run_phase2, scan_schedule,
+                            x_segments)
+    from .planes_shard import shard_blocks
+
+    home = d0_flat.device
+    W, NX, NYp1 = pg.shape_x
+    m = len(devices)
+    kx = node_cols(NX, m)
+    devs = [torch.device(d) for d in devices[:active_members(NX, m)]]
+    segs = x_segments(NX, m)
+    lens = [e - s for s, e in segs]
+    scans = (scan_schedule(NX, segs, False), scan_schedule(NX, segs, True))
+    gms = node_geoms(pg, devs, kx)
+    dt = plane_torch_dtype(plane_dtype)
+
+    def blocks(flat, fill):
+        x, y = _split_flat(pg, flat.to(dt))
+        return (shard_blocks(x, fill, 2, kx, devs),
+                shard_blocks(y, fill, 3, kx, devs))
+
+    ccx, ccy = ([c.float() for c in cs] for cs in blocks(cc_flat, INF))
+    crits = [crit_c.to(d) for d in devs]
+    costs = [_sweep_costs(*a) for a in zip(gms, crits, ccx, ccy)]
+    states = [(dx, dy, g.idxx.expand(dx.shape).contiguous(),
+               g.idxy.expand(dy.shape).contiguous(), wx, wy)
+              for dx, dy, wx, wy, g in zip(*blocks(d0_flat, INF),
+                                           *blocks(wenter0, 0.0), gms)]
+    own = slice(1, kx + 1)
+
+    def x_scan(work, rev):
+        # every member's phase 1, the exchange, every member's phase 2
+        sch = scans[rev]
+        ci, wi = (1, 5) if rev else (0, 4)
+        slots = []
+        for w, ms, cs, L in zip(work, sch.members, costs, lens):
+            slots.append(run_phase1(ms, cs[ci][:, :, 1:1 + L].movedim(2, 0),
+                                    w[0][:, :, 1:1 + L].movedim(2, 0)))
+        box = {}
+        for ms, sl in zip(sch.members, slots):
+            box.update(published(ms, sl))
+        for w, ms, sl, cs, g, L, d in zip(work, sch.members, slots, costs,
+                                          gms, lens, devs):
+            if not L:
+                continue
+            got = {a: (box[a][0].to(d), box[a][1].to(d))
+                   for _, a in ms.inject}
+            s = run_phase2(ms, sl, got).movedim(0, 2)
+            cols = slice(1, 1 + L)
+            d_own = w[0][:, :, cols]
+            imp = s < d_own
+            nb = g.idxx[:, :, cols] + (g.stride_x if rev else -g.stride_x)
+            w[0][:, :, cols] = torch.where(imp, s, d_own)
+            w[2][:, :, cols] = torch.where(imp, nb, w[2][:, :, cols])
+            w[4][:, :, cols] = torch.where(imp, cs[wi][:, :, cols],
+                                           w[4][:, :, cols])
+
+    def sweep(states):
+        work = [[t.float().clone() if t.is_floating_point() else t.clone()
+                 for t in st] for st in states]
+        x_scan(work, 0)
+        x_scan(work, 1)
+        for r in range(1, len(work)):          # dx halo, to the right
+            work[r][0][:, :, 0] = work[r - 1][0][:, :, kx].to(devs[r])
+        for w, g, c, cy, cs in zip(work, gms, crits, ccy, costs):
+            tv, ts, tw = _turn_triples_into_y(g, w[0], c, cy)
+            imp = tv < w[1]
+            w[1] = torch.where(imp, tv, w[1])
+            w[3] = torch.where(imp, ts, w[3])
+            w[5] = torch.where(imp, tw, w[5])
+            w[1], w[3], w[5] = _scan_update(w[1], w[3], w[5], cs[2], cs[6],
+                                            g.idxy, 1, 3, False)
+            w[1], w[3], w[5] = _scan_update(w[1], w[3], w[5], cs[3], cs[7],
+                                            g.idxy, 1, 3, True)
+        for r in range(len(work) - 1):         # dy halo, to the left
+            work[r][1][:, :, kx + 1] = work[r + 1][1][:, :, 1].to(devs[r])
+        for w, g, c, cx in zip(work, gms, crits, ccx):
+            tv, ts, tw = _turn_triples_into_x(g, w[1], c, cx)
+            imp = tv < w[0]
+            w[0] = torch.where(imp, tv, w[0])
+            w[2] = torch.where(imp, ts, w[2])
+            w[4] = torch.where(imp, tw, w[4])
+        new = [quantize_plane_state(tuple(w), plane_dtype) for w in work]
+        flags = [bool(((s2[0][:, :, own] < s[0][:, :, own]).any()
+                       | (s2[1][:, :, own] < s[1][:, :, own]).any()).item())
+                 for s2, s in zip(new, states)]
+        return new, any(flags)
+
+    i, go = 0, True
+    while go and i < nsweeps:
+        states, go = sweep(states)
+        i += 1
+    useful = max(0, i - (0 if go else 1))
+
+    def reassemble(idx, real_x):
+        return torch.cat([st[idx][:, :, own].to(home) for st in states],
+                         dim=2)[:, :, :real_x].to(
+                             _I32 if idx in (2, 3) else _F32)
+
+    dx, dy = reassemble(0, NX), reassemble(1, NX + 1)
+    px, py = reassemble(2, NX), reassemble(3, NX + 1)
+    wx, wy = reassemble(4, NX), reassemble(5, NX + 1)
+    stats = torch.tensor([i, useful], dtype=_I32, device=home)
+    return _flat(dx, dy), _flat(px, py), _flat(wx, wy), stats
 
 
 def planes_relax_cropped(pg: PlanesGraph, d0_flat, cc_flat, crit_c,
@@ -1030,15 +1198,15 @@ def _as_row_mesh(mesh):
     """The window programs' ``mesh`` argument (JAX planes.py:1131): None
     (one device), a planes_shard.RowMesh (the row-sharded relaxation,
     returned) or a parallel.shard.Mesh (the (net, node) mesh: None is
-    returned and the steps split their nets over its net axis; a node
-    axis > 1 raises NotImplementedError).  Anything else raises
+    returned; the steps split their nets over its rows and each row's
+    relaxations over the row's devices).  Anything else raises
     TypeError."""
     if mesh is None:
         return None
     from .planes_shard import RowMesh
     if isinstance(mesh, RowMesh):
         return mesh
-    net_members(mesh)
+    node_rows(mesh)
     return None
 
 
@@ -1094,9 +1262,11 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
     unreached sink) or ``force`` is true.  With a RowMesh ``mesh`` (and
     no crop tile) the relaxation is the row-sharded one; with a
     parallel.shard.Mesh the B nets are split over its net axis, each
-    chunk routed on its member's device (netsplit.py; JAX
-    planes.py:1185-1200, ``P("net")``); every relaxation runs in the
-    plane dtype ``plane_dtype``.
+    chunk routed on its row's first device (netsplit.py; JAX
+    planes.py:1185-1200, ``P("net")``), its relaxations split by canvas
+    columns over the row's devices (planes_relax_node) where the node
+    axis is > 1; every relaxation runs in the plane dtype
+    ``plane_dtype``.
 
     ``paths``, ``sink_delay``, ``all_reached`` and ``bb`` are updated IN
     PLACE at the rerouted rows (the JAX program donates them; here the
@@ -1128,7 +1298,7 @@ def _step_core(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
          direct_delay_all[sel], sel, valid, b_anchor),
         (occ, acc, pres_fac), (pg, dev),
         (nsweeps, max_len, num_waves, group, doubling, crop_tile, row_mesh,
-         plane_dtype))
+         plane_dtype, NODE_ROW))
     p, delay, reached, delta, st = gather(
         outs, device, 3, 4, torch.zeros(2, dtype=_I32, device=device))
     occ_new = occ + delta
@@ -1155,13 +1325,15 @@ def _step_member_co(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
                     b_eoidx, b_edelay, b_scell, b_sipin, b_swdel, b_doidx,
                     b_dipin, b_ddel, sel, valid, b_anchor,
                     nsweeps: int, max_len: int, num_waves: int, group: int,
-                    doubling: bool, crop_tile, row_mesh, plane_dtype: str):
+                    doubling: bool, crop_tile, row_mesh, plane_dtype: str,
+                    node=None):
     """The per-net part of _step_core for one member's rows, as a
     coroutine (netsplit.py), on the device of its tensors: rip-up view,
     jittered costs, the waves (relaxation, sink extraction, traceback),
-    and the new usage.  Returns (paths [B, S, L], delay [B, S], reached
-    [B, S], int32 occupancy delta [N], the per-wave [executed, useful]
-    sweep counts)."""
+    and the new usage.  ``node`` (the member's node row, or None) splits
+    each relaxation by canvas columns over the row's devices.  Returns
+    (paths [B, S, L], delay [B, S], reached [B, S], int32 occupancy
+    delta [N], the per-wave [executed, useful] sweep counts)."""
     device = occ.device
     N = dev.num_nodes
     B = sel.shape[0]
@@ -1245,6 +1417,10 @@ def _step_member_co(pg: PlanesGraph, dev: DeviceRRGraph, occ, acc, pres_fac,
             from .planes_shard import planes_relax_sharded
             dist, pred, wenter, rst = planes_relax_sharded(
                 pg, d0, cc_flat, crit_c, wenter0, nsweeps, row_mesh,
+                plane_dtype=plane_dtype)
+        elif node is not None:
+            dist, pred, wenter, rst = planes_relax_node(
+                pg, d0, cc_flat, crit_c, wenter0, nsweeps, node,
                 plane_dtype=plane_dtype)
         else:
             dist, pred, wenter, rst = planes_relax(

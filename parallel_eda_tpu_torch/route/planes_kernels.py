@@ -17,6 +17,14 @@ parallel_eda_tpu/route/planes_pallas.py.
         into the neighbours' mailboxes, the fixpoint decided on the card
         (JAX planes_shard.py planes_relax_sharded :268: K2's kernel per
         shard per sweep, remote_slab_permute between sweeps)
+    planes_relax_node_cuda    -> planes_relax_node_kernel
+        the (net, node) mesh's node axis: each net's canvases split by
+        columns over a node row (route/nodesplit.py), one persistent
+        cooperative launch per card of the row on the peer kernel's
+        plan, the x-scans across the members in lax.associative_scan's
+        grouping and the halos of the same sweep, bit-identical to K1
+        (JAX planes.py:906-975, planes_relax with X on the "node" axis,
+        which GSPMD splits)
 
 All are compiled from csrc/planes_relax.cu with nvcc for sm_90a into
 ``parallel_eda_tpu_torch/build/`` at first use and loaded through a
@@ -71,10 +79,12 @@ from .planes import crop_origin_hi, plane_torch_dtype
 from .shard_kernels import MAX_SHARDS, _enable_peers
 
 # how a launch addresses its nets (csrc/planes_relax.cu Kind)
-FULL, PEER, TILE, CLUSTER = 0, 1, 2, 3
-# launch table sizes (csrc/planes_relax.cu unpack, launch_peer)
+FULL, PEER, TILE, CLUSTER, NODE = 0, 1, 2, 3, 4
+# launch table sizes (csrc/planes_relax.cu unpack, launch_peer,
+# launch_node)
 NPTR, NINT = 31, 20
 NPEER_PTR, NPEER_INT = 33, 23
+NNODE_PTR, NNODE_INT = 35, 25
 
 
 def threads_for(ncells: int) -> int:
@@ -140,7 +150,8 @@ def smem_bytes(kind: int, mode: int, W: int, X: int, Y: int) -> int:
 KIND_NAMES = {FULL: "planes_relax_full_cuda (K1)",
               TILE: "planes_relax_cropped_cuda (K2)",
               CLUSTER: "planes_relax_cluster_cuda",
-              PEER: "planes_relax_peer_cuda"}
+              PEER: "planes_relax_peer_cuda",
+              NODE: "planes_relax_node_cuda"}
 
 
 class KernelShapeError(ValueError):
@@ -166,18 +177,22 @@ def check_kernel_shape(kind: int, W: int, X: int, Y: int, nc: int = 0,
             f"this one has {cells}")
 
 
-def check_canvas(shape_x, shards: int = 0) -> None:
+def check_canvas(shape_x, shards: int = 0, node: int = 0) -> None:
     """The card's limit on a route's canvas of plane shape ``shape_x``
     (W, NX, NY + 1), checked by Router.__init__ before any work: K1 on
-    the whole canvas (K2's tiles lie inside it) and, for a row mesh of
-    ``shards``, the sharded kernels on a shard's block.  The CPU route
-    has no such limit."""
+    the whole canvas (K2's tiles lie inside it), for a row mesh of
+    ``shards`` the sharded kernels on a shard's block, and for a node
+    axis of ``node`` > 1 devices the node kernel on a member's block.
+    The CPU route has no such limit."""
     W, NX, NYp1 = shape_x
     nc = W * NX * NYp1 + W * (NX + 1) * (NYp1 - 1)
     for kind in (FULL, CLUSTER) if shards > 1 else (FULL,):
         mesh = f" at mesh_shards={shards}" if kind == CLUSTER else ""
         check_kernel_shape(kind, *_launch_shape(shape_x, kind, None, shards),
                            nc, f"grid {NX}x{NYp1 - 1}{mesh}")
+    if node > 1:
+        check_kernel_shape(NODE, *_launch_shape(shape_x, NODE, None, node),
+                           nc, f"grid {NX}x{NYp1 - 1} at node axis {node}")
 
 
 def auto_mode(kind: int, W: int, X: int, Y: int,
@@ -213,7 +228,7 @@ def _launch_shape(shape_x, kind: int, tile=None, shards: int = 0):
     W, NX, NYp1 = shape_x
     if kind == TILE:
         return W, int(tile[0]), int(tile[1])
-    if kind in (CLUSTER, PEER):
+    if kind in (CLUSTER, PEER, NODE):
         return W, max(2, -(-(NX + 2) // shards)) + 2, NYp1 - 1
     return W, NX, NYp1 - 1
 
@@ -281,8 +296,9 @@ def _setup(lib) -> None:
                lib.planes_relax_cluster_launch):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.planes_relax_peer_launch.argtypes = [ctypes.c_void_p] * 5
-    lib.planes_relax_peer_launch.restype = ctypes.c_int
+    for fn in (lib.planes_relax_peer_launch, lib.planes_relax_node_launch):
+        fn.argtypes = [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
     lib.planes_relax_max_line.restype = ctypes.c_int
     lib.planes_relax_max_cells.restype = ctypes.c_longlong
     lib.planes_relax_threads.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -292,7 +308,8 @@ def _setup(lib) -> None:
     lib.planes_relax_smem.restype = ctypes.c_longlong
     lib.planes_relax_mode.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.planes_relax_mode.restype = ctypes.c_int
-    for fn in (lib.planes_relax_cluster_fit, lib.planes_relax_peer_fit):
+    for fn in (lib.planes_relax_cluster_fit, lib.planes_relax_peer_fit,
+               lib.planes_relax_node_fit):
         fn.argtypes = [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.planes_relax_zero_total.argtypes = [ctypes.c_void_p, ctypes.c_int,
@@ -709,6 +726,30 @@ def peer_launch_plan(devices, B: int, fit) -> PeerPlan:
     return PeerPlan(G, tuple((d, tuple(r)) for d, r in cards.items()))
 
 
+def _coop_plan(kind: int, fit_fn, ints, devices, B: int, mode, what: str):
+    """The shared-memory mode and the launch plan (peer_launch_plan) of a
+    cooperative relaxation of ``kind`` over ``devices``: one mode for
+    every card, the first card's auto mode under kernel_mode_cap (or
+    ``mode``), and each card's occupancy at it (``fit_fn``, the kind's
+    fit query).  ``ints(card, mode)`` gives a card's launch integers."""
+    lib = LIB.get()
+    cards = list(dict.fromkeys(torch.device(d) for d in devices))
+    if mode is None:
+        v = (ctypes.c_longlong * NINT)(*ints(cards[0], None))
+        mode = lib.planes_relax_mode(kind, v)
+        cap = _MODE_CAP[0]
+        if cap is not None:
+            mode = min(mode, int(cap))
+    fit = {}
+    for card in cards:
+        n = fit_fn((ctypes.c_longlong * NINT)(*ints(card, int(mode))))
+        if n < 0:
+            raise RuntimeError(f"{what}: the occupancy query on {card} "
+                               f"failed (cudaError {-n})")
+        fit[card] = n
+    return int(mode), peer_launch_plan(devices, B, fit)
+
+
 class _PeerPlan:
     """The peer relaxation of one (planes graph, batch, shard devices,
     mode, plane dtype), built once: per card its copy of the stacked block
@@ -733,30 +774,14 @@ class _PeerPlan:
         cells = W * X * (Y + 1) + W * (X + 1) * Y
         self.pg, self.B, self.nc = pg, B, nc
         self.ncx_bytes, self.plane_bytes = 4 * ncx, 4 * B * nc
-        cards = list(dict.fromkeys(torch.device(d) for d in devices))
 
         def ints(card, m):
             return _ints(PEER, B, W, X, Y, NYp1, pg.directional, gstr, m,
                          card, NX, ncx, nc, (0, 0), s, kx, plane_dtype)
-        # one mode for every card of the mesh: the first card's auto mode
-        # (under kernel_mode_cap), or the one asked for
-        if mode is None:
-            v = (ctypes.c_longlong * NINT)(*ints(cards[0], None))
-            mode = lib.planes_relax_mode(PEER, v)
-            cap = _MODE_CAP[0]
-            if cap is not None:
-                mode = min(mode, int(cap))
-        self.mode = int(mode)
-        fit = {}
-        for card in cards:
-            v = (ctypes.c_longlong * NINT)(*ints(card, self.mode))
-            n = lib.planes_relax_peer_fit(v)
-            if n < 0:
-                raise RuntimeError(f"peer relaxation: the occupancy query on "
-                                   f"{card} failed (cudaError {-n})")
-            fit[card] = n
-        self.plan = plan = peer_launch_plan(devices, B, fit)
-        self.sys = len(cards) > 1
+        self.mode, plan = _coop_plan(PEER, lib.planes_relax_peer_fit, ints,
+                                     devices, B, mode, "peer relaxation")
+        self.plan = plan
+        self.sys = len(plan.cards) > 1
         halo = 2 * W * (Y + 1) + 3 * W * Y
         mbox, flags, keep = {}, {}, [pg, geom]
         for card, ranks in plan.cards:
@@ -792,6 +817,8 @@ class _PeerPlan:
             keep += [g, inc, ws]
         self.keep = (keep, mbox, flags)
         self.epoch = 0
+        self._launch, self.what = (lib.planes_relax_peer_launch,
+                                   "peer relaxation")
 
     def __call__(self, d0_flat, cc_flat, crit, wenter0, nsweeps: int,
                  lag2: bool, name: str):
@@ -837,7 +864,7 @@ class _PeerPlan:
                 rc = lib.planes_relax_zero_total(st + 8 * B, home.index,
                                                  home_stream.cuda_stream)
                 if rc != 0:
-                    raise RuntimeError(f"peer relaxation: zeroing the total "
+                    raise RuntimeError(f"{self.what}: zeroing the total "
                                        f"failed (cudaError {rc})")
                 ready = torch.cuda.Event()
                 ready.record(home_stream)
@@ -847,11 +874,10 @@ class _PeerPlan:
             # every card launches before anything waits on any of them:
             # the grids spin on each other's flags
             for card, p, v, q, w in self.cards:
-                rc = lib.planes_relax_peer_launch(p, v, q, w,
-                                                  streams[card].cuda_stream)
+                rc = self._launch(p, v, q, w, streams[card].cuda_stream)
                 if rc != 0:
                     raise RuntimeError(
-                        f"peer relaxation launch on {card} failed "
+                        f"{self.what} launch on {card} failed "
                         f"(cudaError {rc}): refused cooperative launch or "
                         "bad table")
             if cross:
@@ -922,8 +948,188 @@ planes_relax_peer_cuda.launches_bf16 = 0
 planes_relax_peer_cuda.last_stats = None
 planes_relax_peer_cuda.last_mode = None
 
+def node_tables(NX: int, m: int):
+    """The node kernel's schedule tables (csrc/planes_relax.cu Node.sched)
+    for an NX-column grid on an m-member node row: int32 [2 * active
+    members] offsets, then per (member, direction) its MemberScan of
+    nodesplit.scan_schedule flattened (nslots, len, ops1, ops2, npub,
+    ninj, in_slot, out_slot, ops1 triples, ops2 triples, publish
+    triples, inject pairs).  Returns (tables, the most slots of a line,
+    (forward, backward) published values a line)."""
+    from .nodesplit import scan_schedule, x_segments
+
+    segs = x_segments(NX, m)
+    scans = (scan_schedule(NX, segs, False), scan_schedule(NX, segs, True))
+    head, body = [0] * (2 * len(segs)), []
+    for r in range(len(segs)):
+        for d, sch in enumerate(scans):
+            ms = sch.members[r]
+            ops1 = [x for lv in ms.levels1 for op in lv for x in op]
+            ops2 = [x for lv in ms.levels2 for op in lv for x in op]
+            head[2 * r + d] = len(head) + len(body)
+            body += [ms.nslots, len(ms.in_slot), len(ops1) // 3,
+                     len(ops2) // 3, len(ms.publish), len(ms.inject)]
+            body += (list(ms.in_slot) + list(ms.out_slot) + ops1 + ops2
+                     + [x for t in ms.publish for x in t]
+                     + [x for t in ms.inject for x in t])
+    nslots = max(1, max(ms.nslots for sch in scans for ms in sch.members))
+    return (torch.tensor(head + body, dtype=torch.int32), nslots,
+            (scans[0].natoms, scans[1].natoms))
+
+
+class _NodePlan(_PeerPlan):
+    """The node-axis relaxation of one (planes graph, batch, node row,
+    mode, plane dtype), built once: the active members (nodesplit.
+    active_members) placed by peer_launch_plan; per card its copy of the
+    members' block geometry, of the schedule tables and its launch
+    tables, its members' inboxes ([B, 2, payload] each), its copy of the
+    flag words, its blocks' scan workspace and, in mode 0, their dist
+    workspace.  Called as the peer relaxation's plan (one schedule, lag
+    1's tables)."""
+
+    def __init__(self, pg, B: int, devices, mode, plane_dtype: str):
+        from .nodesplit import active_members, node_cols
+        from .planes_shard import _geom_blocks
+
+        lib = LIB.get()
+        W, NX, NYp1 = pg.shape_x
+        m = len(devices)
+        if not 2 <= m <= MAX_SHARDS:
+            raise ValueError(f"node relaxation: needs 2..{MAX_SHARDS} "
+                             f"members, got {m}")
+        kx = node_cols(NX, m)
+        devices = devices[:active_members(NX, m)]
+        s = len(devices)
+        nc, ncx = pg.ncells, W * NX * NYp1
+        geom = _geom_blocks(pg, s, kx)
+        geom = SimpleNamespace(**{k: getattr(geom, k).contiguous()
+                                  for k in _GEOM_PTR_NAMES})
+        X, Y = kx + 2, NYp1 - 1
+        check_kernel_shape(NODE, W, X, Y, nc,
+                           f"grid {NX}x{Y} at node axis {m}")
+        gstr = (W * X * NYp1, W * (X + 1) * Y)
+        cells = W * X * (Y + 1) + W * (X + 1) * Y
+        tables, nslots, natoms = node_tables(NX, m)
+        nl = W * (Y + 1)
+        payload = max(2 * nl * max(natoms), W * (Y + 1), W * Y, 1)
+        self.pg, self.B, self.nc = pg, B, nc
+        self.ncx_bytes, self.plane_bytes = 4 * ncx, 4 * B * nc
+        self.members, self.kx, self.nslots = s, kx, nslots
+
+        def ints(card, md):
+            return _ints(NODE, B, W, X, Y, NYp1, pg.directional, gstr, md,
+                         card, NX, ncx, nc, (0, 0), s, kx, plane_dtype)
+        self.mode, plan = _coop_plan(NODE, lib.planes_relax_node_fit, ints,
+                                     devices, B, mode, "node relaxation")
+        self.plan = plan
+        self.sys = len(plan.cards) > 1
+        inbox, flags, keep = {}, {}, [pg, geom]
+        for card, ranks in plan.cards:
+            inbox[card] = torch.empty((len(ranks), B, 2, payload),
+                                      dtype=torch.float32, device=card)
+            flags[card] = torch.zeros((B, s, 2), dtype=torch.int64,
+                                      device=card)
+        rank_box = {}
+        for card, ranks in plan.cards:
+            for i, r in enumerate(ranks):
+                rank_box[r] = inbox[card][i].data_ptr()
+        self.cards = []
+        for card, ranks in plan.cards:
+            g = geom if card == pg.device else SimpleNamespace(**{
+                k: getattr(geom, k).to(card) for k in _GEOM_PTR_NAMES})
+            inc = (pg.inc_track.to(card) if pg.directional else None)
+            tab = tables.to(card)
+            xs = torch.empty(plan.grid(card) * 2 * nslots * nl,
+                             dtype=torch.float32, device=card)
+            ws = (torch.empty(plan.grid(card) * cells, dtype=torch.float32,
+                              device=card) if self.mode == 0 else None)
+            ptrs = ([0] * 14 + _geom_ptrs(g, pg.directional, inc)
+                    + [0] * 3 + [0 if ws is None else ws.data_ptr()])
+            q = ([rank_box[r] for r in range(s)] + [0] * (MAX_SHARDS - s)
+                 + [flags[c].data_ptr() for c, _ in plan.cards]
+                 + [0] * (MAX_SHARDS - len(plan.cards))
+                 + [flags[card].data_ptr(), tab.data_ptr(), xs.data_ptr()])
+            w = ([plan.G, len(ranks)] + list(ranks)
+                 + [0] * (MAX_SHARDS - len(ranks))
+                 + [len(plan.cards), 0, 0, int(self.sys), 0, payload,
+                    nslots])
+            self.cards.append((
+                card, (ctypes.c_void_p * NPTR)(*ptrs),
+                (ctypes.c_longlong * NINT)(*ints(card, self.mode)),
+                (ctypes.c_void_p * NNODE_PTR)(*q),
+                (ctypes.c_longlong * NNODE_INT)(*w)))
+            keep += [g, inc, ws, tab, xs]
+        self.keep = (keep, inbox, flags)
+        self.epoch = 0
+        self._launch, self.what = (lib.planes_relax_node_launch,
+                                   "node relaxation")
+
+
+def node_plan(pg, B: int, devices, mode=None,
+              plane_dtype: str = "f32") -> _NodePlan:
+    """The node relaxation's plan (built once per key, as _peer_plan)."""
+    plane_torch_dtype(plane_dtype)
+    devices = tuple(torch.device(d) for d in devices)
+    key = ("node", id(pg), B, devices, mode, _MODE_CAP[0], plane_dtype)
+    plan = _PLANS.get(key)
+    if plan is None or plan.pg is not pg:
+        if len(_PLANS) > 64:
+            _PLANS.clear()
+        plan = _PLANS[key] = _NodePlan(pg, B, devices, mode, plane_dtype)
+    return plan
+
+
+def planes_relax_node_cuda(pg, d0_flat, cc_flat, crit_c, wenter0,
+                           nsweeps: int, devices, mode=None,
+                           plane_dtype: str = "f32"):
+    """planes_relax with every net's canvases split by columns over the
+    node row ``devices`` (cards, repeats allowed; d0_flat and ``pg`` on
+    the first): one cooperative launch of planes_relax_node_kernel per
+    card of the row.  A block relaxes one member's column block of one
+    net at a time (nodesplit.py's segments, planes_shard's block
+    layout); per sweep the members meet four times through the inboxes
+    and flag words (the forward and the backward x-scans' published
+    values, the dx and the dy halo column), and the OR of the members'
+    owned-change flags decides on the card whether the net goes on.
+    Bit-identical to planes_relax_full_cuda (K1) and to the plain
+    version (planes.planes_relax_node_plain): every scan combine has
+    K1's operands in K1's order.  Writes the full output flats on
+    d0_flat's card; returns (dist, pred, wenter, stats [2]); ``mode``,
+    ``plane_dtype`` and ``last_stats`` as for planes_relax_full_cuda.
+    Raises RuntimeError when peer access cannot be enabled between two
+    cards of the row, when a card refuses the cooperative launch, or
+    when one net's members do not fit on the cards at once; never runs
+    another form."""
+    crit = _check_flats(pg, d0_flat, cc_flat, crit_c, wenter0)
+    devices = tuple(torch.device(d) for d in devices)
+    for d in devices:
+        if d.type != "cuda" or d.index is None:
+            raise ValueError(f"node relaxation: members must be cards "
+                             f"with an index, got {d}")
+    if devices[0] != d0_flat.device:
+        raise ValueError(f"node relaxation: the flats are on "
+                         f"{d0_flat.device}, the row's first member is "
+                         f"{devices[0]}")
+    B = d0_flat.shape[0]
+    plan = node_plan(pg, B, devices, mode, plane_dtype)
+    dist, pred, wenter, stats = plan(d0_flat, cc_flat, crit, wenter0,
+                                     nsweeps, False,
+                                     "planes_relax_node_cuda")
+    for _ in plan.cards:
+        _count(planes_relax_node_cuda, plane_dtype, plan.mode)
+    planes_relax_node_cuda.last_mode = plan.mode
+    planes_relax_node_cuda.last_stats = stats
+    return dist, pred, wenter, stats[B]
+
+
+planes_relax_node_cuda.launches = 0
+planes_relax_node_cuda.launches_bf16 = 0
+planes_relax_node_cuda.last_stats = None
+planes_relax_node_cuda.last_mode = None
+
 WRAPPERS = (planes_relax_full_cuda, planes_relax_cropped_cuda,
-            planes_relax_cluster_cuda, planes_relax_peer_cuda)
+            planes_relax_cluster_cuda, planes_relax_peer_cuda,
+            planes_relax_node_cuda)
 for _w in WRAPPERS:
     _w.mode_launches = {0: 0, 1: 0, 2: 0}
 

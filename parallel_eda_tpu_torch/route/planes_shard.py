@@ -279,22 +279,28 @@ def _geom_blocks(pg: PlanesGraph, s: int, kx: int) -> PlanesGeom:
                    if pg.inc_track is not None else None))
 
 
+def block_geoms(pg: PlanesGraph, devices, kx: int):
+    """Block i's G = 1 geometry (_geom_blocks, kx owned columns a block)
+    on ``devices[i]``, one block per device."""
+    gb = _geom_blocks(pg, len(devices), kx)
+    names = ("brk_before_x", "brk_after_x", "brk_before_y", "brk_after_y",
+             "first_x", "last_x", "first_y", "last_y", "delay_x",
+             "delay_y", "delay_y_rot0", "delay_y_rot1", "idxx", "idxy",
+             "base_par")
+    return [PlanesGeom(
+        **{k: getattr(gb, k)[i].to(dev).contiguous() for k in names},
+        stride_x=gb.stride_x, directional=gb.directional,
+        inc_track=(None if gb.inc_track is None
+                   else gb.inc_track[i].to(dev).contiguous()))
+        for i, dev in enumerate(devices)]
+
+
 def _shard_geoms(pg: PlanesGraph, rmesh: RowMesh, kx: int):
     """Shard i's G = 1 block geometry on its device (cached per mesh)."""
     hit = rmesh._geom.get(id(pg))
     if hit is not None and hit[0] is pg:
         return hit[1]
-    gb = _geom_blocks(pg, rmesh.n_shards, kx)
-    names = ("brk_before_x", "brk_after_x", "brk_before_y", "brk_after_y",
-             "first_x", "last_x", "first_y", "last_y", "delay_x",
-             "delay_y", "delay_y_rot0", "delay_y_rot1", "idxx", "idxy",
-             "base_par")
-    geoms = [PlanesGeom(
-        **{k: getattr(gb, k)[i].to(dev).contiguous() for k in names},
-        stride_x=gb.stride_x, directional=gb.directional,
-        inc_track=(None if gb.inc_track is None
-                   else gb.inc_track[i].to(dev).contiguous()))
-        for i, dev in enumerate(rmesh.devices)]
+    geoms = block_geoms(pg, rmesh.devices, kx)
     rmesh._geom[id(pg)] = (pg, geoms)
     return geoms
 

@@ -713,14 +713,19 @@ class Router:
     the visible devices of ``device``'s type: ``row_mesh``.
 
     ``mesh`` (a parallel.shard.Mesh) runs the same negotiation over the
-    mesh's net axis (JAX router.py:694-803): each step's B nets (B
-    rounded up to a multiple of the net axis) are split into contiguous
-    chunks, each routed on its member's device, and the occupancy deltas
-    are summed on the home device, which holds every whole-circuit
-    array: ``device``, by default the mesh's first member.  Canvases
-    stay full (no crop ladder) and the plan width stays B, as in JAX;
-    the result is bit-identical to the one-device route at
-    ``crop="off"``.  A node axis > 1 raises NotImplementedError.
+    mesh (JAX router.py:694-803): each step's B nets (B rounded up to a
+    multiple of the net axis) are split into contiguous chunks, each
+    routed on its row's first device, and the occupancy deltas are
+    summed on the home device, which holds every whole-circuit array:
+    ``device``, by default the mesh's first member.  A node axis > 1
+    splits each row's relaxations over the row's devices: the planes
+    canvases by columns (planes.planes_relax_node: on the card one
+    launch of the node kernel per card of the row), the ELL program's
+    rr-graph rows in its global steps (its windowed steps stay on the
+    row's first device, as JAX constrains them on the net axis only).
+    Canvases stay full (no crop ladder) and the plan width stays B, as
+    in JAX; the result is bit-identical to the one-device route at
+    ``crop="off"`` for every mesh shape.
 
     The registry (``obs.get_metrics()``) gets, under the JAX package's
     names: the halo ledger (counters ``route.mesh.halo_bytes`` and
@@ -754,8 +759,8 @@ class Router:
         members = ()
         if mesh is not None:
             # the legacy (net, node) mesh's errors, before any work (JAX
-            # router.py:723-727, :743-747); a node axis > 1 raises
-            from .netsplit import net_members
+            # router.py:723-727, :743-747)
+            from .netsplit import node_rows
             if self.opts.program == "planes_pallas":
                 raise ValueError(
                     "program='planes_pallas' does not support mesh sharding "
@@ -766,7 +771,8 @@ class Router:
                     "mesh_shards > 1 and a legacy (net, node) mesh are "
                     "mutually exclusive — the halo-exchange sharding "
                     "owns the device mesh")
-            members = net_members(mesh)
+            rows = node_rows(mesh)
+            members = tuple(d for row in rows for d in row)
             if device is None:
                 device = members[0]
         self.device = resolve_device(device)
@@ -777,10 +783,12 @@ class Router:
                 and self.opts.program in ("planes", "planes_pallas")):
             # the relaxation kernels' scan line limit, before any work
             # (KernelShapeError); the CPU route has none, as JAX.  Every
-            # mesh member's card runs K1 on the same canvas.
+            # mesh row's card runs K1 on the same canvas, or the node
+            # kernel on its column blocks.
             from .planes_kernels import check_canvas
             check_canvas((rr.chan_width, rr.grid.nx, rr.grid.ny + 1),
-                         self.opts.mesh_shards)
+                         self.opts.mesh_shards,
+                         node=0 if mesh is None else mesh.devices.shape[1])
         from .lookahead import build_lookahead
         from .planes import build_planes
 
@@ -860,7 +868,7 @@ class Router:
         # once, as JAX's shard_graph (the copies live as long as the
         # Router's graphs)
         self.mesh = mesh
-        self._net_axis = len(members)
+        self._net_axis = 0 if mesh is None else mesh.devices.shape[0]
         if mesh is not None:
             from .netsplit import member_copy
             for d in members:

@@ -36,7 +36,7 @@ from dataclasses import dataclass
 import torch
 
 from .device_graph import DeviceRRGraph
-from .netsplit import gather, run1, split_run, sum_waves
+from .netsplit import NODE_ROW, gather, member_copy, run1, split_run, sum_waves
 
 INF = float("inf")
 _F32, _I32 = torch.float32, torch.int32
@@ -150,8 +150,16 @@ def _relax(dev: DeviceRRGraph, cong_c, crit_c, inside, seed, seed_tdel,
                           max_steps))
 
 
+def node_blocks(N: int, m: int):
+    """The rr-graph rows [n0, n1) of the m members of a node row: the
+    contiguous blocks of ceil(N / m) rows, in member order (a member
+    past the last row gets none)."""
+    c = -(-N // m)
+    return [(k * c, min((k + 1) * c, N)) for k in range(m) if k * c < N]
+
+
 def _relax_co(dev: DeviceRRGraph, cong_c, crit_c, inside, seed, seed_tdel,
-              max_steps: int):
+              max_steps: int, node=None):
     """_relax as a coroutine (netsplit.py).
 
     cong_c [B, N] congestion term (already scaled by (1-crit) and
@@ -168,7 +176,16 @@ def _relax_co(dev: DeviceRRGraph, cong_c, crit_c, inside, seed, seed_tdel,
     slot-major within a block ([DB, N, B] candidates): a node's in-edge
     gather copies whole rows of B values, and the slot min reduces across
     whole [N, B] planes.  The winning slot's source and delay are
-    gathered once per step."""
+    gathered once per step.
+
+    ``node`` (a node row of the mesh, or None) splits each step's rows
+    over the row's devices (node_blocks; JAX shards the ELL tables and
+    the [N] arrays over the node axis, parallel/shard.py:143): each
+    member reads the whole dist and tdel, copied to it every step,
+    computes its rows' best, source and delay with the same operations
+    in the same slot order on its own copy of the graph, and the rows
+    come back to this device in member order.  Row by row the values
+    are the one-device values."""
     B, N = cong_c.shape
     device = cong_c.device
     dist0 = torch.where(seed, 0.0, INF).T.contiguous()
@@ -176,24 +193,48 @@ def _relax_co(dev: DeviceRRGraph, cong_c, crit_c, inside, seed, seed_tdel,
     prev0 = torch.full((N, B), -1, dtype=_I32, device=device)
     crit3 = crit_c[:, 0][None, None, :]
     blocks = _blocks(dev.max_in_degree)
-    srcs = [dev.ell_src[:, d0:d0 + DB].T.reshape(-1).long()
-            for d0, DB in blocks]
-    terms = [(d0, torch.where(dev.ell_valid[:, d0:d0 + DB].T[:, :, None],
-                              crit3 * dev.ell_delay[:, d0:d0 + DB].T[
-                                  :, :, None], INF))
-             for d0, DB in blocks]
     cong3 = torch.where(inside, cong_c, INF).T.contiguous()[None]
-    src_all = dev.ell_src.long()
+
+    def part(d, n0, n1):
+        # rows n0..n1-1 on device d: the step's tables and its function
+        g = member_copy(dev, d)
+        rows = slice(n0, n1)
+        c3 = crit3.to(d)
+        srcs = [g.ell_src[rows, d0:d0 + DB].T.reshape(-1).long()
+                for d0, DB in blocks]
+        terms = [(d0, torch.where(g.ell_valid[rows, d0:d0 + DB].T[:, :, None],
+                                  c3 * g.ell_delay[rows, d0:d0 + DB].T[
+                                      :, :, None], INF))
+                 for d0, DB in blocks]
+        cong = cong3[:, rows].to(d)
+        src_all = g.ell_src[rows].long()
+        delay = g.ell_delay[rows]
+        n = n1 - n0
+
+        def run(dist, tdel):
+            dist, tdel = dist.to(d), tdel.to(d)
+            best, gslot = _min_over_blocks(
+                lambda b: torch.index_select(dist, 0, srcs[b]).view(-1, n, B),
+                terms, cong, (n, B), d, dim=0)
+            slot = gslot.clamp(min=0)
+            bsrc = torch.gather(src_all, 1, slot)
+            btdel = torch.gather(tdel, 0, bsrc) + torch.gather(delay, 1, slot)
+            return best, bsrc, btdel
+        return run
+
+    if node is None:
+        parts = [part(device, 0, N)]
+    else:
+        parts = [part(d, n0, n1) for d, (n0, n1)
+                 in zip(node, node_blocks(N, len(node)))]
 
     def step(state):
         dist, prev, tdel = state
-        best, gslot = _min_over_blocks(
-            lambda b: torch.index_select(dist, 0, srcs[b]).view(-1, N, B),
-            terms, cong3, (N, B), device, dim=0)
-        slot = gslot.clamp(min=0)
-        bsrc = torch.gather(src_all, 1, slot)
-        btdel = torch.gather(tdel, 0, bsrc) + torch.gather(
-            dev.ell_delay, 1, slot)
+        outs = [run(dist, tdel) for run in parts]
+        best, bsrc, btdel = (
+            outs[0][k] if len(outs) == 1
+            else torch.cat([o[k].to(device) for o in outs])
+            for k in range(3))
         improved = best < dist
         return ((torch.where(improved, best, dist),
                  torch.where(improved, bsrc.to(_I32), prev),
@@ -314,9 +355,10 @@ def route_net_batch(dev: DeviceRRGraph, cong, source, sinks, bb, crit,
 
 def _route_net_batch_co(dev: DeviceRRGraph, cong, source, sinks, bb, crit,
                         net_key, max_steps: int, max_len: int,
-                        num_waves: int, group: int):
+                        num_waves: int, group: int, node=None):
     """route_net_batch as a coroutine (netsplit.py) whose last value is
-    the list of each wave's step count, not their sum."""
+    the list of each wave's step count, not their sum; ``node`` as for
+    _relax_co."""
     B, S = sinks.shape
     N = dev.num_nodes
     device = cong.device
@@ -343,7 +385,8 @@ def _route_net_batch_co(dev: DeviceRRGraph, cong, source, sinks, bb, crit,
         crit_w = torch.where(remaining, crit, 0.0).amax(dim=1)
         cong_c = (1.0 - crit_w)[:, None] * cong * jitter
         dist, prev, tdel, steps = yield from _relax_co(
-            dev, cong_c, crit_w[:, None], inside, seed, tdel_tree, max_steps)
+            dev, cong_c, crit_w[:, None], inside, seed, tdel_tree, max_steps,
+            node)
         waves.append(steps)
 
         order, pick_valid = _pick_sinks(torch.gather(dist, 1, sink_c),
@@ -363,18 +406,19 @@ def _route_net_batch_co(dev: DeviceRRGraph, cong, source, sinks, bb, crit,
 
 def _commit_co(dev: DeviceRRGraph, occ, acc, pres_fac, b_paths, b_src,
                b_sinks, b_bb, b_crit, net_key, valid, max_steps: int,
-               max_len: int, num_waves: int, group: int):
+               max_len: int, num_waves: int, group: int, node=None):
     """One member's part of the global-program step (a coroutine,
     netsplit.py): rip up its rows' old trees, route them against the
     occupancy of everyone-but-itself and return (paths, reached, delay,
-    its int32 occupancy delta [N], per-wave steps)."""
+    its int32 occupancy delta [N], per-wave steps).  ``node``: its node
+    row (the relaxations' rr-graph rows split over it, _relax_co)."""
     N = dev.num_nodes
     old_usage = usage_from_paths(b_paths, N) & valid[:, None]
     occ_view = occ[None, :] - old_usage.to(_I32)
     cong = congestion_cost(dev, occ_view, acc, pres_fac)
     p, reached, delay, usage, waves = yield from _route_net_batch_co(
         dev, cong, b_src, b_sinks, b_bb, b_crit, net_key, max_steps,
-        max_len, num_waves, group)
+        max_len, num_waves, group, node)
     delta = occupancy_delta(usage, valid) - old_usage.sum(dim=0,
                                                           dtype=_I32)
     return p, reached, delay, delta, waves
@@ -389,14 +433,15 @@ def route_and_commit(dev: DeviceRRGraph, occ, acc, pres_fac, prev_paths,
     everyone-but-itself, commit the new occupancy.  ``mesh`` (a
     parallel.shard.Mesh) splits the B nets over its net axis
     (netsplit.py; B divisible by its size), each chunk routed on its
-    member's device, the deltas summed on ``occ``'s device.
+    row's first device with its relaxations' rr-graph rows split over
+    the row (_relax_co), the deltas summed on ``occ``'s device.
 
     Returns (paths, reached, delay, occ_new, relax_steps)."""
     home = occ.device
     outs = split_run(_commit_co, mesh, home,
                       (prev_paths, source, sinks, bb, crit, net_key, valid),
                       (occ, acc, pres_fac), (dev,),
-                      (max_steps, max_len, num_waves, group))
+                      (max_steps, max_len, num_waves, group, NODE_ROW))
     p, reached, delay, delta, steps = gather(outs, home, 3, 4)
     return p, reached, delay, occ + delta, steps
 
@@ -449,8 +494,9 @@ def route_batch_resident(dev: DeviceRRGraph, occ, acc, pres_fac, paths,
     sink to ``full_bb``.  ``sel`` [B] picks the nets (``valid`` [B]
     masks padding: padded rows are routed and dropped, as in JAX; of
     identical ones only one is computed, _distinct_keep).  ``mesh`` (a
-    parallel.shard.Mesh) routes the batch's chunks on its net axis's
-    devices (netsplit.py).
+    parallel.shard.Mesh) routes the batch's chunks on its rows' first
+    devices, each relaxation's rr-graph rows split over the row
+    (netsplit.py, _relax_co).
 
     ``paths``, ``sink_delay``, ``all_reached`` and ``bb`` are updated IN
     PLACE (the JAX program donates them).  Returns (paths, sink_delay,
@@ -463,8 +509,8 @@ def route_batch_resident(dev: DeviceRRGraph, occ, acc, pres_fac, paths,
         _commit_co, mesh, home,
         (paths[sl], source_all[sl], b_sinks, b_bb, crit_all[sl],
          sel.to(_I32), valid),
-        (occ, acc, pres_fac), (dev,), (max_steps, max_len, num_waves, group),
-        keep)
+        (occ, acc, pres_fac), (dev,),
+        (max_steps, max_len, num_waves, group, NODE_ROW), keep)
     p, reached, delay, delta, relax_steps = gather(outs, home, 3, 4)
     sel, valid, b_sinks, b_bb = _kept(keep, home, sel, valid, b_sinks, b_bb)
     ok = (reached | (b_sinks < 0)).all(dim=1)
@@ -723,7 +769,9 @@ def route_batch_resident_win(dev: DeviceRRGraph, win: WindowTables, occ,
     ``sel_win`` rows of the compacted window tables; ``lb_scale`` [4]
     f32 the A* gate's scales (Router._lb_scale).  Sinks outside their
     own window stay unreached (the Router widens the net and routes it
-    through the global program).  ``mesh`` as for route_batch_resident.
+    through the global program).  ``mesh`` as for route_batch_resident,
+    but each chunk runs whole on its row's first device: JAX constrains
+    the windowed step on the net axis only (its search.py:703-716).
     ``paths``, ``sink_delay`` and ``all_reached`` are updated in place.
     Returns (paths, sink_delay, all_reached, occ_new, relax_steps)."""
     home = occ.device

@@ -238,15 +238,20 @@ class FleetSupervisor:
 
     def _victim_sliced(self, worker: str) -> bool:
         """True once ``worker``'s telemetry snapshot shows a completed
-        slice.  The daemon publishes that at the same slice boundary
-        that exports its trace shard, so a victim passing this check
-        has a slice span on disk — the merged fleet trace can then
-        render the failover as a chain CROSSING worker tracks instead
-        of a track that dies empty."""
+        slice and the trace shard of that slice boundary is on disk.
+        The daemon publishes the snapshot just before it exports the
+        shard, so the shard must be no older than the snapshot: a kill
+        between the two would find no shard (or one from before the
+        slice).  A victim passing this check has a slice span on disk —
+        the merged fleet trace can then render the failover as a chain
+        CROSSING worker tracks instead of a track that dies empty."""
+        path = os.path.join(self.inbox_dir, telemetry_name(worker))
         try:
-            with open(os.path.join(
-                    self.inbox_dir, telemetry_name(worker))) as f:
-                return bool(json.load(f).get("in_flight"))
+            with open(path) as f:
+                if not json.load(f).get("in_flight"):
+                    return False
+            return (os.stat(self._shard_path(worker)).st_mtime_ns
+                    >= os.stat(path).st_mtime_ns)
         except (OSError, ValueError):
             return False
 

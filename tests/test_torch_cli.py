@@ -55,6 +55,8 @@ CASES = {
     # route it equals
     "mesh": BASE + ["--no_timing", "--mesh", "2x1"],
     "mesh_crop_off": BASE + ["--no_timing", "--crop", "off"],
+    # the node axis: the canvases split by columns over two devices
+    "mesh_node": BASE + ["--no_timing", "--mesh", "1x2"],
 }
 TIER1 = ["timing", "no_timing", "place_resume", "net_resume"]
 SLOW = ["binary_search", "blif_k6_n10", "golden_xml"]

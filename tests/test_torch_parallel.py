@@ -199,7 +199,8 @@ def test_sharded_step_matches_jax(n):
 
 def test_sharded_step_errors():
     """A batch the net axis does not divide raises JAX's ValueError; a
-    node axis > 1 raises the not-ported error before any work."""
+    node axis > 1 routes (the call that raised before the node axis was
+    ported): equal to the one-device route_and_commit."""
     from parallel_eda_tpu.parallel.shard import ShardedRouter as JSR
     from parallel_eda_tpu_torch.parallel import ShardedRouter
 
@@ -212,12 +213,18 @@ def test_sharded_step_errors():
         JSR(jax_mesh(4)).route_step(*args, **STEP_STATICS)
     assert str(t.value) == str(j.value) == \
         "batch 6 not divisible by net axis 4"
+    from parallel_eda_tpu_torch.route.device_graph import to_device
+    from parallel_eda_tpu_torch.route.search import route_and_commit
+
     rr, a = _step_inputs(8)
+    dev = to_device(rr, "cpu", ell=True)
     x = {k: torch.from_numpy(v) for k, v in a.items()}
-    args = (None, x["occ"], x["acc"], 0.5) + tuple(x[k] for k in _ORDER)
-    with pytest.raises(NotImplementedError, match="node axis"):
-        ShardedRouter(cpu_mesh(4, shape=(2, 2))).route_step(
-            *args, **STEP_STATICS)
+    args = (x["occ"], x["acc"], 0.5) + tuple(x[k] for k in _ORDER)
+    got = ShardedRouter(cpu_mesh(4, shape=(2, 2))).route_step(
+        dev, *args, **STEP_STATICS)
+    want = route_and_commit(dev, *args, **STEP_STATICS)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_planes_relax_net_mesh_matches_jax(n=4):
@@ -247,9 +254,9 @@ def test_planes_relax_net_mesh_matches_jax(n=4):
 
 def test_router_mesh_errors_match_jax():
     """program="planes_pallas" and mesh_shards > 1 with a mesh raise the
-    JAX Router's ValueErrors; a node axis > 1 raises NotImplementedError
-    before any work (the JAX Router routes it: not ported, A16.2); so
-    does a mesh of another device type than the Router's."""
+    JAX Router's ValueErrors; so does a mesh of another device type than
+    the Router's.  A node axis > 1 routes, as the JAX Router's does (the
+    Router that raised before the node axis was ported): legal."""
     from parallel_eda_tpu.flow import synth_flow as jsynth
     from parallel_eda_tpu.route import Router as JRouter
     from parallel_eda_tpu.route import RouterOpts as JOpts
@@ -263,8 +270,12 @@ def test_router_mesh_errors_match_jax():
         with pytest.raises(ValueError) as t:
             Router(tf.rr, RouterOpts(**kw), mesh=cpu_mesh(2))
         assert str(t.value) == str(j.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16.2"):
-        Router(tf.rr, RouterOpts(), mesh=cpu_mesh(2, shape=(1, 2)))
+    from parallel_eda_tpu_torch.route.check import check_route
+
+    res = Router(tf.rr, RouterOpts(), mesh=cpu_mesh(2, shape=(1, 2))
+                 ).route(tf.term)
+    assert res.success
+    check_route(tf.rr, tf.term, res.paths, occ=res.occ)
     with pytest.raises(ValueError, match="device type"):
         Router(tf.rr, RouterOpts(), device="cpu",
                mesh=cpu_mesh_of("meta", 2))
@@ -399,16 +410,21 @@ def test_member_copy_per_device_lives_with_its_graph():
     assert len(netsplit._COPIES) == n - 1
 
 
-def test_cli_mesh_node_axis_fails_before_work(tmp_path, monkeypatch):
-    """--mesh 1x2 (the JAX CLI routes it on its node axis) exits with
-    the not-ported message before any stage runs."""
-    from parallel_eda_tpu_torch.__main__ import main
+def test_cli_mesh_node_axis_matches_crop_off(tmp_path):
+    """--device cpu --mesh 1x2 (the node axis: each canvas split by
+    columns over two CPU members) writes the artifacts and prints the
+    lines of the unmeshed --crop off run (a mesh keeps full canvases),
+    seconds aside, and its "route mesh:" line."""
+    from tests.test_torch_cli import _port_runs, _stdout, _tree
 
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="node axis is not ported"):
-        main(["--luts", "10", "--arch", "minimal", "--mesh", "1x2",
-              "--device", "cpu", "--out_dir", "o"])
-    assert not (tmp_path / "o").exists()
+    d = _port_runs(tmp_path, ["mesh_node", "mesh_crop_off"])
+    node, off = _stdout(d, "mesh_node"), _stdout(d, "mesh_crop_off")
+    mesh_line = "route mesh: 1 net x 2 node devices"
+    assert mesh_line in node
+    assert [ln for ln in node if ln != mesh_line] == off
+    out = _tree(d, "mesh_node", "out")
+    assert any(k.endswith(".route") for k in out)
+    assert out == _tree(d, "mesh_crop_off", "out")
 
 
 # --------------------------------------------------------------------------

@@ -522,8 +522,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         pk.planes_relax_full_cuda(tpg, d0, cc, crit, w0, 8,
                                   plane_dtype="bf16")
+    with pytest.raises(ValueError):
+        pk.planes_relax_node_cuda(tpg, d0, cc, crit, w0, 8, ["cpu"] * 2)
     names = ("planes_relax_full_cuda", "planes_relax_cropped_cuda",
-             "planes_relax_cluster_cuda", "planes_relax_peer_cuda")
+             "planes_relax_cluster_cuda", "planes_relax_peer_cuda",
+             "planes_relax_node_cuda")
     assert pk.launch_counts() == {
         n + m: 0 for n in names for m in ("", "[bf16]")}
 
